@@ -1,0 +1,239 @@
+"""FeatureExtractor for the U-Net family in PyTorch (port of
+``diffusion_feature_tpu/facade.py``), mirroring the reference's
+``diffusion_feature.FeatureExtractor`` (feature/diffusion_feature.py:26-517).
+
+Ported: SDXL single-step extraction (``version='xl'``, and the tiny
+``'test-xl'``): CLIP tokenize -> CLIP-L + OpenCLIP-bigG -> image preprocess
+-> VAE encode + posterior sample -> Euler add_noise at the first timestep
+>= t -> scale_model_input -> one U-Net forward with the requested taps ->
+store post-processing.  What is not ported raises ``NotImplementedError``
+naming its ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from .configs import resolve_layer_config
+from .io.images import preprocess_pil_batch, resize_tensor_batch
+from .models.clip_text import CLIPTextModel
+from .models.registry import ModelSpec, get_model_spec
+from .models.unet2d import UNet2DConditionModel
+from .models.vae import AutoencoderKL
+from .schedulers.diffusion import EulerDiscreteScheduler, scalar_like
+from .store import postprocess_taps
+from .taps import TapSpec, declared_ids, is_filtered_id
+from .tokenizers.clip_bpe import load_clip_tokenizer
+
+_DTYPES = {'bfloat16': torch.bfloat16, 'float16': torch.float16, 'float32': torch.float32}
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP.md, Queue A: "
+                               f"'{item}')")
+
+
+def _random_module(make, device, dtype, generator):
+    """Build ``make()`` on the meta device, then materialise it on ``device``
+    with a deterministic random init drawn from ``generator``: weights of
+    rank >= 2 ~ N(0, 1/fan_in), norm scales 1, biases 0."""
+    with torch.device('meta'):
+        module = make()
+    module = module.to(dtype=dtype).to_empty(device=device)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if p.dim() >= 2:
+                p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
+            elif name.endswith('weight'):
+                p.fill_(1.0)
+            else:
+                p.zero_()
+    return module.eval().requires_grad_(False)
+
+
+class FeatureExtractor:
+    """``encode_prompt``, ``offload_prompt_encoder``, ``preprocess_image``
+    and ``extract`` with the JAX facade's signatures and return values.
+
+    weights: local checkpoints are not ported yet; models initialise at
+    random from ``seed`` on ``device``.
+    """
+
+    def __init__(self, layer, version: str, device='cuda', dtype: str = 'bfloat16',
+                 img_size: int = 1024, offline_lora: Optional[str] = None,
+                 feature_resize: int = 1, control=None, attention=None,
+                 weights: Optional[str] = None, seed: int = 0,
+                 validate_layers: bool = True):
+        if offline_lora:
+            raise _not_ported('offline_lora (LoRA)', 'Safetensors weight loader')
+        if weights:
+            raise _not_ported('weights= (local checkpoints)', 'Safetensors weight loader')
+        if control:
+            raise _not_ported('control= (ControlNet)', 'ControlNet and depth')
+        if attention:
+            raise _not_ported('attention= (the attention store)', 'Attention-map slice')
+        self.spec: ModelSpec = get_model_spec(version)
+        self.version = version
+        self.img_size = img_size
+        self.feature_resize = feature_resize
+        self.device = torch.device(device)
+        self.dtype = _DTYPES[dtype]
+        self.feature_dtype = torch.bfloat16
+        self.taps = TapSpec.from_config(resolve_layer_config(layer))
+        if not self.taps.accept_all and 'vae-out' in self.taps.ids:
+            raise _not_ported("the 'vae-out' layer", 'VAE decoder and vae-out')
+        self.scheduler = EulerDiscreteScheduler(self.spec.scheduler_config)
+        self.vae_scale = 2 ** (len(self.spec.vae.block_out_channels) - 1)
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+
+        spec = self.spec
+
+        def build(make):
+            return _random_module(make, self.device, self.dtype, self._gen)
+
+        self.unet = build(lambda: UNet2DConditionModel(spec.unet, self.taps))
+        self.vae = build(lambda: AutoencoderKL(spec.vae))
+        self.text_encoders = tuple(build(lambda c=c: CLIPTextModel(c))
+                                   for c in spec.text_encoders)
+        # tokenizer_2 (OpenCLIP) pads with id 0; the first pads with EOS
+        self.tokenizers = tuple(load_clip_tokenizer(None, vocab_size=c.vocab_size,
+                                                    pad_with_eos=(i == 0))
+                                for i, c in enumerate(spec.text_encoders))
+        if validate_layers and not self.taps.accept_all:
+            self._validate_layer_ids()
+
+    def _validate_layer_ids(self):
+        """Fail fast on ids the U-Net does not declare, with near-miss
+        suggestions (the reference silently drops unknown ids)."""
+        known = declared_ids(self.unet)
+        unknown = [i for i in sorted(self.taps.ids) if i not in known and not is_filtered_id(i)]
+        if not unknown:
+            return
+        import difflib
+        lines = []
+        for i in unknown[:10]:
+            near = difflib.get_close_matches(i, known, n=3, cutoff=0.55)
+            hint = f" (did you mean: {', '.join(near)}?)" if near else ''
+            lines.append(f'  {i!r}{hint}')
+        more = '' if len(unknown) <= 10 else f'\n  ... and {len(unknown) - 10} more'
+        raise ValueError(
+            f'{len(unknown)} unknown/unavailable layer id(s) for version {self.version!r} '
+            f'at img_size={self.img_size}:\n' + '\n'.join(lines) + more
+            + '\nPass validate_layers=False to skip this check.')
+
+    # ---------------------------------------------------------------- prompts
+    def encode_prompt(self, prompt_str: Optional[str] = None,
+                      prompt_file: Optional[str] = None):
+        """Returns (prompt_embeds, negative_prompt_embeds, pooled,
+        negative_pooled), the reference's 4-tuple (diffusion_feature.py:203-206)."""
+        if (prompt_str is None) == (prompt_file is None):
+            raise ValueError('pass exactly one of prompt_str and prompt_file')
+        if prompt_file:
+            with open(prompt_file) as f:
+                prompt_str = f.read()
+        if len(prompt_str.split(' ')) > 70:
+            raise _not_ported('prompts of more than 70 words', 'Long prompts')
+        pe, pooled = self._encode_one(prompt_str)
+        ne, neg_pooled = self._encode_one('')
+        return pe, ne, pooled, neg_pooled
+
+    @torch.inference_mode()
+    def _encode_one(self, text: str):
+        if not self.text_encoders:
+            raise ValueError('the text encoders were offloaded persistently '
+                             '(offload_prompt_encoder(persistent=True)); pass pre-encoded '
+                             'prompts, or rebuild the extractor to encode raw strings')
+        embeds, pooled = [], None
+        for tok, te in zip(self.tokenizers, self.text_encoders):
+            ids = torch.tensor(tok([text]), dtype=torch.long,
+                               device=next(te.parameters()).device)
+            _, pool, hidden = te(ids)
+            embeds.append(hidden[-2])   # SDXL feeds the penultimate hidden state
+            pooled = pool   # the last encoder's pooled output wins (text_encoder_2)
+        pe = torch.cat([e.to(self.device) for e in embeds], dim=-1)
+        return pe, pooled.to(self.device)
+
+    def offload_prompt_encoder(self, persistent: bool = False):
+        """Free the text encoders' device memory (reference
+        diffusion_feature.py:209-219): moved to the CPU, or with
+        ``persistent=True`` dropped."""
+        if persistent:
+            self.text_encoders = ()
+        else:
+            self.text_encoders = tuple(te.to('cpu') for te in self.text_encoders)
+
+    # ----------------------------------------------------------------- images
+    def preprocess_image(self, x, is_tensor: bool = False):
+        if not is_tensor:
+            return preprocess_pil_batch([x], self.img_size)
+        return resize_tensor_batch(x, self.img_size)
+
+    # ---------------------------------------------------------------- extract
+    def extract(self, prompts, batch_size: int, image, image_type: str = 'image',
+                t: int = 50, denoising_from: Optional[int] = None,
+                use_control: bool = False,
+                use_ddim_inversion: bool = False) -> Dict[str, torch.Tensor]:
+        """One img2img step at ``t``; returns {tap_id: NCHW tensor} in bf16
+        (attention maps (B, H, Sq, Sk)).  ``use_control`` has no effect
+        without a ControlNet, as in the JAX facade."""
+        if denoising_from is not None:
+            raise _not_ported('denoising_from (multi-step extraction)',
+                              'Other U-Net versions and multi-step paths')
+        if use_ddim_inversion:
+            raise _not_ported('use_ddim_inversion', 'Other U-Net versions and multi-step paths')
+        pe, _, pooled, _ = prompts
+        pe = torch.as_tensor(pe).to(self.device, self.dtype)
+        pe = pe.expand(batch_size, *pe.shape[1:])
+        pooled = torch.as_tensor(pooled).to(self.device, self.dtype)
+        pooled = pooled.expand(batch_size, *pooled.shape[1:])
+        if image_type == 'image':
+            img = preprocess_pil_batch(image, self.img_size)
+        else:
+            img = resize_tensor_batch(image, self.img_size)
+        img = torch.as_tensor(img).to(self.device, self.dtype)
+
+        lat = self.img_size // self.vae_scale
+        shape = (img.shape[0], self.spec.vae.latent_channels, lat, lat)
+        # drawn in fp32 and cast inside the step (JAX utils.normal_like)
+        posterior_noise = torch.randn(shape, generator=self._gen, device=self.device)
+        noise = torch.randn(shape, generator=self._gen, device=self.device)
+        return self._step(img, pe, pooled, self._img2img_kit(int(t)), posterior_noise, noise,
+                          self.feature_dtype)
+
+    def _img2img_kit(self, t: int) -> Dict[str, float]:
+        """The Euler branch of the JAX facade's ``_img2img_kit``: model
+        timestep T (SDXL's leading schedule maps t=50 to 50), noise
+        injection latents <- A*latents + B*noise, and the scale_model_input
+        divisor S."""
+        sched = self.scheduler
+        state = sched.set_timesteps(1000)
+        timesteps, _ = sched.get_timesteps(state, 1000, t / 1000)
+        lt = timesteps[0]
+        sigma = float(state.sigmas[sched.sigma_index(state, lt)])
+        return {'T': float(lt), 'A': 1.0, 'B': sigma, 'S': float(np.sqrt(sigma ** 2 + 1))}
+
+    def _added_cond(self, pooled, bsz: int):
+        """SDXL text_time micro-conditioning: time ids [h, w, 0, 0, h, w]
+        (reference diffusion_feature.py:534)."""
+        s = float(self.img_size)
+        time_ids = torch.tensor([[s, s, 0.0, 0.0, s, s]], dtype=self.dtype,
+                                device=self.device).repeat(bsz, 1)
+        return {'text_embeds': pooled, 'time_ids': time_ids}
+
+    @torch.inference_mode()
+    def _step(self, img, pe, pooled, kit, posterior_noise, noise, out_dtype):
+        """Steps 4-8 of the slice (the JAX ``_get_step_fn_generic`` program):
+        VAE encode + posterior sample -> latents*A + noise*B -> /S -> U-Net
+        with taps -> store post-processing to ``out_dtype`` (None keeps the
+        compute dtype).  Noise tensors are standard-normal draws of the
+        latent shape, cast here to the model dtype."""
+        latents = self.vae(img, posterior_noise)
+        latents = (scalar_like(kit['A'], latents) * latents
+                   + scalar_like(kit['B'], latents) * noise.to(latents.dtype))
+        feats = {}
+        self.unet(latents / scalar_like(kit['S'], latents), kit['T'], pe,
+                  self._added_cond(pooled, latents.shape[0]), feats=feats)
+        return postprocess_taps(feats, resize_ratio=self.feature_resize, out_dtype=out_dtype)

@@ -1,0 +1,240 @@
+"""U-Net building blocks with activation taps (port of
+``diffusion_feature_tpu/models/layers.py``; block math promoted from the
+golden-parity transcriptions in ``tests/torch_ref.py``).
+
+Parameter names follow the diffusers checkpoint keys.  Tensors are NCHW
+inside the U-Net; transformer blocks work on (B, S, C) tokens.  Tap call
+sites match the reference overlay:
+  ResnetBlock2D 'increment'/'out'   <- diffusers models/resnet.py:371-377
+  BasicTransformerBlock 'out'       <- models/attention.py:589-590
+  FeedForward 'inner'               <- models/attention.py:1253-1257
+  Attention 'q'/'k'/'v'             <- models/attention_processor.py:1128-1131
+  Attention 'map'                   <- components/attention.py:238-244
+  Downsample2D/Upsample2D 'out'     <- downsampling.py:149-150, upsampling.py:192-193
+  Transformer2DModel 'out'          <- transformers/transformer_2d.py:474-475
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import attention_fused, attention_with_probs
+from ..ops.resize import interpolate_nearest_nchw
+from ..taps import EMPTY, TapSite, TapSpec, child_id
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
+                       downscale_freq_shift: float = 0.0,
+                       max_period: int = 10000) -> torch.Tensor:
+    """diffusers ``get_timestep_embedding`` numerics (sinusoidal, fp32)."""
+    half = dim // 2
+    exponent = -math.log(max_period) * torch.arange(half, dtype=torch.float32,
+                                                    device=timesteps.device)
+    exponent = exponent / (half - downscale_freq_shift)
+    emb = torch.exp(exponent)[None, :] * timesteps.float()[:, None]
+    emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
+    if flip_sin_to_cos:
+        emb = torch.cat([emb[:, half:], emb[:, :half]], dim=-1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class TimestepEmbedding(nn.Module):
+    """linear_1 -> SiLU -> linear_2 (diffusers TimestepEmbedding)."""
+
+    def __init__(self, in_dim: int, embed_dim: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, embed_dim)
+        self.linear_2 = nn.Linear(embed_dim, embed_dim)
+
+    def forward(self, x):
+        return self.linear_2(F.silu(self.linear_1(x)))
+
+
+class ResnetBlock2D(nn.Module):
+    """norm1 -> SiLU -> conv1 (+ temb) -> norm2 -> SiLU -> conv2; taps
+    'increment' (before the residual) and 'out'."""
+
+    def __init__(self, in_ch: int, out_ch: int, temb_dim: int, eps: float = 1e-5,
+                 taps: TapSpec = EMPTY, tap_name: str = ''):
+        super().__init__()
+        self.norm1 = nn.GroupNorm(32, in_ch, eps=eps)
+        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+        self.time_emb_proj = nn.Linear(temb_dim, out_ch)
+        self.norm2 = nn.GroupNorm(32, out_ch, eps=eps)
+        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+        self.conv_shortcut = nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
+        self.tap_site = TapSite(taps, tap_name, ('increment', 'out'))
+
+    def forward(self, x, temb, feats=None):
+        h = self.conv1(F.silu(self.norm1(x)))
+        h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
+        h = self.conv2(F.silu(self.norm2(h)))
+        self.tap_site.put(feats, 'increment', h)
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        out = x + h
+        self.tap_site.put(feats, 'out', out)
+        return out
+
+
+class Downsample2D(nn.Module):
+    """Stride-2 3x3 conv; tap 'out'."""
+
+    def __init__(self, channels: int, taps: TapSpec = EMPTY, tap_name: str = ''):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.tap_site = TapSite(taps, tap_name, ('out',))
+
+    def forward(self, x, feats=None):
+        x = self.conv(x)
+        self.tap_site.put(feats, 'out', x)
+        return x
+
+
+class Upsample2D(nn.Module):
+    """2x nearest upsample + 3x3 conv; tap 'out'."""
+
+    def __init__(self, channels: int, taps: TapSpec = EMPTY, tap_name: str = ''):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.tap_site = TapSite(taps, tap_name, ('out',))
+
+    def forward(self, x, feats=None):
+        x = interpolate_nearest_nchw(x, (x.shape[2] * 2, x.shape[3] * 2))
+        x = self.conv(x)
+        self.tap_site.put(feats, 'out', x)
+        return x
+
+
+class Attention(nn.Module):
+    """Multi-head attention with q/k/v/map taps.  q/k/v taps observe the
+    pre-head-split (B, S, inner) projections; 'map' is the per-head
+    post-softmax (B, H, Sq, Sk).  Without a requested map the fused path
+    (flash kernel where the gate admits the shape) runs.  The attention
+    store (the facade's ``attention=``) is not ported; the facade raises."""
+
+    def __init__(self, query_dim: int, heads: int, dim_head: int,
+                 cross_attention_dim: Optional[int] = None,
+                 taps: TapSpec = EMPTY, tap_name: str = ''):
+        super().__init__()
+        inner = heads * dim_head
+        ctx_dim = query_dim if cross_attention_dim is None else cross_attention_dim
+        self.heads = heads
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(ctx_dim, inner, bias=False)
+        self.to_v = nn.Linear(ctx_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+        self.tap_site = TapSite(taps, tap_name, ('q', 'k', 'v', 'map'))
+
+    def forward(self, x, context=None, feats=None):
+        ctx = x if context is None else context
+        q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+        self.tap_site.put(feats, 'q', q)
+        self.tap_site.put(feats, 'k', k)
+        self.tap_site.put(feats, 'v', v)
+        if self.tap_site.wants('map'):
+            out, probs = attention_with_probs(q, k, v, self.heads)
+            self.tap_site.put(feats, 'map', probs)
+        else:
+            out = attention_fused(q, k, v, self.heads)
+        return self.to_out[0](out)
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, inner * 2)
+
+    def forward(self, x):
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        return h * F.gelu(gate)
+
+
+class FeedForward(nn.Module):
+    """GEGLU MLP; tap 'inner' on the gated activation (after net[0])."""
+
+    def __init__(self, dim: int, taps: TapSpec = EMPTY, tap_name: str = ''):
+        super().__init__()
+        inner = dim * 4
+        self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(), nn.Linear(inner, dim)])
+        self.tap_site = TapSite(taps, tap_name, ('inner',))
+
+    def forward(self, x, feats=None):
+        h = self.net[0](x)
+        self.tap_site.put(feats, 'inner', h)
+        return self.net[2](h)
+
+
+class BasicTransformerBlock(nn.Module):
+    """LN -> self-attn -> LN -> cross-attn -> LN -> FF with residuals; tap
+    'out' at the block end."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, cross_attention_dim: int,
+                 taps: TapSpec = EMPTY, tap_name: str = ''):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn1 = Attention(dim, heads, dim_head, taps=taps,
+                               tap_name=child_id(tap_name, 'self'))
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn2 = Attention(dim, heads, dim_head, cross_attention_dim, taps=taps,
+                               tap_name=child_id(tap_name, 'cross'))
+        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
+        self.ff = FeedForward(dim, taps=taps, tap_name=child_id(tap_name, 'ffn'))
+        self.tap_site = TapSite(taps, tap_name, ('out',))
+
+    def forward(self, x, context, feats=None):
+        x = x + self.attn1(self.norm1(x), feats=feats)
+        x = x + self.attn2(self.norm2(x), context, feats=feats)
+        x = x + self.ff(self.norm3(x), feats=feats)
+        self.tap_site.put(feats, 'out', x)
+        return x
+
+
+class Transformer2DModel(nn.Module):
+    """GroupNorm -> proj_in -> blocks -> proj_out (+ residual); tap 'out' on
+    the NCHW output.  Linear projections (SDXL) or 1x1 convs (the tiny test
+    config, SD-1.5)."""
+
+    def __init__(self, in_channels: int, heads: int, dim_head: int, depth: int,
+                 cross_attention_dim: int, use_linear_projection: bool = False,
+                 norm_eps: float = 1e-6, taps: TapSpec = EMPTY, tap_name: str = ''):
+        super().__init__()
+        inner = heads * dim_head
+        self.use_linear = use_linear_projection
+        self.norm = nn.GroupNorm(32, in_channels, eps=norm_eps)
+        if use_linear_projection:
+            self.proj_in = nn.Linear(in_channels, inner)
+            self.proj_out = nn.Linear(inner, in_channels)
+        else:
+            self.proj_in = nn.Conv2d(in_channels, inner, 1)
+            self.proj_out = nn.Conv2d(inner, in_channels, 1)
+        self.transformer_blocks = nn.ModuleList([
+            BasicTransformerBlock(inner, heads, dim_head, cross_attention_dim, taps=taps,
+                                  tap_name=child_id(tap_name, f'block{i}'))
+            for i in range(depth)])
+        self.tap_site = TapSite(taps, tap_name, ('out',))
+
+    def forward(self, x, context, feats=None):
+        b, c, hh, ww = x.shape
+        h = self.norm(x)
+        if self.use_linear:
+            h = self.proj_in(h.permute(0, 2, 3, 1).reshape(b, hh * ww, c))
+        else:
+            h = self.proj_in(h)
+            h = h.permute(0, 2, 3, 1).reshape(b, hh * ww, h.shape[1])
+        for blk in self.transformer_blocks:
+            h = blk(h, context, feats=feats)
+        if self.use_linear:
+            h = self.proj_out(h).reshape(b, hh, ww, c).permute(0, 3, 1, 2)
+        else:
+            h = self.proj_out(h.reshape(b, hh, ww, h.shape[-1]).permute(0, 3, 1, 2))
+        out = h + x
+        self.tap_site.put(feats, 'out', out)
+        return out

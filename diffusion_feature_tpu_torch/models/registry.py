@@ -1,0 +1,52 @@
+"""Model registry: version string -> architecture and schedule (port of the
+``xl`` and ``test-xl`` entries of ``diffusion_feature_tpu/models/registry.py``).
+
+Without a weights path models initialise deterministically at random, which
+exercises every shape and the data flow at full width.  The other versions
+are not ported yet (ROADMAP.md, Queue A: 'Other U-Net versions and
+multi-step paths', 'DiT families').
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+from ..schedulers.diffusion import SchedulerConfig
+from .clip_text import CLIP_VIT_L, OPENCLIP_BIGG, CLIPTextConfig, tiny_clip_config
+from .unet2d import SDXL_UNET, UNetConfig, tiny_unet_config
+from .vae import SDXL_VAE, VAEConfig, tiny_vae_config
+
+XL_SCHED = SchedulerConfig(beta_start=0.00085, beta_end=0.012, steps_offset=1,
+                           timestep_spacing='leading')
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    """An SDXL-family model: Euler schedule, U-Net with text_time
+    micro-conditioning, VAE, and two CLIP encoders whose penultimate hidden
+    states are concatenated (the second one's pooled output conditions)."""
+    version: str
+    hf_id: str                         # provenance only; nothing is downloaded
+    scheduler_config: SchedulerConfig
+    unet: UNetConfig
+    vae: VAEConfig
+    text_encoders: Tuple[CLIPTextConfig, ...]
+
+
+_REGISTRY = {spec.version: spec for spec in (
+    ModelSpec('xl', 'stabilityai/stable-diffusion-xl-base-1.0', XL_SCHED, SDXL_UNET, SDXL_VAE,
+              (CLIP_VIT_L, OPENCLIP_BIGG)),
+    ModelSpec('test-xl', '(random-init test model)', XL_SCHED,
+              tiny_unet_config(cross_dim=64, with_xl_embeds=True), tiny_vae_config(),
+              (tiny_clip_config(32), tiny_clip_config(32, projection_dim=32))),
+)}
+
+
+def get_model_spec(version: str) -> ModelSpec:
+    if version not in _REGISTRY:
+        raise NotImplementedError(
+            f'model version {version!r} is not ported to PyTorch yet (ported: '
+            f"{sorted(_REGISTRY)}; see ROADMAP.md, Queue A: 'Other U-Net versions and "
+            "multi-step paths' and 'DiT families')")
+    return _REGISTRY[version]

@@ -1,0 +1,49 @@
+"""Feature post-processing (port of ``diffusion_feature_tpu/store.py``): the
+reference's ``FeatureStore.store`` filter pipeline
+(feature/components/feature_extractor.py:31-77) as a function on tensors."""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from .taps import is_filtered_id
+
+
+def tokens_to_map(feat: torch.Tensor) -> torch.Tensor:
+    """(B, S, C) -> (B, C, sqrt(S), sqrt(S)); square token maps assumed, as
+    in the reference (feature_extractor.py:46-48)."""
+    b, s, c = feat.shape
+    size = int(math.sqrt(s))
+    return feat.reshape(b, size, size, c).permute(0, 3, 1, 2)
+
+
+def postprocess_feature(feat: torch.Tensor, *, resize_ratio: int = 1,
+                        out_dtype: Optional[torch.dtype] = torch.bfloat16) -> torch.Tensor:
+    """In the reference's order (feature_extractor.py:41-66):
+      1. 3-D token tensors reshaped to (B, C, h, w);
+      2. adaptive average pool by ``resize_ratio``;
+      3. TF.normalize(mean=0, std=1), an identity as the reference writes
+         it, so nothing is done;
+      4. cast to ``out_dtype`` (None keeps the compute dtype).
+    4-D attention maps (B, H, Sq, Sk) skip the reshape, as in the reference.
+    """
+    if feat.dim() == 3:
+        feat = tokens_to_map(feat)
+    if resize_ratio > 1 and feat.dim() == 4:
+        feat = F.adaptive_avg_pool2d(
+            feat, (feat.shape[2] // resize_ratio, feat.shape[3] // resize_ratio))
+    if out_dtype is not None:
+        feat = feat.to(out_dtype)
+    return feat
+
+
+def postprocess_taps(taps: Dict[str, torch.Tensor], *, resize_ratio: int = 1,
+                     out_dtype: Optional[torch.dtype] = torch.bfloat16
+                     ) -> Dict[str, torch.Tensor]:
+    """The store pipeline on every captured tap; cross-k/cross-v dropped."""
+    return {tap_id: postprocess_feature(feat, resize_ratio=resize_ratio, out_dtype=out_dtype)
+            for tap_id, feat in taps.items() if not is_filtered_id(tap_id)}
