@@ -1,162 +1,69 @@
 // Flash-attention forward for Hopper (sm_90a): non-causal, unmasked
 // softmax(q k^T * scale) v over (B*H, S, D) tensors, with an fp32 running
 // max, denominator and accumulator, so the (Sq, Sk) score matrix never
-// reaches device memory.
+// reaches device memory.  With kLse it also writes each row's logsumexp.
 //
-// Replaces diffusion_feature_tpu/ops/flash_attention.py::_flash_kernel.
-// On the TPU the key axis was a sequential grid dimension carrying its state
-// in VMEM scratch; here one thread block owns 64 query rows of one (b, h)
-// and walks every key tile itself, so nothing is carried between blocks.
+// Replaces diffusion_feature_tpu/ops/flash_attention.py::_flash_kernel (B1)
+// and ::_flash_lse_kernel (B2, the same kernel plus the logsumexp; the
+// head-mean kernel in headmean.cu consumes it).  On the TPU the key axis
+// was a sequential grid dimension carrying its state in VMEM scratch; here
+// one thread block owns 64 query rows of one (b, h) and walks every key
+// tile itself, so nothing is carried between blocks.
 //
 // What bounds it: at the main path's d=64 and 4096 tokens one call does
 // 4*B*H*S^2*D flops on 4*B*H*S*D*2 bytes, about 4000 flops per byte, far
 // above the card's ~295 bf16 flops per byte, so the tensor cores (and the
-// S^2 exponentials beside them) are the limit, not memory.  This first
-// version spends its time on that side: QK^T and PV run on the tensor cores
-// through mma.sync m16n8k16 (bf16/fp16 in, fp32 accumulate), the scores stay
-// in registers, the softmax uses exp2 with the scale folded in, and each
-// K/V tile is read from device memory once per 64 query rows.  It does not
-// yet overlap loads with compute (no cp.async/TMA) nor use wgmma; both are
-// the next steps toward the card's peak.
+// S^2 exponentials beside them) are the limit, not memory.  B2 adds
+// B*H*Sq*4 bytes, nothing to that balance.  This first version spends its
+// time on that side: QK^T and PV run on the tensor cores through mma.sync
+// m16n8k16 (bf16/fp16 in, fp32 accumulate), the scores stay in registers,
+// the softmax uses exp2 with the scale folded in, and each K/V tile is read
+// from device memory once per 64 query rows.  It does not yet overlap loads
+// with compute (no cp.async/TMA) nor use wgmma; both are the next steps
+// toward the card's peak.
 //
 // Layout: each of the 4 warps owns 16 query rows.  A fragment element
 // (row, col) of an m16n8k16 operand lives in lane 4*(row%8) + (col%8)/2, so
 // the score accumulator of two adjacent 8-key tiles is already the A operand
-// of the PV product.  Head width d=512 (the VAE's single head) does not fit
-// a 16x512 fp32 accumulator in registers: blockIdx.z splits the output
-// columns into 128-wide slices and each slice recomputes the scores.
+// of the PV product.  Head widths: 40, 64, 80, 128, 160 (the U-Nets' heads)
+// and 512 (the VAE's single head).  d=40 is zero-padded to the mma depth 48
+// in shared memory for QK^T; the PV product needs only 8-column output
+// tiles, which every width fills.  Widths up to 160 keep the whole 16 x d
+// fp32 accumulator of a warp in registers; d=512 does not fit, so
+// blockIdx.z splits its output columns into 128-wide slices and each slice
+// recomputes the scores.
 //
 // fp32 inputs take the same code with the tensor-core product replaced by
 // an exact fp32 FMA emulation of the same fragment layout (TF32 would round
 // the inputs to 10 mantissa bits).
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "tile_ops.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlockM = kWarps * 16;  // query rows per block
-constexpr int kPad = 8;               // elements of padding per shared row
-
-template <typename T>
-struct Ops;
-
-template <>
-struct Ops<__nv_bfloat16> {
-  using Reg = uint32_t;  // two bf16 values
-  static __device__ __forceinline__ Reg load2(const __nv_bfloat16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-  }
-  static __device__ __forceinline__ Reg pair(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-    __nv_bfloat162 v = __halves2bfloat162(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ Reg pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ void mma(float c[4], const Reg a[4], const Reg b[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-
-template <>
-struct Ops<__half> {
-  using Reg = uint32_t;  // two fp16 values
-  static __device__ __forceinline__ Reg load2(const __half* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-  }
-  static __device__ __forceinline__ Reg pair(__half lo, __half hi) {
-    __half2 v = __halves2half2(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ Reg pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ void mma(float c[4], const Reg a[4], const Reg b[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-
-template <>
-struct Ops<float> {
-  using Reg = float2;
-  static __device__ __forceinline__ Reg load2(const float* p) {
-    return *reinterpret_cast<const float2*>(p);
-  }
-  static __device__ __forceinline__ Reg pair(float lo, float hi) { return make_float2(lo, hi); }
-  static __device__ __forceinline__ Reg pack(float lo, float hi) { return make_float2(lo, hi); }
-  // c += a * b for one 16x8x16 tile in mma.sync's fragment layout, in fp32.
-  // A(row, k) sits in lane 4*(row%8) + (k%8)/2, register 2*(k/8) + row/8;
-  // B(k, n) in lane 4*n + (k%8)/2, register k/8; this lane's outputs are
-  // rows g and g+8, columns 2t and 2t+1.
-  static __device__ __forceinline__ void mma(float c[4], const Reg a[4], const Reg b[2]) {
-    const int lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const int h = k >> 3, sub = (k & 7) >> 1;
-      const bool odd = k & 1;
-      const float a_lo = __shfl_sync(0xffffffffu, odd ? a[2 * h].y : a[2 * h].x, (g << 2) | sub);
-      const float a_hi = __shfl_sync(0xffffffffu, odd ? a[2 * h + 1].y : a[2 * h + 1].x, (g << 2) | sub);
-      const float bv = odd ? b[h].y : b[h].x;
-      const float b0 = __shfl_sync(0xffffffffu, bv, ((2 * t) << 2) | sub);
-      const float b1 = __shfl_sync(0xffffffffu, bv, ((2 * t + 1) << 2) | sub);
-      c[0] = fmaf(a_lo, b0, c[0]);
-      c[1] = fmaf(a_lo, b1, c[1]);
-      c[2] = fmaf(a_hi, b0, c[2]);
-      c[3] = fmaf(a_hi, b1, c[3]);
-    }
-  }
-};
+using namespace dft;
 
 template <typename T, int D>
 struct Cfg {
-  static constexpr int kDC = D < 128 ? D : 128;         // output columns per block
+  static constexpr int kDP = padded_depth(D);          // QK^T depth
+  static constexpr int kDC = D <= 160 ? D : 128;        // output columns per block
   static constexpr int kBlockN = D <= 128 ? 64 : 32;    // keys per tile
-  static constexpr int kLdQK = D + kPad;
+  static constexpr int kLdQK = kDP + kPad;
   static constexpr int kLdV = kDC + kPad;
+  static_assert(D % kDC == 0 && kDC % 8 == 0, "output slices must tile the head width");
   static constexpr size_t kSmem =
       (size_t(kBlockM) * kLdQK + size_t(kBlockN) * kLdQK + size_t(kBlockN) * kLdV) * sizeof(T);
 };
 
-// Copy `rows` rows of COLS elements into shared memory with 16-byte vectors;
-// rows at or past `valid` are zero-filled (the ragged edge of the sequence).
-template <typename T, int COLS>
-__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src, int src_stride,
-                                          int valid, int rows) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = COLS / kVec;
-  for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * kVec;
-    int4 val = make_int4(0, 0, 0, 0);
-    if (r < valid) val = *reinterpret_cast<const int4*>(src + size_t(r) * src_stride + c);
-    *reinterpret_cast<int4*>(dst + r * ld + c) = val;
-  }
-}
-
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int sq, int sk, float scale_log2) {
+                 T* __restrict__ o, float* __restrict__ lse, int sq, int sk, float scale_log2) {
   using C = Cfg<T, D>;
   using Op = Ops<T>;
   using Reg = typename Op::Reg;
-  constexpr int kDC = C::kDC, kBN = C::kBlockN, kLdQK = C::kLdQK, kLdV = C::kLdV;
+  constexpr int kDP = C::kDP, kDC = C::kDC, kBN = C::kBlockN;
+  constexpr int kLdQK = C::kLdQK, kLdV = C::kLdV;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);
@@ -172,7 +79,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   const T* kg = k + bh * sk * D;
   const T* vg = v + bh * sk * D + dc0;
-  load_tile<T, D>(qs, kLdQK, q + (bh * sq + q0) * D, D, min(kBlockM, sq - q0), kBlockM);
+  load_tile<T, D, kDP>(qs, kLdQK, q + (bh * sq + q0) * D, D, min(kBlockM, sq - q0), kBlockM);
 
   float acc[kDC / 8][4];
 #pragma unroll
@@ -183,7 +90,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int k0 = 0; k0 < sk; k0 += kBN) {
     __syncthreads();  // every warp is done with the previous K/V tile
     const int kv_valid = min(kBN, sk - k0);
-    load_tile<T, D>(ks, kLdQK, kg + size_t(k0) * D, D, kv_valid, kBN);
+    load_tile<T, D, kDP>(ks, kLdQK, kg + size_t(k0) * D, D, kv_valid, kBN);
     load_tile<T, kDC>(vs, kLdV, vg + size_t(k0) * D, D, kv_valid, kBN);
     __syncthreads();
 
@@ -192,21 +99,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll 2
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const T* qa = qs + (row0 + g) * kLdQK + kk * 16 + 2 * t;
+    for (int kk = 0; kk < kDP / 16; ++kk) {
       Reg a[4];
-      a[0] = Op::load2(qa);
-      a[1] = Op::load2(qa + 8 * kLdQK);
-      a[2] = Op::load2(qa + 8);
-      a[3] = Op::load2(qa + 8 * kLdQK + 8);
-#pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
-        const T* kb = ks + (j * 8 + g) * kLdQK + kk * 16 + 2 * t;
-        Reg b[2];
-        b[0] = Op::load2(kb);
-        b[1] = Op::load2(kb + 8);
-        Op::mma(s[j], a, b);
-      }
+      load_a<T>(a, qs, kLdQK, row0, kk);
+      mma_qk<T, kBN / 8>(s, a, ks, kLdQK, kk);
     }
 
     // online softmax; keys past the end get -inf and so weight 0
@@ -276,49 +172,69 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int n = 0; n < kDC / 8; ++n)
         *reinterpret_cast<Reg*>(orow + n * 8 + 2 * t) =
             Op::pack(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+      // natural-log logsumexp of the scaled scores: ln 2 * (m + log2 l)
+      if constexpr (kLse) {
+        if (t == 0 && blockIdx.z == 0) lse[bh * sq + row] = (m[r] + log2f(tot)) * 0.6931471805599453f;
+      }
     }
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int bh, int sq, int sk,
-           float scale, cudaStream_t stream) {
+template <typename T, int D, bool kLse>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int sq,
+           int sk, float scale, cudaStream_t stream) {
   using C = Cfg<T, D>;
-  auto kernel = flash_fwd_kernel<T, D>;
+  auto kernel = flash_fwd_kernel<T, D, kLse>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::kSmem));
   if (err != cudaSuccess) return int(err);
   const dim3 grid((sq + kBlockM - 1) / kBlockM, bh, D / C::kDC);
   kernel<<<grid, kThreads, C::kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), sq, sk, scale * 1.4426950408889634f);
+      static_cast<T*>(o), lse, sq, sk, scale * 1.4426950408889634f);
   return int(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* o, int bh, int sq, int sk,
-               int d, float scale, cudaStream_t stream) {
+// The logsumexp variant (B2) is built for the head-mean path's widths only;
+// the VAE's d=512 head never feeds the attention store.
+template <typename T, bool kLse>
+int dispatch_d(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int sq,
+               int sk, int d, float scale, cudaStream_t stream) {
   switch (d) {
-    case 64: return launch<T, 64>(q, k, v, o, bh, sq, sk, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, bh, sq, sk, scale, stream);
-    case 512: return launch<T, 512>(q, k, v, o, bh, sq, sk, scale, stream);
+    case 40: return launch<T, 40, kLse>(q, k, v, o, lse, bh, sq, sk, scale, stream);
+    case 64: return launch<T, 64, kLse>(q, k, v, o, lse, bh, sq, sk, scale, stream);
+    case 80: return launch<T, 80, kLse>(q, k, v, o, lse, bh, sq, sk, scale, stream);
+    case 128: return launch<T, 128, kLse>(q, k, v, o, lse, bh, sq, sk, scale, stream);
+    case 160: return launch<T, 160, kLse>(q, k, v, o, lse, bh, sq, sk, scale, stream);
+    case 512:
+      if constexpr (!kLse) return launch<T, 512, false>(q, k, v, o, lse, bh, sq, sk, scale, stream);
+      return int(cudaErrorInvalidValue);
     default: return int(cudaErrorInvalidValue);
   }
+}
+
+template <typename T>
+int dispatch_lse(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                 int sq, int sk, int d, float scale, cudaStream_t stream) {
+  return lse ? dispatch_d<T, true>(q, k, v, o, lse, bh, sq, sk, d, scale, stream)
+             : dispatch_d<T, false>(q, k, v, o, lse, bh, sq, sk, d, scale, stream);
 }
 
 }  // namespace
 
 // q, k, v, o: contiguous (bh, s, d) device buffers of one dtype, 16-byte
-// aligned.  dtype: 0 float32, 1 float16, 2 bfloat16.  Launches on `stream`
-// without synchronising and returns the cudaError_t of the launch.
+// aligned.  lse: null (B1), or a contiguous fp32 (bh, sq) buffer that
+// receives each row's logsumexp (B2).  dtype: 0 float32, 1 float16,
+// 2 bfloat16.  Launches on `stream` without synchronising and returns the
+// cudaError_t of the launch.
 extern "C" int dft_flash_attention_forward(const void* q, const void* k, const void* v, void* o,
-                                           int bh, int sq, int sk, int d, int dtype,
+                                           float* lse, int bh, int sq, int sk, int d, int dtype,
                                            float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return dispatch_d<float>(q, k, v, o, bh, sq, sk, d, scale, s);
-    case 1: return dispatch_d<__half>(q, k, v, o, bh, sq, sk, d, scale, s);
-    case 2: return dispatch_d<__nv_bfloat16>(q, k, v, o, bh, sq, sk, d, scale, s);
+    case 0: return dispatch_lse<float>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
+    case 1: return dispatch_lse<__half>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
+    case 2: return dispatch_lse<__nv_bfloat16>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
     default: return int(cudaErrorInvalidValue);
   }
 }

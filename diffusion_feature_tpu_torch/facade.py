@@ -2,17 +2,19 @@
 ``diffusion_feature_tpu/facade.py``), mirroring the reference's
 ``diffusion_feature.FeatureExtractor`` (feature/diffusion_feature.py:26-517).
 
-Ported: SDXL single-step extraction (``version='xl'``, and the tiny
-``'test-xl'``): CLIP tokenize -> CLIP-L + OpenCLIP-bigG -> image preprocess
--> VAE encode + posterior sample -> Euler add_noise at the first timestep
->= t -> scale_model_input -> one U-Net forward with the requested taps ->
-store post-processing.  What is not ported raises ``NotImplementedError``
-naming its ROADMAP.md item.
+Ported: single-step extraction for SDXL (``version='xl'``, and the tiny
+``'test-xl'``) and SD-1.5 (``'1-5'``, ``'test-sd'``): CLIP tokenize -> the
+text encoders -> image preprocess -> VAE encode + posterior sample ->
+add_noise at the img2img timestep of ``t`` (Euler for SDXL, PNDM for
+SD-1.5) -> scale_model_input -> one U-Net forward with the requested taps
+-> store post-processing, plus the attention store (``attention=``) and its
+aggregated ``'attn'`` feature.  What is not ported raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -20,11 +22,12 @@ import torch
 from .configs import resolve_layer_config
 from .io.images import preprocess_pil_batch, resize_tensor_batch
 from .models.clip_text import CLIPTextModel
+from .models.layers import ATTN_STORE
 from .models.registry import ModelSpec, get_model_spec
 from .models.unet2d import UNet2DConditionModel
 from .models.vae import AutoencoderKL
-from .schedulers.diffusion import EulerDiscreteScheduler, scalar_like
-from .store import postprocess_taps
+from .schedulers.diffusion import EulerDiscreteScheduler, make_scheduler, scalar_like
+from .store import aggregate_attention, postprocess_taps
 from .taps import TapSpec, declared_ids, is_filtered_id
 from .tokenizers.clip_bpe import load_clip_tokenizer
 
@@ -60,12 +63,17 @@ class FeatureExtractor:
 
     weights: local checkpoints are not ported yet; models initialise at
     random from ``seed`` on ``device``.
+    attention: attention-store categories ('{down|mid|up}_{self|cross}');
+    their head-mean maps of the size band ``attn_store_sizes`` (tokens per
+    side, default (img_size/32, img_size/16)) come back as ``feats['attn']``.
     """
 
     def __init__(self, layer, version: str, device='cuda', dtype: str = 'bfloat16',
                  img_size: int = 1024, offline_lora: Optional[str] = None,
-                 feature_resize: int = 1, control=None, attention=None,
+                 feature_resize: int = 1, control=None,
+                 attention: Optional[Sequence[str]] = None,
                  weights: Optional[str] = None, seed: int = 0,
+                 attn_store_sizes: Optional[Tuple[int, int]] = None,
                  validate_layers: bool = True):
         if offline_lora:
             raise _not_ported('offline_lora (LoRA)', 'Safetensors weight loader')
@@ -73,8 +81,6 @@ class FeatureExtractor:
             raise _not_ported('weights= (local checkpoints)', 'Safetensors weight loader')
         if control:
             raise _not_ported('control= (ControlNet)', 'ControlNet and depth')
-        if attention:
-            raise _not_ported('attention= (the attention store)', 'Attention-map slice')
         self.spec: ModelSpec = get_model_spec(version)
         self.version = version
         self.img_size = img_size
@@ -85,7 +91,13 @@ class FeatureExtractor:
         self.taps = TapSpec.from_config(resolve_layer_config(layer))
         if not self.taps.accept_all and 'vae-out' in self.taps.ids:
             raise _not_ported("the 'vae-out' layer", 'VAE decoder and vae-out')
-        self.scheduler = EulerDiscreteScheduler(self.spec.scheduler_config)
+        self.attention = list(attention) if attention else None
+        # the store's size band (reference components/attention.py:542, :569)
+        self._attn_sizes = None
+        if self.attention:
+            self._attn_sizes = (tuple(attn_store_sizes) if attn_store_sizes is not None
+                                else (img_size // 32, img_size // 16))
+        self.scheduler = make_scheduler(self.spec.scheduler, self.spec.scheduler_config)
         self.vae_scale = 2 ** (len(self.spec.vae.block_out_channels) - 1)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
 
@@ -94,7 +106,8 @@ class FeatureExtractor:
         def build(make):
             return _random_module(make, self.device, self.dtype, self._gen)
 
-        self.unet = build(lambda: UNet2DConditionModel(spec.unet, self.taps))
+        self.unet = build(lambda: UNet2DConditionModel(spec.unet, self.taps, self._attn_sizes,
+                                                       tuple(self.attention or ())))
         self.vae = build(lambda: AutoencoderKL(spec.vae))
         self.text_encoders = tuple(build(lambda c=c: CLIPTextModel(c))
                                    for c in spec.text_encoders)
@@ -109,12 +122,19 @@ class FeatureExtractor:
         """Fail fast on ids the U-Net does not declare, with near-miss
         suggestions (the reference silently drops unknown ids)."""
         known = declared_ids(self.unet)
-        unknown = [i for i in sorted(self.taps.ids) if i not in known and not is_filtered_id(i)]
+        # 'attn' is assembled only when attention categories were requested
+        pseudo = {'attn'} if self.attention else set()
+        unknown = [i for i in sorted(self.taps.ids)
+                   if i not in known and i not in pseudo and not is_filtered_id(i)]
         if not unknown:
             return
         import difflib
         lines = []
         for i in unknown[:10]:
+            if i == 'attn':
+                lines.append("  'attn' needs the attention= argument (e.g. "
+                             "attention=['up_cross']) so there are aggregated maps to assemble")
+                continue
             near = difflib.get_close_matches(i, known, n=3, cutoff=0.55)
             hint = f" (did you mean: {', '.join(near)}?)" if near else ''
             lines.append(f'  {i!r}{hint}')
@@ -128,7 +148,8 @@ class FeatureExtractor:
     def encode_prompt(self, prompt_str: Optional[str] = None,
                       prompt_file: Optional[str] = None):
         """Returns (prompt_embeds, negative_prompt_embeds, pooled,
-        negative_pooled), the reference's 4-tuple (diffusion_feature.py:203-206)."""
+        negative_pooled), the reference's 4-tuple (diffusion_feature.py:203-206);
+        the pooled entries are None for a 'final'-layer model (SD-1.5)."""
         if (prompt_str is None) == (prompt_file is None):
             raise ValueError('pass exactly one of prompt_str and prompt_file')
         if prompt_file:
@@ -146,15 +167,16 @@ class FeatureExtractor:
             raise ValueError('the text encoders were offloaded persistently '
                              '(offload_prompt_encoder(persistent=True)); pass pre-encoded '
                              'prompts, or rebuild the extractor to encode raw strings')
+        penultimate = self.spec.clip_layer == 'penultimate'
         embeds, pooled = [], None
         for tok, te in zip(self.tokenizers, self.text_encoders):
             ids = torch.tensor(tok([text]), dtype=torch.long,
                                device=next(te.parameters()).device)
-            _, pool, hidden = te(ids)
-            embeds.append(hidden[-2])   # SDXL feeds the penultimate hidden state
+            last, pool, hidden = te(ids)
+            embeds.append(hidden[-2] if penultimate else last)
             pooled = pool   # the last encoder's pooled output wins (text_encoder_2)
         pe = torch.cat([e.to(self.device) for e in embeds], dim=-1)
-        return pe, pooled.to(self.device)
+        return pe, pooled.to(self.device) if penultimate else None
 
     def offload_prompt_encoder(self, persistent: bool = False):
         """Free the text encoders' device memory (reference
@@ -177,8 +199,9 @@ class FeatureExtractor:
                 use_control: bool = False,
                 use_ddim_inversion: bool = False) -> Dict[str, torch.Tensor]:
         """One img2img step at ``t``; returns {tap_id: NCHW tensor} in bf16
-        (attention maps (B, H, Sq, Sk)).  ``use_control`` has no effect
-        without a ControlNet, as in the JAX facade."""
+        (attention maps (B, H, Sq, Sk)), plus 'attn' (B, sum of Sk over the
+        aggregated maps, img/8, img/8) with ``attention=``.  ``use_control``
+        has no effect without a ControlNet, as in the JAX facade."""
         if denoising_from is not None:
             raise _not_ported('denoising_from (multi-step extraction)',
                               'Other U-Net versions and multi-step paths')
@@ -187,8 +210,9 @@ class FeatureExtractor:
         pe, _, pooled, _ = prompts
         pe = torch.as_tensor(pe).to(self.device, self.dtype)
         pe = pe.expand(batch_size, *pe.shape[1:])
-        pooled = torch.as_tensor(pooled).to(self.device, self.dtype)
-        pooled = pooled.expand(batch_size, *pooled.shape[1:])
+        if pooled is not None:
+            pooled = torch.as_tensor(pooled).to(self.device, self.dtype)
+            pooled = pooled.expand(batch_size, *pooled.shape[1:])
         if image_type == 'image':
             img = preprocess_pil_batch(image, self.img_size)
         else:
@@ -204,20 +228,26 @@ class FeatureExtractor:
                           self.feature_dtype)
 
     def _img2img_kit(self, t: int) -> Dict[str, float]:
-        """The Euler branch of the JAX facade's ``_img2img_kit``: model
-        timestep T (SDXL's leading schedule maps t=50 to 50), noise
+        """The Euler and PNDM branches of the JAX facade's ``_img2img_kit``:
+        model timestep T (SDXL's leading schedule maps t=50 to 50), noise
         injection latents <- A*latents + B*noise, and the scale_model_input
-        divisor S."""
+        divisor S.  (X and C, for vae-out, wait for the VAE decoder.)"""
         sched = self.scheduler
         state = sched.set_timesteps(1000)
         timesteps, _ = sched.get_timesteps(state, 1000, t / 1000)
         lt = timesteps[0]
-        sigma = float(state.sigmas[sched.sigma_index(state, lt)])
-        return {'T': float(lt), 'A': 1.0, 'B': sigma, 'S': float(np.sqrt(sigma ** 2 + 1))}
+        if isinstance(sched, EulerDiscreteScheduler):
+            sigma = float(state.sigmas[sched.sigma_index(state, lt)])
+            return {'T': float(lt), 'A': 1.0, 'B': sigma, 'S': float(np.sqrt(sigma ** 2 + 1))}
+        a_t = float(sched.alphas_cumprod[int(lt)])   # PNDM: DDPM-family noising
+        return {'T': float(lt), 'A': float(np.sqrt(a_t)), 'B': float(np.sqrt(1 - a_t)),
+                'S': 1.0}
 
     def _added_cond(self, pooled, bsz: int):
         """SDXL text_time micro-conditioning: time ids [h, w, 0, 0, h, w]
-        (reference diffusion_feature.py:534)."""
+        (reference diffusion_feature.py:534); None for a U-Net without it."""
+        if self.spec.unet.addition_embed_type != 'text_time':
+            return None
         s = float(self.img_size)
         time_ids = torch.tensor([[s, s, 0.0, 0.0, s, s]], dtype=self.dtype,
                                 device=self.device).repeat(bsz, 1)
@@ -228,12 +258,19 @@ class FeatureExtractor:
         """Steps 4-8 of the slice (the JAX ``_get_step_fn_generic`` program):
         VAE encode + posterior sample -> latents*A + noise*B -> /S -> U-Net
         with taps -> store post-processing to ``out_dtype`` (None keeps the
-        compute dtype).  Noise tensors are standard-normal draws of the
-        latent shape, cast here to the model dtype."""
+        compute dtype), and the attention store's aggregate as 'attn'.
+        Noise tensors are standard-normal draws of the latent shape, cast
+        here to the model dtype."""
         latents = self.vae(img, posterior_noise)
         latents = (scalar_like(kit['A'], latents) * latents
                    + scalar_like(kit['B'], latents) * noise.to(latents.dtype))
         feats = {}
         self.unet(latents / scalar_like(kit['S'], latents), kit['T'], pe,
                   self._added_cond(pooled, latents.shape[0]), feats=feats)
-        return postprocess_taps(feats, resize_ratio=self.feature_resize, out_dtype=out_dtype)
+        store = feats.pop(ATTN_STORE, {})
+        out = postprocess_taps(feats, resize_ratio=self.feature_resize, out_dtype=out_dtype)
+        if self.attention:
+            agg = aggregate_attention(store, self.attention, self.img_size, out_dtype)
+            if agg is not None:
+                out['attn'] = agg
+        return out

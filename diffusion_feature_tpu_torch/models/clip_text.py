@@ -3,7 +3,8 @@ with the transformers checkpoint key names (``text_model.encoder.layers.N...``,
 ``text_projection``).
 
 SDXL uses CLIP ViT-L (hidden_states[-2]) and OpenCLIP bigG (hidden_states[-2]
-plus the pooled EOS token through ``text_projection``).
+plus the pooled EOS token through ``text_projection``); SD-1.5 uses CLIP
+ViT-L's final-layernormed output and no pooled embedding.
 """
 
 from __future__ import annotations

@@ -16,6 +16,7 @@ sites match the reference overlay:
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -23,9 +24,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import attention_fused, attention_with_probs
+from ..ops.attention import (
+    attention_fused, attention_with_headmean_heads, attention_with_probs, merge_heads,
+    split_heads,
+)
 from ..ops.resize import interpolate_nearest_nchw
 from ..taps import EMPTY, TapSite, TapSpec, child_id
+
+
+#: Key of the ``feats`` dict under which attention-store maps are kept:
+#: {'{place}_{self|cross}': [(B, Sq, Sk) head-mean maps, in call order]}.
+ATTN_STORE = 'attn_store'
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnStoreCfg:
+    """Attention-store registration (the facade's ``attention=``): the U-Net
+    region this attention lives in, the size band to keep in tokens per
+    side, and the requested categories ('{place}_{self|cross}')."""
+    place: str            # 'down' | 'mid' | 'up'
+    min_size: int
+    max_size: int
+    categories: frozenset = frozenset()
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
@@ -116,13 +136,15 @@ class Upsample2D(nn.Module):
 class Attention(nn.Module):
     """Multi-head attention with q/k/v/map taps.  q/k/v taps observe the
     pre-head-split (B, S, inner) projections; 'map' is the per-head
-    post-softmax (B, H, Sq, Sk).  Without a requested map the fused path
-    (flash kernel where the gate admits the shape) runs.  The attention
-    store (the facade's ``attention=``) is not ported; the facade raises."""
+    post-softmax (B, H, Sq, Sk).  With ``attn_store`` the head-mean map of
+    a query count inside the size band is kept in ``feats[ATTN_STORE]``.
+    Without a requested map or store the fused path (flash kernel where the
+    gate admits the shape) runs."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  cross_attention_dim: Optional[int] = None,
-                 taps: TapSpec = EMPTY, tap_name: str = ''):
+                 taps: TapSpec = EMPTY, tap_name: str = '',
+                 attn_store: Optional[AttnStoreCfg] = None, is_cross: bool = False):
         super().__init__()
         inner = heads * dim_head
         ctx_dim = query_dim if cross_attention_dim is None else cross_attention_dim
@@ -132,18 +154,43 @@ class Attention(nn.Module):
         self.to_v = nn.Linear(ctx_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
         self.tap_site = TapSite(taps, tap_name, ('q', 'k', 'v', 'map'))
+        # The JAX U-Net computes head-mean maps in every place whose size is
+        # in the band and lets XLA drop the ones the facade never reads.
+        # Eager PyTorch cannot drop them, so only a requested category takes
+        # the store path; every other attention stays on the fused path,
+        # which computes the same output.
+        self.store_key = self.store_band = None
+        if attn_store is not None:
+            key = f"{attn_store.place}_{'cross' if is_cross else 'self'}"
+            if key in attn_store.categories:
+                self.store_key = key
+                self.store_band = (attn_store.min_size ** 2, attn_store.max_size ** 2)
 
-    def forward(self, x, context=None, feats=None):
+    def forward(self, x, context=None, feats=None, mask=None):
         ctx = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
         self.tap_site.put(feats, 'q', q)
         self.tap_site.put(feats, 'k', k)
         self.tap_site.put(feats, 'v', v)
+        # size-band filter on the query token count (components/attention.py:113-114)
+        store = (self.store_key is not None
+                 and self.store_band[0] <= x.shape[1] <= self.store_band[1])
         if self.tap_site.wants('map'):
-            out, probs = attention_with_probs(q, k, v, self.heads)
+            out, probs = attention_with_probs(q, k, v, self.heads, mask=mask)
             self.tap_site.put(feats, 'map', probs)
+            mean_p = probs.mean(dim=1) if store else None
+        elif store and mask is None:
+            # head-mean kernels: the per-head (B,H,Sq,Sk) tensor never exists
+            out_h, mean_p = attention_with_headmean_heads(
+                *(split_heads(t, self.heads) for t in (q, k, v)))
+            out = merge_heads(out_h)
+        elif store:
+            out, probs = attention_with_probs(q, k, v, self.heads, mask=mask)
+            mean_p = probs.mean(dim=1)
         else:
-            out = attention_fused(q, k, v, self.heads)
+            out, mean_p = attention_fused(q, k, v, self.heads, mask=mask), None
+        if mean_p is not None and feats is not None:
+            feats.setdefault(ATTN_STORE, {}).setdefault(self.store_key, []).append(mean_p)
         return self.to_out[0](out)
 
 
@@ -177,14 +224,16 @@ class BasicTransformerBlock(nn.Module):
     'out' at the block end."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, cross_attention_dim: int,
-                 taps: TapSpec = EMPTY, tap_name: str = ''):
+                 taps: TapSpec = EMPTY, tap_name: str = '',
+                 attn_store: Optional[AttnStoreCfg] = None):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn1 = Attention(dim, heads, dim_head, taps=taps,
-                               tap_name=child_id(tap_name, 'self'))
+                               tap_name=child_id(tap_name, 'self'), attn_store=attn_store)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.attn2 = Attention(dim, heads, dim_head, cross_attention_dim, taps=taps,
-                               tap_name=child_id(tap_name, 'cross'))
+                               tap_name=child_id(tap_name, 'cross'), attn_store=attn_store,
+                               is_cross=True)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim, taps=taps, tap_name=child_id(tap_name, 'ffn'))
         self.tap_site = TapSite(taps, tap_name, ('out',))
@@ -204,7 +253,8 @@ class Transformer2DModel(nn.Module):
 
     def __init__(self, in_channels: int, heads: int, dim_head: int, depth: int,
                  cross_attention_dim: int, use_linear_projection: bool = False,
-                 norm_eps: float = 1e-6, taps: TapSpec = EMPTY, tap_name: str = ''):
+                 norm_eps: float = 1e-6, taps: TapSpec = EMPTY, tap_name: str = '',
+                 attn_store: Optional[AttnStoreCfg] = None):
         super().__init__()
         inner = heads * dim_head
         self.use_linear = use_linear_projection
@@ -217,7 +267,8 @@ class Transformer2DModel(nn.Module):
             self.proj_out = nn.Conv2d(inner, in_channels, 1)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(inner, heads, dim_head, cross_attention_dim, taps=taps,
-                                  tap_name=child_id(tap_name, f'block{i}'))
+                                  tap_name=child_id(tap_name, f'block{i}'),
+                                  attn_store=attn_store)
             for i in range(depth)])
         self.tap_site = TapSite(taps, tap_name, ('out',))
 

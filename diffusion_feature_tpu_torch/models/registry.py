@@ -1,5 +1,6 @@
 """Model registry: version string -> architecture and schedule (port of the
-``xl`` and ``test-xl`` entries of ``diffusion_feature_tpu/models/registry.py``).
+``1-5``, ``xl``, ``test-sd`` and ``test-xl`` entries of
+``diffusion_feature_tpu/models/registry.py``).
 
 Without a weights path models initialise deterministically at random, which
 exercises every shape and the data flow at full width.  The other versions
@@ -14,32 +15,41 @@ from typing import Tuple
 
 from ..schedulers.diffusion import SchedulerConfig
 from .clip_text import CLIP_VIT_L, OPENCLIP_BIGG, CLIPTextConfig, tiny_clip_config
-from .unet2d import SDXL_UNET, UNetConfig, tiny_unet_config
-from .vae import SDXL_VAE, VAEConfig, tiny_vae_config
+from .unet2d import SD15_UNET, SDXL_UNET, UNetConfig, tiny_unet_config
+from .vae import SD_VAE, SDXL_VAE, VAEConfig, tiny_vae_config
 
+SD_SCHED = SchedulerConfig(beta_start=0.00085, beta_end=0.012, steps_offset=1)
 XL_SCHED = SchedulerConfig(beta_start=0.00085, beta_end=0.012, steps_offset=1,
                            timestep_spacing='leading')
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
-    """An SDXL-family model: Euler schedule, U-Net with text_time
-    micro-conditioning, VAE, and two CLIP encoders whose penultimate hidden
-    states are concatenated (the second one's pooled output conditions)."""
+    """A U-Net model: its scheduler ('euler' | 'pndm'), U-Net, VAE, and CLIP
+    encoders whose chosen hidden states are concatenated: 'final' (the
+    final-layernormed output, no pooled embedding; SD-1.5) or 'penultimate'
+    (hidden_states[-2], with the last encoder's pooled output; SDXL)."""
     version: str
     hf_id: str                         # provenance only; nothing is downloaded
+    scheduler: str
     scheduler_config: SchedulerConfig
     unet: UNetConfig
     vae: VAEConfig
     text_encoders: Tuple[CLIPTextConfig, ...]
+    clip_layer: str = 'final'
 
 
 _REGISTRY = {spec.version: spec for spec in (
-    ModelSpec('xl', 'stabilityai/stable-diffusion-xl-base-1.0', XL_SCHED, SDXL_UNET, SDXL_VAE,
-              (CLIP_VIT_L, OPENCLIP_BIGG)),
-    ModelSpec('test-xl', '(random-init test model)', XL_SCHED,
+    ModelSpec('1-5', 'stable-diffusion-v1-5/stable-diffusion-v1-5', 'pndm', SD_SCHED,
+              SD15_UNET, SD_VAE, (CLIP_VIT_L,)),
+    ModelSpec('xl', 'stabilityai/stable-diffusion-xl-base-1.0', 'euler', XL_SCHED, SDXL_UNET,
+              SDXL_VAE, (CLIP_VIT_L, OPENCLIP_BIGG), clip_layer='penultimate'),
+    ModelSpec('test-sd', '(random-init test model)', 'pndm', SD_SCHED,
+              tiny_unet_config(cross_dim=32), tiny_vae_config(), (tiny_clip_config(32),)),
+    ModelSpec('test-xl', '(random-init test model)', 'euler', XL_SCHED,
               tiny_unet_config(cross_dim=64, with_xl_embeds=True), tiny_vae_config(),
-              (tiny_clip_config(32), tiny_clip_config(32, projection_dim=32))),
+              (tiny_clip_config(32), tiny_clip_config(32, projection_dim=32)),
+              clip_layer='penultimate'),
 )}
 
 

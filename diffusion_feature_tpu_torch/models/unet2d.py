@@ -18,8 +18,8 @@ from torch import nn
 
 from ..taps import EMPTY, TapSite, TapSpec, child_id
 from .layers import (
-    Downsample2D, ResnetBlock2D, TimestepEmbedding, Transformer2DModel, Upsample2D,
-    timestep_embedding,
+    AttnStoreCfg, Downsample2D, ResnetBlock2D, TimestepEmbedding, Transformer2DModel,
+    Upsample2D, timestep_embedding,
 )
 
 
@@ -51,6 +51,7 @@ class UNetConfig:
         return self.block_out_channels[0] * 4
 
 
+SD15_UNET = UNetConfig()
 SDXL_UNET = UNetConfig(
     block_out_channels=(320, 640, 1280),
     down_block_types=('DownBlock2D', 'CrossAttnDownBlock2D', 'CrossAttnDownBlock2D'),
@@ -81,17 +82,20 @@ def tiny_unet_config(cross_dim: int = 32, with_xl_embeds: bool = False) -> UNetC
     )
 
 
-def _transformer(cfg: UNetConfig, channels: int, heads: int, depth: int, taps, tap_name):
+def _transformer(cfg: UNetConfig, channels: int, heads: int, depth: int, taps, tap_name,
+                 attn_store):
     return Transformer2DModel(
         channels, heads, channels // heads, depth, cfg.cross_attention_dim,
-        use_linear_projection=cfg.use_linear_projection, taps=taps, tap_name=tap_name)
+        use_linear_projection=cfg.use_linear_projection, taps=taps, tap_name=tap_name,
+        attn_store=attn_store)
 
 
 class CrossAttnDownBlock2D(nn.Module):
     """Down level: resnets (+ transformers when ``has_attn``) + downsampler."""
 
     def __init__(self, cfg: UNetConfig, level: int, in_ch: int, out_ch: int,
-                 add_downsample: bool, has_attn: bool, taps: TapSpec = EMPTY):
+                 add_downsample: bool, has_attn: bool, taps: TapSpec = EMPTY,
+                 attn_store: Optional[AttnStoreCfg] = None):
         super().__init__()
         temb = cfg.time_embed_dim
         prefixes = [f'down-level{level}-repeat{r}' for r in range(cfg.layers_per_block)]
@@ -101,7 +105,8 @@ class CrossAttnDownBlock2D(nn.Module):
             for r, p in enumerate(prefixes)])
         self.attentions = nn.ModuleList([
             _transformer(cfg, out_ch, cfg.num_attention_heads[level],
-                         cfg.transformer_layers_per_block[level], taps, child_id(p, 'vit'))
+                         cfg.transformer_layers_per_block[level], taps, child_id(p, 'vit'),
+                         attn_store)
             for p in prefixes]) if has_attn else None
         self.downsamplers = nn.ModuleList([
             Downsample2D(out_ch, taps, f'down-level{level}-downsampler')
@@ -121,7 +126,8 @@ class CrossAttnDownBlock2D(nn.Module):
 
 
 class UNetMidBlock2DCrossAttn(nn.Module):
-    def __init__(self, cfg: UNetConfig, channels: int, taps: TapSpec = EMPTY):
+    def __init__(self, cfg: UNetConfig, channels: int, taps: TapSpec = EMPTY,
+                 attn_store: Optional[AttnStoreCfg] = None):
         super().__init__()
         temb = cfg.time_embed_dim
         self.resnets = nn.ModuleList([
@@ -129,7 +135,7 @@ class UNetMidBlock2DCrossAttn(nn.Module):
             for r in range(2)])
         self.attentions = nn.ModuleList([
             _transformer(cfg, channels, cfg.num_attention_heads[-1],
-                         cfg.transformer_layers_per_block[-1], taps, 'mid-vit')])
+                         cfg.transformer_layers_per_block[-1], taps, 'mid-vit', attn_store)])
 
     def forward(self, x, temb, context, feats=None):
         x = self.resnets[0](x, temb, feats)
@@ -143,7 +149,7 @@ class CrossAttnUpBlock2D(nn.Module):
 
     def __init__(self, cfg: UNetConfig, level: int, in_ch: int, prev_ch: int, out_ch: int,
                  add_upsample: bool, has_attn: bool, heads: int, depth: int,
-                 taps: TapSpec = EMPTY):
+                 taps: TapSpec = EMPTY, attn_store: Optional[AttnStoreCfg] = None):
         super().__init__()
         n = cfg.layers_per_block + 1
         prefixes = [f'up-level{level}-repeat{r}' for r in range(n)]
@@ -152,7 +158,7 @@ class CrossAttnUpBlock2D(nn.Module):
                           out_ch, cfg.time_embed_dim, cfg.norm_eps, taps, child_id(p, 'res'))
             for r, p in enumerate(prefixes)])
         self.attentions = nn.ModuleList([
-            _transformer(cfg, out_ch, heads, depth, taps, child_id(p, 'vit'))
+            _transformer(cfg, out_ch, heads, depth, taps, child_id(p, 'vit'), attn_store)
             for p in prefixes]) if has_attn else None
         self.upsamplers = nn.ModuleList([
             Upsample2D(out_ch, taps, f'up-level{level}-upsampler')
@@ -171,10 +177,21 @@ class CrossAttnUpBlock2D(nn.Module):
 class UNet2DConditionModel(nn.Module):
     """forward(sample NCHW, timestep, encoder_hidden_states, added_cond=None,
     feats=None) -> noise prediction NCHW; requested taps land in ``feats``.
-    ``added_cond`` is SDXL's {'text_embeds', 'time_ids'} micro-conditioning."""
+    ``added_cond`` is SDXL's {'text_embeds', 'time_ids'} micro-conditioning.
+    ``attn_store_sizes`` (min, max tokens per side) and ``attn_categories``
+    ('{down|mid|up}_{self|cross}') register the attention store; its maps
+    land in ``feats[layers.ATTN_STORE]``."""
 
-    def __init__(self, cfg: UNetConfig, taps: TapSpec = EMPTY):
+    def __init__(self, cfg: UNetConfig, taps: TapSpec = EMPTY,
+                 attn_store_sizes: Optional[Tuple[int, int]] = None,
+                 attn_categories: Tuple[str, ...] = ()):
         super().__init__()
+
+        def store(place):
+            if attn_store_sizes is None:
+                return None
+            return AttnStoreCfg(place, *attn_store_sizes, frozenset(attn_categories))
+
         self.cfg = cfg
         ch0 = cfg.block_out_channels[0]
         self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)
@@ -192,10 +209,11 @@ class UNet2DConditionModel(nn.Module):
             out_ch = cfg.block_out_channels[level]
             self.down_blocks.append(CrossAttnDownBlock2D(
                 cfg, level, ch, out_ch, add_downsample=level != n_levels - 1,
-                has_attn=btype == 'CrossAttnDownBlock2D', taps=taps))
+                has_attn=btype == 'CrossAttnDownBlock2D', taps=taps, attn_store=store('down')))
             ch = out_ch
 
-        self.mid_block = UNetMidBlock2DCrossAttn(cfg, cfg.block_out_channels[-1], taps)
+        self.mid_block = UNetMidBlock2DCrossAttn(cfg, cfg.block_out_channels[-1], taps,
+                                                 store('mid'))
 
         rev = list(reversed(cfg.block_out_channels))
         rev_heads = list(reversed(cfg.num_attention_heads))
@@ -207,7 +225,8 @@ class UNet2DConditionModel(nn.Module):
                 cfg, level, rev[min(level + 1, n_levels - 1)], prev, rev[level],
                 add_upsample=level != len(cfg.up_block_types) - 1,
                 has_attn=btype == 'CrossAttnUpBlock2D',
-                heads=rev_heads[level], depth=rev_depth[level], taps=taps))
+                heads=rev_heads[level], depth=rev_depth[level], taps=taps,
+                attn_store=store('up')))
             prev = rev[level]
 
         self.conv_norm_out = nn.GroupNorm(32, ch0, eps=cfg.norm_eps)

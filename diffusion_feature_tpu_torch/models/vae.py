@@ -28,6 +28,7 @@ class VAEConfig:
     shift_factor: float = 0.0
 
 
+SD_VAE = VAEConfig()
 SDXL_VAE = VAEConfig(scaling_factor=0.13025)
 
 

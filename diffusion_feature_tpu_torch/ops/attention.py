@@ -4,7 +4,14 @@
 The default path never materialises scores: shapes that pass
 ``is_flash_compatible`` go to the flash kernel, the rest to an explicit
 fp32-score softmax.  The explicit path is also what a ``*-map`` tap uses,
-since it needs the probabilities.
+since it needs the probabilities.  The attention store (the facade's
+``attention=``) takes ``attention_with_headmean_heads``: the flash kernel
+with logsumexp, then the streaming head-mean kernel, so only the head-mean
+map reaches memory.
+
+The kernels are built for some head widths only; that condition binds on
+the card.  A CPU tensor runs the kernels' plain twins, which take any
+width, so on the CPU the routing is the JAX package's exactly.
 
 Public functions take q/k/v in the pre-head-split layout (B, S, inner), so
 the q/k/v taps observe the same tensors as the reference; ``*_heads``
@@ -17,7 +24,16 @@ from typing import Optional, Tuple
 
 import torch
 
-from .flash_attention import flash_attention, is_flash_compatible
+from .flash_attention import (
+    HEADMEAN_HEAD_DIMS, SUPPORTED_HEAD_DIMS, flash_attention, flash_attention_with_lse,
+    headmean_probs, is_flash_compatible,
+)
+
+
+def _use_flash(qh, kh, min_seq: int = 1024, head_dims=SUPPORTED_HEAD_DIMS) -> bool:
+    """The gate, with the kernels' head widths where they run (the card)."""
+    return is_flash_compatible(qh.shape, kh.shape, min_seq,
+                               None if qh.device.type == 'cpu' else head_dims)
 
 
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -72,7 +88,7 @@ def attention_fused_heads(qh, kh, vh, *, scale: Optional[float] = None,
     """Attention on pre-split heads (B,H,S,D) without score export: the flash
     kernel where the gate admits the shape, explicit softmax otherwise."""
     scale = qh.shape[-1] ** -0.5 if scale is None else scale
-    if mask is None and is_flash_compatible(qh.shape, kh.shape):
+    if mask is None and _use_flash(qh, kh):
         return flash_attention(qh.contiguous(), kh.contiguous(), vh.contiguous(),
                                scale=scale)
     out, _ = _softmax_attention(qh, kh, vh, scale, mask)
@@ -85,8 +101,30 @@ def attention_fused(q, k, v, heads: int, *, scale: Optional[float] = None,
     d = q.shape[-1] // heads
     scale = d ** -0.5 if scale is None else scale
     qh, kh, vh = split_heads(q, heads), split_heads(k, heads), split_heads(v, heads)
-    if mask is None and is_flash_compatible(qh.shape, kh.shape):
+    if mask is None and _use_flash(qh, kh):
         return merge_heads(flash_attention(qh.contiguous(), kh.contiguous(),
                                            vh.contiguous(), scale=scale))
     out, _ = _softmax_attention(qh, kh, vh, scale, mask)
     return merge_heads(out)
+
+
+def _headmean_explicit(qh, kh, vh, scale):
+    out, probs = _softmax_attention(qh, kh, vh, scale, None)
+    return out, probs.mean(dim=1)
+
+
+def attention_with_headmean_heads(qh, kh, vh, *, scale: Optional[float] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention plus HEAD-MEAN probabilities on pre-split heads (B,H,S,D):
+    (out (B,H,Sq,D), mean_probs (B,Sq,Sk)), the attention store's path.
+    Where the gate admits the shape (``min_seq=512``, as in JAX) the flash
+    kernel with logsumexp (B2) and the head-mean kernel (B3) stream the
+    score tiles, so the per-head (B,H,Sq,Sk) tensor never exists; otherwise
+    the explicit softmax's probabilities are averaged over heads.
+    Inference only: no backward."""
+    scale = qh.shape[-1] ** -0.5 if scale is None else scale
+    if _use_flash(qh, kh, min_seq=512, head_dims=HEADMEAN_HEAD_DIMS):
+        qh, kh = qh.contiguous(), kh.contiguous()
+        out, lse = flash_attention_with_lse(qh, kh, vh.contiguous(), scale=scale)
+        return out, headmean_probs(qh, kh, lse, scale=scale)
+    return _headmean_explicit(qh, kh, vh, scale)

@@ -1,21 +1,28 @@
-"""Flash-attention forward: the hand-written Hopper kernel and its plain twin.
+"""Attention kernels written by hand for Hopper, and their plain twins.
 
-Replaces ``diffusion_feature_tpu/ops/flash_attention.py::_flash_kernel`` (the
-Pallas TPU kernel).  The kernel lives in ``csrc/flash_attention.cu``; it is
-compiled with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface at first use, cached by source hash in ``_build/`` beside this
-package, and called through ``ctypes`` on PyTorch's current stream.
+Replaces the Pallas TPU kernels of ``diffusion_feature_tpu/ops/flash_attention.py``:
 
-What bounds it on an H100: at the main path's d=64 and 4096 tokens the
-kernel does ~4000 flops per byte it reads, so it is bounded by tensor-core
-flops (and the S^2 exponentials), not by memory.  The design keeps the
-scores in registers, runs QK^T and PV on the tensor cores (``mma.sync``
-m16n8k16, fp32 accumulation) and reads each K/V tile once per 64 query rows;
-overlapping loads with compute (TMA, ``wgmma``, warp specialisation) is left
-to later work.  See the source for the tile layout.
+  B1 ``_flash_kernel``      -> ``flash_attention``           (csrc/flash_attention.cu)
+  B2 ``_flash_lse_kernel``  -> ``flash_attention_with_lse``  (the same source, kLse)
+  B3 ``_headmean_kernel``   -> ``headmean_probs``            (csrc/headmean.cu)
 
-Routing: a CPU tensor goes to ``flash_attention_reference``; a CUDA tensor
-launches the kernel or raises.  ``launches`` counts kernel launches.
+Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface at first use (one ``nvcc`` per source, started
+together), cached by source hash in ``_build/`` beside this package, and
+called through ``ctypes`` on PyTorch's current stream.
+
+What bounds them on an H100: B1/B2 at d=64 and 4096 tokens do ~4000 flops
+per byte they read, so tensor-core flops and the S^2 exponentials bound
+them, not memory; B3 does half B1's flops per score and no PV product, so
+its exponentials (one per head and score, on the special-function unit)
+bound it.  The designs keep scores in registers, run the products on the
+tensor cores (``mma.sync`` m16n8k16, fp32 accumulation) and read each
+K/V tile once per 64 query rows; overlapping loads with compute (TMA,
+``wgmma``, warp specialisation) is left to later work.  See the sources.
+
+Routing: CPU tensors go to the ``*_reference`` twins; CUDA tensors launch
+the kernel or raise.  ``launches``, ``lse_launches`` and
+``headmean_launches`` count the launches of B1, B2 and B3.
 """
 
 from __future__ import annotations
@@ -30,44 +37,85 @@ from pathlib import Path
 
 import torch
 
-SUPPORTED_HEAD_DIMS = (64, 128, 512)
+#: Head widths B1 is built for: the U-Nets' 40, 64, 80, 128, 160 and the
+#: VAE's single 512-wide head.
+SUPPORTED_HEAD_DIMS = (40, 64, 80, 128, 160, 512)
+#: Head widths B2 and B3 are built for (the attention store's U-Net heads).
+HEADMEAN_HEAD_DIMS = (40, 64, 80, 128, 160)
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_SOURCE = Path(__file__).resolve().parent.parent / 'csrc' / 'flash_attention.cu'
+_CSRC = Path(__file__).resolve().parent.parent / 'csrc'
+_SOURCES = {'flash_attention': _CSRC / 'flash_attention.cu',
+            'headmean': _CSRC / 'headmean.cu'}
+_HEADERS = (_CSRC / 'tile_ops.cuh',)
 _BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
 _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
                '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+_VP, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    # q, k, v, o, lse, bh, sq, sk, d, dtype, scale, stream
+    'dft_flash_attention_forward': [_VP] * 5 + [_INT] * 5 + [_F32, _VP],
+    # q, k, lse, out, b, h, sq, sk, d, dtype, scale, stream
+    'dft_headmean_probs': [_VP] * 4 + [_INT] * 6 + [_F32, _VP],
+}
 
-#: Kernel launches since import (or since a caller reset it to 0).
-launches = 0
+#: Kernel launches since import (or since a caller reset them to 0).
+launches = 0            # B1
+lse_launches = 0        # B2
+headmean_launches = 0   # B3
 
-_lib = None
+_libs = {}
 
 
-def is_flash_compatible(q_shape, k_shape, min_seq: int = 1024) -> bool:
+def is_flash_compatible(q_shape, k_shape, min_seq: int = 1024,
+                        head_dims=SUPPORTED_HEAD_DIMS) -> bool:
     """The JAX package's gate (``is_flash_compatible``): long self-attention
     with 256-aligned sequence lengths, and the wide d=512 head only at
     >= 8192 tokens (the VAE mid block at 1024^2, where the explicit path's
-    fp32 score tensor is 1 GiB per image).  The port adds one shape
-    condition: the head dim must be one the kernel is built for."""
+    fp32 score tensor is 1 GiB per image).  The port adds one condition:
+    the head dim must be one of ``head_dims``, the widths a kernel is built
+    for; ``None`` drops it (the CPU twins take any width)."""
     *_, sq, d = q_shape
     sk = k_shape[-2]
     return (
-        d in SUPPORTED_HEAD_DIMS
+        (head_dims is None or d in head_dims)
         and sq >= min_seq
         and sq % 256 == 0
         and sk % 256 == 0
-        and (d <= 256 or sq >= 8192)
+        and (d <= 256 or (d <= 512 and sq >= 8192))
     )
 
 
+# ------------------------------------------------------------------- twins
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               scale: float) -> torch.Tensor:
-    """Plain twin of the kernel: fp32 scores, softmax and PV product, result
-    cast to q's dtype.  (B, H, Sq, D) x (B, H, Sk, D) -> (B, H, Sq, D)."""
+    """Plain twin of B1: fp32 scores, softmax and PV product, result cast to
+    q's dtype.  (B, H, Sq, D) x (B, H, Sk, D) -> (B, H, Sq, D)."""
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     return torch.matmul(scores.softmax(dim=-1), v.float()).to(q.dtype)
 
 
+def flash_attention_with_lse_reference(q, k, v, scale: float):
+    """Plain twin of B2: B1's output and the fp32 logsumexp of each row's
+    scaled scores, (B, H, Sq)."""
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    out = torch.matmul(scores.softmax(dim=-1), v.float()).to(q.dtype)
+    return out, torch.logsumexp(scores, dim=-1)
+
+
+def headmean_probs_reference(q, k, lse, scale: float) -> torch.Tensor:
+    """Plain twin of B3: (1/H) sum_h exp(q_h k_h^T * scale - lse_h) in fp32,
+    cast to q's dtype.  (B,H,Sq,D), (B,H,Sk,D), (B,H,Sq) -> (B,Sq,Sk).  One
+    head at a time, so the per-head (B,H,Sq,Sk) tensor never exists here
+    either."""
+    acc = None
+    for h in range(q.shape[1]):
+        s = torch.matmul(q[:, h].float(), k[:, h].float().transpose(-1, -2)) * scale
+        p = torch.exp(s - lse[:, h, :, None].float())
+        acc = p if acc is None else acc + p
+    return (acc / q.shape[1]).to(q.dtype)
+
+
+# ------------------------------------------------------------------- build
 def _nvcc() -> str:
     cuda_home = os.environ.get('CUDA_HOME') or os.environ.get('CUDA_PATH') or '/usr/local/cuda'
     cand = os.path.join(cuda_home, 'bin', 'nvcc')
@@ -76,89 +124,163 @@ def _nvcc() -> str:
     found = shutil.which('nvcc')
     if found is None:
         raise RuntimeError('nvcc not found (set CUDA_HOME); it is needed to build '
-                           f'{_SOURCE.name} for the GPU')
+                           f'{", ".join(p.name for p in _SOURCES.values())} for the GPU')
     return found
 
 
 def build() -> dict:
-    """Compile the kernel library if its source changed and load it.
+    """Compile every kernel library whose source changed, one ``nvcc`` per
+    source, all started together, and load them.
 
-    Returns {'path', 'seconds', 'log'}: seconds is 0.0 when a cached build
-    for this source hash was reused; log is nvcc/ptxas output of a fresh
-    build (registers, shared memory, spills per kernel)."""
-    global _lib
-    digest = hashlib.sha256(_SOURCE.read_bytes()
-                            + ' '.join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = _BUILD_DIR / f'libdft_flash_attention_{digest}.so'
-    seconds, log = 0.0, ''
-    if not path.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f'.tmp{os.getpid()}.so')
-        start = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, '-o', str(tmp), str(_SOURCE)],
-                              capture_output=True, text=True)
-        seconds = time.perf_counter() - start
-        log = proc.stdout + proc.stderr
+    Returns {'paths', 'seconds', 'log'}: seconds is the wall time of the
+    builds (0.0 when every cached build for these source hashes was
+    reused); log is the nvcc/ptxas output of fresh builds (registers,
+    shared memory, spills per kernel)."""
+    common = b''.join(h.read_bytes() for h in _HEADERS) + ' '.join(_NVCC_FLAGS).encode()
+    paths, procs = {}, {}
+    start = time.perf_counter()
+    for name, src in _SOURCES.items():
+        digest = hashlib.sha256(src.read_bytes() + common).hexdigest()[:16]
+        path = paths[name] = _BUILD_DIR / f'libdft_{name}_{digest}.so'
+        if not path.exists():
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_suffix(f'.tmp{os.getpid()}.so')
+            procs[name] = (tmp, subprocess.Popen(
+                [_nvcc(), *_NVCC_FLAGS, '-o', str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        logs.append(f'== {_SOURCES[name].name}\n{out}')
         if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed on {_SOURCE} (exit {proc.returncode}):\n{log}')
-        os.replace(tmp, path)
-    if _lib is None or _lib._name != str(path):
-        lib = ctypes.CDLL(str(path))
-        fn = lib.dft_flash_attention_forward
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float,
-                                                                     ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return {'path': str(path), 'seconds': seconds, 'log': log}
+            failed.append(f'{_SOURCES[name]} (exit {proc.returncode})')
+        else:
+            os.replace(tmp, paths[name])
+    seconds = time.perf_counter() - start if procs else 0.0
+    log = ''.join(logs)
+    if failed:
+        raise RuntimeError(f'nvcc failed on {", ".join(failed)}:\n{log}')
+    for name, path in paths.items():
+        lib = _libs.get(name)
+        if lib is None or lib._name != str(path):
+            lib = ctypes.CDLL(str(path))
+            for fn_name, argtypes in _ARGTYPES.items():
+                fn = getattr(lib, fn_name, None)
+                if fn is not None:
+                    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            _libs[name] = lib
+    return {'paths': [str(p) for p in paths.values()], 'seconds': seconds, 'log': log}
 
 
-def _check_cuda_inputs(q, k, v):
-    for name, x in (('q', q), ('k', k), ('v', v)):
-        if x.device.type != 'cuda' or x.device != q.device:
-            raise ValueError(f'flash_attention: {name} is on {x.device}, '
-                             f'expected the CUDA device of q ({q.device})')
-        if x.dtype != q.dtype or x.dtype not in _DTYPE_CODES:
-            raise ValueError(f'flash_attention: {name} has dtype {x.dtype}; the kernel '
-                             'takes float32, float16 or bfloat16, one dtype for q, k, v')
+def _lib(name: str):
+    if name not in _libs:
+        build()
+    return _libs[name]
+
+
+# ---------------------------------------------------------------- wrappers
+def _check_cuda_inputs(op: str, tensors, head_dims):
+    """Device, dtype, rank, contiguity and alignment of (B, H, S, D) inputs
+    of one dtype and one head width, on the current CUDA device."""
+    first = tensors[0][1]
+    for name, x in tensors:
+        if x.device.type != 'cuda' or x.device != first.device:
+            raise ValueError(f'{op}: {name} is on {x.device}, '
+                             f'expected the CUDA device of q ({first.device})')
+        if x.dtype != first.dtype or x.dtype not in _DTYPE_CODES:
+            raise ValueError(f'{op}: {name} has dtype {x.dtype}; the kernel takes '
+                             'float32, float16 or bfloat16, one dtype for all inputs')
         if x.dim() != 4:
-            raise ValueError(f'flash_attention: {name} must be (B, H, S, D), got {tuple(x.shape)}')
+            raise ValueError(f'{op}: {name} must be (B, H, S, D), got {tuple(x.shape)}')
         if not x.is_contiguous():
-            raise ValueError(f'flash_attention: {name} must be contiguous')
+            raise ValueError(f'{op}: {name} must be contiguous')
         if x.data_ptr() % 16:
-            raise ValueError(f'flash_attention: {name} must be 16-byte aligned')
-    if q.device.index != torch.cuda.current_device():
-        raise ValueError(f'flash_attention: q is on {q.device} but the current CUDA device '
+            raise ValueError(f'{op}: {name} must be 16-byte aligned')
+        if x.shape[:2] != first.shape[:2] or x.shape[3] != first.shape[3]:
+            raise ValueError(f'{op}: shapes ' + ', '.join(
+                f'{n} {tuple(t.shape)}' for n, t in tensors) + ' do not match')
+        if x.shape[2] == 0:
+            raise ValueError(f'{op}: empty sequence')
+        if x.numel() >= 2 ** 31:
+            raise ValueError(f'{op}: {tuple(x.shape)} exceeds the launch limits')
+    if first.device.index != torch.cuda.current_device():
+        raise ValueError(f'{op}: q is on {first.device} but the current CUDA device '
                          f'is {torch.cuda.current_device()}')
+    d = first.shape[3]
+    if d not in head_dims:
+        raise ValueError(f'{op}: head dim {d} not supported (kernel is built for {head_dims})')
+    if first.shape[0] * first.shape[1] > 65535:
+        raise ValueError(f'{op}: {tuple(first.shape)} exceeds the launch limits')
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _flash_launch(op, q, k, v, lse, scale, head_dims):
+    _check_cuda_inputs(op, (('q', q), ('k', k), ('v', v)), head_dims)
+    if k.shape != v.shape:
+        raise ValueError(f'{op}: k {tuple(k.shape)} and v {tuple(v.shape)} differ')
     b, h, sq, d = q.shape
-    if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
-        raise ValueError(f'flash_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, '
-                         f'v {tuple(v.shape)} do not match')
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f'flash_attention: head dim {d} not supported '
-                         f'(kernel is built for {SUPPORTED_HEAD_DIMS})')
-    if sq == 0 or k.shape[2] == 0:
-        raise ValueError('flash_attention: empty sequence')
-    if b * h > 65535 or q.numel() >= 2 ** 31 or k.numel() >= 2 ** 31:
-        raise ValueError(f'flash_attention: {tuple(q.shape)} exceeds the launch limits')
+    out = torch.empty_like(q)
+    err = _lib('flash_attention').dft_flash_attention_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b * h, sq, k.shape[2], d,
+        _DTYPE_CODES[q.dtype], float(scale), _stream(q))
+    if err != 0:
+        raise RuntimeError(f'{op} kernel launch failed: cudaError {err} '
+                           f'for q {tuple(q.shape)} {q.dtype}')
+    return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float) -> torch.Tensor:
-    """(B, H, Sq, D) x (B, H, Sk, D) -> (B, H, Sq, D) in q's dtype, with fp32
-    softmax statistics and accumulation.  Non-causal, no mask."""
+    """B1: (B, H, Sq, D) x (B, H, Sk, D) -> (B, H, Sq, D) in q's dtype, with
+    fp32 softmax statistics and accumulation.  Non-causal, no mask."""
     global launches
     if q.device.type == 'cpu' and k.device.type == 'cpu' and v.device.type == 'cpu':
         return flash_attention_reference(q, k, v, scale)
-    _check_cuda_inputs(q, k, v)
-    if _lib is None:
-        build()
-    out = torch.empty_like(q)
-    b, h, sq, d = q.shape
-    err = _lib.dft_flash_attention_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, sq, k.shape[2], d,
-        _DTYPE_CODES[q.dtype], float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'flash_attention kernel launch failed: cudaError {err} '
-                           f'for q {tuple(q.shape)} {q.dtype}')
+    out = _flash_launch('flash_attention', q, k, v, None, scale, SUPPORTED_HEAD_DIMS)
     launches += 1
+    return out
+
+
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                             scale: float):
+    """B2: B1's output and each row's logsumexp, (B, H, Sq) in fp32."""
+    global lse_launches
+    if q.device.type == 'cpu' and k.device.type == 'cpu' and v.device.type == 'cpu':
+        return flash_attention_with_lse_reference(q, k, v, scale)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    out = _flash_launch('flash_attention_with_lse', q, k, v, lse, scale, HEADMEAN_HEAD_DIMS)
+    lse_launches += 1
+    return out, lse
+
+
+def headmean_probs(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor, *,
+                   scale: float) -> torch.Tensor:
+    """B3: head-mean normalised probabilities (B, Sq, Sk) in q's dtype from
+    (B,H,Sq,D) q, (B,H,Sk,D) k and B2's (B,H,Sq) fp32 logsumexp; fp32
+    accumulation, and no per-head (B,H,Sq,Sk) tensor."""
+    global headmean_launches
+    if q.device.type == 'cpu' and k.device.type == 'cpu' and lse.device.type == 'cpu':
+        return headmean_probs_reference(q, k, lse, scale)
+    _check_cuda_inputs('headmean_probs', (('q', q), ('k', k)), HEADMEAN_HEAD_DIMS)
+    b, h, sq, d = q.shape
+    if (lse.device != q.device or lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, sq)
+            or not lse.is_contiguous()):
+        raise ValueError(f'headmean_probs: lse must be a contiguous float32 {(b, h, sq)} '
+                         f'tensor on {q.device}, got {lse.dtype} {tuple(lse.shape)} '
+                         f'on {lse.device}')
+    sk = k.shape[2]
+    if b * sq * sk >= 2 ** 31 or b > 65535:
+        raise ValueError(f'headmean_probs: a ({b}, {sq}, {sk}) map exceeds the launch limits')
+    out = torch.empty((b, sq, sk), dtype=q.dtype, device=q.device)
+    err = _lib('headmean').dft_headmean_probs(
+        q.data_ptr(), k.data_ptr(), lse.data_ptr(), out.data_ptr(), b, h, sq, sk, d,
+        _DTYPE_CODES[q.dtype], float(scale), _stream(q))
+    if err != 0:
+        raise RuntimeError(f'headmean_probs kernel launch failed: cudaError {err} '
+                           f'for q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}')
+    headmean_launches += 1
     return out

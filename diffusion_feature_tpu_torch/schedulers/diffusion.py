@@ -1,19 +1,20 @@
-"""Euler discrete scheduler (port of the Euler part of
-``diffusion_feature_tpu/schedulers/diffusion.py``).
+"""Euler discrete and PNDM schedulers (port of the Euler part and the PNDM
+timestep table of ``diffusion_feature_tpu/schedulers/diffusion.py``).
 
 The schedule tables are built in numpy exactly as the JAX package builds
 them, which reproduces diffusers' arrays: with linspace spacing Euler maps
 t=50 to timestep 49 (``timesteps[1000 - t] == t - 1``); SDXL's leading
-spacing with steps_offset 1 maps it to 50.  Only the scaled-linear beta
-schedule (SD, SDXL) is ported.  The other schedulers (PNDM, DDIM, DDPM,
-DPM-Solver) are not ported yet (ROADMAP.md, Queue A: 'Other U-Net versions
-and multi-step paths').
+spacing with steps_offset 1 maps it to 50; PNDM's table carries diffusers'
+duplicated entry.  Only the scaled-linear beta schedule (SD, SDXL) is
+ported, and only what single-step img2img extraction needs: PNDM's PLMS
+``step`` and the other schedulers (DDIM, DDPM, DPM-Solver) are not ported
+yet (ROADMAP.md, Queue A: 'Other U-Net versions and multi-step paths').
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,20 +32,35 @@ class SchedulerConfig:
 @dataclasses.dataclass
 class SchedulerState:
     """Per-``set_timesteps`` tables (host numpy)."""
-    timesteps: np.ndarray            # descending
-    sigmas: np.ndarray               # one per timestep, then 0
+    timesteps: np.ndarray                  # descending
+    sigmas: Optional[np.ndarray] = None    # Euler: one per timestep, then 0
 
 
-class EulerDiscreteScheduler:
-    """Euler discrete (SDXL default).  sigma_t = sqrt((1 - abar) / abar);
-    img2img adds noise as x0 + sigma * eps and the model input is scaled by
-    1 / sqrt(sigma^2 + 1)."""
+class _Scheduler:
+    """The scaled-linear schedule's cumulative alphas and the pipelines'
+    img2img timestep selection, shared by the schedulers."""
 
     def __init__(self, config: SchedulerConfig = SchedulerConfig()):
         self.config = config
         betas = np.linspace(config.beta_start ** 0.5, config.beta_end ** 0.5,
                             config.num_train_timesteps, dtype=np.float64) ** 2
         self.alphas_cumprod = np.cumprod(1.0 - betas)
+
+    def get_timesteps(self, state: SchedulerState, num_inference_steps: int,
+                      strength: float) -> Tuple[np.ndarray, int]:
+        """img2img timestep selection (the pipelines' ``get_timesteps``)."""
+        init_timestep = min(int(num_inference_steps * strength), num_inference_steps)
+        t_start = max(num_inference_steps - init_timestep, 0)
+        return state.timesteps[t_start:], num_inference_steps - t_start
+
+
+class EulerDiscreteScheduler(_Scheduler):
+    """Euler discrete (SDXL default).  sigma_t = sqrt((1 - abar) / abar);
+    img2img adds noise as x0 + sigma * eps and the model input is scaled by
+    1 / sqrt(sigma^2 + 1)."""
+
+    def __init__(self, config: SchedulerConfig = SchedulerConfig()):
+        super().__init__(config)
         self._train_sigmas = np.sqrt((1 - self.alphas_cumprod) / self.alphas_cumprod)
 
     def set_timesteps(self, num_inference_steps: int) -> SchedulerState:
@@ -62,13 +78,6 @@ class EulerDiscreteScheduler:
         sigmas = np.interp(timesteps, np.arange(n), self._train_sigmas)
         return SchedulerState(timesteps, np.concatenate([sigmas, [0.0]]).astype(np.float32))
 
-    def get_timesteps(self, state: SchedulerState, num_inference_steps: int,
-                      strength: float) -> Tuple[np.ndarray, int]:
-        """img2img timestep selection (the pipelines' ``get_timesteps``)."""
-        init_timestep = min(int(num_inference_steps * strength), num_inference_steps)
-        t_start = max(num_inference_steps - init_timestep, 0)
-        return state.timesteps[t_start:], num_inference_steps - t_start
-
     def sigma_index(self, state: SchedulerState, timestep) -> int:
         return int(np.nonzero(np.isclose(state.timesteps, float(timestep)))[0][0])
 
@@ -81,6 +90,24 @@ class EulerDiscreteScheduler:
                           timestep) -> torch.Tensor:
         sigma = float(state.sigmas[self.sigma_index(state, timestep)])
         return sample / scalar_like(np.sqrt(sigma ** 2 + 1), sample)
+
+
+class PNDMScheduler(_Scheduler):
+    """PNDM with skip_prk_steps (the SD-1.5 config): the timestep table with
+    diffusers' duplicated second entry, which shifts the img2img timestep
+    by one against Euler.  img2img noises as sqrt(abar) x0 + sqrt(1-abar) eps
+    and leaves the model input unscaled."""
+
+    def set_timesteps(self, num_inference_steps: int) -> SchedulerState:
+        step_ratio = self.config.num_train_timesteps // num_inference_steps
+        base = (np.arange(0, num_inference_steps) * step_ratio).round() + self.config.steps_offset
+        plms = np.concatenate([base[:-1], base[-2:-1], base[-1:]])[::-1]
+        return SchedulerState(plms.astype(np.int64))
+
+
+def make_scheduler(kind: str, config: SchedulerConfig):
+    """'euler' or 'pndm' (``models.registry.ModelSpec.scheduler``)."""
+    return {'euler': EulerDiscreteScheduler, 'pndm': PNDMScheduler}[kind](config)
 
 
 def scalar_like(value: float, like: torch.Tensor) -> torch.Tensor:

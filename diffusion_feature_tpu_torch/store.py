@@ -1,15 +1,18 @@
 """Feature post-processing (port of ``diffusion_feature_tpu/store.py``): the
 reference's ``FeatureStore.store`` filter pipeline
-(feature/components/feature_extractor.py:31-77) as a function on tensors."""
+(feature/components/feature_extractor.py:31-77) as a function on tensors,
+and the attention store's aggregation (the JAX facade's
+``_aggregate_attention``)."""
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
+from .ops.resize import interpolate_bilinear_nchw
 from .taps import is_filtered_id
 
 
@@ -47,3 +50,31 @@ def postprocess_taps(taps: Dict[str, torch.Tensor], *, resize_ratio: int = 1,
     """The store pipeline on every captured tap; cross-k/cross-v dropped."""
     return {tap_id: postprocess_feature(feat, resize_ratio=resize_ratio, out_dtype=out_dtype)
             for tap_id, feat in taps.items() if not is_filtered_id(tap_id)}
+
+
+def aggregate_attention(store: Dict[str, List[torch.Tensor]], categories: Sequence[str],
+                        img_size: int, out_dtype: Optional[torch.dtype]
+                        ) -> Optional[torch.Tensor]:
+    """AttentionStore.aggregate_attention and the facade's resize/concat
+    (reference components/attention.py:143-161, diffusion_feature.py:492-500).
+
+    ``store`` maps '{place}_{kind}' to its (B, Sq, Sk) head-mean maps.  Per
+    requested category, in order, the maps are grouped by side length and
+    each group, in ascending size, is averaged, laid out as (B, Sk, h, w)
+    and resized bilinearly to img_size/8; the groups are concatenated on
+    channels.  None when nothing was stored."""
+    all_attns = []
+    for cat in categories:
+        by_size: Dict[int, list] = {}
+        for m in store.get(cat, ()):
+            size = int(math.sqrt(m.shape[1]))
+            by_size.setdefault(size, []).append(
+                m.reshape(m.shape[0], size, size, m.shape[2]).permute(0, 3, 1, 2))
+        for size in sorted(by_size):
+            group = by_size[size]
+            target = img_size // 8
+            all_attns.append(interpolate_bilinear_nchw(sum(group) / len(group), (target, target)))
+    if not all_attns:
+        return None
+    out = torch.cat(all_attns, dim=1)
+    return out.to(out_dtype) if out_dtype else out

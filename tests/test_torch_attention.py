@@ -1,8 +1,8 @@
 """The port's attention ops against the JAX package's.
 
-On the CPU the flash wrapper routes to its plain twin; the JAX flash
-kernel runs in Pallas interpret mode, as tests/test_flash.py runs it.  The
-Hopper kernel itself is tested on the card by tests/test_torch_cuda.py.
+On the CPU the kernel wrappers route to their plain twins; the JAX kernels
+run in Pallas interpret mode, as tests/test_flash.py runs them.  The Hopper
+kernels themselves are tested on the card by tests/test_torch_cuda.py.
 """
 
 import numpy as np
@@ -11,6 +11,7 @@ import torch
 
 import jax.numpy as jnp
 
+from diffusion_feature_tpu.models.registry import get_model_spec as jax_model_spec
 from diffusion_feature_tpu.ops import attention as jax_attn
 from diffusion_feature_tpu.ops import flash_attention as jax_fa
 from diffusion_feature_tpu_torch.ops import attention as attn
@@ -49,11 +50,95 @@ def test_flash_twin_matches_jax_kernel(shape):
     ((2, 1, 4096, 512), (2, 1, 4096, 512), False),    # VAE mid @512^2
     ((2, 2, 1024, 16), (2, 2, 1024, 16), False),      # head dim the kernel lacks
     ((2, 5, 1000, 64), (2, 5, 1000, 64), False),      # not 256-aligned
+    ((2, 8, 4096, 40), (2, 8, 4096, 40), True),       # SD-1.5 level 0 @512^2
+    ((2, 8, 1024, 80), (2, 8, 1024, 80), True),       # SD-1.5 level 1 @512^2
+    ((2, 16, 4096, 88), (2, 16, 4096, 88), False),    # HunyuanDiT: d=88 not built yet
 ])
 def test_gate(q_shape, k_shape, expect):
     assert fa.is_flash_compatible(q_shape, k_shape) is expect
     # the port's gate is the JAX gate plus the head-dim condition
     assert jax_fa.is_flash_compatible(q_shape, k_shape) or not expect
+    # without the head-dim condition (the CPU twins) it is the JAX gate
+    assert fa.is_flash_compatible(q_shape, k_shape, head_dims=None) is \
+        jax_fa.is_flash_compatible(q_shape, k_shape)
+
+
+def _shipped_attention_shapes():
+    """Every attention shape of the shipped U-Nets and their VAE at 512^2
+    and 1024^2, batch 2: self- and cross-attention per level, VAE mid."""
+    for version in ('1-5', '2-1', 'xl', 'pgv2'):
+        cfg = jax_model_spec(version).unet
+        for img in (512, 1024):
+            lat = img // 8
+            for level, ch in enumerate(cfg.block_out_channels):
+                h, s = cfg.num_attention_heads[level], (lat >> level) ** 2
+                d = ch // h
+                yield (2, h, s, d), (2, h, s, d)
+                yield (2, h, s, d), (2, h, 77, d)
+            yield (2, 1, lat * lat, 512), (2, 1, lat * lat, 512)
+
+
+@pytest.mark.parametrize('min_seq', [1024, 512], ids=['flash', 'headmean'])
+def test_gate_equals_jax_on_shipped_unets(min_seq):
+    """With the widened head dims the port's gate, head-dim condition
+    included, is the JAX gate on every shipped U-Net and VAE shape."""
+    dims = fa.SUPPORTED_HEAD_DIMS if min_seq == 1024 else fa.HEADMEAN_HEAD_DIMS
+    shapes = list(_shipped_attention_shapes())
+    for q_shape, k_shape in shapes:
+        want = jax_fa.is_flash_compatible(q_shape, k_shape, min_seq=min_seq)
+        if min_seq == 512 and q_shape[-1] == 512:
+            want = False    # the VAE head never feeds the attention store
+        assert fa.is_flash_compatible(q_shape, k_shape, min_seq, dims) is want, q_shape
+    assert sum(jax_fa.is_flash_compatible(q, k, min_seq=min_seq) for q, k in shapes) > 10
+
+
+_LSE_SHAPE = (1, 2, 512, 512, 64)     # the smallest shape the head-mean gate passes
+
+
+def test_flash_lse_twin_matches_jax_kernel():
+    b, h, sq, sk, d = _LSE_SHAPE
+    q, k, v = _rand(10, b, h, sq, d), _rand(11, b, h, sk, d), _rand(12, b, h, sk, d)
+    fa.lse_launches = 0
+    out, lse = fa.flash_attention_with_lse(torch.from_numpy(q), torch.from_numpy(k),
+                                           torch.from_numpy(v), scale=d ** -0.5)
+    r_out, r_lse = jax_fa.flash_attention_with_lse(jnp.asarray(q), jnp.asarray(k),
+                                                   jnp.asarray(v), scale=d ** -0.5)
+    _close(out, r_out, atol=1e-4, rtol=1e-4)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, sq)
+    _close(lse, r_lse, atol=1e-5, rtol=1e-5)
+    assert fa.lse_launches == 0
+
+
+def test_headmean_twin_matches_jax_kernel():
+    b, h, sq, sk, d = _LSE_SHAPE
+    q, k = _rand(13, b, h, sq, d), _rand(14, b, h, sk, d)
+    # both sides take the same logsumexp: the JAX kernel's
+    _, lse = jax_fa.flash_attention_with_lse(jnp.asarray(q), jnp.asarray(k), jnp.asarray(k),
+                                             scale=d ** -0.5)
+    fa.headmean_launches = 0
+    ours = fa.headmean_probs(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(np.array(lse)), scale=d ** -0.5)
+    ref = jax_fa.headmean_probs(jnp.asarray(q), jnp.asarray(k), lse, scale=d ** -0.5,
+                                out_dtype=jnp.float32)
+    assert ours.shape == (b, sq, sk) and ours.dtype == torch.float32
+    _close(ours, ref, atol=1e-6, rtol=1e-4)
+    assert fa.headmean_launches == 0
+
+
+@pytest.mark.parametrize('sq', [512, 256], ids=['kernels', 'explicit'])
+def test_attention_with_headmean_matches_jax(sq):
+    """The head-mean op on both branches: at 512 tokens JAX runs B2 + B3 in
+    interpret mode and the port their twins; at 256 both are explicit."""
+    h, d = 2, 64
+    q, k, v = _rand(15, 1, h, sq, d), _rand(16, 1, h, sq, d), _rand(17, 1, h, sq, d)
+    fa.launches = fa.lse_launches = fa.headmean_launches = 0
+    out, mean_p = attn.attention_with_headmean_heads(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    r_out, r_mean = jax_attn.attention_with_headmean_heads(jnp.asarray(q), jnp.asarray(k),
+                                                           jnp.asarray(v))
+    _close(out, r_out, atol=1e-4, rtol=1e-4)
+    _close(mean_p, r_mean, atol=1e-6, rtol=1e-4)
+    assert (fa.launches, fa.lse_launches, fa.headmean_launches) == (0, 0, 0)
 
 
 @pytest.mark.parametrize('sk', [1024, 7], ids=['gate-pass', 'cross-7-keys'])

@@ -1,7 +1,8 @@
-"""The Hopper flash-attention kernel against its plain twin, on the card.
+"""The Hopper attention kernels (flash B1, flash with logsumexp B2, head-mean
+B3) against their plain twins, on the card.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU (the
-kernel has no CPU mode).  The file imports torch and the port only, so it
+kernels have no CPU mode).  The file imports torch and the port only, so it
 also runs where the JAX package's dependencies are missing:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -30,7 +31,9 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', list(_TOL), ids=str)
 @pytest.mark.parametrize('shape', [(1, 2, 1000, 333, 64), (2, 3, 130, 77, 128),
-                                   (1, 1, 300, 700, 512)], ids=['d64', 'd128', 'd512'])
+                                   (1, 1, 300, 700, 512), (1, 2, 1000, 333, 40),
+                                   (2, 2, 200, 600, 80), (1, 3, 130, 77, 160)],
+                         ids=['d64', 'd128', 'd512', 'd40', 'd80', 'd160'])
 def test_kernel_matches_twin(cuda, dtype, shape):
     b, h, sq, sk, d = shape
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -42,6 +45,54 @@ def test_kernel_matches_twin(cuda, dtype, shape):
     assert fa.launches == 1 and out.dtype == dtype
     ref = fa.flash_attention_reference(q, k, v, d ** -0.5)
     torch.testing.assert_close(out.float(), ref.float(), atol=_TOL[dtype], rtol=_TOL[dtype])
+
+
+def _qkv(cuda, dtype, b, h, sq, sk, d, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return tuple(torch.randn(b, h, s, d, generator=g, device=cuda).to(dtype)
+                 for s in (sq, sk, sk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', list(_TOL), ids=str)
+@pytest.mark.parametrize('shape', [(1, 2, 1000, 333, 64), (2, 2, 300, 77, 40),
+                                   (1, 3, 130, 700, 160)], ids=['d64', 'd40', 'd160'])
+def test_lse_and_headmean_kernels_match_twins(cuda, dtype, shape):
+    """B2's output and logsumexp, then B3 on B2's logsumexp, at ragged
+    lengths (odd Sk: scalar stores)."""
+    b, h, sq, sk, d = shape
+    q, k, v = _qkv(cuda, dtype, *shape)
+    fa.lse_launches = fa.headmean_launches = 0
+    out, lse = fa.flash_attention_with_lse(q, k, v, scale=d ** -0.5)
+    mean_p = fa.headmean_probs(q, k, lse, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert (fa.lse_launches, fa.headmean_launches) == (1, 1)
+    assert lse.dtype == torch.float32 and mean_p.dtype == dtype and mean_p.shape == (b, sq, sk)
+    r_out, r_lse = fa.flash_attention_with_lse_reference(q, k, v, d ** -0.5)
+    torch.testing.assert_close(out.float(), r_out.float(), atol=_TOL[dtype], rtol=_TOL[dtype])
+    # both sides take fp32 scores from the same inputs
+    torch.testing.assert_close(lse, r_lse, atol=1e-3, rtol=0)
+    r_mean = fa.headmean_probs_reference(q, k, lse, d ** -0.5)
+    # the map's entries average 1/Sk: its absolute tolerance scales with them
+    torch.testing.assert_close(mean_p.float(), r_mean.float(), atol=_TOL[dtype] / sk,
+                               rtol=_TOL[dtype])
+    torch.testing.assert_close(mean_p.float().sum(-1), torch.ones(b, sq, device=cuda),
+                               atol=2e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('sq,launches', [(1024, 1), (256, 0)], ids=['kernels', 'explicit'])
+def test_headmean_routes_on_card(cuda, sq, launches):
+    """The store path launches B2 and B3 once each where the gate passes
+    (SD-1.5's 1024-token d=80 level), and neither below 512 tokens."""
+    q, k, v = _qkv(cuda, torch.bfloat16, 2, 8, sq, sq, 80, seed=2)
+    fa.launches = fa.lse_launches = fa.headmean_launches = 0
+    out, mean_p = attn.attention_with_headmean_heads(q, k, v)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.lse_launches, fa.headmean_launches) == (0, launches, launches)
+    r_out, probs = attn.attention_with_probs_heads(q, k, v)
+    torch.testing.assert_close(out.float(), r_out.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(mean_p.float(), probs.float().mean(1), atol=2e-2 / sq, rtol=2e-2)
 
 
 @pytest.mark.cuda
@@ -69,3 +120,12 @@ def test_kernel_raises_on_unsupported_input(cuda):
         fa.flash_attention(q[:, :, ::2], q[:, :, ::2], q[:, :, ::2], scale=1.0)
     with pytest.raises(ValueError, match='dtype'):
         fa.flash_attention(q.double(), q.double(), q.double(), scale=1.0)
+    q = torch.randn(1, 1, 64, 512, device=cuda)
+    with pytest.raises(ValueError, match='head dim'):
+        fa.flash_attention_with_lse(q, q, q, scale=1.0)
+    with pytest.raises(ValueError, match='head dim'):
+        fa.headmean_probs(q, q, torch.zeros(1, 1, 64, device=cuda), scale=1.0)
+    q = torch.randn(1, 2, 64, 64, device=cuda)
+    with pytest.raises(ValueError, match='lse'):
+        fa.headmean_probs(q, q, torch.zeros(1, 2, 64, device=cuda, dtype=torch.float16),
+                          scale=1.0)

@@ -1,6 +1,7 @@
 """The PyTorch port's framework-free pieces against the JAX package's:
 package isolation from JAX, copied configs and tokenizers, taps and store,
-resizes, image preprocessing, timestep embedding and the Euler scheduler."""
+the attention store's aggregation and routing, resizes, image
+preprocessing, timestep embedding and the Euler and PNDM schedulers."""
 
 import subprocess
 import sys
@@ -14,9 +15,11 @@ import jax.numpy as jnp
 
 from diffusion_feature_tpu import configs as jax_configs
 from diffusion_feature_tpu import store as jax_store
+from diffusion_feature_tpu.facade import _aggregate_attention as jax_aggregate_attention
 from diffusion_feature_tpu import taps as jax_taps
 from diffusion_feature_tpu.io import images as jax_images
 from diffusion_feature_tpu.models import layers as jax_layers
+from diffusion_feature_tpu.models.registry import SD_SCHED as JAX_SD_SCHED
 from diffusion_feature_tpu.models.registry import XL_SCHED as JAX_XL_SCHED
 from diffusion_feature_tpu.ops import resize as jax_resize
 from diffusion_feature_tpu.schedulers import diffusion as jax_sched
@@ -24,7 +27,8 @@ from diffusion_feature_tpu.tokenizers import clip_bpe as jax_bpe
 from diffusion_feature_tpu_torch import configs, store, taps
 from diffusion_feature_tpu_torch.io import images
 from diffusion_feature_tpu_torch.models import layers
-from diffusion_feature_tpu_torch.models.registry import XL_SCHED
+from diffusion_feature_tpu_torch.models.registry import SD_SCHED, XL_SCHED
+from diffusion_feature_tpu_torch.ops import attention as attn_ops
 from diffusion_feature_tpu_torch.ops import resize
 from diffusion_feature_tpu_torch.schedulers import diffusion as sched
 from diffusion_feature_tpu_torch.tokenizers import clip_bpe
@@ -149,3 +153,65 @@ def test_euler_scheduler_matches(config):
     np.testing.assert_allclose(
         ours.scale_model_input(s_ours, torch.from_numpy(x), t).numpy(),
         np.asarray(ref.scale_model_input(s_ref, jnp.asarray(x), t)), atol=1e-6, rtol=1e-6)
+
+
+def test_pndm_scheduler_matches():
+    ours, ref = sched.PNDMScheduler(SD_SCHED), jax_sched.PNDMScheduler(JAX_SD_SCHED)
+    np.testing.assert_array_equal(ours.alphas_cumprod, ref.alphas_cumprod)
+    s_ours, s_ref = ours.set_timesteps(1000), ref.set_timesteps(1000)
+    np.testing.assert_array_equal(s_ours.timesteps, s_ref.timesteps)
+    assert s_ours.timesteps.dtype == s_ref.timesteps.dtype
+    for strength in (0.05, 0.5, 1.0):
+        ts_ours, n_ours = ours.get_timesteps(s_ours, 1000, strength)
+        ts_ref, n_ref = ref.get_timesteps(s_ref, 1000, strength)
+        np.testing.assert_array_equal(ts_ours, ts_ref)
+        assert n_ours == n_ref
+
+
+def test_aggregate_attention_matches():
+    """Category order, then ascending size; averaged per size and resized
+    to img/8, against the JAX facade's ``_aggregate_attention``."""
+    rng = np.random.RandomState(4)
+    maps = {'up_cross': [rng.rand(2, 64, 7) for _ in range(2)] + [rng.rand(2, 16, 7)],
+            'up_self': [rng.rand(2, 256, 256), rng.rand(2, 256, 256)]}
+    maps = {k: [m.astype(np.float32) for m in v] for k, v in maps.items()}
+    cats = ['up_self', 'mid_self', 'up_cross']
+    ours = store.aggregate_attention({k: [torch.from_numpy(m) for m in v] for k, v in maps.items()},
+                                     cats, 64, None)
+    ref = jax_aggregate_attention({k: tuple(jnp.asarray(m) for m in v) for k, v in maps.items()},
+                                  cats, 64, None)
+    assert ours.shape == (2, 256 + 7 + 7, 8, 8)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+    assert store.aggregate_attention({}, cats, 64, None) is None
+
+
+@pytest.mark.parametrize('case', ['store', 'map-and-store', 'masked', 'not-requested',
+                                  'out-of-band'])
+def test_attention_store_routing(case):
+    """The store keeps a head-mean map only for a requested category whose
+    query count is in the band; every branch computes the same output."""
+    torch.manual_seed(0)
+    taps_cfg = ['blk-self-map'] if case == 'map-and-store' else []
+    cats = frozenset() if case == 'not-requested' else frozenset({'up_self'})
+    band = (2, 3) if case == 'out-of-band' else (4, 4)
+    module = layers.Attention(32, 2, 16, taps=taps.TapSpec.from_config(taps_cfg or ['x']),
+                              tap_name='blk-self',
+                              attn_store=layers.AttnStoreCfg('up', *band, cats)).eval()
+    x = torch.randn(2, 16, 32)
+    mask = torch.zeros(1, 1, 16, 16)
+    mask[..., 3:] = -1e4
+    mask = mask if case == 'masked' else None
+    feats = {}
+    with torch.no_grad():
+        out = module(x, feats=feats, mask=mask)
+        q, k, v = module.to_q(x), module.to_k(x), module.to_v(x)
+        ref_out, probs = attn_ops.attention_with_probs(q, k, v, 2, mask=mask)
+        ref_out = module.to_out[0](ref_out)
+    torch.testing.assert_close(out, ref_out, atol=1e-5, rtol=1e-5)
+    kept = feats.pop(layers.ATTN_STORE, {})
+    if case in ('not-requested', 'out-of-band'):
+        assert kept == {}
+    else:
+        assert list(kept) == ['up_self'] and len(kept['up_self']) == 1
+        torch.testing.assert_close(kept['up_self'][0], probs.mean(dim=1), atol=1e-6, rtol=1e-5)
+    assert list(feats) == (['blk-self-map'] if case == 'map-and-store' else [])

@@ -4,22 +4,20 @@ at the tiny ``test-xl`` size on the CPU.
 The port is loaded with the JAX facade's random parameters through
 ``params_from_jax``, and its step is fed the noise the JAX facade draws from
 its key chain (torch cannot replay JAX's generator).  img_size 32 keeps the
-JAX side off the Pallas kernel: at 64, test-xl's two-level VAE leaves a
-32x32 latent whose 1024-token self-attention passes the JAX flash gate.
+JAX side off the Pallas kernels.  The attention-store slice runs at 64,
+where test-xl's two-level VAE leaves a 32x32 latent: its 1024-token
+self-attentions pass the JAX gates, so JAX runs the flash and head-mean
+kernels in interpret mode and the port runs their twins.
 """
 
 import numpy as np
 import pytest
 import torch
 
-import jax
-from flax import traverse_util
-
 from diffusion_feature_tpu import FeatureExtractor as JaxFeatureExtractor
-from diffusion_feature_tpu.models.convert import convert_torch_state
 from diffusion_feature_tpu_torch import FeatureExtractor
-from diffusion_feature_tpu_torch.models.convert import params_from_jax
 from diffusion_feature_tpu_torch.ops import flash_attention as fa
+from port_parity import assert_params_round_trip, jax_facade, jax_noise, load_jax_params
 
 SIZE, BATCH, SEED = 32, 2, 0
 LAYERS = {
@@ -38,16 +36,10 @@ PROMPT = 'a photo of a cat'
 
 @pytest.fixture(scope='module')
 def pair():
-    """(JAX facade, port facade with the JAX parameters).  The JAX facade
-    keeps fp32 features (train_unet=True only drops its bf16 feature cast)
-    so taps compare at fp32."""
-    jfe = JaxFeatureExtractor(LAYERS, 'test-xl', img_size=SIZE, dtype='float32',
-                              seed=SEED, train_unet=True)
+    """(JAX facade with fp32 features, port facade with its parameters)."""
+    jfe = jax_facade(LAYERS, 'test-xl', SIZE, SEED)
     port = FeatureExtractor(LAYERS, 'test-xl', device='cpu', img_size=SIZE, dtype='float32')
-    port.unet.load_state_dict(params_from_jax(jfe.params['unet'], port.unet))
-    port.vae.load_state_dict(params_from_jax(jfe.params['vae'], port.vae))
-    for te, p in zip(port.text_encoders, jfe.params['text']):
-        te.load_state_dict(params_from_jax(p, te))
+    load_jax_params(jfe, port)
     return jfe, port
 
 
@@ -67,24 +59,58 @@ def test_extract_step_matches_jax(pair, image):
     at the tolerance of TestFullExtractStep (tests/test_golden_parity.py)."""
     jfe, port = pair
     prompts = jfe.encode_prompt(PROMPT)
-    # the facade's key chain: split(PRNGKey(seed)) -> split(step_rng) -> draws
-    _, step_rng = jax.random.split(jax.random.PRNGKey(SEED))
-    rng_vae, rng_noise = jax.random.split(step_rng)
-    lat = (BATCH, 4, SIZE // port.vae_scale, SIZE // port.vae_scale)
-    posterior = np.array(jax.random.normal(rng_vae, lat, np.float32))
-    noise = np.array(jax.random.normal(rng_noise, lat, np.float32))
+    posterior, noise = jax_noise(SEED, (BATCH, 4, SIZE // port.vae_scale, SIZE // port.vae_scale))
     ref = jfe.extract(prompts, BATCH, image, image_type='tensor', t=50)
 
     pe = torch.from_numpy(np.array(prompts[0])).expand(BATCH, -1, -1)
     pooled = torch.from_numpy(np.array(prompts[2])).expand(BATCH, -1)
     fa.launches = 0
     ours = port._step(torch.from_numpy(image), pe, pooled, port._img2img_kit(50),
-                      torch.from_numpy(posterior), torch.from_numpy(noise), None)
+                      posterior, noise, None)
     assert fa.launches == 0
     kit, ref_kit = port._img2img_kit(50), jfe._img2img_kit(50)
     assert kit == {k: ref_kit[k] for k in kit}
     assert sorted(ours) == sorted(ref) == sorted(
         k for k in LAYERS if 'cross-k' not in k)
+    for key, val in ref.items():
+        np.testing.assert_allclose(ours[key].numpy(), np.asarray(val), atol=5e-4, rtol=1e-4,
+                                   err_msg=key)
+
+
+STORE_SIZE, STORE_BAND, STORE_CATS = 64, (32, 32), ['up_cross', 'up_self']
+
+
+def test_attention_store_step_matches_jax(pair):
+    """The attention store at img_size 64 (band 32..32 tokens a side): taps
+    and 'attn' against JAX.  up-level1-repeat0's self-attention takes the
+    head-mean kernels' path (JAX: B2 + B3 in interpret mode; the port: their
+    twins), repeat1's the requested map plus its head mean, the cross
+    attentions the explicit head mean."""
+    jfe, port = pair
+    jstore = JaxFeatureExtractor(LAYERS, 'test-xl', img_size=STORE_SIZE, dtype='float32',
+                                 seed=SEED, train_unet=True, external_model=jfe,
+                                 attention=STORE_CATS, attn_store_sizes=STORE_BAND,
+                                 validate_layers=False)
+    ours_fe = FeatureExtractor(LAYERS, 'test-xl', device='cpu', img_size=STORE_SIZE,
+                               dtype='float32', attention=STORE_CATS,
+                               attn_store_sizes=STORE_BAND)
+    ours_fe.unet.load_state_dict(port.unet.state_dict())
+    ours_fe.vae.load_state_dict(port.vae.state_dict())
+    image = np.random.RandomState(2).rand(BATCH, 3, STORE_SIZE, STORE_SIZE).astype(np.float32)
+    prompts = jfe.encode_prompt(PROMPT)
+    ref = jstore.extract(prompts, BATCH, image * 2 - 1, image_type='tensor', t=50)
+
+    lat = STORE_SIZE // ours_fe.vae_scale
+    posterior, noise = jax_noise(SEED, (BATCH, 4, lat, lat))
+    pe = torch.from_numpy(np.array(prompts[0])).expand(BATCH, -1, -1)
+    pooled = torch.from_numpy(np.array(prompts[2])).expand(BATCH, -1)
+    fa.launches = fa.lse_launches = fa.headmean_launches = 0
+    ours = ours_fe._step(torch.from_numpy(image * 2 - 1), pe, pooled, ours_fe._img2img_kit(50),
+                         posterior, noise, None)
+    assert (fa.launches, fa.lse_launches, fa.headmean_launches) == (0, 0, 0)
+    assert sorted(ours) == sorted(ref)
+    # two 1024-token levels' cross maps (77 keys) then self maps (1024 keys)
+    assert ours['attn'].shape == (BATCH, 77 + 1024, STORE_SIZE // 8, STORE_SIZE // 8)
     for key, val in ref.items():
         np.testing.assert_allclose(ours[key].numpy(), np.asarray(val), atol=5e-4, rtol=1e-4,
                                    err_msg=key)
@@ -115,14 +141,7 @@ def test_params_round_trip(pair, component):
         module = port.vae
     else:
         tree, module = jfe.params['unet'], port.unet
-    state = {k: v.numpy() for k, v in params_from_jax(tree, module).items()}
-    back, missing, unused = convert_torch_state(state, tree)
-    assert not missing and not unused
-    want = traverse_util.flatten_dict(tree)
-    got = traverse_util.flatten_dict(back)
-    assert got.keys() == want.keys()
-    for path, val in want.items():
-        np.testing.assert_array_equal(np.asarray(got[path]), np.asarray(val), err_msg=str(path))
+    assert_params_round_trip(tree, module)
 
 
 def test_offload_prompt_encoder(pair):
@@ -140,7 +159,8 @@ def test_layer_validation_suggests_near_miss():
 
 @pytest.mark.parametrize('kwargs', [
     {'offline_lora': 'lora.safetensors'}, {'weights': 'ckpt'}, {'control': ['canny']},
-    {'attention': ['up_cross']}, {'version': '1-5'}, {'layer': {'vae-out': True}},
+    {'attention': ['up_cross'], 'version': 'pixart-sigma'}, {'version': '2-1'},
+    {'layer': {'vae-out': True}},
 ], ids=['lora', 'weights', 'control', 'attention', 'version', 'vae-out'])
 def test_unported_options_raise(kwargs):
     args = dict(layer={'mid-vit-out': True}, version='test-xl', device='cpu', img_size=SIZE)
