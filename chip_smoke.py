@@ -25,7 +25,22 @@ Phases (each prints its numbers on lines of its own):
      the same step on the twins within 2e-2 relative L2, and its timing;
   6. path B, the attention store on SDXL: FeatureExtractor('xl-practical',
      version='xl', attention=['up_self']) at 1024^2: exactly 35 B1, 36 B2
-     and 36 B3 launches, 'attn' (2, 5120, 128, 128), the twin step, timing.
+     and 36 B3 launches, 'attn' (2, 5120, 128, 128), the twin step, timing;
+  7. the port's CLI in-process (extract_feature.main) from a temporary
+     working directory: SDXL 'xl-practical' at 1024^2 over 3 seeded images
+     in batches of 2 and 1; the .npy tree (every layer, train0..train2,
+     the enumerated shapes, fp16, finite), exactly 142 B1 launches and no
+     B4, the native dump writer active, and img/s from the first batch to
+     the writer's close; then --show_all_layers for xl@1024 (612 ids) and
+     1-5@512 (197 ids), timed.
+Phase 2 also holds B4 (short attention), which no path routes to, as in
+the JAX package: against its twin, with its gradients through
+short_attention_diff, at the 256-token bands of SD-1.5 and SDXL at 512^2,
+the JAX docstring's measured (16, 20, 256, {256, 77}, 64) and a ragged
+shape, with its time beside B1's, SDPA's and the explicit path's there,
+all timed as CUDA graphs of 20 calls (a loop of calls at these sizes
+times the host).
+Every path runs with all four counts set to 0 and expects 0 B4 launches.
 The last line is {"ok": true, "device": {...}}; before it come the card line
 and a {"kernels": [...]} line.  Exits non-zero, without the last line,
 when there is no CUDA device or any phase fails.
@@ -36,9 +51,12 @@ paths.
 """
 
 import contextlib
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # (b, h, sq, sk, d): the shapes the paths launch each kernel at (batch 2)
@@ -56,6 +74,15 @@ STORE_SHAPES = [                # B2 and B3: the attention store's self-attentio
     (2, 10, 4096, 4096, 64),    # path B: SDXL up-level1
 ]
 RAGGED = (1, 2, 1000, 333, 64)
+SHORT_SHAPES = [                # B4: the short-sequence bands (no path launches it)
+    (2, 8, 256, 256, 160),      # SD-1.5 @512^2 level-2 self-attention
+    (2, 8, 256, 77, 160),       # and its cross-attention
+    (2, 20, 256, 256, 64),      # SDXL @512^2 level-2 self-attention
+    (2, 20, 256, 77, 64),       # and its cross-attention
+    (16, 20, 256, 256, 64),     # the JAX docstring's measured shapes
+    (16, 20, 256, 77, 64),
+]
+SHORT_RAGGED = (1, 2, 200, 333, 64)
 # bf16: the output is rounded to bf16 and fp32 sums run in another order;
 # fp32: summation order alone; fp16: 3 more mantissa bits than bf16
 TOL = {'bfloat16': 2e-2, 'float32': 1e-4, 'float16': 5e-3}
@@ -103,7 +130,14 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                                  'diffusion_feature_tpu/ops/flash_attention.py:121'),
     'headmean_probs': ('diffusion_feature_tpu_torch/csrc/headmean.cu',
                        'diffusion_feature_tpu/ops/flash_attention.py:461'),
+    'short_attention': ('diffusion_feature_tpu_torch/csrc/short_attention.cu',
+                        'diffusion_feature_tpu/ops/flash_attention.py:375'),
 }
+# phase 7: the CLI on the 'xl' path over 3 images, in batches of 2 and 1
+CLI_PATH, CLI_IMAGES = 'xl', 3
+CLI_LAUNCHES = {'flash_attention': 142, 'flash_attention_with_lse': 0, 'headmean_probs': 0,
+                'short_attention': 0}
+LAYER_COUNTS = {('xl', 1024): 612, ('1-5', 512): 197}   # config_{xl,15}_full.json
 
 
 def card_line() -> str:
@@ -130,6 +164,25 @@ def time_ms(torch, fn, min_total_ms=200.0) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def graph_ms(torch, fn, per_graph=20) -> float:
+    """Device time per call of ``fn`` with the host's launch cost out of
+    the way: ``per_graph`` calls captured in one CUDA graph, replayed and
+    timed as ``time_ms`` times a call.  At B4's sizes a loop of separate
+    calls measures the host (each call's Python and launch cost exceeds
+    the kernel), so B4 and what it is compared with are timed this way."""
+    # warm-up on the current stream: a new stream per call would leave a
+    # cuBLAS workspace allocated for each, which phases 3 to 6 would count
+    # in their peak memory
+    for _ in range(3):
+        fn()
+    graph = torch.cuda.CUDAGraph()
+    # relaxed: the kernel libraries set their shared-memory limit per launch
+    with torch.cuda.graph(graph, capture_error_mode='relaxed'):
+        for _ in range(per_graph):
+            fn()
+    return time_ms(torch, graph.replay) / per_graph
+
+
 def bound(kernel, shape, dtype_name):
     """(ms, 'bytes' or 'operations'): the least time the card needs for the
     function, from the flops its shape needs and the bytes it must move
@@ -139,7 +192,7 @@ def bound(kernel, shape, dtype_name):
     if kernel == 'headmean_probs':      # q, k, lse in; the (B, Sq, Sk) map out
         flops = 2 * b * h * sq * sk * d
         nbytes = (b * h * (sq + sk) * d + b * sq * sk) * item + b * h * sq * 4
-    else:                               # q, k, v in; o (and the lse) out
+    else:                               # q, k, v in; o (and the lse) out (B1, B2, B4)
         flops = 4 * b * h * sq * sk * d
         nbytes = 2 * b * h * (sq + sk) * d * item
         if kernel == 'flash_attention_with_lse':
@@ -155,21 +208,33 @@ def worst_ratio(torch, out, ref, atol, rtol):
     return diff.max().item(), (diff / (atol + rtol * ref.float().abs())).max().item()
 
 
-def library_ms(torch, kernel, q, k, v, scale):
+def library_ms(torch, kernel, q, k, v, scale, timer=time_ms):
     """The one PyTorch call that computes the kernel's function, timed as
     a yardstick (the port never calls it); None where there is none or it
     does not take these inputs."""
     F = torch.nn.functional
     try:
-        if kernel == 'flash_attention':
-            return time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+        if kernel in ('flash_attention', 'short_attention'):
+            return timer(torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
         if kernel == 'flash_attention_with_lse':
             op = torch.ops.aten._scaled_dot_product_flash_attention
-            return time_ms(torch, lambda: op(q, k, v, 0.0, False, False, scale=scale))
+            return timer(torch, lambda: op(q, k, v, 0.0, False, False, scale=scale))
     except RuntimeError as err:
         print(f'  library call for {kernel} on {q.dtype} {tuple(q.shape)} unavailable: '
               f'{str(err).splitlines()[0]}')
     return None
+
+
+def short_grad_ratio(torch, fa, q, k, v, scale, tol, gen):
+    """short_attention_diff's gradients (B4 forward, the twin's backward)
+    against the twin's autograd: the worst element against the tolerance.
+    A loss linear in the output gives both sides the same output gradient."""
+    weight = torch.randn(q.shape, generator=gen, device='cuda')
+    ours = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    twin = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    (fa.short_attention_diff(*ours, scale=scale).float() * weight).sum().backward()
+    (fa.short_attention_reference(*twin, scale).float() * weight).sum().backward()
+    return max(worst_ratio(torch, a.grad, b.grad, tol, tol)[1] for a, b in zip(ours, twin))
 
 
 def compare(torch, fa, kernel, shape, dtype_name, gen):
@@ -197,6 +262,14 @@ def compare(torch, fa, kernel, shape, dtype_name, gen):
         lse_err = (lse - ref_lse).abs().max().item()
         ratio = max(ratio, lse_err / LSE_TOL)
         notes = f' lse_max_abs_err={lse_err:.3e} (allowed {LSE_TOL:g})'
+    elif kernel == 'short_attention':
+        run = lambda: fa.short_attention(q, k, v, scale=scale)              # noqa: E731
+        plain = lambda: fa.short_attention_reference(q, k, v, scale)        # noqa: E731
+        out, ref = run(), plain()
+        err, ratio = worst_ratio(torch, out, ref, atol, tol)
+        grad_ratio = short_grad_ratio(torch, fa, q, k, v, scale, tol, gen)
+        ratio = max(ratio, grad_ratio)
+        notes = f' grad_worst/allowed={grad_ratio:.3f}'
     else:
         # both sides take the logsumexp of the B2 kernel
         _, lse = fa.flash_attention_with_lse(q, k, v, scale=scale)
@@ -209,9 +282,21 @@ def compare(torch, fa, kernel, shape, dtype_name, gen):
         notes = f' rel_l2={rel:.3e} (allowed {tol:g})'
     torch.cuda.synchronize()
     finite = bool(torch.isfinite(out.float()).all())
-    ms, plain_ms = time_ms(torch, run), time_ms(torch, plain)
-    lib_ms = library_ms(torch, kernel, q, k, v, scale)
+    timer = graph_ms if kernel == 'short_attention' else time_ms
+    ms, plain_ms = timer(torch, run), timer(torch, plain)
+    lib_ms = library_ms(torch, kernel, q, k, v, scale, timer)
     bound_ms, bound_by = bound(kernel, shape, dtype_name)
+    extra = {}
+    if kernel == 'short_attention':
+        # what else could run there: B1 at this shape, and the explicit
+        # path the port's dispatch takes for it; and the kernel in a loop
+        # of separate calls, which the host's launch cost bounds
+        from diffusion_feature_tpu_torch.ops import attention as attn_ops
+        extra = {'b1_ms': timer(torch, lambda: fa.flash_attention(q, k, v, scale=scale)),
+                 'explicit_ms': timer(torch, lambda: attn_ops.attention_fused_heads(
+                     q, k, v, scale=scale)),
+                 'call_loop_ms': time_ms(torch, run)}
+        notes += ''.join(f' {key}={val:.4f}' for key, val in extra.items())
     ok = finite and ratio <= 1.0
     lib = 'none' if lib_ms is None else f'{lib_ms:.4f}'
     print(f'compare {kernel} {dtype_name} q{(b, h, sq, d)} k{(b, h, sk, d)}: '
@@ -222,10 +307,11 @@ def compare(torch, fa, kernel, shape, dtype_name, gen):
     if not ok:
         raise RuntimeError(f'{kernel} disagrees with its twin at {shape} {dtype_name}')
     return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms, 'library_ms': lib_ms,
-            'bound_ms': bound_ms, 'bound_by': bound_by}
+            'bound_ms': bound_ms, 'bound_by': bound_by, **extra}
 
 
-WRAPPERS = tuple(KERNELS)   # the wrappers' names in ops.flash_attention and ops.attention
+# the wrappers the attention ops call (B4 is called by none of them)
+WRAPPERS = ('flash_attention', 'flash_attention_with_lse', 'headmean_probs')
 
 
 @contextlib.contextmanager
@@ -262,12 +348,12 @@ def twin_of(fa):
 
 
 def reset_counts(fa):
-    fa.launches = fa.lse_launches = fa.headmean_launches = 0
+    fa.launches = fa.lse_launches = fa.headmean_launches = fa.short_launches = 0
 
 
 def read_counts(fa):
     return {'flash_attention': fa.launches, 'flash_attention_with_lse': fa.lse_launches,
-            'headmean_probs': fa.headmean_launches}
+            'headmean_probs': fa.headmean_launches, 'short_attention': fa.short_launches}
 
 
 def check_feats(torch, feats, expected, label):
@@ -369,6 +455,83 @@ def drive_path(torch, fa, attn_ops, fe, prompts, images, expected_counts, label)
     return feats, counts, shapes
 
 
+def write_images(n, size):
+    """``n`` seeded PNGs of ``size``^2 under imgs/ of the working directory."""
+    import numpy as np
+    from PIL import Image
+    os.makedirs('imgs')
+    rng = np.random.RandomState(5)
+    for i in range(n):
+        Image.fromarray(rng.randint(0, 256, (size, size, 3), np.uint8)).save(f'imgs/img{i}.png')
+
+
+def run_cli(argv):
+    """extract_feature.main(argv) with its standard output captured;
+    returns (seconds, output lines)."""
+    from diffusion_feature_tpu_torch import extract_feature
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        extract_feature.main(argv)
+    return time.perf_counter() - t0, out.getvalue().splitlines()
+
+
+def check_cli(torch, fa, attn_ops, card, shapes):
+    """Phase 7: the CLI on the 'xl' path and its .npy tree, then
+    --show_all_layers; returns the CLI run's launch counts."""
+    import numpy as np
+    from diffusion_feature_tpu_torch.enumerate_layers import enumerate_layers
+    args = PATHS[CLI_PATH]['args']
+    version, size = args['version'], args['img_size']
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        write_images(CLI_IMAGES, size)
+        with patched_wrappers(attn_ops, recording(shapes)):
+            reset_counts(fa)
+            seconds, lines = run_cli([
+                '--version', version, '--img_size', str(size), '--layer', args['layer'],
+                '--batch_size', '2', '--prompt', 'a photo of a cat',
+                '--input_dir', 'imgs/*.png', '--output_dir', 'out'])
+            torch.cuda.synchronize()
+            counts = read_counts(fa)
+        for line in lines:
+            print(f'  cli: {line}')
+        print(f'phase 7 cli extract: {seconds:.1f} s for main() (model build included); kernel '
+              f'launches {counts} (expected {CLI_LAUNCHES})', flush=True)
+        if counts != CLI_LAUNCHES:
+            raise RuntimeError(f'phase 7: launches {counts} != {CLI_LAUNCHES}')
+        if 'native async dump writer active' not in lines:
+            raise RuntimeError('phase 7: the native dump writer is not active')
+        rate = [line for line in lines if line.endswith('img/s)')]
+        print(f'phase 7 cli {args["layer"]} {size}^2 batch 2, {CLI_IMAGES} images: {rate[0]} '
+              f'({card})')
+        want = enumerate_layers(version, size)
+        layers = sorted(os.listdir('out'))
+        if layers != sorted(PATHS[CLI_PATH]['feats']):
+            raise RuntimeError(f'phase 7: layer dirs {layers} != '
+                               f'{sorted(PATHS[CLI_PATH]["feats"])}')
+        for layer in layers:
+            names = sorted(os.listdir(os.path.join('out', layer)))
+            if names != [f'train{i}.npy' for i in range(CLI_IMAGES)]:
+                raise RuntimeError(f'phase 7 {layer}: files {names}')
+            for name in names:
+                arr = np.load(os.path.join('out', layer, name))
+                finite = bool(np.isfinite(arr).all())
+                if arr.shape != want[layer][1:] or arr.dtype != np.float16 or not finite:
+                    raise RuntimeError(f'phase 7 {layer}/{name}: {arr.shape} {arr.dtype} '
+                                       f'finite={finite}, expected {want[layer][1:]} float16')
+            print(f'  {layer}: {len(names)} x {arr.shape} float16 finite')
+        for (version, size), count in LAYER_COUNTS.items():
+            seconds, _ = run_cli(['--version', version, '--img_size', str(size),
+                                  '--show_all_layers', '--output_dir', 'out_layers'])
+            with open('layer_record.json') as f:
+                record = json.load(f)
+            print(f'phase 7 --show_all_layers {version}@{size}: {len(record)} ids in '
+                  f'{seconds:.2f} s (expected {count})', flush=True)
+            if len(record) != count:
+                raise RuntimeError(f'phase 7: {version} enumerates {len(record)} ids')
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -389,6 +552,11 @@ def main() -> int:
     for line in info['log'].splitlines():
         if 'registers' in line or 'spill' in line:
             print(f'  ptxas: {line.strip()}')
+    from diffusion_feature_tpu_torch.native import load_library
+    writer_lib = load_library('dumpio')
+    if writer_lib is None:
+        raise RuntimeError('the native dump writer (native/dumpio.cpp) did not build with g++')
+    print(f'phase 1 native dump writer: {writer_lib._name}', flush=True)
 
     # 2. every kernel against its twin, with times, at every path shape
     gen = torch.Generator(device='cuda').manual_seed(0)
@@ -401,7 +569,14 @@ def main() -> int:
                 res = compare(torch, fa, kernel, shape, dtype_name, gen)
                 if dtype_name == 'bfloat16':
                     numbers[kernel, shape] = res
+        for shape in SHORT_SHAPES + [SHORT_RAGGED]:
+            res = compare(torch, fa, 'short_attention', shape, dtype_name, gen)
+            if dtype_name == 'bfloat16' and shape in SHORT_SHAPES:
+                numbers['short_attention', shape] = res
     compare(torch, fa, 'flash_attention', B1_SHAPES[0], 'float16', gen)
+    torch.cuda.empty_cache()
+    print(f'phase 2 done: {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB still allocated '
+          '(what phases 3 to 7 count in their peak beside their own)', flush=True)
 
     # 3 and 4: SDXL single-step extraction (the port's first slice) and its
     # timing; 5: path A, SD-1.5 with the attention store; 6: path B, the
@@ -416,8 +591,8 @@ def main() -> int:
         print(f'phase {phase} {name} build + encode_prompt: {time.perf_counter() - t0:.1f} s; '
               f'prompt_embeds {tuple(prompts[0].shape)}, pooled {pooled}', flush=True)
         feats, runs[name], shapes[name] = drive_path(
-            torch, fa, attn_ops, fe, prompts, images, dict(zip(WRAPPERS, path['launches'])),
-            f'phase {phase}')
+            torch, fa, attn_ops, fe, prompts, images,
+            {**dict(zip(WRAPPERS, path['launches'])), 'short_attention': 0}, f'phase {phase}')
         check_feats(torch, feats, path['feats'], f'phase {phase}')
         if 'attention' in path['args']:
             gib = sum(s[0] * s[2] * s[3] * 2 for n, s in shapes[name]
@@ -430,8 +605,15 @@ def main() -> int:
         del fe, feats
         torch.cuda.empty_cache()
 
-    # the kernels line: per kernel, the launches of the three paths and the
-    # sum over those launches of each shape's bf16 numbers from phase 2
+    # 7. the CLI
+    shapes['cli'] = []
+    runs['cli'] = check_cli(torch, fa, attn_ops, card, shapes['cli'])
+
+    # the kernels line: per kernel, the launches of the four paths and the
+    # sum over those launches of each shape's bf16 numbers from phase 2 (a
+    # shape phase 2 did not hold, such as the CLI's trailing batch of 1, is
+    # compared and timed here); B4, which no path launches, sums one call
+    # at each of its phase-2 shapes
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         entry = {'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
@@ -442,13 +624,20 @@ def main() -> int:
         calls = [s for path in shapes.values() for n, s in path if n == name]
         if len(calls) != entry['launches']:
             raise RuntimeError(f'{name}: {len(calls)} recorded calls, {entry["launches"]} launches')
+        if name == 'short_attention':
+            calls = list(SHORT_SHAPES)
+            entry['timed_over'] = 'one bf16 call at each phase-2 shape; no path launches B4'
+            entry['b1_ms'] = entry['explicit_ms'] = entry['call_loop_ms'] = 0.0
         for shape in sorted(set(calls)):
+            if (name, shape) not in numbers:
+                numbers[name, shape] = compare(torch, fa, name, shape, 'bfloat16', gen)
             res = numbers[name, shape]
             count = calls.count(shape)
             entry['shapes'][str(shape)] = {'calls': count, **res}
             entry['max_abs_err'] = max(entry['max_abs_err'], res['max_abs_err'])
-            for key in ('ms', 'plain_ms', 'bound_ms'):
-                entry[key] += count * res[key]
+            for key in ('ms', 'plain_ms', 'bound_ms', 'b1_ms', 'explicit_ms', 'call_loop_ms'):
+                if key in entry:
+                    entry[key] += count * res[key]
             entry['library_ms'] = (None if entry['library_ms'] is None or res['library_ms'] is None
                                    else entry['library_ms'] + count * res['library_ms'])
         # what bounds the calls that take most of the bound

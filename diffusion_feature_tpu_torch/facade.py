@@ -20,23 +20,20 @@ import numpy as np
 import torch
 
 from .configs import resolve_layer_config
+from .enumerate_layers import enumerate_layers
 from .io.images import preprocess_pil_batch, resize_tensor_batch
 from .models.clip_text import CLIPTextModel
 from .models.layers import ATTN_STORE
 from .models.registry import ModelSpec, get_model_spec
 from .models.unet2d import UNet2DConditionModel
 from .models.vae import AutoencoderKL
+from .roadmap import not_ported
 from .schedulers.diffusion import EulerDiscreteScheduler, make_scheduler, scalar_like
 from .store import aggregate_attention, postprocess_taps
 from .taps import TapSpec, declared_ids, is_filtered_id
 from .tokenizers.clip_bpe import load_clip_tokenizer
 
 _DTYPES = {'bfloat16': torch.bfloat16, 'float16': torch.float16, 'float32': torch.float32}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP.md, Queue A: "
-                               f"'{item}')")
 
 
 def _random_module(make, device, dtype, generator):
@@ -61,7 +58,8 @@ class FeatureExtractor:
     """``encode_prompt``, ``offload_prompt_encoder``, ``preprocess_image``
     and ``extract`` with the JAX facade's signatures and return values.
 
-    weights: local checkpoints are not ported yet; models initialise at
+    weights, weights_variant, offline_lora (with offline_lora_filename):
+    local checkpoints and LoRAs are not ported yet; models initialise at
     random from ``seed`` on ``device``.
     attention: attention-store categories ('{down|mid|up}_{self|cross}');
     their head-mean maps of the size band ``attn_store_sizes`` (tokens per
@@ -70,17 +68,19 @@ class FeatureExtractor:
 
     def __init__(self, layer, version: str, device='cuda', dtype: str = 'bfloat16',
                  img_size: int = 1024, offline_lora: Optional[str] = None,
+                 offline_lora_filename: Optional[str] = None,
                  feature_resize: int = 1, control=None,
                  attention: Optional[Sequence[str]] = None,
-                 weights: Optional[str] = None, seed: int = 0,
-                 attn_store_sizes: Optional[Tuple[int, int]] = None,
+                 weights: Optional[str] = None, weights_variant: Optional[str] = None,
+                 seed: int = 0, attn_store_sizes: Optional[Tuple[int, int]] = None,
                  validate_layers: bool = True):
         if offline_lora:
-            raise _not_ported('offline_lora (LoRA)', 'Safetensors weight loader')
-        if weights:
-            raise _not_ported('weights= (local checkpoints)', 'Safetensors weight loader')
+            raise not_ported('offline_lora (LoRA)', 'Safetensors weight loader')
+        if weights or weights_variant:
+            raise not_ported('weights= and weights_variant= (local checkpoints)',
+                             'Safetensors weight loader')
         if control:
-            raise _not_ported('control= (ControlNet)', 'ControlNet and depth')
+            raise not_ported('control= (ControlNet)', 'ControlNet and depth')
         self.spec: ModelSpec = get_model_spec(version)
         self.version = version
         self.img_size = img_size
@@ -90,7 +90,7 @@ class FeatureExtractor:
         self.feature_dtype = torch.bfloat16
         self.taps = TapSpec.from_config(resolve_layer_config(layer))
         if not self.taps.accept_all and 'vae-out' in self.taps.ids:
-            raise _not_ported("the 'vae-out' layer", 'VAE decoder and vae-out')
+            raise not_ported("the 'vae-out' layer", 'VAE decoder and vae-out')
         self.attention = list(attention) if attention else None
         # the store's size band (reference components/attention.py:542, :569)
         self._attn_sizes = None
@@ -144,6 +144,12 @@ class FeatureExtractor:
             f'at img_size={self.img_size}:\n' + '\n'.join(lines) + more
             + '\nPass validate_layers=False to skip this check.')
 
+    def show_all_layers(self, batch_size: int = 1) -> Dict[str, tuple]:
+        """{layer-id: reference-layout shape} of every tappable layer at this
+        extractor's version and img_size, with no weights and no compute:
+        ``enumerate_layers`` runs the U-Net on the meta device."""
+        return enumerate_layers(self.version, self.img_size, batch_size)
+
     # ---------------------------------------------------------------- prompts
     def encode_prompt(self, prompt_str: Optional[str] = None,
                       prompt_file: Optional[str] = None):
@@ -156,7 +162,7 @@ class FeatureExtractor:
             with open(prompt_file) as f:
                 prompt_str = f.read()
         if len(prompt_str.split(' ')) > 70:
-            raise _not_ported('prompts of more than 70 words', 'Long prompts')
+            raise not_ported('prompts of more than 70 words', 'Long prompts')
         pe, pooled = self._encode_one(prompt_str)
         ne, neg_pooled = self._encode_one('')
         return pe, ne, pooled, neg_pooled
@@ -203,10 +209,10 @@ class FeatureExtractor:
         aggregated maps, img/8, img/8) with ``attention=``.  ``use_control``
         has no effect without a ControlNet, as in the JAX facade."""
         if denoising_from is not None:
-            raise _not_ported('denoising_from (multi-step extraction)',
-                              'Other U-Net versions and multi-step paths')
+            raise not_ported('denoising_from (multi-step extraction)',
+                             'Other U-Net versions and multi-step paths')
         if use_ddim_inversion:
-            raise _not_ported('use_ddim_inversion', 'Other U-Net versions and multi-step paths')
+            raise not_ported('use_ddim_inversion', 'Other U-Net versions and multi-step paths')
         pe, _, pooled, _ = prompts
         pe = torch.as_tensor(pe).to(self.device, self.dtype)
         pe = pe.expand(batch_size, *pe.shape[1:])

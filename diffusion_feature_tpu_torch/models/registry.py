@@ -3,9 +3,9 @@
 ``diffusion_feature_tpu/models/registry.py``).
 
 Without a weights path models initialise deterministically at random, which
-exercises every shape and the data flow at full width.  The other versions
-are not ported yet (ROADMAP.md, Queue A: 'Other U-Net versions and
-multi-step paths', 'DiT families').
+exercises every shape and the data flow at full width.  The JAX package's
+other versions raise ``NotImplementedError`` naming the ROADMAP.md item
+that ports them.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+from ..roadmap import not_ported
 from ..schedulers.diffusion import SchedulerConfig
 from .clip_text import CLIP_VIT_L, OPENCLIP_BIGG, CLIPTextConfig, tiny_clip_config
 from .unet2d import SD15_UNET, SDXL_UNET, UNetConfig, tiny_unet_config
@@ -36,27 +37,36 @@ class ModelSpec:
     unet: UNetConfig
     vae: VAEConfig
     text_encoders: Tuple[CLIPTextConfig, ...]
+    default_img_size: int
     clip_layer: str = 'final'
 
 
 _REGISTRY = {spec.version: spec for spec in (
     ModelSpec('1-5', 'stable-diffusion-v1-5/stable-diffusion-v1-5', 'pndm', SD_SCHED,
-              SD15_UNET, SD_VAE, (CLIP_VIT_L,)),
+              SD15_UNET, SD_VAE, (CLIP_VIT_L,), 512),
     ModelSpec('xl', 'stabilityai/stable-diffusion-xl-base-1.0', 'euler', XL_SCHED, SDXL_UNET,
-              SDXL_VAE, (CLIP_VIT_L, OPENCLIP_BIGG), clip_layer='penultimate'),
+              SDXL_VAE, (CLIP_VIT_L, OPENCLIP_BIGG), 1024, clip_layer='penultimate'),
     ModelSpec('test-sd', '(random-init test model)', 'pndm', SD_SCHED,
-              tiny_unet_config(cross_dim=32), tiny_vae_config(), (tiny_clip_config(32),)),
+              tiny_unet_config(cross_dim=32), tiny_vae_config(), (tiny_clip_config(32),), 64),
     ModelSpec('test-xl', '(random-init test model)', 'euler', XL_SCHED,
               tiny_unet_config(cross_dim=64, with_xl_embeds=True), tiny_vae_config(),
-              (tiny_clip_config(32), tiny_clip_config(32, projection_dim=32)),
+              (tiny_clip_config(32), tiny_clip_config(32, projection_dim=32)), 64,
               clip_layer='penultimate'),
 )}
 
 
+_UNPORTED = {
+    **dict.fromkeys(('2-1', 'pgv2'), 'Other U-Net versions and multi-step paths'),
+    **dict.fromkeys(('pixart-alpha', 'pixart-sigma', 'pixart-sigma-512', 'hunyuan', 'flux', 'if',
+                     'test-pixart', 'test-hunyuan', 'test-flux', 'test-if'), 'DiT families'),
+}
+
+
 def get_model_spec(version: str) -> ModelSpec:
+    if version in _UNPORTED:
+        raise not_ported(f'model version {version!r} (ported: {sorted(_REGISTRY)})',
+                         _UNPORTED[version])
     if version not in _REGISTRY:
-        raise NotImplementedError(
-            f'model version {version!r} is not ported to PyTorch yet (ported: '
-            f"{sorted(_REGISTRY)}; see ROADMAP.md, Queue A: 'Other U-Net versions and "
-            "multi-step paths' and 'DiT families')")
+        raise KeyError(f'unknown model version {version!r}; known: '
+                       f'{sorted([*_REGISTRY, *_UNPORTED])}')
     return _REGISTRY[version]

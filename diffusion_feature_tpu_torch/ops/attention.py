@@ -10,8 +10,9 @@ with logsumexp, then the streaming head-mean kernel, so only the head-mean
 map reaches memory.
 
 The kernels are built for some head widths only; that condition binds on
-the card.  A CPU tensor runs the kernels' plain twins, which take any
-width, so on the CPU the routing is the JAX package's exactly.
+the card.  A CPU (or meta) tensor runs the kernels' plain twins, which take
+any width, so there the routing is the JAX package's exactly.  B4
+(``short_attention``) is not routed to, as in the JAX package.
 
 Public functions take q/k/v in the pre-head-split layout (B, S, inner), so
 the q/k/v taps observe the same tensors as the reference; ``*_heads``
@@ -33,7 +34,7 @@ from .flash_attention import (
 def _use_flash(qh, kh, min_seq: int = 1024, head_dims=SUPPORTED_HEAD_DIMS) -> bool:
     """The gate, with the kernels' head widths where they run (the card)."""
     return is_flash_compatible(qh.shape, kh.shape, min_seq,
-                               None if qh.device.type == 'cpu' else head_dims)
+                               head_dims if qh.device.type == 'cuda' else None)
 
 
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:

@@ -5,6 +5,7 @@ Replaces the Pallas TPU kernels of ``diffusion_feature_tpu/ops/flash_attention.p
   B1 ``_flash_kernel``      -> ``flash_attention``           (csrc/flash_attention.cu)
   B2 ``_flash_lse_kernel``  -> ``flash_attention_with_lse``  (the same source, kLse)
   B3 ``_headmean_kernel``   -> ``headmean_probs``            (csrc/headmean.cu)
+  B4 ``_short_attn_kernel`` -> ``short_attention``           (csrc/short_attention.cu)
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (one ``nvcc`` per source, started
@@ -15,14 +16,18 @@ What bounds them on an H100: B1/B2 at d=64 and 4096 tokens do ~4000 flops
 per byte they read, so tensor-core flops and the S^2 exponentials bound
 them, not memory; B3 does half B1's flops per score and no PV product, so
 its exponentials (one per head and score, on the special-function unit)
-bound it.  The designs keep scores in registers, run the products on the
-tensor cores (``mma.sync`` m16n8k16, fp32 accumulation) and read each
-K/V tile once per 64 query rows; overlapping loads with compute (TMA,
+bound it; B4, at the short sequences its gate admits, moves so few bytes
+that a launch's own cost exceeds its bound.  The designs run the products
+on the tensor cores (``mma.sync`` m16n8k16, fp32 accumulation), keep scores
+in registers (B4: in a shared-memory tile of the whole key row) and read
+each K/V tile once per 64 query rows; overlapping loads with compute (TMA,
 ``wgmma``, warp specialisation) is left to later work.  See the sources.
 
-Routing: CPU tensors go to the ``*_reference`` twins; CUDA tensors launch
-the kernel or raise.  ``launches``, ``lse_launches`` and
-``headmean_launches`` count the launches of B1, B2 and B3.
+Routing: CPU tensors go to the ``*_reference`` twins, and so do meta
+tensors, which carry shapes only (layer enumeration runs the U-Net on
+them); CUDA tensors launch the kernel or raise.  ``launches``,
+``lse_launches``, ``headmean_launches`` and ``short_launches`` count the
+launches of B1, B2, B3 and B4.
 """
 
 from __future__ import annotations
@@ -40,12 +45,15 @@ import torch
 #: Head widths B1 is built for: the U-Nets' 40, 64, 80, 128, 160 and the
 #: VAE's single 512-wide head.
 SUPPORTED_HEAD_DIMS = (40, 64, 80, 128, 160, 512)
-#: Head widths B2 and B3 are built for (the attention store's U-Net heads).
+#: Head widths B2, B3 and B4 are built for (the U-Nets' heads).
 HEADMEAN_HEAD_DIMS = (40, 64, 80, 128, 160)
+#: B4 keeps a 64 x Sk fp32 score tile in shared memory: Sk is bounded.
+SHORT_MAX_KEYS = 512
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 _SOURCES = {'flash_attention': _CSRC / 'flash_attention.cu',
-            'headmean': _CSRC / 'headmean.cu'}
+            'headmean': _CSRC / 'headmean.cu',
+            'short_attention': _CSRC / 'short_attention.cu'}
 _HEADERS = (_CSRC / 'tile_ops.cuh',)
 _BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
 _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
@@ -56,12 +64,15 @@ _ARGTYPES = {
     'dft_flash_attention_forward': [_VP] * 5 + [_INT] * 5 + [_F32, _VP],
     # q, k, lse, out, b, h, sq, sk, d, dtype, scale, stream
     'dft_headmean_probs': [_VP] * 4 + [_INT] * 6 + [_F32, _VP],
+    # q, k, v, o, bh, sq, sk, d, dtype, scale, stream
+    'dft_short_attention_forward': [_VP] * 4 + [_INT] * 5 + [_F32, _VP],
 }
 
 #: Kernel launches since import (or since a caller reset them to 0).
 launches = 0            # B1
 lse_launches = 0        # B2
 headmean_launches = 0   # B3
+short_launches = 0      # B4
 
 _libs = {}
 
@@ -85,6 +96,22 @@ def is_flash_compatible(q_shape, k_shape, min_seq: int = 1024,
     )
 
 
+def is_short_attn_compatible(q_shape, k_shape, max_seq: int = 512,
+                             head_dims=HEADMEAN_HEAD_DIMS) -> bool:
+    """The JAX package's gate for ``short_attention``
+    (``is_short_attn_compatible``): Sq a multiple of 128 from 8 up to
+    ``max_seq``, Sk up to ``max_seq`` (padded keys are masked, so any Sk is
+    exact), d up to 256.  The port adds the head widths B4 is built for,
+    as in ``is_flash_compatible``; ``None`` drops them.  As in the JAX
+    package, no dispatch of the port consults this gate: the explicit path
+    keeps these shapes."""
+    *_, sq, d = q_shape
+    sk = k_shape[-2]
+    return ((head_dims is None or d in head_dims)
+            and 8 <= sq <= max_seq and sq % 128 == 0
+            and sk <= max_seq and d <= 256)
+
+
 # ------------------------------------------------------------------- twins
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               scale: float) -> torch.Tensor:
@@ -100,6 +127,14 @@ def flash_attention_with_lse_reference(q, k, v, scale: float):
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     out = torch.matmul(scores.softmax(dim=-1), v.float()).to(q.dtype)
     return out, torch.logsumexp(scores, dim=-1)
+
+
+def short_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              scale: float) -> torch.Tensor:
+    """Plain twin of B4: fp32 scores over exactly the Sk keys given (so
+    there is no padding to mask), softmax, fp32 PV product, the result cast
+    to q's dtype; B1's twin computes the same function."""
+    return flash_attention_reference(q, k, v, scale)
 
 
 def headmean_probs_reference(q, k, lse, scale: float) -> torch.Tensor:
@@ -179,6 +214,12 @@ def _lib(name: str):
 
 
 # ---------------------------------------------------------------- wrappers
+def _on_host(*tensors) -> bool:
+    """Where the twins run: tensors on the CPU, or on the meta device,
+    which carries shapes only."""
+    return all(x.device.type in ('cpu', 'meta') for x in tensors)
+
+
 def _check_cuda_inputs(op: str, tensors, head_dims):
     """Device, dtype, rank, contiguity and alignment of (B, H, S, D) inputs
     of one dtype and one head width, on the current CUDA device."""
@@ -238,7 +279,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """B1: (B, H, Sq, D) x (B, H, Sk, D) -> (B, H, Sq, D) in q's dtype, with
     fp32 softmax statistics and accumulation.  Non-causal, no mask."""
     global launches
-    if q.device.type == 'cpu' and k.device.type == 'cpu' and v.device.type == 'cpu':
+    if _on_host(q, k, v):
         return flash_attention_reference(q, k, v, scale)
     out = _flash_launch('flash_attention', q, k, v, None, scale, SUPPORTED_HEAD_DIMS)
     launches += 1
@@ -249,7 +290,7 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
                              scale: float):
     """B2: B1's output and each row's logsumexp, (B, H, Sq) in fp32."""
     global lse_launches
-    if q.device.type == 'cpu' and k.device.type == 'cpu' and v.device.type == 'cpu':
+    if _on_host(q, k, v):
         return flash_attention_with_lse_reference(q, k, v, scale)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     out = _flash_launch('flash_attention_with_lse', q, k, v, lse, scale, HEADMEAN_HEAD_DIMS)
@@ -263,7 +304,7 @@ def headmean_probs(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor, *,
     (B,H,Sq,D) q, (B,H,Sk,D) k and B2's (B,H,Sq) fp32 logsumexp; fp32
     accumulation, and no per-head (B,H,Sq,Sk) tensor."""
     global headmean_launches
-    if q.device.type == 'cpu' and k.device.type == 'cpu' and lse.device.type == 'cpu':
+    if _on_host(q, k, lse):
         return headmean_probs_reference(q, k, lse, scale)
     _check_cuda_inputs('headmean_probs', (('q', q), ('k', k)), HEADMEAN_HEAD_DIMS)
     b, h, sq, d = q.shape
@@ -284,3 +325,54 @@ def headmean_probs(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor, *,
                            f'for q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}')
     headmean_launches += 1
     return out
+
+
+def short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float) -> torch.Tensor:
+    """B4: (B, H, Sq, D) x (B, H, Sk, D) -> (B, H, Sq, D) in q's dtype, for
+    Sk <= 512, with fp32 math whatever the input dtype and an exact (not
+    online) softmax; the score matrix never reaches device memory."""
+    global short_launches
+    if _on_host(q, k, v):
+        return short_attention_reference(q, k, v, scale)
+    _check_cuda_inputs('short_attention', (('q', q), ('k', k), ('v', v)), HEADMEAN_HEAD_DIMS)
+    if k.shape != v.shape:
+        raise ValueError(f'short_attention: k {tuple(k.shape)} and v {tuple(v.shape)} differ')
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if sk > SHORT_MAX_KEYS:
+        raise ValueError(f'short_attention: {sk} keys; the kernel takes at most '
+                         f'{SHORT_MAX_KEYS}')
+    out = torch.empty_like(q)
+    err = _lib('short_attention').dft_short_attention_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, sq, sk, d,
+        _DTYPE_CODES[q.dtype], float(scale), _stream(q))
+    if err != 0:
+        raise RuntimeError(f'short_attention kernel launch failed: cudaError {err} '
+                           f'for q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}')
+    short_launches += 1
+    return out
+
+
+class _ShortAttentionDiff(torch.autograd.Function):
+    """B4 forward; the backward differentiates the twin (the JAX custom VJP
+    takes XLA's einsum-softmax VJP, not a kernel)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return short_attention(q, k, v, scale=scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = tuple(x.detach().requires_grad_() for x in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = short_attention_reference(*inputs, ctx.scale)
+        return (*torch.autograd.grad(out, inputs, grad), None)
+
+
+def short_attention_diff(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         scale: float) -> torch.Tensor:
+    """``short_attention`` with gradients for q, k and v."""
+    return _ShortAttentionDiff.apply(q, k, v, scale)

@@ -96,11 +96,14 @@ def load_jax_params(jfe, port):
         te.load_state_dict(params_from_jax(tree, te))
 
 
-def jax_noise(seed: int, lat_shape):
-    """The posterior and forward noise of a facade's first extract, as
-    torch tensors: its key chain split(PRNGKey(seed)) -> split(step_rng) ->
-    fp32 draws (torch cannot replay JAX's generator)."""
-    _, step_rng = jax.random.split(jax.random.PRNGKey(seed))
+def jax_noise(seed: int, lat_shape, call: int = 0):
+    """The posterior and forward noise of a facade's extract number
+    ``call`` (0 is the first), as torch tensors: its key chain, one
+    split(rng) -> (rng, step_rng) per extract (facade.py:815), then
+    split(step_rng) -> fp32 draws (torch cannot replay JAX's generator)."""
+    rng = jax.random.PRNGKey(seed)
+    for _ in range(call + 1):
+        rng, step_rng = jax.random.split(rng)
     return tuple(torch.from_numpy(np.array(jax.random.normal(r, lat_shape, np.float32)))
                  for r in jax.random.split(step_rng))
 

@@ -1,5 +1,5 @@
 """The Hopper attention kernels (flash B1, flash with logsumexp B2, head-mean
-B3) against their plain twins, on the card.
+B3, short attention B4) against their plain twins, on the card.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU (the
 kernels have no CPU mode).  The file imports torch and the port only, so it
@@ -102,10 +102,10 @@ def test_attention_fused_routes_on_card(cuda, sk, launches):
     q = torch.randn(2, 1024, 640, generator=g, device=cuda).to(torch.bfloat16)
     k, v = (torch.randn(2, sk, 640, generator=g, device=cuda).to(torch.bfloat16)
             for _ in range(2))
-    fa.launches = 0
+    fa.launches = fa.short_launches = 0
     out = attn.attention_fused(q, k, v, 10)
     torch.cuda.synchronize()
-    assert fa.launches == launches
+    assert (fa.launches, fa.short_launches) == (launches, 0)
     ref, _ = attn.attention_with_probs(q, k, v, 10)
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
 
@@ -129,3 +129,57 @@ def test_kernel_raises_on_unsupported_input(cuda):
     with pytest.raises(ValueError, match='lse'):
         fa.headmean_probs(q, q, torch.zeros(1, 2, 64, device=cuda, dtype=torch.float16),
                           scale=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', list(_TOL), ids=str)
+@pytest.mark.parametrize('shape', [(1, 2, 200, 333, 64), (2, 3, 256, 77, 40),
+                                   (2, 2, 128, 512, 160), (1, 3, 130, 1, 80),
+                                   (2, 2, 256, 256, 128)],
+                         ids=['ragged-d64', 'cross-d40', 'sk512-d160', 'one-key-d80', 'd128'])
+def test_short_kernel_matches_twin(cuda, dtype, shape):
+    """B4 at ragged Sq and Sk (masked key padding, zero-filled rows), the
+    most keys it takes, and a single key."""
+    b, h, sq, sk, d = shape
+    q, k, v = _qkv(cuda, dtype, *shape, seed=3)
+    fa.short_launches = 0
+    out = fa.short_attention(q, k, v, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.short_launches == 1 and out.dtype == dtype and out.shape == q.shape
+    ref = fa.short_attention_reference(q, k, v, d ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(), atol=_TOL[dtype], rtol=_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32], ids=str)
+def test_short_attention_diff_grads_match_twin(cuda, dtype):
+    """The kernel's forward and the twin's backward against the twin's
+    autograd end to end; a loss linear in the output gives both sides the
+    same output gradient."""
+    shape = (2, 4, 256, 77, 64)
+    inputs = [x.requires_grad_() for x in _qkv(cuda, dtype, *shape, seed=4)]
+    twin_inputs = [x.detach().clone().requires_grad_() for x in inputs]
+    weight = torch.randn(shape[:3] + shape[4:], device=cuda)
+    fa.short_launches = 0
+    out = fa.short_attention_diff(*inputs, scale=0.125)
+    (out.float() * weight).sum().backward()
+    ref = fa.short_attention_reference(*twin_inputs, 0.125)
+    (ref.float() * weight).sum().backward()
+    torch.cuda.synchronize()
+    assert fa.short_launches == 1
+    torch.testing.assert_close(out.float(), ref.float(), atol=_TOL[dtype], rtol=_TOL[dtype])
+    for ours, theirs in zip(inputs, twin_inputs):
+        assert ours.grad.dtype == dtype
+        torch.testing.assert_close(ours.grad.float(), theirs.grad.float(), atol=_TOL[dtype],
+                                   rtol=_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_short_kernel_raises_on_unsupported_input(cuda):
+    q = torch.randn(1, 2, 128, 64, device=cuda)
+    k = torch.randn(1, 2, 513, 64, device=cuda)
+    with pytest.raises(ValueError, match='at most 512'):
+        fa.short_attention(q, k, k, scale=1.0)
+    q = torch.randn(1, 2, 128, 32, device=cuda)
+    with pytest.raises(ValueError, match='head dim'):
+        fa.short_attention(q, q, q, scale=1.0)

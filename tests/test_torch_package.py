@@ -40,8 +40,13 @@ def test_port_imports_no_jax():
     code = (
         'import importlib, pkgutil, sys\n'
         'import diffusion_feature_tpu_torch as p\n'
-        'for m in pkgutil.walk_packages(p.__path__, p.__name__ + "."):\n'
-        '    importlib.import_module(m.name)\n'
+        'names = {m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")}\n'
+        'for name in sorted(names):\n'
+        '    importlib.import_module(name)\n'
+        'want = {"diffusion_feature_tpu_torch." + n for n in ("extract_feature", '
+        '"enumerate_layers", "io.dump", "io.prefetch", "native.build", "native.dump_writer", '
+        '"ops.flash_attention", "facade")}\n'
+        'assert want <= names, want - names\n'
         'bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "flax", '
         '"diffusion_feature_tpu"))\n'
         'assert not bad, bad\n')
