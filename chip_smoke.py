@@ -5,12 +5,19 @@
 
 Phases (each prints its numbers on lines of its own):
   1. the card's name and power limit, then the kernels' build (one nvcc per
-     source, started together);
+     source, started together), and the count of HGMMA (wgmma) and UTMALDG
+     (TMA load) instructions in the bf16/fp16 flash libraries' SASS;
   2. every kernel against its plain twin at every shape the paths launch
      it at (batch 2), plus a ragged shape, in bf16 and fp32 (B1 also in
-     fp16 once): errors against the stated tolerances, and for each shape
-     the kernel's, the twin's and the one PyTorch library call's times
-     (CUDA events after warm-up) beside the least time the card needs;
+     fp16): errors against the stated tolerances, and for each shape the
+     kernel's, the twin's and the one PyTorch library call's times beside
+     the least time the card needs.  B1 and B2 are also checked on the
+     head-split views the paths hand them (the (B, H, S, D) view of a
+     (B, S, H*D) projection, read in place) at every path shape and at
+     ragged d=64, d=40 and d=512 shapes; those bf16 numbers are the
+     kernels line's.  Kernels and library calls are timed as CUDA graphs
+     of 20 calls (graph_ms: device time, the host's launch cost out of the
+     way) and also in a loop of calls (call_loop_ms); the twins in a loop;
   3. SDXL at full width (random weights from a seed), 1024^2, batch 2:
      FeatureExtractor('xl-practical') -> encode_prompt -> extract(t=50);
      tap shapes, dtype and finiteness, exactly 71 B1 launches, and the taps
@@ -38,8 +45,7 @@ the JAX package: against its twin, with its gradients through
 short_attention_diff, at the 256-token bands of SD-1.5 and SDXL at 512^2,
 the JAX docstring's measured (16, 20, 256, {256, 77}, 64) and a ragged
 shape, with its time beside B1's, SDPA's and the explicit path's there,
-all timed as CUDA graphs of 20 calls (a loop of calls at these sizes
-times the host).
+all (its twin too) timed as CUDA graphs of 20 calls.
 Every path runs with all four counts set to 0 and expects 0 B4 launches.
 The last line is {"ok": true, "device": {...}}; before it come the card line
 and a {"kernels": [...]} line.  Exits non-zero, without the last line,
@@ -74,6 +80,11 @@ STORE_SHAPES = [                # B2 and B3: the attention store's self-attentio
     (2, 10, 4096, 4096, 64),    # path B: SDXL up-level1
 ]
 RAGGED = (1, 2, 1000, 333, 64)
+# B1/B2 on head-split views: ragged lengths at d=40 (TMA zero-fills the
+# columns up to the mma depth) and at d=512 (B1 only: one score pass over
+# two consumer warpgroups)
+SPLIT_RAGGED = {'flash_attention': [RAGGED, (1, 2, 1000, 333, 40), (1, 1, 1000, 777, 512)],
+                'flash_attention_with_lse': [RAGGED, (1, 2, 1000, 333, 40)]}
 SHORT_SHAPES = [                # B4: the short-sequence bands (no path launches it)
     (2, 8, 256, 256, 160),      # SD-1.5 @512^2 level-2 self-attention
     (2, 8, 256, 77, 160),       # and its cross-attention
@@ -124,9 +135,9 @@ TIMED_CALLS = 7
 # L2 difference per tap
 TAP_REL_TOL = 2e-2
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
-    'flash_attention': ('diffusion_feature_tpu_torch/csrc/flash_attention.cu',
+    'flash_attention': ('diffusion_feature_tpu_torch/csrc/flash_hopper.cuh',
                         'diffusion_feature_tpu/ops/flash_attention.py:86'),
-    'flash_attention_with_lse': ('diffusion_feature_tpu_torch/csrc/flash_attention.cu',
+    'flash_attention_with_lse': ('diffusion_feature_tpu_torch/csrc/flash_hopper.cuh',
                                  'diffusion_feature_tpu/ops/flash_attention.py:121'),
     'headmean_probs': ('diffusion_feature_tpu_torch/csrc/headmean.cu',
                        'diffusion_feature_tpu/ops/flash_attention.py:461'),
@@ -146,8 +157,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, min_total_ms=200.0) -> float:
-    """Mean device time of ``fn`` over a run of launches, after warm-up."""
+def time_ms(torch, fn, min_total_ms=200.0, runs=1) -> float:
+    """Mean device time of ``fn`` over a run of launches, after warm-up;
+    with ``runs`` > 1 the median of that many such runs.  Where a loop of
+    separate calls times the host, one stall of a host that shares its
+    cores lifts a single run's mean."""
     fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -156,31 +170,56 @@ def time_ms(torch, fn, min_total_ms=200.0) -> float:
     stop.record()
     torch.cuda.synchronize()
     reps = max(3, min(50, int(min_total_ms / max(start.elapsed_time(stop), 1e-3))))
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    means = []
+    for _ in range(runs):
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(stop) / reps)
+    return sorted(means)[len(means) // 2]
 
 
 def graph_ms(torch, fn, per_graph=20) -> float:
     """Device time per call of ``fn`` with the host's launch cost out of
     the way: ``per_graph`` calls captured in one CUDA graph, replayed and
-    timed as ``time_ms`` times a call.  At B4's sizes a loop of separate
+    timed as ``time_ms`` times a call.  At small sizes a loop of separate
     calls measures the host (each call's Python and launch cost exceeds
-    the kernel), so B4 and what it is compared with are timed this way."""
+    the kernel), so the kernels and their library calls are timed this
+    way."""
     # warm-up on the current stream: a new stream per call would leave a
     # cuBLAS workspace allocated for each, which phases 3 to 6 would count
     # in their peak memory
     for _ in range(3):
         fn()
     graph = torch.cuda.CUDAGraph()
-    # relaxed: the kernel libraries set their shared-memory limit per launch
-    with torch.cuda.graph(graph, capture_error_mode='relaxed'):
+    # the kernel libraries raise their shared-memory limit once per kernel,
+    # before capture, so the default (global) capture mode holds
+    with torch.cuda.graph(graph):
         for _ in range(per_graph):
             fn()
     return time_ms(torch, graph.replay) / per_graph
+
+
+def sass_counts(path) -> dict:
+    """HGMMA (wgmma) and UTMALDG (TMA load) instructions in a library's
+    SASS, by cuobjdump from the CUDA toolkit or Triton's bundled copy."""
+    import shutil
+    cands = [os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'), 'bin', 'cuobjdump'),
+             shutil.which('cuobjdump') or '']
+    try:
+        import triton
+        cands.append(os.path.join(os.path.dirname(triton.__file__), 'backends', 'nvidia', 'bin',
+                                  'cuobjdump'))
+    except ImportError:
+        pass
+    tool = next((c for c in cands if c and os.path.exists(c)), None)
+    if tool is None:
+        raise RuntimeError('cuobjdump not found (CUDA toolkit or triton)')
+    sass = subprocess.run([tool, '-sass', path], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    return {op: sass.count(op) for op in ('HGMMA', 'UTMALDG')}
 
 
 def bound(kernel, shape, dtype_name):
@@ -208,7 +247,17 @@ def worst_ratio(torch, out, ref, atol, rtol):
     return diff.max().item(), (diff / (atol + rtol * ref.float().abs())).max().item()
 
 
-def library_ms(torch, kernel, q, k, v, scale, timer=time_ms):
+def rel_l2_ratio(torch, out, ref, tol, ratio):
+    """(ratio folded with the relative L2 error against tol, its note).
+    The elementwise rule alone admits a map or an attention output wrong by
+    a share of every value where tol is as large as a typical value (an
+    output of Sk averaged values is ~Sk^-1/2); the L2 norm of the error over
+    that of the reference holds the whole tensor to tol."""
+    rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    return max(ratio, rel / tol), f' rel_l2={rel:.3e} (allowed {tol:g})'
+
+
+def library_ms(torch, kernel, q, k, v, scale, timer=graph_ms):
     """The one PyTorch call that computes the kernel's function, timed as
     a yardstick (the port never calls it); None where there is none or it
     does not take these inputs."""
@@ -237,12 +286,18 @@ def short_grad_ratio(torch, fa, q, k, v, scale, tol, gen):
     return max(worst_ratio(torch, a.grad, b.grad, tol, tol)[1] for a, b in zip(ours, twin))
 
 
-def compare(torch, fa, kernel, shape, dtype_name, gen):
-    """One kernel against its twin on one shape; returns its numbers."""
+def compare(torch, fa, kernel, shape, dtype_name, gen, split=False):
+    """One kernel against its twin on one shape; returns its numbers.  With
+    ``split`` q, k and v are the head-split (B, H, S, D) views of
+    (B, S, H*D) projections, as the paths hand B1 and B2 their inputs."""
     b, h, sq, sk, d = shape
     dtype = getattr(torch, dtype_name)
-    q, k, v = (torch.randn(b, h, s, d, generator=gen, device='cuda').to(dtype)
-               for s in (sq, sk, sk))
+    if split:
+        q, k, v = (torch.randn(b, s, h * d, generator=gen, device='cuda').to(dtype)
+                   .reshape(b, s, h, d).transpose(1, 2) for s in (sq, sk, sk))
+    else:
+        q, k, v = (torch.randn(b, h, s, d, generator=gen, device='cuda').to(dtype)
+                   for s in (sq, sk, sk))
     scale = d ** -0.5
     tol = TOL[dtype_name]
     # a head-mean map's entries average 1/Sk, far below tol: its absolute
@@ -254,14 +309,16 @@ def compare(torch, fa, kernel, shape, dtype_name, gen):
         plain = lambda: fa.flash_attention_reference(q, k, v, scale)        # noqa: E731
         out, ref = run(), plain()
         err, ratio = worst_ratio(torch, out, ref, atol, tol)
+        ratio, notes = rel_l2_ratio(torch, out, ref, tol, ratio)
     elif kernel == 'flash_attention_with_lse':
         run = lambda: fa.flash_attention_with_lse(q, k, v, scale=scale)     # noqa: E731
         plain = lambda: fa.flash_attention_with_lse_reference(q, k, v, scale)  # noqa: E731
         (out, lse), (ref, ref_lse) = run(), plain()
         err, ratio = worst_ratio(torch, out, ref, atol, tol)
+        ratio, notes = rel_l2_ratio(torch, out, ref, tol, ratio)
         lse_err = (lse - ref_lse).abs().max().item()
         ratio = max(ratio, lse_err / LSE_TOL)
-        notes = f' lse_max_abs_err={lse_err:.3e} (allowed {LSE_TOL:g})'
+        notes += f' lse_max_abs_err={lse_err:.3e} (allowed {LSE_TOL:g})'
     elif kernel == 'short_attention':
         run = lambda: fa.short_attention(q, k, v, scale=scale)              # noqa: E731
         plain = lambda: fa.short_attention_reference(q, k, v, scale)        # noqa: E731
@@ -277,35 +334,36 @@ def compare(torch, fa, kernel, shape, dtype_name, gen):
         plain = lambda: fa.headmean_probs_reference(q, k, lse, scale)       # noqa: E731
         out, ref = run(), plain()
         err, ratio = worst_ratio(torch, out, ref, atol, tol)
-        rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
-        ratio = max(ratio, rel / tol)
-        notes = f' rel_l2={rel:.3e} (allowed {tol:g})'
+        ratio, notes = rel_l2_ratio(torch, out, ref, tol, ratio)
     torch.cuda.synchronize()
     finite = bool(torch.isfinite(out.float()).all())
-    timer = graph_ms if kernel == 'short_attention' else time_ms
-    ms, plain_ms = timer(torch, run), timer(torch, plain)
-    lib_ms = library_ms(torch, kernel, q, k, v, scale, timer)
+    ms = graph_ms(torch, run)
+    # the twins repeat the kernels' arithmetic in several large kernels each
+    # (fp32 score matrices through memory): a loop of calls times them
+    plain_ms = (graph_ms if kernel == 'short_attention' else time_ms)(torch, plain)
+    lib_ms = library_ms(torch, kernel, q, k, v, scale, graph_ms)
     bound_ms, bound_by = bound(kernel, shape, dtype_name)
-    extra = {}
+    extra = {'call_loop_ms': time_ms(torch, run, runs=3)}
     if kernel == 'short_attention':
         # what else could run there: B1 at this shape, and the explicit
         # path the port's dispatch takes for it; and the kernel in a loop
         # of separate calls, which the host's launch cost bounds
         from diffusion_feature_tpu_torch.ops import attention as attn_ops
-        extra = {'b1_ms': timer(torch, lambda: fa.flash_attention(q, k, v, scale=scale)),
-                 'explicit_ms': timer(torch, lambda: attn_ops.attention_fused_heads(
-                     q, k, v, scale=scale)),
-                 'call_loop_ms': time_ms(torch, run)}
-        notes += ''.join(f' {key}={val:.4f}' for key, val in extra.items())
+        extra.update(b1_ms=graph_ms(torch, lambda: fa.flash_attention(q, k, v, scale=scale)),
+                     explicit_ms=graph_ms(torch, lambda: attn_ops.attention_fused_heads(
+                         q, k, v, scale=scale)))
+    notes += ''.join(f' {key}={val:.4f}' for key, val in extra.items())
     ok = finite and ratio <= 1.0
     lib = 'none' if lib_ms is None else f'{lib_ms:.4f}'
-    print(f'compare {kernel} {dtype_name} q{(b, h, sq, d)} k{(b, h, sk, d)}: '
+    print(f'compare {kernel} {dtype_name} q{(b, h, sq, d)} k{(b, h, sk, d)}'
+          f'{" head-split" if split else ""}: '
           f'max_abs_err={err:.3e} atol={atol:.3g} rtol={tol:g} worst/allowed={ratio:.3f}{notes} '
           f'kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} '
           f'bound_ms={bound_ms:.4f} ({bound_by}) share_of_bound={bound_ms / ms:.3f} '
           f'{"ok" if ok else "FAIL"}', flush=True)
     if not ok:
-        raise RuntimeError(f'{kernel} disagrees with its twin at {shape} {dtype_name}')
+        raise RuntimeError(f'{kernel} disagrees with its twin at {shape} {dtype_name}'
+                           f'{" head-split" if split else ""}')
     return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms, 'library_ms': lib_ms,
             'bound_ms': bound_ms, 'bound_by': bound_by, **extra}
 
@@ -552,6 +610,12 @@ def main() -> int:
     for line in info['log'].splitlines():
         if 'registers' in line or 'spill' in line:
             print(f'  ptxas: {line.strip()}')
+    for path in info['paths']:
+        if 'flash_bf16' in path or 'flash_fp16' in path:
+            counts = sass_counts(path)
+            print(f'phase 1 SASS of {os.path.basename(path)}: {counts}', flush=True)
+            if not all(counts.values()):
+                raise RuntimeError(f'{path}: no wgmma or TMA load in the SASS: {counts}')
     from diffusion_feature_tpu_torch.native import load_library
     writer_lib = load_library('dumpio')
     if writer_lib is None:
@@ -567,13 +631,21 @@ def main() -> int:
                                ('headmean_probs', STORE_SHAPES)):
             for shape in shapes + [RAGGED]:
                 res = compare(torch, fa, kernel, shape, dtype_name, gen)
+                if dtype_name == 'bfloat16' and kernel == 'headmean_probs':
+                    numbers[kernel, shape] = res
+            if kernel == 'headmean_probs':
+                continue
+            # the layout the paths hand B1 and B2; fp32 at the ragged shapes
+            for shape in (shapes if dtype_name == 'bfloat16' else []) + SPLIT_RAGGED[kernel]:
+                res = compare(torch, fa, kernel, shape, dtype_name, gen, split=True)
                 if dtype_name == 'bfloat16':
                     numbers[kernel, shape] = res
         for shape in SHORT_SHAPES + [SHORT_RAGGED]:
             res = compare(torch, fa, 'short_attention', shape, dtype_name, gen)
             if dtype_name == 'bfloat16' and shape in SHORT_SHAPES:
                 numbers['short_attention', shape] = res
-    compare(torch, fa, 'flash_attention', B1_SHAPES[0], 'float16', gen)
+    for shape in (B1_SHAPES[0], SPLIT_RAGGED['flash_attention'][-1]):
+        compare(torch, fa, 'flash_attention', shape, 'float16', gen, split=True)
     torch.cuda.empty_cache()
     print(f'phase 2 done: {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB still allocated '
           '(what phases 3 to 7 count in their peak beside their own)', flush=True)
@@ -620,17 +692,18 @@ def main() -> int:
                  'launches': sum(r[name] for r in runs.values()),
                  'launches_by_path': {p: r[name] for p, r in runs.items()},
                  'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0,
-                 'library_ms': 0.0, 'shapes': {}}
+                 'library_ms': 0.0, 'call_loop_ms': 0.0, 'shapes': {}}
         calls = [s for path in shapes.values() for n, s in path if n == name]
         if len(calls) != entry['launches']:
             raise RuntimeError(f'{name}: {len(calls)} recorded calls, {entry["launches"]} launches')
         if name == 'short_attention':
             calls = list(SHORT_SHAPES)
             entry['timed_over'] = 'one bf16 call at each phase-2 shape; no path launches B4'
-            entry['b1_ms'] = entry['explicit_ms'] = entry['call_loop_ms'] = 0.0
+            entry['b1_ms'] = entry['explicit_ms'] = 0.0
         for shape in sorted(set(calls)):
             if (name, shape) not in numbers:
-                numbers[name, shape] = compare(torch, fa, name, shape, 'bfloat16', gen)
+                numbers[name, shape] = compare(torch, fa, name, shape, 'bfloat16', gen,
+                                               split=name != 'headmean_probs')
             res = numbers[name, shape]
             count = calls.count(shape)
             entry['shapes'][str(shape)] = {'calls': count, **res}

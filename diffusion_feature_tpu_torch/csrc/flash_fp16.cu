@@ -1,0 +1,16 @@
+// B1 and B2 for float16 inputs: the Hopper flash-attention kernel of
+// flash_hopper.cuh (wgmma, a TMA ring, warp specialisation), one source per
+// type so that the types build in parallel.
+
+#include "flash_hopper.cuh"
+
+// The entry point; its contract is at dft::hopper::forward in
+// flash_hopper.cuh.  This library takes dtype 1 (float16) only.
+extern "C" int dft_flash_attention_forward(const void* q, const void* k, const void* v, void* o,
+                                           float* lse, int b, int h, int sq, int sk, int d,
+                                           int dtype, float scale, const long long* strides,
+                                           void* stream) {
+  if (dtype != 1) return int(cudaErrorInvalidValue);
+  return dft::hopper::forward<__half>(q, k, v, o, lse, b, h, sq, sk, d, scale, strides,
+                                  static_cast<cudaStream_t>(stream));
+}

@@ -120,10 +120,8 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const float* lse, void* out, int b, int h, int sq,
            int sk, float scale, cudaStream_t stream) {
   using C = Cfg<T, D>;
-  auto kernel = headmean_kernel<T, D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::kSmem));
-  if (err != cudaSuccess) return int(err);
+  constexpr auto kernel = headmean_kernel<T, D>;
+  if (int err = allow_smem<kernel>(C::kSmem)) return err;
   const dim3 grid((sk + kBlockN - 1) / kBlockN, (sq + kBlockM - 1) / kBlockM, b);
   kernel<<<grid, kThreads, C::kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), lse, static_cast<T*>(out), h, sq, sk,

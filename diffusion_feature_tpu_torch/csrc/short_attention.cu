@@ -196,11 +196,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh, int sq,
            float scale, cudaStream_t stream) {
   using C = Cfg<T, D>;
   if (sk < 1 || sk > kMaxKeys || sq < 1) return int(cudaErrorInvalidValue);
-  auto kernel = short_attn_kernel<T, D>;
+  constexpr auto kernel = short_attn_kernel<T, D>;
   const size_t smem = C::smem(sk);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
+  // the limit is raised once, to what the most keys need
+  if (int err = allow_smem<kernel>(C::smem(kMaxKeys))) return err;
   const dim3 grid((sq + kBlockM - 1) / kBlockM, bh);
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                            static_cast<const T*>(v), static_cast<T*>(o), sq, sk,

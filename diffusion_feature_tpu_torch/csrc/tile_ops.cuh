@@ -1,5 +1,6 @@
-// Pieces shared by the attention kernels (flash_attention.cu, headmean.cu):
-// the m16n8k16 tensor-core product per input type, and the tile loader.
+// Pieces shared by the attention kernels (flash_f32.cu, headmean.cu,
+// short_attention.cu, flash_hopper.cuh): the m16n8k16 tensor-core product
+// per input type, the tile loader, and the shared-memory limit.
 //
 // Fragment layout of mma.sync m16n8k16: A(row, k) sits in lane
 // 4*(row%8) + (k%8)/2, register 2*(k/8) + row/8; B(k, n) in lane
@@ -20,6 +21,21 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlockM = kWarps * 16;  // query rows per block, 16 per warp
 constexpr int kPad = 8;               // elements of padding per shared row
+
+// Raise a kernel's dynamic shared-memory limit once per kernel and device,
+// so that the launches a CUDA graph captures make no other runtime call.
+template <auto kKernel>
+inline int allow_smem(size_t bytes) {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return int(err);
+  if (dev < 64 && done[dev]) return 0;
+  err = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (err != cudaSuccess) return int(err);
+  if (dev < 64) done[dev] = true;
+  return 0;
+}
 
 // The QK^T depth, zero-padded to the mma depth of 16 (d=40 -> 48).  Zero
 // columns add zero to every score.

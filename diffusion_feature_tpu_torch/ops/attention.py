@@ -16,7 +16,8 @@ any width, so there the routing is the JAX package's exactly.  B4
 
 Public functions take q/k/v in the pre-head-split layout (B, S, inner), so
 the q/k/v taps observe the same tensors as the reference; ``*_heads``
-variants take (B, H, S, D).
+variants take (B, H, S, D).  The flash kernels read the head-split views
+in place and write (B, S, H, D) memory, so no copy surrounds them.
 """
 
 from __future__ import annotations
@@ -90,8 +91,7 @@ def attention_fused_heads(qh, kh, vh, *, scale: Optional[float] = None,
     kernel where the gate admits the shape, explicit softmax otherwise."""
     scale = qh.shape[-1] ** -0.5 if scale is None else scale
     if mask is None and _use_flash(qh, kh):
-        return flash_attention(qh.contiguous(), kh.contiguous(), vh.contiguous(),
-                               scale=scale)
+        return flash_attention(qh, kh, vh, scale=scale)
     out, _ = _softmax_attention(qh, kh, vh, scale, mask)
     return out
 
@@ -103,8 +103,7 @@ def attention_fused(q, k, v, heads: int, *, scale: Optional[float] = None,
     scale = d ** -0.5 if scale is None else scale
     qh, kh, vh = split_heads(q, heads), split_heads(k, heads), split_heads(v, heads)
     if mask is None and _use_flash(qh, kh):
-        return merge_heads(flash_attention(qh.contiguous(), kh.contiguous(),
-                                           vh.contiguous(), scale=scale))
+        return merge_heads(flash_attention(qh, kh, vh, scale=scale))
     out, _ = _softmax_attention(qh, kh, vh, scale, mask)
     return merge_heads(out)
 
@@ -125,7 +124,8 @@ def attention_with_headmean_heads(qh, kh, vh, *, scale: Optional[float] = None
     Inference only: no backward."""
     scale = qh.shape[-1] ** -0.5 if scale is None else scale
     if _use_flash(qh, kh, min_seq=512, head_dims=HEADMEAN_HEAD_DIMS):
+        # B3 takes contiguous q and k; B2 reads any view TMA can
         qh, kh = qh.contiguous(), kh.contiguous()
-        out, lse = flash_attention_with_lse(qh, kh, vh.contiguous(), scale=scale)
+        out, lse = flash_attention_with_lse(qh, kh, vh, scale=scale)
         return out, headmean_probs(qh, kh, lse, scale=scale)
     return _headmean_explicit(qh, kh, vh, scale)

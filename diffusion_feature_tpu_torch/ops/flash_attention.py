@@ -2,8 +2,9 @@
 
 Replaces the Pallas TPU kernels of ``diffusion_feature_tpu/ops/flash_attention.py``:
 
-  B1 ``_flash_kernel``      -> ``flash_attention``           (csrc/flash_attention.cu)
-  B2 ``_flash_lse_kernel``  -> ``flash_attention_with_lse``  (the same source, kLse)
+  B1 ``_flash_kernel``      -> ``flash_attention``           (csrc/flash_bf16.cu, flash_fp16.cu,
+                                                               flash_f32.cu)
+  B2 ``_flash_lse_kernel``  -> ``flash_attention_with_lse``  (the same sources, kLse)
   B3 ``_headmean_kernel``   -> ``headmean_probs``            (csrc/headmean.cu)
   B4 ``_short_attn_kernel`` -> ``short_attention``           (csrc/short_attention.cu)
 
@@ -13,15 +14,24 @@ together), cached by source hash in ``_build/`` beside this package, and
 called through ``ctypes`` on PyTorch's current stream.
 
 What bounds them on an H100: B1/B2 at d=64 and 4096 tokens do ~4000 flops
-per byte they read, so tensor-core flops and the S^2 exponentials bound
+per byte they read, so tensor-core flops and the Sq*Sk exponentials bound
 them, not memory; B3 does half B1's flops per score and no PV product, so
 its exponentials (one per head and score, on the special-function unit)
 bound it; B4, at the short sequences its gate admits, moves so few bytes
-that a launch's own cost exceeds its bound.  The designs run the products
-on the tensor cores (``mma.sync`` m16n8k16, fp32 accumulation), keep scores
-in registers (B4: in a shared-memory tile of the whole key row) and read
-each K/V tile once per 64 query rows; overlapping loads with compute (TMA,
-``wgmma``, warp specialisation) is left to later work.  See the sources.
+that a launch's own cost exceeds its bound.  B1/B2 in bf16 and fp16 are
+one Hopper kernel (``flash_hopper.cuh``): a producer warp keeps TMA loads
+of K/V tiles in flight in an mbarrier ring, consumer warpgroups run
+``wgmma`` with the scores and P in registers, and d=512 computes each
+score once.  float32, a test dtype, keeps an exact ``mma.sync``-layout
+FMA kernel (``flash_f32.cu``).  B3 and B4 run ``mma.sync`` m16n8k16 with
+synchronous loads.  See the sources.
+
+Inputs: B1/B2 take (B, H, S, D) tensors with unit stride along D and
+16-byte aligned bases and strides, so the head-split view ``split_heads``
+returns (stride H*D along S) is read in place; their output is written in
+(B, S, H, D) memory and returned as the (B, H, S, D) view, so
+``merge_heads`` of it is a view too.  B3 and B4 take contiguous tensors.
+No wrapper copies an input it cannot take: it raises.
 
 Routing: CPU tensors go to the ``*_reference`` twins, and so do meta
 tensors, which carry shapes only (layer enumeration runs the U-Net on
@@ -51,17 +61,25 @@ HEADMEAN_HEAD_DIMS = (40, 64, 80, 128, 160)
 SHORT_MAX_KEYS = 512
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _CSRC = Path(__file__).resolve().parent.parent / 'csrc'
-_SOURCES = {'flash_attention': _CSRC / 'flash_attention.cu',
+_SOURCES = {'flash_bf16': _CSRC / 'flash_bf16.cu',
+            'flash_fp16': _CSRC / 'flash_fp16.cu',
+            'flash_f32': _CSRC / 'flash_f32.cu',
             'headmean': _CSRC / 'headmean.cu',
             'short_attention': _CSRC / 'short_attention.cu'}
-_HEADERS = (_CSRC / 'tile_ops.cuh',)
+_HEADERS = (_CSRC / 'tile_ops.cuh', _CSRC / 'flash_hopper.cuh', _CSRC / 'wgmma.cuh')
+#: the B1/B2 library of each dtype
+_FLASH_LIBS = {torch.bfloat16: 'flash_bf16', torch.float16: 'flash_fp16',
+               torch.float32: 'flash_f32'}
 _BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
 _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
                '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 _VP, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_STRIDES = ctypes.c_longlong * 12
 _ARGTYPES = {
-    # q, k, v, o, lse, bh, sq, sk, d, dtype, scale, stream
-    'dft_flash_attention_forward': [_VP] * 5 + [_INT] * 5 + [_F32, _VP],
+    # q, k, v, o, lse, b, h, sq, sk, d, dtype, scale, strides (sb, sh, ss of
+    # q, k, v, o), stream
+    'dft_flash_attention_forward': [_VP] * 5 + [_INT] * 6 + [
+        _F32, ctypes.POINTER(ctypes.c_longlong), _VP],
     # q, k, lse, out, b, h, sq, sk, d, dtype, scale, stream
     'dft_headmean_probs': [_VP] * 4 + [_INT] * 6 + [_F32, _VP],
     # q, k, v, o, bh, sq, sk, d, dtype, scale, stream
@@ -220,9 +238,30 @@ def _on_host(*tensors) -> bool:
     return all(x.device.type in ('cpu', 'meta') for x in tensors)
 
 
-def _check_cuda_inputs(op: str, tensors, head_dims):
-    """Device, dtype, rank, contiguity and alignment of (B, H, S, D) inputs
-    of one dtype and one head width, on the current CUDA device."""
+def tma_strides(x: torch.Tensor) -> tuple:
+    """(sb, sh, ss): the element strides of a (B, H, S, D) tensor as the
+    flash kernels take them (a TMA tensor map; the fp32 kernel the same).
+    A dimension of size 1 has no meaningful stride, so it gets the one a
+    packed layout would give it.  Raises ValueError unless D has unit
+    stride and every stride is a multiple of 16 bytes."""
+    b, h, s, d = x.shape
+    sb, sh, ss, sd = x.stride()
+    if sd != 1 and d != 1:
+        raise ValueError(f'must be contiguous along D (unit stride), got strides {x.stride()}')
+    ss = d if s == 1 else ss
+    sh = s * ss if h == 1 else sh
+    sb = h * sh if b == 1 else sb
+    if any(st * x.element_size() % 16 for st in (sb, sh, ss)):
+        raise ValueError(f'strides {x.stride()} of {x.dtype} {tuple(x.shape)} are not '
+                         'multiples of 16 bytes')
+    return sb, sh, ss
+
+
+def _check_cuda_inputs(op: str, tensors, head_dims, contiguous: bool = True):
+    """Device, dtype, rank, layout and alignment of (B, H, S, D) inputs of
+    one dtype and one head width, on the current CUDA device.  With
+    ``contiguous`` False a strided layout passes where ``tma_strides``
+    takes it."""
     first = tensors[0][1]
     for name, x in tensors:
         if x.device.type != 'cuda' or x.device != first.device:
@@ -233,7 +272,7 @@ def _check_cuda_inputs(op: str, tensors, head_dims):
                              'float32, float16 or bfloat16, one dtype for all inputs')
         if x.dim() != 4:
             raise ValueError(f'{op}: {name} must be (B, H, S, D), got {tuple(x.shape)}')
-        if not x.is_contiguous():
+        if contiguous and not x.is_contiguous():
             raise ValueError(f'{op}: {name} must be contiguous')
         if x.data_ptr() % 16:
             raise ValueError(f'{op}: {name} must be 16-byte aligned')
@@ -258,16 +297,29 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def flash_output(q: torch.Tensor) -> torch.Tensor:
+    """B1/B2's output for (B, H, Sq, D) q: (B, Sq, H, D) memory returned as
+    the (B, H, Sq, D) view, so ``merge_heads`` of it is a view."""
+    b, h, sq, d = q.shape
+    return torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+
+
 def _flash_launch(op, q, k, v, lse, scale, head_dims):
-    _check_cuda_inputs(op, (('q', q), ('k', k), ('v', v)), head_dims)
+    _check_cuda_inputs(op, (('q', q), ('k', k), ('v', v)), head_dims, contiguous=False)
     if k.shape != v.shape:
         raise ValueError(f'{op}: k {tuple(k.shape)} and v {tuple(v.shape)} differ')
     b, h, sq, d = q.shape
-    out = torch.empty_like(q)
-    err = _lib('flash_attention').dft_flash_attention_forward(
+    out = flash_output(q)
+    strides = []
+    for name, x in (('q', q), ('k', k), ('v', v), ('output', out)):
+        try:
+            strides += tma_strides(x)
+        except ValueError as err:
+            raise ValueError(f'{op}: {name} {err}') from None
+    err = _lib(_FLASH_LIBS[q.dtype]).dft_flash_attention_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), b * h, sq, k.shape[2], d,
-        _DTYPE_CODES[q.dtype], float(scale), _stream(q))
+        None if lse is None else lse.data_ptr(), b, h, sq, k.shape[2], d,
+        _DTYPE_CODES[q.dtype], float(scale), _STRIDES(*strides), _stream(q))
     if err != 0:
         raise RuntimeError(f'{op} kernel launch failed: cudaError {err} '
                            f'for q {tuple(q.shape)} {q.dtype}')
@@ -277,7 +329,10 @@ def _flash_launch(op, q, k, v, lse, scale, head_dims):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float) -> torch.Tensor:
     """B1: (B, H, Sq, D) x (B, H, Sk, D) -> (B, H, Sq, D) in q's dtype, with
-    fp32 softmax statistics and accumulation.  Non-causal, no mask."""
+    fp32 softmax statistics and accumulation.  Non-causal, no mask.  On the
+    card the inputs may be strided views (unit stride along D, 16-byte
+    aligned strides, as ``tma_strides`` checks) and the output is the
+    (B, H, Sq, D) view of (B, Sq, H, D) memory."""
     global launches
     if _on_host(q, k, v):
         return flash_attention_reference(q, k, v, scale)
@@ -288,7 +343,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              scale: float):
-    """B2: B1's output and each row's logsumexp, (B, H, Sq) in fp32."""
+    """B2: B1's output and each row's logsumexp, (B, H, Sq) in fp32.  Takes
+    and returns the layouts B1 does."""
     global lse_launches
     if _on_host(q, k, v):
         return flash_attention_with_lse_reference(q, k, v, scale)

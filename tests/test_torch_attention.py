@@ -183,3 +183,106 @@ def test_twin_casts_to_input_dtype():
     q = torch.randn(1, 1, 8, 64, dtype=torch.bfloat16)
     out = fa.flash_attention(q, q, q, scale=0.125)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
+
+
+def _recording_wrapper(monkeypatch, calls):
+    """Replace the B1 wrapper the attention ops call by one that records
+    the layout of what it is handed, then runs the real wrapper (on the
+    CPU: its twin)."""
+    real = attn.flash_attention
+
+    def record(q, k, v, *, scale):
+        calls.append([(x.is_contiguous(), x.stride()) for x in (q, k, v)])
+        return real(q, k, v, scale=scale)
+
+    monkeypatch.setattr(attn, 'flash_attention', record)
+
+
+def _head_split_strides(b, s, heads, d):
+    """The strides of ``split_heads`` of a contiguous (b, s, heads*d)."""
+    return (s * heads * d, d, heads * d, 1)
+
+
+@pytest.mark.parametrize('op', ['attention_fused', 'attention_fused_heads'])
+def test_fused_ops_hand_the_kernel_head_split_views(monkeypatch, op):
+    """The flash wrapper gets the (B, H, S, D) views of the projections,
+    not copies (the kernel reads them in place), and the result still
+    equals the JAX package's at fp32."""
+    heads, d, s = 2, 64, 1024
+    q, k, v = (_rand(20 + i, 1, s, heads * d) for i in range(3))
+    calls = []
+    _recording_wrapper(monkeypatch, calls)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    if op == 'attention_fused':
+        ours = attn.attention_fused(tq, tk, tv, heads)
+    else:
+        ours = attn.merge_heads(attn.attention_fused_heads(
+            *(attn.split_heads(x, heads) for x in (tq, tk, tv))))
+    assert calls == [[(False, _head_split_strides(1, s, heads, d))] * 3]
+    # the JAX gate would send this shape to the Pallas kernel; its explicit
+    # twin keeps this file at two interpret-mode calls
+    ref, _ = jax_attn.attention_with_probs(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads)
+    _close(ours, ref, atol=1e-5, rtol=1e-4)
+
+
+def test_unet_attention_hands_the_kernel_head_split_views(monkeypatch):
+    """The U-Net's Attention module on its fused path: the wrapper gets the
+    head-split views of the module's own projections, and the output equals
+    the JAX attention on the same projections followed by to_out."""
+    from diffusion_feature_tpu_torch.models.layers import Attention
+    heads, d, s = 2, 64, 1024
+    torch.manual_seed(0)
+    mod = Attention(heads * d, heads, d).eval()
+    x = torch.from_numpy(_rand(30, 1, s, heads * d))
+    calls = []
+    _recording_wrapper(monkeypatch, calls)
+    with torch.no_grad():
+        ours = mod(x)
+        q, k, v = (lin(x).numpy() for lin in (mod.to_q, mod.to_k, mod.to_v))
+    assert calls == [[(False, _head_split_strides(1, s, heads, d))] * 3]
+    ref, _ = jax_attn.attention_with_probs(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads)
+    with torch.no_grad():
+        ref = mod.to_out[0](torch.from_numpy(np.array(ref, np.float32)))
+    _close(ours, ref.numpy(), atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize('layout,shape,dtype,want', [
+    ('contiguous', (2, 10, 4096, 64), torch.bfloat16, (10 * 4096 * 64, 4096 * 64, 64)),
+    ('head-split', (2, 10, 4096, 64), torch.bfloat16, (4096 * 640, 64, 640)),
+    ('head-split', (2, 8, 1000, 40), torch.bfloat16, (1000 * 320, 40, 320)),
+    ('contiguous', (1, 2, 333, 40), torch.float16, (2 * 333 * 40, 333 * 40, 40)),
+    ('head-split', (1, 1, 16384, 512), torch.bfloat16, (16384 * 512, 16384 * 512, 512)),
+    ('head-split', (2, 2, 300, 80), torch.float32, (300 * 160, 80, 160)),
+], ids=['contiguous', 'head-split', 'd40-head-split', 'd40-fp16', 'vae-one-head', 'fp32'])
+def test_tma_strides(layout, shape, dtype, want):
+    """The element strides the flash kernels' tensor maps take: head-split
+    views pass as they are; a size-1 dimension gets a packed stride."""
+    b, h, s, d = shape
+    if layout == 'contiguous':
+        x = torch.empty(shape, dtype=dtype)
+    else:
+        x = attn.split_heads(torch.empty(b, s, h * d, dtype=dtype), h)
+    assert fa.tma_strides(x) == want
+
+
+def test_tma_strides_raise():
+    x = torch.empty(1, 2, 64, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='contiguous along D'):
+        fa.tma_strides(x.transpose(2, 3))
+    # 36 bf16 = 72 bytes between rows: TMA takes multiples of 16 only
+    with pytest.raises(ValueError, match='16 bytes'):
+        fa.tma_strides(torch.empty(1, 2, 64, 36, dtype=torch.bfloat16))
+    # every second row: a 256-byte stride, which TMA takes
+    assert fa.tma_strides(x[:, :, ::2]) == (2 * 64 * 64, 64 * 64, 128)
+
+
+def test_flash_output_layout():
+    """B1/B2's output on the card: (B, S, H, D) memory as the (B, H, S, D)
+    view, so merge_heads of it is a view and its strides pass tma_strides."""
+    q = attn.split_heads(torch.empty(2, 100, 4 * 40), 4).contiguous()
+    out = fa.flash_output(q)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert out.stride() == (100 * 160, 40, 160, 1)
+    assert attn.merge_heads(out).data_ptr() == out.data_ptr()
+    assert attn.merge_heads(out)._base is out._base
+    assert fa.tma_strides(out) == (100 * 160, 40, 160)

@@ -19,6 +19,17 @@ from diffusion_feature_tpu_torch.ops import flash_attention as fa
 _TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 1e-4}
 
 
+def _assert_matches(out, ref, dtype):
+    """The elementwise rule, and the error's L2 norm over the reference's
+    within the same tolerance: an attention output averages Sk values, so
+    its entries are ~Sk^-1/2 and the elementwise rule alone would admit an
+    output wrong by a share of every value."""
+    out, ref = out.float(), ref.float()
+    torch.testing.assert_close(out, ref, atol=_TOL[dtype], rtol=_TOL[dtype])
+    rel = ((out - ref).norm() / ref.norm()).item()
+    assert rel <= _TOL[dtype], f'relative L2 error {rel:.3e} above {_TOL[dtype]:g}'
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -44,7 +55,7 @@ def test_kernel_matches_twin(cuda, dtype, shape):
     torch.cuda.synchronize()
     assert fa.launches == 1 and out.dtype == dtype
     ref = fa.flash_attention_reference(q, k, v, d ** -0.5)
-    torch.testing.assert_close(out.float(), ref.float(), atol=_TOL[dtype], rtol=_TOL[dtype])
+    _assert_matches(out, ref, dtype)
 
 
 def _qkv(cuda, dtype, b, h, sq, sk, d, seed=0):
@@ -69,7 +80,7 @@ def test_lse_and_headmean_kernels_match_twins(cuda, dtype, shape):
     assert (fa.lse_launches, fa.headmean_launches) == (1, 1)
     assert lse.dtype == torch.float32 and mean_p.dtype == dtype and mean_p.shape == (b, sq, sk)
     r_out, r_lse = fa.flash_attention_with_lse_reference(q, k, v, d ** -0.5)
-    torch.testing.assert_close(out.float(), r_out.float(), atol=_TOL[dtype], rtol=_TOL[dtype])
+    _assert_matches(out, r_out, dtype)
     # both sides take fp32 scores from the same inputs
     torch.testing.assert_close(lse, r_lse, atol=1e-3, rtol=0)
     r_mean = fa.headmean_probs_reference(q, k, lse, d ** -0.5)
@@ -116,8 +127,13 @@ def test_kernel_raises_on_unsupported_input(cuda):
     with pytest.raises(ValueError, match='head dim'):
         fa.flash_attention(q, q, q, scale=1.0)
     q = torch.randn(1, 2, 64, 64, device=cuda)
-    with pytest.raises(ValueError, match='contiguous'):
-        fa.flash_attention(q[:, :, ::2], q[:, :, ::2], q[:, :, ::2], scale=1.0)
+    # strided views pass (TMA reads them), but D must have unit stride
+    with pytest.raises(ValueError, match='contiguous along D'):
+        fa.flash_attention(q.transpose(2, 3), q, q, scale=1.0)
+    # and row strides must be multiples of 16 bytes (76 bf16 = 152 bytes)
+    odd = torch.randn(1, 2, 64, 76, device=cuda).to(torch.bfloat16)[..., :40]
+    with pytest.raises(ValueError, match='16 bytes'):
+        fa.flash_attention(odd, odd, odd, scale=1.0)
     with pytest.raises(ValueError, match='dtype'):
         fa.flash_attention(q.double(), q.double(), q.double(), scale=1.0)
     q = torch.randn(1, 1, 64, 512, device=cuda)
@@ -183,3 +199,88 @@ def test_short_kernel_raises_on_unsupported_input(cuda):
     q = torch.randn(1, 2, 128, 32, device=cuda)
     with pytest.raises(ValueError, match='head dim'):
         fa.short_attention(q, q, q, scale=1.0)
+
+
+def _split(cuda, dtype, b, h, s, d, gen):
+    """The (B, H, S, D) head-split view of a (B, S, H*D) projection."""
+    x = torch.randn(b, s, h * d, generator=gen, device=cuda).to(dtype)
+    return attn.split_heads(x, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16, torch.float32], ids=str)
+@pytest.mark.parametrize('lse,shape', [
+    *((lse, shape) for lse in (False, True)
+      for shape in [(2, 10, 1024, 1024, 64), (2, 8, 1000, 333, 40), (1, 3, 300, 700, 160),
+                    (2, 2, 130, 77, 80)]),
+    (False, (1, 1, 1000, 1000, 512)),   # B2 has no d=512 instance: the VAE never feeds the store
+], ids=[f'{k}-{d}' for k in ('b1', 'b2') for d in ('d64', 'ragged-d40', 'ragged-d160',
+                                                   'ragged-d80')] + ['b1-ragged-d512'])
+def test_kernel_reads_head_split_views(cuda, dtype, lse, shape):
+    """B1 and B2 on the head-split views of (B, S, H*D) projections, read
+    in place (no copy), at ragged lengths; the output is (B, S, H, D)
+    memory, so merge_heads of it is a view."""
+    b, h, sq, sk, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (_split(cuda, dtype, b, h, s, d, gen) for s in (sq, sk, sk))
+    assert h == 1 or not q.is_contiguous()   # one head: the view is contiguous
+    fa.launches = fa.lse_launches = 0
+    if lse:
+        out, got_lse = fa.flash_attention_with_lse(q, k, v, scale=d ** -0.5)
+        ref, ref_lse = fa.flash_attention_with_lse_reference(q, k, v, d ** -0.5)
+    else:
+        out = fa.flash_attention(q, k, v, scale=d ** -0.5)
+        ref = fa.flash_attention_reference(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.lse_launches) == ((0, 1) if lse else (1, 0))
+    assert out.shape == q.shape and out.stride() == (sq * h * d, d, h * d, 1)
+    assert attn.merge_heads(out).data_ptr() == out.data_ptr()
+    _assert_matches(out, ref, dtype)
+    if lse:
+        torch.testing.assert_close(got_lse, ref_lse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize('shape', [(2, 8, 4096, 4096, 40), (2, 1, 4096, 4096, 512),
+                                   (2, 20, 1024, 1024, 64)], ids=['d40', 'd512', 'd64'])
+def test_kernel_matches_twin_at_path_widths(cuda, dtype, shape):
+    """B1 at SD-1.5's d=40 level and at the VAE's d=512 head (4096 tokens:
+    the one-pass score tiles over many key tiles), and SDXL's d=64 level,
+    on contiguous inputs."""
+    b, h, sq, sk, d = shape
+    q, k, v = _qkv(cuda, dtype, *shape, seed=6)
+    out = fa.flash_attention(q, k, v, scale=d ** -0.5)
+    ref = fa.flash_attention_reference(q, k, v, d ** -0.5)
+    _assert_matches(out, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16, torch.float32], ids=str)
+@pytest.mark.parametrize('lse,layout', [(False, 'row-stride'), (True, 'split-v')])
+def test_kernel_reads_other_strided_views(cuda, dtype, lse, layout):
+    """The other layouts the stride contract admits: B1 on every second
+    row of (B, H, 2S, D) tensors, and B2 on contiguous q and k with a
+    head-split v, as the store path hands it (B3 takes contiguous q/k)."""
+    b, h, sq, sk, d = 2, 4, 300, 333, 64
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    if layout == 'row-stride':
+        q, k, v = (torch.randn(b, h, 2 * s, d, generator=gen, device=cuda).to(dtype)[:, :, ::2]
+                   for s in (sq, sk, sk))
+        assert q.stride() == (h * 2 * sq * d, 2 * sq * d, 2 * d, 1)
+    else:
+        q, k = _qkv(cuda, dtype, b, h, sq, sk, d, seed=7)[:2]
+        v = _split(cuda, dtype, b, h, sk, d, gen)
+        assert q.is_contiguous() and k.is_contiguous() and not v.is_contiguous()
+    fa.launches = fa.lse_launches = 0
+    if lse:
+        out, got_lse = fa.flash_attention_with_lse(q, k, v, scale=d ** -0.5)
+        ref, ref_lse = fa.flash_attention_with_lse_reference(q, k, v, d ** -0.5)
+    else:
+        out = fa.flash_attention(q, k, v, scale=d ** -0.5)
+        ref = fa.flash_attention_reference(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.lse_launches) == ((0, 1) if lse else (1, 0))
+    _assert_matches(out, ref, dtype)
+    if lse:
+        torch.testing.assert_close(got_lse, ref_lse, atol=1e-3, rtol=0)

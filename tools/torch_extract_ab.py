@@ -2,6 +2,7 @@
 """Time one path of the PyTorch port for one checkout of the repository.
 
     python3 tools/torch_extract_ab.py ROOT [--path xl|sd15_store|xl_store]
+    python3 tools/torch_extract_ab.py ROOT --kernels
 
 Imports ``diffusion_feature_tpu_torch`` from ROOT, builds its kernels, and
 times one of ``chip_smoke.PATHS`` (default ``xl``: SDXL ``xl-practical`` at
@@ -12,6 +13,14 @@ Prints one JSON line with the median, quartiles, min and max in ms and the
 card.  To compare two checkouts on one card, run it for both in turns in
 one command (A B B A), e.g. with the parent unpacked by ``git archive``
 into a directory ``.gitignore`` lists.
+
+With ``--kernels`` it times, instead of a path, ROOT's B1 and B2 wrappers
+(``flash_attention``, ``flash_attention_with_lse``) in a loop of separate
+calls (``chip_smoke.time_ms``, the median of three loops) on contiguous
+bf16 inputs (which every checkout's wrappers take) at the shapes the paths
+give them (``chip_smoke.B1_SHAPES``, the CLI's trailing batch of 1 and
+``chip_smoke.STORE_SHAPES``).  At the small shapes such a loop times the
+host's cost per call as well as the kernel.
 """
 
 import argparse
@@ -25,10 +34,27 @@ import chip_smoke  # noqa: E402
 CALLS = 15
 
 
+def kernel_loops(torch, fa) -> dict:
+    """'<wrapper> (B,H,Sq,Sk,D)' -> ms per call in a loop of calls."""
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    cli = [(1,) + shape[1:] for shape in chip_smoke.B1_SHAPES[:3]]
+    out = {}
+    for name, shapes in (('flash_attention', chip_smoke.B1_SHAPES + cli),
+                         ('flash_attention_with_lse', chip_smoke.STORE_SHAPES)):
+        wrapper = getattr(fa, name)
+        for b, h, sq, sk, d in shapes:
+            q, k, v = (torch.randn(b, h, s, d, generator=gen, device='cuda').to(torch.bfloat16)
+                       for s in (sq, sk, sk))
+            out[f'{name} {(b, h, sq, sk, d)}'] = chip_smoke.time_ms(
+                torch, lambda: wrapper(q, k, v, scale=d ** -0.5), runs=3)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument('root')
     ap.add_argument('--path', choices=list(chip_smoke.PATHS), default='xl')
+    ap.add_argument('--kernels', action='store_true')
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -38,6 +64,10 @@ def main() -> int:
     from diffusion_feature_tpu_torch.ops import flash_attention as fa
 
     fa.build()
+    if args.kernels:
+        print(json.dumps({'root': args.root, 'loop_ms': kernel_loops(torch, fa),
+                          'card': chip_smoke.card_line()}))
+        return 0
     fe, prompts, images = chip_smoke.open_path(torch, args.path)
     _, times = chip_smoke.extract_times(torch, fe, prompts, images, CALLS)
     n = len(times)

@@ -22,7 +22,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 
 KINDS = [  # first match wins
-    ('flash (B1/B2)', r'flash_fwd_kernel'),
+    ('flash (B1/B2)', r'flash_fwd'),
     ('head-mean (B3)', r'headmean_kernel'),
     ('groupnorm', r'RowwiseMoments|group_norm|GroupNorm'),
     ('layernorm', r'layer_norm|LayerNorm'),
