@@ -6,16 +6,17 @@
 Phases (each prints its numbers on lines of its own):
   1. the card's name and power limit, then the kernels' build (one nvcc per
      source, started together), and the count of HGMMA (wgmma) and UTMALDG
-     (TMA load) instructions in the bf16/fp16 flash libraries' SASS;
+     (TMA load) instructions in the SASS of every bf16/fp16 library (B1/B2,
+     B3, B4);
   2. every kernel against its plain twin at every shape the paths launch
-     it at (batch 2), plus a ragged shape, in bf16 and fp32 (B1 also in
-     fp16): errors against the stated tolerances, and for each shape the
-     kernel's, the twin's and the one PyTorch library call's times beside
-     the least time the card needs.  B1 and B2 are also checked on the
-     head-split views the paths hand them (the (B, H, S, D) view of a
-     (B, S, H*D) projection, read in place) at every path shape and at
-     ragged d=64, d=40 and d=512 shapes; those bf16 numbers are the
-     kernels line's.  Kernels and library calls are timed as CUDA graphs
+     it at (batch 2), plus a ragged shape, in bf16 and fp32 (each kernel
+     also in fp16 at one shape): errors against the stated tolerances, and
+     for each shape the kernel's, the twin's and the one PyTorch library
+     call's times beside the least time the card needs.  B1, B2 and B3 are
+     also checked on the head-split views the paths hand them (the
+     (B, H, S, D) view of a (B, S, H*D) projection, read in place) at every
+     path shape and at ragged d=64, d=40 (and, for B1, d=512) shapes; those
+     bf16 numbers are the kernels line's.  Kernels and library calls are timed as CUDA graphs
      of 20 calls (graph_ms: device time, the host's launch cost out of the
      way) and also in a loop of calls (call_loop_ms); the twins in a loop;
   3. SDXL at full width (random weights from a seed), 1024^2, batch 2:
@@ -44,8 +45,9 @@ Phase 2 also holds B4 (short attention), which no path routes to, as in
 the JAX package: against its twin, with its gradients through
 short_attention_diff, at the 256-token bands of SD-1.5 and SDXL at 512^2,
 the JAX docstring's measured (16, 20, 256, {256, 77}, 64) and a ragged
-shape, with its time beside B1's, SDPA's and the explicit path's there,
-all (its twin too) timed as CUDA graphs of 20 calls.
+shape, on contiguous tensors and on head-split views, with its time beside
+B1's, SDPA's and the explicit path's there, all (its twin too) timed as
+CUDA graphs of 20 calls.
 Every path runs with all four counts set to 0 and expects 0 B4 launches.
 The last line is {"ok": true, "device": {...}}; before it come the card line
 and a {"kernels": [...]} line.  Exits non-zero, without the last line,
@@ -80,11 +82,12 @@ STORE_SHAPES = [                # B2 and B3: the attention store's self-attentio
     (2, 10, 4096, 4096, 64),    # path B: SDXL up-level1
 ]
 RAGGED = (1, 2, 1000, 333, 64)
-# B1/B2 on head-split views: ragged lengths at d=40 (TMA zero-fills the
+# B1/B2/B3 on head-split views: ragged lengths at d=40 (TMA zero-fills the
 # columns up to the mma depth) and at d=512 (B1 only: one score pass over
 # two consumer warpgroups)
 SPLIT_RAGGED = {'flash_attention': [RAGGED, (1, 2, 1000, 333, 40), (1, 1, 1000, 777, 512)],
-                'flash_attention_with_lse': [RAGGED, (1, 2, 1000, 333, 40)]}
+                'flash_attention_with_lse': [RAGGED, (1, 2, 1000, 333, 40)],
+                'headmean_probs': [RAGGED, (1, 2, 1000, 333, 40)]}
 SHORT_SHAPES = [                # B4: the short-sequence bands (no path launches it)
     (2, 8, 256, 256, 160),      # SD-1.5 @512^2 level-2 self-attention
     (2, 8, 256, 77, 160),       # and its cross-attention
@@ -139,9 +142,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                         'diffusion_feature_tpu/ops/flash_attention.py:86'),
     'flash_attention_with_lse': ('diffusion_feature_tpu_torch/csrc/flash_hopper.cuh',
                                  'diffusion_feature_tpu/ops/flash_attention.py:121'),
-    'headmean_probs': ('diffusion_feature_tpu_torch/csrc/headmean.cu',
+    'headmean_probs': ('diffusion_feature_tpu_torch/csrc/headmean_hopper.cuh',
                        'diffusion_feature_tpu/ops/flash_attention.py:461'),
-    'short_attention': ('diffusion_feature_tpu_torch/csrc/short_attention.cu',
+    'short_attention': ('diffusion_feature_tpu_torch/csrc/short_hopper.cuh',
                         'diffusion_feature_tpu/ops/flash_attention.py:375'),
 }
 # phase 7: the CLI on the 'xl' path over 3 images, in batches of 2 and 1
@@ -286,10 +289,13 @@ def short_grad_ratio(torch, fa, q, k, v, scale, tol, gen):
     return max(worst_ratio(torch, a.grad, b.grad, tol, tol)[1] for a, b in zip(ours, twin))
 
 
+PLAIN_MS = {}   # (kernel, shape, dtype name) -> the twin's ms
+
+
 def compare(torch, fa, kernel, shape, dtype_name, gen, split=False):
     """One kernel against its twin on one shape; returns its numbers.  With
     ``split`` q, k and v are the head-split (B, H, S, D) views of
-    (B, S, H*D) projections, as the paths hand B1 and B2 their inputs."""
+    (B, S, H*D) projections, as the paths hand B1, B2 and B3 their inputs."""
     b, h, sq, sk, d = shape
     dtype = getattr(torch, dtype_name)
     if split:
@@ -339,8 +345,12 @@ def compare(torch, fa, kernel, shape, dtype_name, gen, split=False):
     finite = bool(torch.isfinite(out.float()).all())
     ms = graph_ms(torch, run)
     # the twins repeat the kernels' arithmetic in several large kernels each
-    # (fp32 score matrices through memory): a loop of calls times them
-    plain_ms = (graph_ms if kernel == 'short_attention' else time_ms)(torch, plain)
+    # (fp32 score matrices through memory): a loop of calls times them, once
+    # per shape and dtype (the layout does not change their work)
+    key = (kernel, shape, dtype_name)
+    if key not in PLAIN_MS:
+        PLAIN_MS[key] = (graph_ms if kernel == 'short_attention' else time_ms)(torch, plain)
+    plain_ms = PLAIN_MS[key]
     lib_ms = library_ms(torch, kernel, q, k, v, scale, graph_ms)
     bound_ms, bound_by = bound(kernel, shape, dtype_name)
     extra = {'call_loop_ms': time_ms(torch, run, runs=3)}
@@ -611,7 +621,7 @@ def main() -> int:
         if 'registers' in line or 'spill' in line:
             print(f'  ptxas: {line.strip()}')
     for path in info['paths']:
-        if 'flash_bf16' in path or 'flash_fp16' in path:
+        if '_bf16_' in path or '_fp16_' in path:
             counts = sass_counts(path)
             print(f'phase 1 SASS of {os.path.basename(path)}: {counts}', flush=True)
             if not all(counts.values()):
@@ -630,22 +640,26 @@ def main() -> int:
                                ('flash_attention_with_lse', STORE_SHAPES),
                                ('headmean_probs', STORE_SHAPES)):
             for shape in shapes + [RAGGED]:
-                res = compare(torch, fa, kernel, shape, dtype_name, gen)
-                if dtype_name == 'bfloat16' and kernel == 'headmean_probs':
-                    numbers[kernel, shape] = res
-            if kernel == 'headmean_probs':
-                continue
-            # the layout the paths hand B1 and B2; fp32 at the ragged shapes
+                compare(torch, fa, kernel, shape, dtype_name, gen)
+            # the layout the paths hand B1, B2 and B3; fp32 at the ragged shapes
             for shape in (shapes if dtype_name == 'bfloat16' else []) + SPLIT_RAGGED[kernel]:
                 res = compare(torch, fa, kernel, shape, dtype_name, gen, split=True)
                 if dtype_name == 'bfloat16':
                     numbers[kernel, shape] = res
+        # B4 on no path: contiguous inputs (the kernels line's), then
+        # head-split views
         for shape in SHORT_SHAPES + [SHORT_RAGGED]:
             res = compare(torch, fa, 'short_attention', shape, dtype_name, gen)
             if dtype_name == 'bfloat16' and shape in SHORT_SHAPES:
                 numbers['short_attention', shape] = res
-    for shape in (B1_SHAPES[0], SPLIT_RAGGED['flash_attention'][-1]):
-        compare(torch, fa, 'flash_attention', shape, 'float16', gen, split=True)
+        for shape in (SHORT_SHAPES if dtype_name == 'bfloat16' else []) + [SHORT_RAGGED]:
+            compare(torch, fa, 'short_attention', shape, dtype_name, gen, split=True)
+    for kernel, shape in (('flash_attention', B1_SHAPES[0]),
+                          ('flash_attention', SPLIT_RAGGED['flash_attention'][-1]),
+                          ('flash_attention_with_lse', STORE_SHAPES[1]),
+                          ('headmean_probs', STORE_SHAPES[2]),
+                          ('short_attention', SHORT_SHAPES[4])):
+        compare(torch, fa, kernel, shape, 'float16', gen, split=True)
     torch.cuda.empty_cache()
     print(f'phase 2 done: {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB still allocated '
           '(what phases 3 to 7 count in their peak beside their own)', flush=True)
@@ -703,7 +717,7 @@ def main() -> int:
         for shape in sorted(set(calls)):
             if (name, shape) not in numbers:
                 numbers[name, shape] = compare(torch, fa, name, shape, 'bfloat16', gen,
-                                               split=name != 'headmean_probs')
+                                               split=True)
             res = numbers[name, shape]
             count = calls.count(shape)
             entry['shapes'][str(shape)] = {'calls': count, **res}

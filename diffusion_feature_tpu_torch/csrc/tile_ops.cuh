@@ -1,6 +1,7 @@
-// Pieces shared by the attention kernels (flash_f32.cu, headmean.cu,
-// short_attention.cu, flash_hopper.cuh): the m16n8k16 tensor-core product
-// per input type, the tile loader, and the shared-memory limit.
+// Pieces shared by the attention kernels: for the exact float32 kernels
+// (flash_f32.cu, headmean_f32.cu, short_f32.cu) the m16n8k16 product in
+// mma.sync's fragment layout as fp32 FMAs, and the tile loader; for every
+// kernel (the Hopper ones through hopper_common.cuh) the shared-memory limit.
 //
 // Fragment layout of mma.sync m16n8k16: A(row, k) sits in lane
 // 4*(row%8) + (k%8)/2, register 2*(k/8) + row/8; B(k, n) in lane
@@ -9,8 +10,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -45,56 +44,6 @@ template <typename T>
 struct Ops;
 
 template <>
-struct Ops<__nv_bfloat16> {
-  using Reg = uint32_t;  // two bf16 values
-  static __device__ __forceinline__ Reg load2(const __nv_bfloat16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-  }
-  static __device__ __forceinline__ Reg pair(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-    __nv_bfloat162 v = __halves2bfloat162(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ Reg pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 from_float(float x) {
-    return __float2bfloat16(x);
-  }
-  static __device__ __forceinline__ void mma(float c[4], const Reg a[4], const Reg b[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-
-template <>
-struct Ops<__half> {
-  using Reg = uint32_t;  // two fp16 values
-  static __device__ __forceinline__ Reg load2(const __half* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-  }
-  static __device__ __forceinline__ Reg pair(__half lo, __half hi) {
-    __half2 v = __halves2half2(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ Reg pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ __half from_float(float x) { return __float2half(x); }
-  static __device__ __forceinline__ void mma(float c[4], const Reg a[4], const Reg b[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-
-template <>
 struct Ops<float> {
   using Reg = float2;
   static __device__ __forceinline__ Reg load2(const float* p) {
@@ -102,7 +51,6 @@ struct Ops<float> {
   }
   static __device__ __forceinline__ Reg pair(float lo, float hi) { return make_float2(lo, hi); }
   static __device__ __forceinline__ Reg pack(float lo, float hi) { return make_float2(lo, hi); }
-  static __device__ __forceinline__ float from_float(float x) { return x; }
   // c += a * b for one 16x8x16 tile in mma.sync's fragment layout, in exact
   // fp32 FMAs (TF32 would round the inputs to 10 mantissa bits).
   static __device__ __forceinline__ void mma(float c[4], const Reg a[4], const Reg b[2]) {

@@ -16,8 +16,8 @@ any width, so there the routing is the JAX package's exactly.  B4
 
 Public functions take q/k/v in the pre-head-split layout (B, S, inner), so
 the q/k/v taps observe the same tensors as the reference; ``*_heads``
-variants take (B, H, S, D).  The flash kernels read the head-split views
-in place and write (B, S, H, D) memory, so no copy surrounds them.
+variants take (B, H, S, D).  The kernels read the head-split views in
+place (B1/B2 write (B, S, H, D) memory), so no copy surrounds them.
 """
 
 from __future__ import annotations
@@ -124,8 +124,7 @@ def attention_with_headmean_heads(qh, kh, vh, *, scale: Optional[float] = None
     Inference only: no backward."""
     scale = qh.shape[-1] ** -0.5 if scale is None else scale
     if _use_flash(qh, kh, min_seq=512, head_dims=HEADMEAN_HEAD_DIMS):
-        # B3 takes contiguous q and k; B2 reads any view TMA can
-        qh, kh = qh.contiguous(), kh.contiguous()
+        # B2 and B3 read the same head-split views in place
         out, lse = flash_attention_with_lse(qh, kh, vh, scale=scale)
         return out, headmean_probs(qh, kh, lse, scale=scale)
     return _headmean_explicit(qh, kh, vh, scale)

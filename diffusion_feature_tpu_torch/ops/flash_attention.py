@@ -5,8 +5,10 @@ Replaces the Pallas TPU kernels of ``diffusion_feature_tpu/ops/flash_attention.p
   B1 ``_flash_kernel``      -> ``flash_attention``           (csrc/flash_bf16.cu, flash_fp16.cu,
                                                                flash_f32.cu)
   B2 ``_flash_lse_kernel``  -> ``flash_attention_with_lse``  (the same sources, kLse)
-  B3 ``_headmean_kernel``   -> ``headmean_probs``            (csrc/headmean.cu)
-  B4 ``_short_attn_kernel`` -> ``short_attention``           (csrc/short_attention.cu)
+  B3 ``_headmean_kernel``   -> ``headmean_probs``            (csrc/headmean_bf16.cu,
+                                                               headmean_fp16.cu, headmean_f32.cu)
+  B4 ``_short_attn_kernel`` -> ``short_attention``           (csrc/short_bf16.cu, short_fp16.cu,
+                                                               short_f32.cu)
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (one ``nvcc`` per source, started
@@ -17,21 +19,26 @@ What bounds them on an H100: B1/B2 at d=64 and 4096 tokens do ~4000 flops
 per byte they read, so tensor-core flops and the Sq*Sk exponentials bound
 them, not memory; B3 does half B1's flops per score and no PV product, so
 its exponentials (one per head and score, on the special-function unit)
-bound it; B4, at the short sequences its gate admits, moves so few bytes
-that a launch's own cost exceeds its bound.  B1/B2 in bf16 and fp16 are
-one Hopper kernel (``flash_hopper.cuh``): a producer warp keeps TMA loads
-of K/V tiles in flight in an mbarrier ring, consumer warpgroups run
-``wgmma`` with the scores and P in registers, and d=512 computes each
-score once.  float32, a test dtype, keeps an exact ``mma.sync``-layout
-FMA kernel (``flash_f32.cu``).  B3 and B4 run ``mma.sync`` m16n8k16 with
-synchronous loads.  See the sources.
+and its re-reads of Q/K tiles from L2 bound it; B4, at the short sequences
+its gate admits, moves so few bytes that a block's chain of loads and
+products, and a launch's own cost, exceed its bound.  In bf16 and fp16
+every kernel is written for Hopper: a producer warp issues TMA loads into
+mbarrier rings and consumer warpgroups run ``wgmma`` with the scores in
+registers (B1/B2 ``flash_hopper.cuh``: online softmax, d=512 computes each
+score once; B3 ``headmean_hopper.cuh``: a ring over heads, the mean kept
+in registers, a persistent grid; B4 ``short_hopper.cuh``: two passes, the
+row maxima first).  ``hopper_common.cuh`` holds what they share.  float32,
+a test dtype, keeps exact ``mma.sync``-layout FMA kernels
+(``flash_f32.cu``, ``headmean_f32.cu``, ``short_f32.cu``).  See the
+sources.
 
-Inputs: B1/B2 take (B, H, S, D) tensors with unit stride along D and
-16-byte aligned bases and strides, so the head-split view ``split_heads``
-returns (stride H*D along S) is read in place; their output is written in
-(B, S, H, D) memory and returned as the (B, H, S, D) view, so
-``merge_heads`` of it is a view too.  B3 and B4 take contiguous tensors.
-No wrapper copies an input it cannot take: it raises.
+Inputs: every kernel takes (B, H, S, D) tensors with unit stride along D
+and 16-byte aligned bases and strides (``tma_strides``), so the head-split
+view ``split_heads`` returns (stride H*D along S) is read in place.  B1, B2
+and B4 write their output in (B, S, H, D) memory and return the
+(B, H, S, D) view, so ``merge_heads`` of it is a view too; B3 writes a
+contiguous (B, Sq, Sk) map.  No wrapper copies an input it cannot take: it
+raises.
 
 Routing: CPU tensors go to the ``*_reference`` twins, and so do meta
 tensors, which carry shapes only (layer enumeration runs the U-Net on
@@ -57,33 +64,34 @@ import torch
 SUPPORTED_HEAD_DIMS = (40, 64, 80, 128, 160, 512)
 #: Head widths B2, B3 and B4 are built for (the U-Nets' heads).
 HEADMEAN_HEAD_DIMS = (40, 64, 80, 128, 160)
-#: B4 keeps a 64 x Sk fp32 score tile in shared memory: Sk is bounded.
+#: B4 takes at most this many keys (its exact softmax walks every key tile
+#: twice, and the fp32 kernel keeps a 64 x Sk score tile in shared memory).
 SHORT_MAX_KEYS = 512
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _CSRC = Path(__file__).resolve().parent.parent / 'csrc'
-_SOURCES = {'flash_bf16': _CSRC / 'flash_bf16.cu',
-            'flash_fp16': _CSRC / 'flash_fp16.cu',
-            'flash_f32': _CSRC / 'flash_f32.cu',
-            'headmean': _CSRC / 'headmean.cu',
-            'short_attention': _CSRC / 'short_attention.cu'}
-_HEADERS = (_CSRC / 'tile_ops.cuh', _CSRC / 'flash_hopper.cuh', _CSRC / 'wgmma.cuh')
-#: the B1/B2 library of each dtype
-_FLASH_LIBS = {torch.bfloat16: 'flash_bf16', torch.float16: 'flash_fp16',
-               torch.float32: 'flash_f32'}
+#: one library per kernel and dtype: <kernel>_<bf16|fp16|f32>
+_SOURCES = {f'{kernel}_{tag}': _CSRC / f'{kernel}_{tag}.cu'
+            for kernel in ('flash', 'headmean', 'short') for tag in ('bf16', 'fp16', 'f32')}
+_HEADERS = tuple(_CSRC / name for name in ('tile_ops.cuh', 'hopper_common.cuh', 'wgmma.cuh',
+                                           'flash_hopper.cuh', 'headmean_hopper.cuh',
+                                           'short_hopper.cuh'))
+_DTYPE_TAGS = {torch.bfloat16: 'bf16', torch.float16: 'fp16', torch.float32: 'f32'}
 _BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
 _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
                '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 _VP, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_STRIDES = ctypes.c_longlong * 12
 _ARGTYPES = {
     # q, k, v, o, lse, b, h, sq, sk, d, dtype, scale, strides (sb, sh, ss of
     # q, k, v, o), stream
     'dft_flash_attention_forward': [_VP] * 5 + [_INT] * 6 + [
         _F32, ctypes.POINTER(ctypes.c_longlong), _VP],
-    # q, k, lse, out, b, h, sq, sk, d, dtype, scale, stream
-    'dft_headmean_probs': [_VP] * 4 + [_INT] * 6 + [_F32, _VP],
-    # q, k, v, o, bh, sq, sk, d, dtype, scale, stream
-    'dft_short_attention_forward': [_VP] * 4 + [_INT] * 5 + [_F32, _VP],
+    # q, k, lse, out, b, h, sq, sk, d, dtype, scale, strides (sb, sh, ss of
+    # q, k), stream
+    'dft_headmean_probs': [_VP] * 4 + [_INT] * 6 + [
+        _F32, ctypes.POINTER(ctypes.c_longlong), _VP],
+    # q, k, v, o, b, h, sq, sk, d, dtype, scale, strides (as B1's), stream
+    'dft_short_attention_forward': [_VP] * 4 + [_INT] * 6 + [
+        _F32, ctypes.POINTER(ctypes.c_longlong), _VP],
 }
 
 #: Kernel launches since import (or since a caller reset them to 0).
@@ -225,7 +233,10 @@ def build() -> dict:
     return {'paths': [str(p) for p in paths.values()], 'seconds': seconds, 'log': log}
 
 
-def _lib(name: str):
+def _lib(kernel: str, dtype: torch.dtype):
+    """The library of ``kernel`` ('flash', 'headmean' or 'short') for
+    ``dtype``, built at first use."""
+    name = f'{kernel}_{_DTYPE_TAGS[dtype]}'
     if name not in _libs:
         build()
     return _libs[name]
@@ -240,7 +251,7 @@ def _on_host(*tensors) -> bool:
 
 def tma_strides(x: torch.Tensor) -> tuple:
     """(sb, sh, ss): the element strides of a (B, H, S, D) tensor as the
-    flash kernels take them (a TMA tensor map; the fp32 kernel the same).
+    kernels take them (a TMA tensor map; the fp32 kernels the same).
     A dimension of size 1 has no meaningful stride, so it gets the one a
     packed layout would give it.  Raises ValueError unless D has unit
     stride and every stride is a multiple of 16 bytes."""
@@ -257,11 +268,10 @@ def tma_strides(x: torch.Tensor) -> tuple:
     return sb, sh, ss
 
 
-def _check_cuda_inputs(op: str, tensors, head_dims, contiguous: bool = True):
-    """Device, dtype, rank, layout and alignment of (B, H, S, D) inputs of
-    one dtype and one head width, on the current CUDA device.  With
-    ``contiguous`` False a strided layout passes where ``tma_strides``
-    takes it."""
+def _check_cuda_inputs(op: str, tensors, head_dims):
+    """Device, dtype, rank, shape and alignment of (B, H, S, D) inputs of
+    one dtype and one head width, on the current CUDA device.  The layout
+    is ``tma_strides``'s to check."""
     first = tensors[0][1]
     for name, x in tensors:
         if x.device.type != 'cuda' or x.device != first.device:
@@ -272,8 +282,6 @@ def _check_cuda_inputs(op: str, tensors, head_dims, contiguous: bool = True):
                              'float32, float16 or bfloat16, one dtype for all inputs')
         if x.dim() != 4:
             raise ValueError(f'{op}: {name} must be (B, H, S, D), got {tuple(x.shape)}')
-        if contiguous and not x.is_contiguous():
-            raise ValueError(f'{op}: {name} must be contiguous')
         if x.data_ptr() % 16:
             raise ValueError(f'{op}: {name} must be 16-byte aligned')
         if x.shape[:2] != first.shape[:2] or x.shape[3] != first.shape[3]:
@@ -298,31 +306,47 @@ def _stream(x: torch.Tensor) -> int:
 
 
 def flash_output(q: torch.Tensor) -> torch.Tensor:
-    """B1/B2's output for (B, H, Sq, D) q: (B, Sq, H, D) memory returned as
+    """B1/B2/B4's output for (B, H, Sq, D) q: (B, Sq, H, D) memory returned as
     the (B, H, Sq, D) view, so ``merge_heads`` of it is a view."""
     b, h, sq, d = q.shape
     return torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
 
 
-def _flash_launch(op, q, k, v, lse, scale, head_dims):
-    _check_cuda_inputs(op, (('q', q), ('k', k), ('v', v)), head_dims, contiguous=False)
-    if k.shape != v.shape:
-        raise ValueError(f'{op}: k {tuple(k.shape)} and v {tuple(v.shape)} differ')
-    b, h, sq, d = q.shape
-    out = flash_output(q)
+def _tma_stride_array(op, tensors):
+    """(sb, sh, ss) of each named (B, H, S, D) tensor, as a ctypes array;
+    raises ValueError, naming the tensor, where ``tma_strides`` does."""
     strides = []
-    for name, x in (('q', q), ('k', k), ('v', v), ('output', out)):
+    for name, x in tensors:
         try:
             strides += tma_strides(x)
         except ValueError as err:
             raise ValueError(f'{op}: {name} {err}') from None
-    err = _lib(_FLASH_LIBS[q.dtype]).dft_flash_attention_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), b, h, sq, k.shape[2], d,
-        _DTYPE_CODES[q.dtype], float(scale), _STRIDES(*strides), _stream(q))
+    return (ctypes.c_longlong * len(strides))(*strides)
+
+
+def _qkv_launch(op, kernel, q, k, v, lse, scale, head_dims):
+    """Check q, k, v and launch B1, B2 (``lse`` given) or B4 into
+    ``flash_output(q)``."""
+    _check_cuda_inputs(op, (('q', q), ('k', k), ('v', v)), head_dims)
+    if k.shape != v.shape:
+        raise ValueError(f'{op}: k {tuple(k.shape)} and v {tuple(v.shape)} differ')
+    if kernel == 'short' and k.shape[2] > SHORT_MAX_KEYS:
+        raise ValueError(f'{op}: {k.shape[2]} keys; the kernel takes at most {SHORT_MAX_KEYS}')
+    b, h, sq, d = q.shape
+    out = flash_output(q)
+    strides = _tma_stride_array(op, (('q', q), ('k', k), ('v', v), ('output', out)))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if kernel == 'flash':
+        err = _lib(kernel, q.dtype).dft_flash_attention_forward(
+            *args, None if lse is None else lse.data_ptr(), b, h, sq, k.shape[2], d,
+            _DTYPE_CODES[q.dtype], float(scale), strides, _stream(q))
+    else:
+        err = _lib(kernel, q.dtype).dft_short_attention_forward(
+            *args, b, h, sq, k.shape[2], d, _DTYPE_CODES[q.dtype], float(scale), strides,
+            _stream(q))
     if err != 0:
         raise RuntimeError(f'{op} kernel launch failed: cudaError {err} '
-                           f'for q {tuple(q.shape)} {q.dtype}')
+                           f'for q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}')
     return out
 
 
@@ -336,7 +360,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     global launches
     if _on_host(q, k, v):
         return flash_attention_reference(q, k, v, scale)
-    out = _flash_launch('flash_attention', q, k, v, None, scale, SUPPORTED_HEAD_DIMS)
+    out = _qkv_launch('flash_attention', 'flash', q, k, v, None, scale, SUPPORTED_HEAD_DIMS)
     launches += 1
     return out
 
@@ -349,7 +373,8 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     if _on_host(q, k, v):
         return flash_attention_with_lse_reference(q, k, v, scale)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    out = _flash_launch('flash_attention_with_lse', q, k, v, lse, scale, HEADMEAN_HEAD_DIMS)
+    out = _qkv_launch('flash_attention_with_lse', 'flash', q, k, v, lse, scale,
+                      HEADMEAN_HEAD_DIMS)
     lse_launches += 1
     return out, lse
 
@@ -358,26 +383,30 @@ def headmean_probs(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor, *,
                    scale: float) -> torch.Tensor:
     """B3: head-mean normalised probabilities (B, Sq, Sk) in q's dtype from
     (B,H,Sq,D) q, (B,H,Sk,D) k and B2's (B,H,Sq) fp32 logsumexp; fp32
-    accumulation, and no per-head (B,H,Sq,Sk) tensor."""
+    accumulation, and no per-head (B,H,Sq,Sk) tensor.  On the card q and k
+    may be strided views, as B1's inputs (``tma_strides``); the map is
+    contiguous."""
     global headmean_launches
     if _on_host(q, k, lse):
         return headmean_probs_reference(q, k, lse, scale)
-    _check_cuda_inputs('headmean_probs', (('q', q), ('k', k)), HEADMEAN_HEAD_DIMS)
+    op = 'headmean_probs'
+    _check_cuda_inputs(op, (('q', q), ('k', k)), HEADMEAN_HEAD_DIMS)
     b, h, sq, d = q.shape
     if (lse.device != q.device or lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, sq)
             or not lse.is_contiguous()):
-        raise ValueError(f'headmean_probs: lse must be a contiguous float32 {(b, h, sq)} '
+        raise ValueError(f'{op}: lse must be a contiguous float32 {(b, h, sq)} '
                          f'tensor on {q.device}, got {lse.dtype} {tuple(lse.shape)} '
                          f'on {lse.device}')
     sk = k.shape[2]
-    if b * sq * sk >= 2 ** 31 or b > 65535:
-        raise ValueError(f'headmean_probs: a ({b}, {sq}, {sk}) map exceeds the launch limits')
+    if b * sq * sk >= 2 ** 31:
+        raise ValueError(f'{op}: a ({b}, {sq}, {sk}) map exceeds the launch limits')
+    strides = _tma_stride_array(op, (('q', q), ('k', k)))
     out = torch.empty((b, sq, sk), dtype=q.dtype, device=q.device)
-    err = _lib('headmean').dft_headmean_probs(
+    err = _lib('headmean', q.dtype).dft_headmean_probs(
         q.data_ptr(), k.data_ptr(), lse.data_ptr(), out.data_ptr(), b, h, sq, sk, d,
-        _DTYPE_CODES[q.dtype], float(scale), _stream(q))
+        _DTYPE_CODES[q.dtype], float(scale), strides, _stream(q))
     if err != 0:
-        raise RuntimeError(f'headmean_probs kernel launch failed: cudaError {err} '
+        raise RuntimeError(f'{op} kernel launch failed: cudaError {err} '
                            f'for q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}')
     headmean_launches += 1
     return out
@@ -387,25 +416,12 @@ def short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float) -> torch.Tensor:
     """B4: (B, H, Sq, D) x (B, H, Sk, D) -> (B, H, Sq, D) in q's dtype, for
     Sk <= 512, with fp32 math whatever the input dtype and an exact (not
-    online) softmax; the score matrix never reaches device memory."""
+    online) softmax; the score matrix never reaches device memory.  Takes
+    and returns the layouts B1 does."""
     global short_launches
     if _on_host(q, k, v):
         return short_attention_reference(q, k, v, scale)
-    _check_cuda_inputs('short_attention', (('q', q), ('k', k), ('v', v)), HEADMEAN_HEAD_DIMS)
-    if k.shape != v.shape:
-        raise ValueError(f'short_attention: k {tuple(k.shape)} and v {tuple(v.shape)} differ')
-    b, h, sq, d = q.shape
-    sk = k.shape[2]
-    if sk > SHORT_MAX_KEYS:
-        raise ValueError(f'short_attention: {sk} keys; the kernel takes at most '
-                         f'{SHORT_MAX_KEYS}')
-    out = torch.empty_like(q)
-    err = _lib('short_attention').dft_short_attention_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, sq, sk, d,
-        _DTYPE_CODES[q.dtype], float(scale), _stream(q))
-    if err != 0:
-        raise RuntimeError(f'short_attention kernel launch failed: cudaError {err} '
-                           f'for q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}')
+    out = _qkv_launch('short_attention', 'short', q, k, v, None, scale, HEADMEAN_HEAD_DIMS)
     short_launches += 1
     return out
 

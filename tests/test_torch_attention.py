@@ -286,3 +286,51 @@ def test_flash_output_layout():
     assert attn.merge_heads(out).data_ptr() == out.data_ptr()
     assert attn.merge_heads(out)._base is out._base
     assert fa.tma_strides(out) == (100 * 160, 40, 160)
+
+
+def test_headmean_op_hands_the_kernels_head_split_views(monkeypatch):
+    """The store's op passes the head-split views themselves, not copies,
+    to B2 and B3 (both read them in place on the card), and still equals
+    the JAX op at fp32 (there B2 + B3 in interpret mode)."""
+    heads, d, s = 2, 64, 512
+    q, k, v = (_rand(40 + i, 1, s, heads * d) for i in range(3))
+    qh, kh, vh = (attn.split_heads(torch.from_numpy(x), heads) for x in (q, k, v))
+    calls = []
+    for name in ('flash_attention_with_lse', 'headmean_probs'):
+        real = getattr(attn, name)
+
+        def record(*args, _name=name, _real=real, **kwargs):
+            calls.append((_name, args[:2]))
+            return _real(*args, **kwargs)
+
+        monkeypatch.setattr(attn, name, record)
+    out, mean_p = attn.attention_with_headmean_heads(qh, kh, vh)
+    assert [name for name, _ in calls] == ['flash_attention_with_lse', 'headmean_probs']
+    for _, (cq, ck) in calls:
+        assert cq is qh and ck is kh
+        assert cq.stride() == _head_split_strides(1, s, heads, d) and not cq.is_contiguous()
+    r_out, r_mean = jax_attn.attention_with_headmean_heads(
+        *(jax_attn.split_heads(jnp.asarray(x), heads) for x in (q, k, v)))
+    _close(out, r_out, atol=1e-4, rtol=1e-4)
+    _close(mean_p, r_mean, atol=1e-6, rtol=1e-4)
+
+
+@pytest.mark.parametrize('layout', ['head-split', 'row-stride'])
+def test_headmean_twin_takes_strided_views(layout):
+    """B3's wrapper on strided CPU views (the layouts the card's kernel
+    reads in place) gives what it gives on contiguous copies."""
+    b, h, sq, sk, d = 2, 3, 40, 24, 16
+    rs = np.random.RandomState(50)
+    if layout == 'head-split':
+        q, k = (attn.split_heads(torch.from_numpy(rs.randn(b, s, h * d).astype(np.float32)), h)
+                for s in (sq, sk))
+    else:
+        q, k = (torch.from_numpy(rs.randn(b, h, 2 * s, d).astype(np.float32))[:, :, ::2]
+                for s in (sq, sk))
+    assert not q.is_contiguous() and not k.is_contiguous()
+    _, lse = fa.flash_attention_with_lse(q, k, k, scale=d ** -0.5)
+    fa.headmean_launches = 0
+    ours = fa.headmean_probs(q, k, lse, scale=d ** -0.5)
+    ref = fa.headmean_probs(q.contiguous(), k.contiguous(), lse, scale=d ** -0.5)
+    assert fa.headmean_launches == 0 and ours.shape == (b, sq, sk)
+    torch.testing.assert_close(ours, ref, atol=1e-7, rtol=1e-5)

@@ -261,7 +261,7 @@ def test_kernel_matches_twin_at_path_widths(cuda, dtype, shape):
 def test_kernel_reads_other_strided_views(cuda, dtype, lse, layout):
     """The other layouts the stride contract admits: B1 on every second
     row of (B, H, 2S, D) tensors, and B2 on contiguous q and k with a
-    head-split v, as the store path hands it (B3 takes contiguous q/k)."""
+    head-split v."""
     b, h, sq, sk, d = 2, 4, 300, 333, 64
     gen = torch.Generator(device=cuda).manual_seed(7)
     if layout == 'row-stride':
@@ -284,3 +284,120 @@ def test_kernel_reads_other_strided_views(cuda, dtype, lse, layout):
     _assert_matches(out, ref, dtype)
     if lse:
         torch.testing.assert_close(got_lse, ref_lse, atol=1e-3, rtol=0)
+
+
+def _layout(cuda, dtype, layout, b, h, s, d, gen):
+    """(B, H, S, D) q-like input in one of the layouts B3 and B4 take."""
+    if layout == 'head-split':
+        return _split(cuda, dtype, b, h, s, d, gen)
+    return torch.randn(b, h, s, d, generator=gen, device=cuda).to(dtype)
+
+
+def _assert_map_matches(mean_p, ref, dtype, sk):
+    """B3's rule: a map's entries average 1/Sk, so its absolute tolerance
+    scales with them, and the error's relative L2 norm stays within the
+    dtype's tolerance."""
+    mean_p, ref = mean_p.float(), ref.float()
+    torch.testing.assert_close(mean_p, ref, atol=_TOL[dtype] / sk, rtol=_TOL[dtype])
+    rel = ((mean_p - ref).norm() / ref.norm()).item()
+    assert rel <= _TOL[dtype], f'relative L2 error {rel:.3e} above {_TOL[dtype]:g}'
+
+
+_HEADMEAN_CASES = [(2, 3, 1000, 333, 40), (1, 4, 300, 640, 64), (2, 2, 130, 77, 80),
+                   (1, 3, 256, 256, 128), (1, 3, 130, 700, 160)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', list(_TOL), ids=str)
+@pytest.mark.parametrize('layout', ['contiguous', 'head-split'])
+@pytest.mark.parametrize('shape', _HEADMEAN_CASES, ids=[f'd{s[-1]}' for s in _HEADMEAN_CASES])
+def test_headmean_kernel_layouts_and_widths(cuda, dtype, layout, shape):
+    """B3 against its twin at every built width, on contiguous tensors and
+    on head-split views read in place, at ragged Sq and Sk (Sk a multiple
+    of 8: 16-byte row stores; otherwise element stores)."""
+    b, h, sq, sk, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k = (_layout(cuda, dtype, layout, b, h, s, d, gen) for s in (sq, sk))
+    assert q.is_contiguous() is (layout == 'contiguous')
+    _, lse = fa.flash_attention_with_lse(q, k, k, scale=d ** -0.5)
+    fa.headmean_launches = 0
+    mean_p = fa.headmean_probs(q, k, lse, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.headmean_launches == 1
+    assert mean_p.dtype == dtype and mean_p.shape == (b, sq, sk) and mean_p.is_contiguous()
+    _assert_map_matches(mean_p, fa.headmean_probs_reference(q, k, lse, d ** -0.5), dtype, sk)
+
+
+_SHORT_CASES = [(2, 3, 200, 333, 40), (1, 4, 256, 512, 64), (2, 2, 130, 300, 80),
+                (1, 3, 256, 256, 128), (1, 3, 130, 512, 160)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', list(_TOL), ids=str)
+@pytest.mark.parametrize('layout', ['contiguous', 'head-split'])
+@pytest.mark.parametrize('shape', _SHORT_CASES, ids=[f'd{s[-1]}' for s in _SHORT_CASES])
+def test_short_kernel_layouts_and_widths(cuda, dtype, layout, shape):
+    """B4 against its twin at every built width, on contiguous tensors and
+    on head-split views, at ragged lengths, with the key tiles kept for the
+    second pass (d=40, d=64 up to 512 keys) and reloaded (d=80 at 300 keys,
+    d=128 at 256, d=160 at 512); the output is (B, S, H, D) memory."""
+    b, h, sq, sk, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (_layout(cuda, dtype, layout, b, h, s, d, gen) for s in (sq, sk, sk))
+    fa.short_launches = 0
+    out = fa.short_attention(q, k, v, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.short_launches == 1
+    assert out.dtype == dtype and out.shape == q.shape
+    assert out.stride() == (sq * h * d, d, h * d, 1)
+    _assert_matches(out, fa.short_attention_reference(q, k, v, d ** -0.5), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('op', ['headmean_probs', 'short_attention'])
+def test_headmean_and_short_raise_on_strides_tma_cannot_take(cuda, op):
+    q = torch.randn(1, 2, 64, 64, device=cuda).to(torch.bfloat16)
+    # 76 bf16 = 152 bytes between rows: TMA takes multiples of 16 only
+    odd = torch.randn(1, 2, 64, 76, device=cuda).to(torch.bfloat16)[..., :40]
+    if op == 'headmean_probs':
+        lse = torch.zeros(1, 2, 64, device=cuda)
+        call = lambda x, y: fa.headmean_probs(x, y, lse, scale=1.0)      # noqa: E731
+    else:
+        call = lambda x, y: fa.short_attention(x, y, y, scale=1.0)       # noqa: E731
+    fa.headmean_launches = fa.short_launches = 0
+    with pytest.raises(ValueError, match='contiguous along D'):
+        call(q, q.transpose(2, 3))
+    with pytest.raises(ValueError, match='16 bytes'):
+        call(odd, odd)
+    assert (fa.headmean_launches, fa.short_launches) == (0, 0)
+
+
+@pytest.mark.cuda
+def test_store_path_hands_b2_and_b3_the_views_without_copies(cuda, monkeypatch):
+    """attention_with_headmean_heads on the card: B2 and B3 get the same
+    head-split views the caller passed (same data pointers and strides, so
+    no copy kernel runs between them), and the results equal the explicit
+    path's."""
+    b, h, s, d = 2, 8, 1024, 80
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    q, k, v = (_split(cuda, torch.bfloat16, b, h, s, d, gen) for _ in range(3))
+    seen = []
+
+    def recorder(name, real):
+        def call(*args, **kwargs):
+            seen.append((name, [(x.data_ptr(), x.stride()) for x in args[:2]]))
+            return real(*args, **kwargs)
+        return call
+
+    for name in ('flash_attention_with_lse', 'headmean_probs'):
+        monkeypatch.setattr(attn, name, recorder(name, getattr(attn, name)))
+    fa.lse_launches = fa.headmean_launches = 0
+    out, mean_p = attn.attention_with_headmean_heads(q, k, v)
+    torch.cuda.synchronize()
+    assert (fa.lse_launches, fa.headmean_launches) == (1, 1)
+    want = [(q.data_ptr(), q.stride()), (k.data_ptr(), k.stride())]
+    assert seen == [('flash_attention_with_lse', want), ('headmean_probs', want)]
+    assert not q.is_contiguous()
+    r_out, probs = attn.attention_with_probs_heads(q, k, v)
+    torch.testing.assert_close(out.float(), r_out.float(), atol=2e-2, rtol=2e-2)
+    _assert_map_matches(mean_p, probs.float().mean(1), torch.bfloat16, s)

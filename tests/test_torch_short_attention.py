@@ -87,3 +87,24 @@ def test_cpu_and_meta_calls_launch_nothing():
     assert (fa.short_launches, fa.launches) == (0, 0)
     torch.testing.assert_close(diff.transpose(1, 2).reshape(2, 256, 64), out, atol=1e-5,
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize('layout', ['head-split', 'row-stride'])
+def test_twin_takes_strided_views(layout):
+    """B4's wrapper on strided CPU views (the layouts the card's kernel
+    reads in place) gives what it gives on contiguous copies."""
+    from diffusion_feature_tpu_torch.ops import attention as attn
+    b, h, sq, sk, d = 2, 3, 128, 77, 16
+    rs = np.random.RandomState(51)
+    if layout == 'head-split':
+        q, k, v = (attn.split_heads(torch.from_numpy(rs.randn(b, s, h * d).astype(np.float32)), h)
+                   for s in (sq, sk, sk))
+    else:
+        q, k, v = (torch.from_numpy(rs.randn(b, h, 2 * s, d).astype(np.float32))[:, :, ::2]
+                   for s in (sq, sk, sk))
+    assert not any(x.is_contiguous() for x in (q, k, v))
+    fa.short_launches = 0
+    ours = fa.short_attention(q, k, v, scale=d ** -0.5)
+    ref = fa.short_attention(*(x.contiguous() for x in (q, k, v)), scale=d ** -0.5)
+    assert fa.short_launches == 0 and ours.shape == (b, h, sq, d)
+    torch.testing.assert_close(ours, ref, atol=1e-6, rtol=1e-5)

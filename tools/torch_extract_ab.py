@@ -14,13 +14,15 @@ card.  To compare two checkouts on one card, run it for both in turns in
 one command (A B B A), e.g. with the parent unpacked by ``git archive``
 into a directory ``.gitignore`` lists.
 
-With ``--kernels`` it times, instead of a path, ROOT's B1 and B2 wrappers
-(``flash_attention``, ``flash_attention_with_lse``) in a loop of separate
-calls (``chip_smoke.time_ms``, the median of three loops) on contiguous
-bf16 inputs (which every checkout's wrappers take) at the shapes the paths
-give them (``chip_smoke.B1_SHAPES``, the CLI's trailing batch of 1 and
-``chip_smoke.STORE_SHAPES``).  At the small shapes such a loop times the
-host's cost per call as well as the kernel.
+With ``--kernels`` it times, instead of a path, ROOT's B1 to B4 wrappers
+(``flash_attention``, ``flash_attention_with_lse``, ``headmean_probs`` on
+B2's logsumexp, ``short_attention``) on contiguous bf16 inputs (which every
+checkout's wrappers take) at the shapes phase 2 of ``chip_smoke.py`` gives
+them (``B1_SHAPES``, the CLI's trailing batch of 1, ``STORE_SHAPES``,
+``SHORT_SHAPES``): in a loop of separate calls (``loop_ms``:
+``chip_smoke.time_ms``, the median of three loops), which at the small
+shapes times the host's cost per call as well as the kernel, and as CUDA
+graphs of 20 calls (``graph_ms``: ``chip_smoke.graph_ms``, device time).
 """
 
 import argparse
@@ -34,20 +36,28 @@ import chip_smoke  # noqa: E402
 CALLS = 15
 
 
-def kernel_loops(torch, fa) -> dict:
-    """'<wrapper> (B,H,Sq,Sk,D)' -> ms per call in a loop of calls."""
+def kernel_times(torch, fa) -> tuple:
+    """({'<wrapper> (B,H,Sq,Sk,D)': ms per call in a loop of calls},
+    {the same: ms per call in CUDA graphs})."""
     gen = torch.Generator(device='cuda').manual_seed(0)
     cli = [(1,) + shape[1:] for shape in chip_smoke.B1_SHAPES[:3]]
-    out = {}
+    loop, graph = {}, {}
     for name, shapes in (('flash_attention', chip_smoke.B1_SHAPES + cli),
-                         ('flash_attention_with_lse', chip_smoke.STORE_SHAPES)):
+                         ('flash_attention_with_lse', chip_smoke.STORE_SHAPES),
+                         ('headmean_probs', chip_smoke.STORE_SHAPES),
+                         ('short_attention', chip_smoke.SHORT_SHAPES)):
         wrapper = getattr(fa, name)
         for b, h, sq, sk, d in shapes:
             q, k, v = (torch.randn(b, h, s, d, generator=gen, device='cuda').to(torch.bfloat16)
                        for s in (sq, sk, sk))
-            out[f'{name} {(b, h, sq, sk, d)}'] = chip_smoke.time_ms(
-                torch, lambda: wrapper(q, k, v, scale=d ** -0.5), runs=3)
-    return out
+            scale = d ** -0.5
+            if name == 'headmean_probs':
+                v = fa.flash_attention_with_lse(q, k, v, scale=scale)[1]   # its lse
+            call = lambda: wrapper(q, k, v, scale=scale)                  # noqa: E731
+            key = f'{name} {(b, h, sq, sk, d)}'
+            loop[key] = chip_smoke.time_ms(torch, call, runs=3)
+            graph[key] = chip_smoke.graph_ms(torch, call)
+    return loop, graph
 
 
 def main() -> int:
@@ -65,7 +75,8 @@ def main() -> int:
 
     fa.build()
     if args.kernels:
-        print(json.dumps({'root': args.root, 'loop_ms': kernel_loops(torch, fa),
+        loop, graph = kernel_times(torch, fa)
+        print(json.dumps({'root': args.root, 'loop_ms': loop, 'graph_ms': graph,
                           'card': chip_smoke.card_line()}))
         return 0
     fe, prompts, images = chip_smoke.open_path(torch, args.path)

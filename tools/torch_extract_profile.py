@@ -23,7 +23,7 @@ import chip_smoke  # noqa: E402
 
 KINDS = [  # first match wins
     ('flash (B1/B2)', r'flash_fwd'),
-    ('head-mean (B3)', r'headmean_kernel'),
+    ('head-mean (B3)', r'headmean'),
     ('groupnorm', r'RowwiseMoments|group_norm|GroupNorm'),
     ('layernorm', r'layer_norm|LayerNorm'),
     ('conv', r'conv|cudnn|implicit_convolve|fprop|dgrad|wgrad'),
