@@ -40,7 +40,22 @@ Phases (each prints its numbers on lines of its own):
      the enumerated shapes, fp16, finite), exactly 142 B1 launches and no
      B4, the native dump writer active, and img/s from the first batch to
      the writer's close; then --show_all_layers for xl@1024 (612 ids) and
-     1-5@512 (197 ids), timed.
+     1-5@512 (197 ids), timed.  The CLI loads its weights from phase 8's
+     tree (--weights, --weights_variant bf16);
+  8. SDXL from a checkpoint, the slice at full width (run between phases 4
+     and 5): phase 3's extractor writes its U-Net (two shards), VAE
+     encoder and both text encoders with config.json files as a diffusers
+     tree of the 'bf16' variant (~6.8 GB; the card's machine has room for it
+     twice); FeatureExtractor(weights=..., weights_variant='bf16') loads it:
+     parameters torch.equal to the source's, its peak memory while loading
+     within 5% of the random-init build's, the step on injected noise
+     torch.equal with 71 B1 launches, and its first public extract equal to
+     the source's first (phase 3's: the noise stream does not depend on the
+     init); then a rank-4 peft LoRA over to_q/to_v of one level-2
+     transformer block, loaded with offline_lora: one merged weight against
+     W + (alpha/r)*up@down computed on the card in fp32, within bf16
+     rounding, and finite features that differ from the unmerged ones.
+     Write and load seconds and GB/s per component are printed.
 Phase 2 also holds B4 (short attention), which no path routes to, as in
 the JAX package: against its twin, with its gradients through
 short_attention_diff, at the 256-token bands of SD-1.5 and SDXL at 512^2,
@@ -152,6 +167,13 @@ CLI_PATH, CLI_IMAGES = 'xl', 3
 CLI_LAUNCHES = {'flash_attention': 142, 'flash_attention_with_lse': 0, 'headmean_probs': 0,
                 'short_attention': 0}
 LAYER_COUNTS = {('xl', 1024): 612, ('1-5', 512): 197}   # config_{xl,15}_full.json
+# phase 8: the path whose random-init extractor is written and loaded back.
+# SDXL at full width: its ~6.8 GB tree fits twice in the card's machine's
+# free disk (75 GB, checked there before this phase was written)
+TREE_PATH, TREE_VARIANT, TREE_UNET_SHARDS = 'xl', 'bf16', 2
+LOAD_PEAK_RATIO = 1.05   # the load's peak over the random-init build's (PERF.md section 2)
+LORA_BLOCK = 'down_blocks.2.attentions.0.transformer_blocks.0.attn1'
+LORA_RANK, LORA_ALPHA = 4, 8.0
 
 
 def card_line() -> str:
@@ -436,21 +458,25 @@ def check_feats(torch, feats, expected, label):
             raise RuntimeError(f'{label} {key}: {tuple(val.shape)} {val.dtype} finite={finite}')
 
 
-def check_twin_step(torch, fe, attn_ops, fa, prompts, images, keys, label):
-    """The same step with the kernels and with every kernel call on its
-    plain twin, on the same noise: relative L2 per feature."""
+def injected_step(torch, fe, prompts, images):
+    """``fe._step`` at t=50 on standard-normal noise drawn from seed 2."""
     bsz = images.shape[0]
     pe = prompts[0].expand(bsz, -1, -1)
     pooled = None if prompts[2] is None else prompts[2].expand(bsz, -1)
-    img = images.to(fe.dtype)
     lat = fe.img_size // fe.vae_scale
-    noise_gen = torch.Generator(device='cuda').manual_seed(2)
-    posterior, noise = (torch.randn((bsz, 4, lat, lat), generator=noise_gen, device='cuda')
+    gen = torch.Generator(device='cuda').manual_seed(2)
+    posterior, noise = (torch.randn((bsz, 4, lat, lat), generator=gen, device='cuda')
                         for _ in range(2))
-    kit = fe._img2img_kit(50)
-    with_kernel = fe._step(img, pe, pooled, kit, posterior, noise, torch.bfloat16)
+    return fe._step(images.to(fe.dtype), pe, pooled, fe._img2img_kit(50), posterior, noise,
+                    torch.bfloat16)
+
+
+def check_twin_step(torch, fe, attn_ops, fa, prompts, images, keys, label):
+    """The same step with the kernels and with every kernel call on its
+    plain twin, on the same noise: relative L2 per feature."""
+    with_kernel = injected_step(torch, fe, prompts, images)
     with patched_wrappers(attn_ops, twin_of(fa)):
-        with_twin = fe._step(img, pe, pooled, kit, posterior, noise, torch.bfloat16)
+        with_twin = injected_step(torch, fe, prompts, images)
     for key in keys:
         a, b = with_kernel[key].float(), with_twin[key].float()
         rel = ((a - b).norm() / b.norm()).item()
@@ -544,9 +570,10 @@ def run_cli(argv):
     return time.perf_counter() - t0, out.getvalue().splitlines()
 
 
-def check_cli(torch, fa, attn_ops, card, shapes):
-    """Phase 7: the CLI on the 'xl' path and its .npy tree, then
-    --show_all_layers; returns the CLI run's launch counts."""
+def check_cli(torch, fa, attn_ops, card, shapes, tree):
+    """Phase 7: the CLI on the 'xl' path with the weights of phase 8's
+    ``tree`` and its .npy tree, then --show_all_layers; returns the CLI
+    run's launch counts."""
     import numpy as np
     from diffusion_feature_tpu_torch.enumerate_layers import enumerate_layers
     args = PATHS[CLI_PATH]['args']
@@ -558,7 +585,8 @@ def check_cli(torch, fa, attn_ops, card, shapes):
             seconds, lines = run_cli([
                 '--version', version, '--img_size', str(size), '--layer', args['layer'],
                 '--batch_size', '2', '--prompt', 'a photo of a cat',
-                '--input_dir', 'imgs/*.png', '--output_dir', 'out'])
+                '--input_dir', 'imgs/*.png', '--output_dir', 'out',
+                '--weights', tree, '--weights_variant', TREE_VARIANT])
             torch.cuda.synchronize()
             counts = read_counts(fa)
         for line in lines:
@@ -597,6 +625,135 @@ def check_cli(torch, fa, attn_ops, card, shapes):
                   f'{seconds:.2f} s (expected {count})', flush=True)
             if len(record) != count:
                 raise RuntimeError(f'phase 7: {version} enumerates {len(record)} ids')
+    return counts
+
+
+def module_pairs(a, b):
+    """(name, module of a, module of b) over two extractors' models."""
+    return [('unet', a.unet, b.unet), ('vae', a.vae, b.vae),
+            *((f'text_encoder{i}', x, y)
+              for i, (x, y) in enumerate(zip(a.text_encoders, b.text_encoders)))]
+
+
+def rates(stats, verb, card):
+    for comp, (nbytes, seconds) in stats.items():
+        print(f'  {verb} {comp}: {nbytes / 1e9:.3f} GB in {seconds:.3f} s, '
+              f'{nbytes / 1e9 / seconds:.3f} GB/s ({card})')
+    nbytes, seconds = (sum(v[i] for v in stats.values()) for i in (0, 1))
+    print(f'phase 8 {verb} total: {nbytes / 1e9:.3f} GB in {seconds:.3f} s, '
+          f'{nbytes / 1e9 / seconds:.3f} GB/s ({card})', flush=True)
+
+
+def assert_equal_feats(torch, ours, ref, label):
+    if ours.keys() != ref.keys():
+        raise RuntimeError(f'{label}: features {sorted(ours)} != {sorted(ref)}')
+    for key in ref:
+        if not torch.equal(ours[key], ref[key]):
+            diff = (ours[key].float() - ref[key].float()).abs().max().item()
+            raise RuntimeError(f'{label} {key}: not equal (max abs diff {diff:.3e})')
+    print(f'  {label}: {len(ref)} features torch.equal', flush=True)
+
+
+def check_checkpoint(torch, fa, attn_ops, fe, prompts, images, first_feats, build_gib, tree,
+                     card, shapes):
+    """Phase 8: write ``fe`` (the TREE_PATH path's random-init extractor)
+    as a diffusers tree under ``tree``, load it back and hold it to the
+    source, then merge a LoRA; returns the launch counts of the loaded
+    extractor's first public extract."""
+    from diffusion_feature_tpu_torch import FeatureExtractor
+    from diffusion_feature_tpu_torch.io.safetensors import save_file
+    args = PATHS[TREE_PATH]['args']
+    written = fe.save_weights(tree, variant=TREE_VARIANT, unet_shards=TREE_UNET_SHARDS)
+    files = sorted(os.path.relpath(os.path.join(d, f), tree)
+                   for d, _, names in os.walk(tree) for f in names)
+    print(f'phase 8 tree of {sum(n for n, _ in written.values())} bytes: {files}')
+    rates(written, 'write', card)
+
+    def load(**kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = FeatureExtractor(**args, dtype='bfloat16', device='cuda', seed=0, weights=tree,
+                               weights_variant=TREE_VARIANT, **kwargs)
+        out_prompts = out.encode_prompt('a photo of a cat')
+        torch.cuda.synchronize()
+        return (out, out_prompts, time.perf_counter() - t0,
+                (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+
+    loaded, loaded_prompts, seconds, peak = load()
+    rates(loaded.load_stats, 'load', card)
+    print(f'phase 8 build from the tree + encode_prompt: {seconds:.1f} s; peak memory '
+          f'{peak:.3f} GiB while loading vs {build_gib:.3f} GiB for the random-init build '
+          f'(ratio {peak / build_gib:.4f}, allowed {LOAD_PEAK_RATIO}) ({card})', flush=True)
+    if peak > LOAD_PEAK_RATIO * build_gib:
+        raise RuntimeError(f'phase 8: load peak {peak:.3f} GiB over {LOAD_PEAK_RATIO} x '
+                           f'{build_gib:.3f} GiB')
+    for name, a, b in module_pairs(fe, loaded):
+        sa, sb = a.state_dict(), b.state_dict()
+        bad = [k for k in sa if k not in sb or not torch.equal(sa[k], sb[k])]
+        if bad or sa.keys() != sb.keys():
+            raise RuntimeError(f'phase 8 {name}: parameters differ from the source: {bad[:5]}')
+        print(f'  {name}: {len(sa)} parameters torch.equal to the source')
+    for a, b in zip(prompts, loaded_prompts):
+        if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+            raise RuntimeError('phase 8: encode_prompt differs from the source')
+
+    # the public extract: the loaded extractor's first, against phase 3's first
+    feats, counts, shapes[:] = drive_path(
+        torch, fa, attn_ops, loaded, loaded_prompts, images,
+        {**dict(zip(WRAPPERS, PATHS[TREE_PATH]['launches'])), 'short_attention': 0},
+        'phase 8 loaded')
+    assert_equal_feats(torch, feats, first_feats, 'phase 8 first public extract vs the source')
+    reset_counts(fa)
+    ours = injected_step(torch, loaded, loaded_prompts, images)
+    torch.cuda.synchronize()
+    step_counts = read_counts(fa)
+    if step_counts != counts:
+        raise RuntimeError(f'phase 8 step: launches {step_counts} != {counts}')
+    unmerged = injected_step(torch, fe, prompts, images)
+    assert_equal_feats(torch, ours, unmerged, f'phase 8 step on injected noise {step_counts}')
+    del loaded, feats, ours
+    torch.cuda.empty_cache()
+
+    # a rank-4 peft LoRA over one level-2 block's to_q and to_v
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    params = dict(fe.unet.named_parameters())
+    lora, want = {}, {}
+    for proj in ('to_q', 'to_v'):
+        w = params[f'{LORA_BLOCK}.{proj}.weight']
+        down = (torch.randn(LORA_RANK, w.shape[1], generator=gen, device='cuda') * 0.05).bfloat16()
+        up = (torch.randn(w.shape[0], LORA_RANK, generator=gen, device='cuda') * 0.05).bfloat16()
+        key = f'unet.{LORA_BLOCK}.{proj}'
+        lora.update({f'{key}.lora_A.weight': down, f'{key}.lora_B.weight': up,
+                     f'{key}.alpha': torch.tensor(LORA_ALPHA)})
+        want[proj] = (w.float() + (LORA_ALPHA / LORA_RANK) * (up.float() @ down.float())
+                      ).to(w.dtype)
+    lora_path = os.path.join(tree, 'lora.safetensors')
+    save_file(lora, lora_path)
+    merged, merged_prompts, seconds, peak = load(offline_lora=lora_path)
+    print(f'phase 8 build with offline_lora: {seconds:.1f} s, peak {peak:.3f} GiB')
+    merged_params = dict(merged.unet.named_parameters())
+    for proj, expected in want.items():
+        got = merged_params[f'{LORA_BLOCK}.{proj}.weight'].float()
+        source = params[f'{LORA_BLOCK}.{proj}.weight'].float()
+        # one bf16 rounding of the fp32 sum: at most eps * |value|
+        ulp = torch.finfo(torch.bfloat16).eps * expected.float().abs().clamp_min(2.0 ** -126)
+        ratio = ((got - expected.float()).abs() / ulp).max().item()
+        moved = (got - source).abs().max().item()
+        print(f'  lora {LORA_BLOCK}.{proj}: merged vs W + (alpha/r) up@down (fp32 on the '
+              f'card) within {ratio:.3f} of a bf16 ulp; max change from W {moved:.3e}')
+        if not ratio <= 1.0 or moved == 0.0:
+            raise RuntimeError(f'phase 8 lora {proj}: {ratio} ulp, change {moved}')
+    lora_feats = injected_step(torch, merged, merged_prompts, images)
+    for key, val in lora_feats.items():
+        finite = bool(torch.isfinite(val.float()).all())
+        rel = ((val.float() - unmerged[key].float()).norm() / unmerged[key].float().norm()).item()
+        print(f'  lora step {key}: finite={finite}, rel_l2 from the unmerged step {rel:.3e}')
+        if not finite or rel == 0.0:
+            raise RuntimeError(f'phase 8 lora {key}: finite={finite} rel_l2={rel}')
+    del merged
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -667,15 +824,23 @@ def main() -> int:
     # 3 and 4: SDXL single-step extraction (the port's first slice) and its
     # timing; 5: path A, SD-1.5 with the attention store; 6: path B, the
     # attention store on SDXL
+    # phase 8 (SDXL from a checkpoint) runs after phase 4; its tree feeds phase 7
     runs, shapes = {}, {}
+    tree_dir = tempfile.TemporaryDirectory(prefix='chip_smoke_tree_')
+    tree = tree_dir.name
     for phase, timing_phase, name in ((3, 4, 'xl'), (5, 5, 'sd15_store'), (6, 6, 'xl_store')):
         path = PATHS[name]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         fe, prompts, images = open_path(torch, name)
         torch.cuda.synchronize()
+        build_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
         pooled = None if prompts[2] is None else tuple(prompts[2].shape)
-        print(f'phase {phase} {name} build + encode_prompt: {time.perf_counter() - t0:.1f} s; '
-              f'prompt_embeds {tuple(prompts[0].shape)}, pooled {pooled}', flush=True)
+        print(f'phase {phase} {name} build + encode_prompt: {time.perf_counter() - t0:.1f} s, '
+              f'peak {build_gib:.3f} GiB; prompt_embeds {tuple(prompts[0].shape)}, '
+              f'pooled {pooled}', flush=True)
         feats, runs[name], shapes[name] = drive_path(
             torch, fa, attn_ops, fe, prompts, images,
             {**dict(zip(WRAPPERS, path['launches'])), 'short_attention': 0}, f'phase {phase}')
@@ -688,12 +853,20 @@ def main() -> int:
         size = path['args']['img_size']
         time_extract(torch, fe, prompts, images,
                      f'phase {timing_phase} {name} extract {size}^2 batch 2', card)
+        if name == TREE_PATH:
+            shapes['checkpoint'] = []
+            runs['checkpoint'] = check_checkpoint(torch, fa, attn_ops, fe, prompts, images,
+                                                  feats, build_gib, tree, card,
+                                                  shapes['checkpoint'])
         del fe, feats
         torch.cuda.empty_cache()
 
-    # 7. the CLI
+    # 7. the CLI, on phase 8's tree
     shapes['cli'] = []
-    runs['cli'] = check_cli(torch, fa, attn_ops, card, shapes['cli'])
+    try:
+        runs['cli'] = check_cli(torch, fa, attn_ops, card, shapes['cli'], tree)
+    finally:
+        tree_dir.cleanup()
 
     # the kernels line: per kernel, the launches of the four paths and the
     # sum over those launches of each shape's bf16 numbers from phase 2 (a

@@ -77,11 +77,11 @@ def build_parser():
     parser.add_argument('--use_original_filename', action='store_true')
     parser.add_argument('--split', type=str, default='train')
     parser.add_argument('--sample_name_first', action='store_true')
-    # weights and parallelism: parsed, not ported yet
+    # weights; parallelism is parsed, not ported yet
     parser.add_argument('--weights', type=str, default=None,
-                        help='local diffusers checkpoint dir (not ported yet)')
+                        help='local diffusers checkpoint dir (default: random init)')
     parser.add_argument('--weights_variant', type=str, default=None,
-                        help='weight-set variant of a checkpoint dir (not ported yet)')
+                        help="weight-set variant of a checkpoint dir ('fp16', 'bf16', 'main')")
     parser.add_argument('--dp', type=int, default=1,
                         help='data-parallel devices (only 1 is ported)')
     parser.add_argument('--tp', type=int, default=1,

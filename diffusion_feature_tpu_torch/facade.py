@@ -8,12 +8,17 @@ text encoders -> image preprocess -> VAE encode + posterior sample ->
 add_noise at the img2img timestep of ``t`` (Euler for SDXL, PNDM for
 SD-1.5) -> scale_model_input -> one U-Net forward with the requested taps
 -> store post-processing, plus the attention store (``attention=``) and its
-aggregated ``'attn'`` feature.  What is not ported raises
-``NotImplementedError`` naming its ROADMAP.md item.
+aggregated ``'attn'`` feature; weights from a local diffusers checkpoint
+(``weights=``, ``weights_variant=``) or at random from ``seed``, and offline
+LoRA merging.  What is not ported raises ``NotImplementedError`` naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
+import time
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -22,11 +27,14 @@ import torch
 from .configs import resolve_layer_config
 from .enumerate_layers import enumerate_layers
 from .io.images import preprocess_pil_batch, resize_tensor_batch
-from .models.clip_text import CLIPTextModel
+from .models.clip_text import CLIPTextConfig, CLIPTextModel
+from .models.convert import (load_component_config, load_component_state, load_state_into,
+                             save_component)
 from .models.layers import ATTN_STORE
+from .models.lora import apply_lora_to_module
 from .models.registry import ModelSpec, get_model_spec
-from .models.unet2d import UNet2DConditionModel
-from .models.vae import AutoencoderKL
+from .models.unet2d import UNet2DConditionModel, UNetConfig
+from .models.vae import AutoencoderKL, VAEConfig
 from .roadmap import not_ported
 from .schedulers.diffusion import EulerDiscreteScheduler, make_scheduler, scalar_like
 from .store import aggregate_attention, postprocess_taps
@@ -34,6 +42,7 @@ from .taps import TapSpec, declared_ids, is_filtered_id
 from .tokenizers.clip_bpe import load_clip_tokenizer
 
 _DTYPES = {'bfloat16': torch.bfloat16, 'float16': torch.float16, 'float32': torch.float32}
+TEXT_DIRS = ('text_encoder', 'text_encoder_2')
 
 
 def _random_module(make, device, dtype, generator):
@@ -54,13 +63,50 @@ def _random_module(make, device, dtype, generator):
     return module.eval().requires_grad_(False)
 
 
+def _adapt_spec_to_checkpoint(spec: ModelSpec, weights: str) -> ModelSpec:
+    """Rebuild the U-Net, VAE and text-encoder configs from the checkpoint's
+    own config.json files where present (JAX ``_adapt_spec_to_checkpoint``,
+    U-Net family), so fine-tunes that deviate from the presets load exactly.
+    An unreadable config keeps the preset, as there; a field the port cannot
+    honour raises."""
+    updates = {}
+
+    def has(component):
+        return os.path.exists(os.path.join(weights, component, 'config.json'))
+
+    try:
+        if has('unet'):
+            updates['unet'] = UNetConfig.from_diffusers_config(
+                load_component_config(weights, 'unet'))
+        if has('vae'):
+            updates['vae'] = VAEConfig.from_diffusers_config(
+                load_component_config(weights, 'vae'))
+        adapted = tuple(
+            CLIPTextConfig.from_diffusers_config(load_component_config(weights, d), base)
+            if has(d) else base
+            for d, base in zip(TEXT_DIRS, spec.text_encoders))
+        if any(a is not b for a, b in zip(adapted, spec.text_encoders)):
+            updates['text_encoders'] = adapted
+    except (OSError, ValueError, KeyError):
+        return spec
+    return dataclasses.replace(spec, **updates) if updates else spec
+
+
 class FeatureExtractor:
     """``encode_prompt``, ``offload_prompt_encoder``, ``preprocess_image``
     and ``extract`` with the JAX facade's signatures and return values.
 
-    weights, weights_variant, offline_lora (with offline_lora_filename):
-    local checkpoints and LoRAs are not ported yet; models initialise at
-    random from ``seed`` on ``device``.
+    weights: a local diffusers checkpoint dir (``unet``, ``vae``,
+    ``text_encoder``[``_2``], each a config.json and safetensors or ``.bin``
+    files; ``tokenizer``[``_2``] when present).  The architecture follows
+    its config.json files, and each module is filled straight from the
+    files, with no random init.  weights_variant: the weight set to load
+    ('fp16', 'bf16', ..., 'main'), falling back per component to the
+    un-suffixed set.  Without weights, models initialise at random from
+    ``seed``.  offline_lora (with offline_lora_filename): a LoRA merged
+    into the U-Net after its weights.  The noise of ``extract`` has its own
+    generator, seeded from ``seed``, so it does not depend on where the
+    weights came from.
     attention: attention-store categories ('{down|mid|up}_{self|cross}');
     their head-mean maps of the size band ``attn_store_sizes`` (tokens per
     side, default (img_size/32, img_size/16)) come back as ``feats['attn']``.
@@ -74,14 +120,14 @@ class FeatureExtractor:
                  weights: Optional[str] = None, weights_variant: Optional[str] = None,
                  seed: int = 0, attn_store_sizes: Optional[Tuple[int, int]] = None,
                  validate_layers: bool = True):
-        if offline_lora:
-            raise not_ported('offline_lora (LoRA)', 'Safetensors weight loader')
-        if weights or weights_variant:
-            raise not_ported('weights= and weights_variant= (local checkpoints)',
-                             'Safetensors weight loader')
         if control:
             raise not_ported('control= (ControlNet)', 'ControlNet and depth')
+        if weights and os.path.isfile(os.path.join(weights, 'tpu_bundle.json')):
+            raise ValueError(f'{weights} is a deployment bundle of the JAX package; the port '
+                             'loads the diffusers checkpoint dir it was exported from instead')
         self.spec: ModelSpec = get_model_spec(version)
+        if weights:
+            self.spec = _adapt_spec_to_checkpoint(self.spec, weights)
         self.version = version
         self.img_size = img_size
         self.feature_resize = feature_resize
@@ -99,24 +145,68 @@ class FeatureExtractor:
                                 else (img_size // 32, img_size // 16))
         self.scheduler = make_scheduler(self.spec.scheduler, self.spec.scheduler_config)
         self.vae_scale = 2 ** (len(self.spec.vae.block_out_channels) - 1)
-        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        # the extract's noise and the random init draw from generators of
+        # their own (the JAX facade's _rng and init key)
+        self._noise_gen = torch.Generator(device=self.device).manual_seed(seed)
+        init_gen = torch.Generator(device=self.device).manual_seed(seed)
+        #: {component: (bytes, seconds)} of the checkpoint load
+        self.load_stats: Dict[str, Tuple[int, float]] = {}
 
         spec = self.spec
 
-        def build(make):
-            return _random_module(make, self.device, self.dtype, self._gen)
+        def build(make, component):
+            if weights:
+                return self._load_component(make, weights, weights_variant, component)
+            return _random_module(make, self.device, self.dtype, init_gen)
 
         self.unet = build(lambda: UNet2DConditionModel(spec.unet, self.taps, self._attn_sizes,
-                                                       tuple(self.attention or ())))
-        self.vae = build(lambda: AutoencoderKL(spec.vae))
-        self.text_encoders = tuple(build(lambda c=c: CLIPTextModel(c))
-                                   for c in spec.text_encoders)
+                                                       tuple(self.attention or ())), 'unet')
+        self.vae = build(lambda: AutoencoderKL(spec.vae), 'vae')
+        self.text_encoders = tuple(build(lambda c=c: CLIPTextModel(c), d)
+                                   for c, d in zip(spec.text_encoders, TEXT_DIRS))
+        tok_dirs = [os.path.join(weights, d) if weights else None
+                    for d in ('tokenizer', 'tokenizer_2')]
         # tokenizer_2 (OpenCLIP) pads with id 0; the first pads with EOS
-        self.tokenizers = tuple(load_clip_tokenizer(None, vocab_size=c.vocab_size,
-                                                    pad_with_eos=(i == 0))
-                                for i, c in enumerate(spec.text_encoders))
+        self.tokenizers = tuple(
+            load_clip_tokenizer(d if d and os.path.isdir(d) else None, vocab_size=c.vocab_size,
+                                pad_with_eos=(i == 0))
+            for i, (d, c) in enumerate(zip(tok_dirs, spec.text_encoders)))
+        if offline_lora:
+            apply_lora_to_module(self.unet, offline_lora, offline_lora_filename)
         if validate_layers and not self.taps.accept_all:
             self._validate_layer_ids()
+
+    def _load_component(self, make, root: str, variant: Optional[str], component: str):
+        """Build ``make()`` on the meta device and fill it from the
+        checkpoint's ``component`` dir: parameters are allocated once, at
+        the compute dtype, and never initialised at random."""
+        with torch.device('meta'):
+            module = make()
+        t0 = time.perf_counter()
+        state = load_component_state(root, component, variant=variant)
+        unused = set(load_state_into(module, state, self.dtype, self.device))
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        nbytes = sum(t.numel() * t.element_size() for k, t in state.items() if k not in unused)
+        self.load_stats[component] = (nbytes, time.perf_counter() - t0)
+        return module.eval().requires_grad_(False)
+
+    def save_weights(self, root: str, variant: Optional[str] = None,
+                     unet_shards: int = 1) -> Dict[str, Tuple[int, float]]:
+        """Write the U-Net, the VAE (its encoder half and quant_conv) and the
+        text encoders as a diffusers checkpoint dir that ``weights=`` loads:
+        a config.json and safetensors files per component, named with
+        ``variant`` and the U-Net in ``unet_shards`` files.  Returns
+        {component: (bytes written, seconds)}, as ``load_stats``."""
+        comps = [('unet', self.unet, self.spec.unet), ('vae', self.vae, self.spec.vae),
+                 *zip(TEXT_DIRS, self.text_encoders, self.spec.text_encoders)]
+        stats = {}
+        for comp, module, cfg in comps:
+            t0 = time.perf_counter()
+            files = save_component(root, comp, module.state_dict(), cfg.to_diffusers_config(),
+                                   variant, unet_shards if comp == 'unet' else 1)
+            stats[comp] = (sum(files.values()), time.perf_counter() - t0)
+        return stats
 
     def _validate_layer_ids(self):
         """Fail fast on ids the U-Net does not declare, with near-miss
@@ -228,8 +318,8 @@ class FeatureExtractor:
         lat = self.img_size // self.vae_scale
         shape = (img.shape[0], self.spec.vae.latent_channels, lat, lat)
         # drawn in fp32 and cast inside the step (JAX utils.normal_like)
-        posterior_noise = torch.randn(shape, generator=self._gen, device=self.device)
-        noise = torch.randn(shape, generator=self._gen, device=self.device)
+        posterior_noise = torch.randn(shape, generator=self._noise_gen, device=self.device)
+        noise = torch.randn(shape, generator=self._noise_gen, device=self.device)
         return self._step(img, pe, pooled, self._img2img_kit(int(t)), posterior_noise, noise,
                           self.feature_dtype)
 

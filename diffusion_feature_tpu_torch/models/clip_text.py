@@ -32,6 +32,40 @@ class CLIPTextConfig:
     projection_dim: Optional[int] = None   # set -> has a text_projection head
     eos_token_id: int = 49407
 
+    @staticmethod
+    def from_diffusers_config(d: dict, base: Optional['CLIPTextConfig'] = None
+                              ) -> 'CLIPTextConfig':
+        """Adapt a transformers CLIPTextConfig json, as the JAX package
+        does.  Whether a text_projection head exists follows the
+        checkpoint's ``architectures`` list; without one, ``base``'s choice
+        is kept (the pipeline's contract)."""
+        base = base if base is not None else CLIPTextConfig()
+        archs = d.get('architectures') or []
+        if any('WithProjection' in a for a in archs):
+            projection_dim = d.get('projection_dim', base.projection_dim)
+        elif archs:
+            projection_dim = None
+        else:
+            projection_dim = base.projection_dim
+        return CLIPTextConfig(
+            vocab_size=d.get('vocab_size', base.vocab_size),
+            hidden_size=d.get('hidden_size', base.hidden_size),
+            intermediate_size=d.get('intermediate_size', base.intermediate_size),
+            num_hidden_layers=d.get('num_hidden_layers', base.num_hidden_layers),
+            num_attention_heads=d.get('num_attention_heads', base.num_attention_heads),
+            max_position_embeddings=d.get('max_position_embeddings',
+                                          base.max_position_embeddings),
+            hidden_act=d.get('hidden_act', base.hidden_act),
+            layer_norm_eps=d.get('layer_norm_eps', base.layer_norm_eps),
+            projection_dim=projection_dim,
+            eos_token_id=d.get('eos_token_id', base.eos_token_id),
+        )
+
+    def to_diffusers_config(self) -> dict:
+        arch = 'CLIPTextModelWithProjection' if self.projection_dim else 'CLIPTextModel'
+        return {'architectures': [arch], 'model_type': 'clip_text_model',
+                **dataclasses.asdict(self)}
+
 
 CLIP_VIT_L = CLIPTextConfig()
 OPENCLIP_BIGG = CLIPTextConfig(hidden_size=1280, intermediate_size=5120,

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..roadmap import not_ported
 from ..taps import EMPTY, TapSite, TapSpec, child_id
 from .layers import (
     AttnStoreCfg, Downsample2D, ResnetBlock2D, TimestepEmbedding, Transformer2DModel,
@@ -49,6 +50,51 @@ class UNetConfig:
     @property
     def time_embed_dim(self) -> int:
         return self.block_out_channels[0] * 4
+
+    @staticmethod
+    def from_diffusers_config(d: dict) -> 'UNetConfig':
+        """Adapt a diffusers unet/config.json, as the JAX package does
+        (fine-tunes may deviate from the presets).  diffusers names the
+        head count ``attention_head_dim`` and leaves ``num_attention_heads``
+        null; either is read.  ``upcast_attention`` is not ported."""
+        if d.get('upcast_attention', False):
+            raise not_ported('upcast_attention: true (fp32 q/k/v into the attention kernels)',
+                             'Other U-Net versions and multi-step paths')
+        n_blocks = len(d.get('block_out_channels', SD15_UNET.block_out_channels))
+
+        def per_block(v, default):
+            if v is None:
+                v = default
+            return tuple(v) if isinstance(v, (list, tuple)) else (v,) * n_blocks
+
+        heads = d.get('num_attention_heads') or d.get('attention_head_dim', 8)
+        return UNetConfig(
+            in_channels=d.get('in_channels', 4),
+            out_channels=d.get('out_channels', 4),
+            block_out_channels=tuple(d.get('block_out_channels', SD15_UNET.block_out_channels)),
+            down_block_types=tuple(d.get('down_block_types', SD15_UNET.down_block_types)),
+            up_block_types=tuple(d.get('up_block_types', SD15_UNET.up_block_types)),
+            layers_per_block=d.get('layers_per_block', 2),
+            num_attention_heads=per_block(heads, 8),
+            transformer_layers_per_block=per_block(d.get('transformer_layers_per_block'), 1),
+            cross_attention_dim=d.get('cross_attention_dim', 768),
+            use_linear_projection=d.get('use_linear_projection', False),
+            addition_embed_type=d.get('addition_embed_type'),
+            addition_time_embed_dim=d.get('addition_time_embed_dim', 256),
+            projection_class_embeddings_input_dim=d.get(
+                'projection_class_embeddings_input_dim', 2816),
+            norm_eps=d.get('norm_eps', 1e-5),
+            freq_shift=d.get('freq_shift', 0.0),
+            flip_sin_to_cos=d.get('flip_sin_to_cos', True),
+        )
+
+    def to_diffusers_config(self) -> dict:
+        """The unet/config.json that ``from_diffusers_config`` reads back,
+        with the head count where diffusers keeps it."""
+        d = {k: list(v) if isinstance(v, tuple) else v
+             for k, v in dataclasses.asdict(self).items()}
+        d['attention_head_dim'], d['num_attention_heads'] = d['num_attention_heads'], None
+        return {'_class_name': 'UNet2DConditionModel', **d}
 
 
 SD15_UNET = UNetConfig()

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention_fused
+from ..roadmap import not_ported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,6 +27,26 @@ class VAEConfig:
     norm_eps: float = 1e-6
     scaling_factor: float = 0.18215
     shift_factor: float = 0.0
+
+    @staticmethod
+    def from_diffusers_config(d: dict) -> 'VAEConfig':
+        """Adapt a diffusers vae/config.json, as the JAX package does.  A VAE
+        without the quant convs (Flux's) is not ported."""
+        if not d.get('use_quant_conv', True):
+            raise not_ported('a VAE without quant_conv (use_quant_conv: false)', 'DiT families')
+        return VAEConfig(
+            in_channels=d.get('in_channels', 3),
+            latent_channels=d.get('latent_channels', 4),
+            block_out_channels=tuple(d.get('block_out_channels', (128, 256, 512, 512))),
+            layers_per_block=d.get('layers_per_block', 2),
+            scaling_factor=d.get('scaling_factor', 0.18215),
+            shift_factor=d.get('shift_factor') or 0.0,
+        )
+
+    def to_diffusers_config(self) -> dict:
+        d = {k: list(v) if isinstance(v, tuple) else v
+             for k, v in dataclasses.asdict(self).items()}
+        return {'_class_name': 'AutoencoderKL', 'out_channels': 3, **d}
 
 
 SD_VAE = VAEConfig()

@@ -3,7 +3,6 @@ ROADMAP.md Queue A item that brings it."""
 
 #: Queue A items the port's messages cite, by title.
 QUEUE_A = {
-    'Safetensors weight loader': 2,
     'VAE decoder and vae-out': 3,
     'Long prompts': 6,
     'Other U-Net versions and multi-step paths': 7,

@@ -11,6 +11,7 @@ import jax
 import ml_dtypes
 import numpy as np
 import pytest
+import safetensors.numpy
 import torch
 from PIL import Image
 
@@ -23,7 +24,7 @@ from diffusion_feature_tpu_torch.enumerate_layers import enumerate_layers
 from diffusion_feature_tpu_torch.io import dump
 from diffusion_feature_tpu_torch.native import AsyncDumpWriter
 from diffusion_feature_tpu_torch.ops import flash_attention as fa
-from port_parity import jax_facade, jax_noise, load_jax_params
+from port_parity import jax_facade, jax_noise, load_jax_params, write_port_checkpoint
 
 
 # ------------------------------------------------------------- enumeration
@@ -153,27 +154,31 @@ def facades():
     return jfe, port
 
 
-def _run_both(monkeypatch, tmp_path, facades, images, flags):
+def _run_both(monkeypatch, tmp_path, images, flags, port_factory, jax_factory=None):
     """Both CLIs over the 3 images (batches of 2 and 1), each from a fresh
-    key chain; the port's step gets the JAX noise of the same call."""
-    jfe, port = facades
-    lat = IMG_SIZE // port.vae_scale
-    step, calls = port._step, []
+    key chain; the port's step gets the JAX noise of the same call.
+    ``port_factory`` (and ``jax_factory``, else the JAX facade itself)
+    stands in for the CLI's FeatureExtractor."""
+    calls = []
 
-    def jax_noise_step(img, pe, pooled, kit, posterior, noise, out_dtype):
-        # the JAX CLI pads the trailing batch to BATCH; its real rows come first
-        n = img.shape[0]
-        posterior, noise = (x[:n] for x in jax_noise(SEED, (BATCH, 4, lat, lat), len(calls)))
-        calls.append(n)
-        return step(img, pe, pooled, kit, posterior, noise, out_dtype)
+    def port_with_jax_noise(*args, **kwargs):
+        port = port_factory(*args, **kwargs)
+        lat = IMG_SIZE // port.vae_scale
+        step = port._step
 
-    def jax_factory(*args, **kwargs):
-        jfe._rng = jax.random.PRNGKey(SEED)
-        return jfe
+        def jax_noise_step(img, pe, pooled, kit, posterior, noise, out_dtype):
+            # the JAX CLI pads the trailing batch to BATCH; its real rows come first
+            n = img.shape[0]
+            posterior, noise = (x[:n] for x in jax_noise(SEED, (BATCH, 4, lat, lat), len(calls)))
+            calls.append(n)
+            return step(img, pe, pooled, kit, posterior, noise, out_dtype)
 
-    monkeypatch.setattr(jax_cli, 'FeatureExtractor', jax_factory)
-    monkeypatch.setattr(port_cli, 'FeatureExtractor', lambda *args, **kwargs: port)
-    monkeypatch.setattr(port, '_step', jax_noise_step)
+        monkeypatch.setattr(port, '_step', jax_noise_step)
+        return port
+
+    if jax_factory is not None:
+        monkeypatch.setattr(jax_cli, 'FeatureExtractor', jax_factory)
+    monkeypatch.setattr(port_cli, 'FeatureExtractor', port_with_jax_noise)
     common = ['--version', 'test-sd', '--img_size', str(IMG_SIZE), '--dtype', 'float32',
               '--batch_size', str(BATCH), '--layer', LAYER_JSON, '--prompt', 'a photo of a cat',
               '--input_dir', str(images / '*.png'), *flags]
@@ -184,24 +189,35 @@ def _run_both(monkeypatch, tmp_path, facades, images, flags):
     return tmp_path / 'jax', tmp_path / 'port'
 
 
-@pytest.mark.parametrize('flags,count', [
-    ([], 6), (['--sample_name_first'], 6), (['--aggregate_output', '--use_original_filename'], 3),
-], ids=['per-layer', 'sample-first', 'aggregated-original-names'])
-def test_cli_trees_match_jax(monkeypatch, tmp_path, facades, images, flags, count):
+def _assert_trees_match(ref_root, ours_root, count):
     """File names, shapes and fp16 equal; values within the oracle's
-    tolerance for a bf16 cast then fp16 (rtol 1e-2, atol 1e-2 max|JAX|):
-    the JAX facade keeps fp32 features here, the port's are bf16."""
-    ref_root, ours_root = _run_both(monkeypatch, tmp_path, facades, images, flags)
+    tolerance for a bf16 cast then fp16 (rtol 1e-2, atol 1e-2 max|JAX|)."""
     files = _tree(ref_root)
     assert _tree(ours_root) == files and len(files) == count
-    if '--use_original_filename' in flags:
-        assert files == ['imgA.npy', 'imgB.npy', 'imgC.npy']
     for f in files:
         ref, ours = np.load(ref_root / f), np.load(ours_root / f)
         assert ours.dtype == ref.dtype == np.float16 and ours.shape == ref.shape, f
         ref32 = ref.astype(np.float32)
         np.testing.assert_allclose(ours.astype(np.float32), ref32, rtol=1e-2,
                                    atol=1e-2 * np.abs(ref32).max(), err_msg=f)
+
+
+@pytest.mark.parametrize('flags,count', [
+    ([], 6), (['--sample_name_first'], 6), (['--aggregate_output', '--use_original_filename'], 3),
+], ids=['per-layer', 'sample-first', 'aggregated-original-names'])
+def test_cli_trees_match_jax(monkeypatch, tmp_path, facades, images, flags, count):
+    """The JAX facade keeps fp32 features here, the port's are bf16."""
+    jfe, port = facades
+
+    def jax_factory(*args, **kwargs):
+        jfe._rng = jax.random.PRNGKey(SEED)
+        return jfe
+
+    ref_root, ours_root = _run_both(monkeypatch, tmp_path, images, flags,
+                                    lambda *args, **kwargs: port, jax_factory)
+    _assert_trees_match(ref_root, ours_root, count)
+    if '--use_original_filename' in flags:
+        assert _tree(ref_root) == ['imgA.npy', 'imgB.npy', 'imgC.npy']
 
 
 def test_cli_show_all_layers_writes_record(monkeypatch, tmp_path, capsys):
@@ -215,14 +231,45 @@ def test_cli_show_all_layers_writes_record(monkeypatch, tmp_path, capsys):
     assert f'unet-out {shapes["unet-out"][1:]}' in printed
 
 
+@pytest.fixture(scope='module')
+def checkpoint(tmp_path_factory):
+    """A test-sd checkpoint dir written by the port (with the VAE decoder
+    tensors the JAX facade needs) holding two weight sets: the un-suffixed
+    one from seed 2 and an 'fp16' variant from seed 1; and a peft LoRA over
+    two U-Net projections."""
+    root = tmp_path_factory.mktemp('ckpt')
+    for seed, variant in ((2, None), (1, 'fp16')):
+        port = FeatureExtractor({'unet-out': True}, 'test-sd', device='cpu', dtype='float32',
+                                img_size=IMG_SIZE, seed=seed)
+        write_port_checkpoint(port, root, variant=variant)
+    rs = np.random.RandomState(4)
+    blk = 'unet.mid_block.attentions.0.transformer_blocks.0'
+    lora = {f'{blk}.{p}.lora_{ab}.weight': (rs.randn(*shape) * 0.5).astype(np.float32)
+            for p in ('attn1.to_q', 'attn2.to_v')
+            for ab, shape in (('A', (4, 64)), ('B', (64, 4)))}
+    safetensors.numpy.save_file(lora, str(root / 'lora.safetensors'))
+    return root
+
+
+@pytest.mark.parametrize('flags', [
+    ['--weights', '{ckpt}'], ['--weights', '{ckpt}', '--weights_variant', 'fp16'],
+    ['--weights', '{ckpt}', '--offline_lora', '{ckpt}/lora.safetensors'],
+], ids=['weights', 'weights_variant', 'offline_lora'])
+def test_weight_flags_match_jax_cli(monkeypatch, tmp_path, images, checkpoint, flags):
+    """Both CLIs load the same checkpoint dir (the variant and the LoRA
+    too) and write the same dumps; each builds its own facade."""
+    flags = [f.format(ckpt=checkpoint) for f in flags]
+    ref_root, ours_root = _run_both(monkeypatch, tmp_path, images, flags, FeatureExtractor)
+    _assert_trees_match(ref_root, ours_root, 6)
+
+
 @pytest.mark.parametrize('flags,item', [
-    (['--weights', 'ckpt'], 2), (['--weights_variant', 'fp16'], 2),
-    (['--offline_lora', 'lora.safetensors'], 2), (['--control', 'canny'], 8),
+    (['--control', 'canny'], 8),
     (['--denoising_from', '100'], 7), (['--use_ddim_inversion'], 7),
     (['--layer', '{"vae-out": true}'], 3), (['--dp', '2'], 11), (['--tp', '2'], 11),
     (['--sp', '2'], 11), (['--transformer_8bit', 'true'], 9),
-], ids=['weights', 'weights_variant', 'offline_lora', 'control', 'denoising_from',
-        'ddim_inversion', 'vae-out', 'dp', 'tp', 'sp', 'transformer_8bit'])
+], ids=['control', 'denoising_from', 'ddim_inversion', 'vae-out', 'dp', 'tp', 'sp',
+        'transformer_8bit'])
 def test_unported_flags_raise(tmp_path, images, flags, item):
     args = ['--version', 'test-sd', '--img_size', '64', '--device', 'cpu', '--prompt', 'a',
             '--input_dir', str(images / 'imgA.png'), '--output_dir', str(tmp_path), '--layer',

@@ -1,5 +1,6 @@
 """The Hopper attention kernels (flash B1, flash with logsumexp B2, head-mean
-B3, short attention B4) against their plain twins, on the card.
+B3, short attention B4) against their plain twins, on the card; and the
+checkpoint loader filling modules on the card.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU (the
 kernels have no CPU mode).  The file imports torch and the port only, so it
@@ -11,6 +12,9 @@ also runs where the JAX package's dependencies are missing:
 import pytest
 import torch
 
+from diffusion_feature_tpu_torch import FeatureExtractor
+from diffusion_feature_tpu_torch.io.safetensors import load_file, save_file
+from diffusion_feature_tpu_torch.models.convert import load_state_into
 from diffusion_feature_tpu_torch.ops import attention as attn
 from diffusion_feature_tpu_torch.ops import flash_attention as fa
 
@@ -401,3 +405,42 @@ def test_store_path_hands_b2_and_b3_the_views_without_copies(cuda, monkeypatch):
     r_out, probs = attn.attention_with_probs_heads(q, k, v)
     torch.testing.assert_close(out.float(), r_out.float(), atol=2e-2, rtol=2e-2)
     _assert_map_matches(mean_p, probs.float().mean(1), torch.bfloat16, s)
+
+
+@pytest.mark.cuda
+def test_checkpoint_loads_on_card_as_on_cpu(cuda, tmp_path):
+    """A test-xl tree (bf16 variant, sharded U-Net, two text encoders)
+    loads on the card to the parameters it loads to on the CPU."""
+    layer = {'unet-out': True}
+    src = FeatureExtractor(layer, 'test-xl', device='cpu', img_size=64, seed=3)
+    src.save_weights(str(tmp_path), variant='bf16', unet_shards=2)
+    kw = dict(img_size=64, weights=str(tmp_path), weights_variant='bf16')
+    on_cpu = FeatureExtractor(layer, 'test-xl', device='cpu', **kw)
+    on_card = FeatureExtractor(layer, 'test-xl', device=cuda, **kw)
+    for a, b in ((on_cpu.unet, on_card.unet), (on_cpu.vae, on_card.vae),
+                 *zip(on_cpu.text_encoders, on_card.text_encoders)):
+        sa, sb = a.state_dict(), b.state_dict()
+        assert sa.keys() == sb.keys()
+        for key in sa:
+            assert sb[key].is_cuda and sb[key].dtype == torch.bfloat16
+            assert torch.equal(sa[key], sb[key].cpu()), key
+
+
+@pytest.mark.cuda
+def test_bf16_file_lands_in_bf16_without_fp32_copy(cuda, tmp_path):
+    """A 64 MiB BF16 tensor fills a meta-built Linear on the card with at
+    most its own bytes (+5%) allocated: no fp32 staging copy."""
+    weight = torch.randn(4096, 8192, generator=torch.Generator().manual_seed(0)).bfloat16()
+    save_file({'weight': weight}, str(tmp_path / 'w.safetensors'))
+    with torch.device('meta'):
+        linear = torch.nn.Linear(8192, 4096, bias=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    assert load_state_into(linear, load_file(str(tmp_path / 'w.safetensors')), torch.bfloat16,
+                           cuda) == []
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert linear.weight.is_cuda and linear.weight.dtype == torch.bfloat16
+    assert torch.equal(linear.weight.cpu(), weight)
+    assert peak <= 1.05 * weight.numel() * 2, peak

@@ -158,13 +158,18 @@ def test_layer_validation_suggests_near_miss():
 
 
 @pytest.mark.parametrize('kwargs', [
-    {'offline_lora': 'lora.safetensors'}, {'weights': 'ckpt'}, {'control': ['canny']},
+    {'weights': 'upcast_attention'}, {'control': ['canny']},
     {'attention': ['up_cross'], 'version': 'pixart-sigma'}, {'version': '2-1'},
     {'layer': {'vae-out': True}},
-], ids=['lora', 'weights', 'control', 'attention', 'version', 'vae-out'])
-def test_unported_options_raise(kwargs):
+], ids=['weights', 'control', 'attention', 'version', 'vae-out'])
+def test_unported_options_raise(tmp_path, kwargs):
     args = dict(layer={'mid-vit-out': True}, version='test-xl', device='cpu', img_size=SIZE)
     args.update(kwargs)
+    if 'weights' in kwargs:
+        # a checkpoint whose U-Net asks for fp32 attention (Queue A item 7)
+        (tmp_path / 'unet').mkdir()
+        (tmp_path / 'unet' / 'config.json').write_text('{"upcast_attention": true}')
+        args['weights'] = str(tmp_path)
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         FeatureExtractor(**args)
 
