@@ -55,15 +55,32 @@ Phases (each prints its numbers on lines of its own):
      transformer block, loaded with offline_lora: one merged weight against
      W + (alpha/r)*up@down computed on the card in fp32, within bf16
      rounding, and finite features that differ from the unmerged ones.
-     Write and load seconds and GB/s per component are printed.
-Phase 2 also holds B4 (short attention), which no path routes to, as in
-the JAX package: against its twin, with its gradients through
-short_attention_diff, at the 256-token bands of SD-1.5 and SDXL at 512^2,
-the JAX docstring's measured (16, 20, 256, {256, 77}, 64) and a ragged
-shape, on contiguous tensors and on head-split views, with its time beside
-B1's, SDPA's and the explicit path's there, all (its twin too) timed as
-CUDA graphs of 20 calls.
+     Write and load seconds and GB/s per component are printed;
+  9. SDXL multi-step at full width, 1024^2: 'xl-practical' plus 'vae-out',
+     extract(t=50, denoising_from=60): 10 walk forwards and the last one,
+     exactly 772 B1 launches (the VAE encoder's, 11 U-Net forwards of 70,
+     the decoder's mid block), 'vae-out' (2, 3, 1024, 1024) in bf16 and
+     finite, the same extract on the twins within MULTISTEP_REL_TOL
+     relative L2, its timing over 5 calls and its peak memory;
+ 10. Playground v2 ('pgv2') at 1024^2 with 'pg-amalgamation' at t=50, the
+     correspondence config's third extractor: 71 B1 launches, the twin
+     step, its timing;
+ 11. SD-2.1 ('2-1') at 512^2, '15-amalgamation' with attention=['up_cross',
+     'up_self']: 7 B1 (bf16) and 3 B2 and 3 B3 in fp32 (upcast_attention),
+     'attn' (2, 1434, 64, 64), the twin step, its timing; then one
+     extract(t=50, use_ddim_inversion=True): 5 inversion forwards of 10 B1
+     each and the last forward's 7 B1, 3 B2 and 3 B3, finite features.
+Phase 2 also holds B2 and B3 in fp32 at phase 11's store shape (the fp32
+kernels, timed against the fp32 non-tensor peak), and B4 (short
+attention), which no path routes to, as in the JAX package: against its
+twin, with its gradients through short_attention_diff, at the 256-token
+bands of SD-1.5 and SDXL at 512^2, the JAX docstring's measured (16, 20,
+256, {256, 77}, 64) and a ragged shape, on contiguous tensors and on
+head-split views, with its time beside B1's, SDPA's and the explicit
+path's there, all (its twin too) timed as CUDA graphs of 20 calls.
 Every path runs with all four counts set to 0 and expects 0 B4 launches.
+Launches are recorded with their dtype, and the kernels line sums each
+(shape, dtype)'s numbers.
 The last line is {"ok": true, "device": {...}}; before it come the card line
 and a {"kernels": [...]} line.  Exits non-zero, without the last line,
 when there is no CUDA device or any phase fails.
@@ -96,6 +113,8 @@ STORE_SHAPES = [                # B2 and B3: the attention store's self-attentio
     (2, 20, 1024, 1024, 64),    # path B: SDXL up-level0
     (2, 10, 4096, 4096, 64),    # path B: SDXL up-level1
 ]
+# phase 11: SD-2.1's upcast store hands B2 and B3 fp32 q, k and v
+FP32_STORE_SHAPES = [(2, 10, 1024, 1024, 64)]   # SD-2.1 up-level2 @512^2
 RAGGED = (1, 2, 1000, 333, 64)
 # B1/B2/B3 on head-split views: ragged lengths at d=40 (TMA zero-fills the
 # columns up to the mma depth) and at d=512 (B1 only: one score pass over
@@ -135,9 +154,10 @@ AMALGAMATION_15 = {  # tap id -> shape at 512^2, batch 2, plus the store
     'attn': (2, 77 + 77 + 256 + 1024, 64, 64),
 }
 XL_STORE = {**XL_PRACTICAL, 'attn': (2, 1024 + 4096, 128, 128)}
-# the paths phases 3 to 6 drive, at random weights from seed 0, bf16, batch
-# 2, t=50: FeatureExtractor's arguments, the B1/B2/B3 launches of one
-# extract, and the features it returns
+# the paths phases 3 to 6 and 9 to 11 drive, at random weights from seed 0,
+# bf16, batch 2, t=50: FeatureExtractor's arguments, extract's arguments
+# beyond t (none: the single step), the B1/B2/B3 launches of one extract,
+# the features it returns, the timed calls
 PATHS = {
     'xl': {'args': dict(layer='xl-practical', version='xl', img_size=1024),
            'launches': (71, 0, 0), 'feats': XL_PRACTICAL},
@@ -147,11 +167,31 @@ PATHS = {
     'xl_store': {'args': dict(layer='xl-practical', version='xl', img_size=1024,
                               attention=['up_self']),
                  'launches': (35, 36, 36), 'feats': XL_STORE},
+    # a walk of 10 Euler steps from timestep 60, then the last forward at
+    # 50; B1: the VAE encoder, 11 U-Net forwards of 70, the decoder
+    'xl_multistep': {'args': dict(layer={**dict.fromkeys(XL_PRACTICAL, True), 'vae-out': True},
+                                  version='xl', img_size=1024),
+                     'extract': dict(denoising_from=60), 'launches': (1 + 11 * 70 + 1, 0, 0),
+                     'feats': {**XL_PRACTICAL, 'vae-out': (2, 3, 1024, 1024)}, 'calls': 5},
+    # the correspondence config's third extractor (corres_configs/config_xl_t.json)
+    'pgv2': {'args': dict(layer='pg-amalgamation', version='pgv2', img_size=1024),
+             'launches': (71, 0, 0),
+             'feats': {'up-level0-repeat0-vit-block3-out': (2, 1280, 32, 32)}},
+    # SD-2.1: path A's taps and store; upcast_attention runs B2 and B3 in fp32
+    'sd21_store': {'args': dict(layer='15-amalgamation', version='2-1', img_size=512,
+                                attention=['up_cross', 'up_self']),
+                   'launches': (7, 3, 3), 'feats': AMALGAMATION_15},
 }
+# phase 11's DDIM inversion extract: 5 inverted steps (timesteps 11 to 51,
+# the first >= 49) through the plain U-Net, 10 B1 each, then the last forward
+INVERSION_PATH, INVERSION_LAUNCHES = 'sd21_store', (5 * 10 + 7, 3, 3)
 TIMED_CALLS = 7
 # kernel vs twin through ~70 bf16 attention calls and 50+ blocks: relative
 # L2 difference per tap
 TAP_REL_TOL = 2e-2
+# the same through 11 U-Net forwards (each walk step adds the last one's
+# difference to the latents) and the decoder: per tap and 'vae-out'
+MULTISTEP_REL_TOL = 5e-2
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     'flash_attention': ('diffusion_feature_tpu_torch/csrc/flash_hopper.cuh',
                         'diffusion_feature_tpu/ops/flash_attention.py:86'),
@@ -285,12 +325,18 @@ def rel_l2_ratio(torch, out, ref, tol, ratio):
 def library_ms(torch, kernel, q, k, v, scale, timer=graph_ms):
     """The one PyTorch call that computes the kernel's function, timed as
     a yardstick (the port never calls it); None where there is none or it
-    does not take these inputs."""
+    does not take these inputs.  B2's: the flash op in bf16/fp16, the
+    memory-efficient op in fp32."""
     F = torch.nn.functional
     try:
         if kernel in ('flash_attention', 'short_attention'):
             return timer(torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
         if kernel == 'flash_attention_with_lse':
+            if q.dtype == torch.float32:
+                # the flash op takes 16-bit inputs only; this one returns the
+                # logsumexp too
+                op = torch.ops.aten._scaled_dot_product_efficient_attention
+                return timer(torch, lambda: op(q, k, v, None, True, scale=scale))
             op = torch.ops.aten._scaled_dot_product_flash_attention
             return timer(torch, lambda: op(q, k, v, 0.0, False, False, scale=scale))
     except RuntimeError as err:
@@ -419,11 +465,12 @@ def patched_wrappers(attn_ops, make):
 
 
 def recording(log):
-    """Record (kernel, (b, h, sq, sk, d)) of every call, then call through
-    to the wrapper unchanged."""
+    """Record (kernel, (b, h, sq, sk, d), dtype name) of every call, then
+    call through to the wrapper unchanged."""
     def make(name, wrapper):
         def call(q, k, *args, **kwargs):
-            log.append((name, (*q.shape[:3], k.shape[2], q.shape[3])))
+            log.append((name, (*q.shape[:3], k.shape[2], q.shape[3]),
+                        str(q.dtype).replace('torch.', '')))
             return wrapper(q, k, *args, **kwargs)
         return call
     return make
@@ -458,8 +505,9 @@ def check_feats(torch, feats, expected, label):
             raise RuntimeError(f'{label} {key}: {tuple(val.shape)} {val.dtype} finite={finite}')
 
 
-def injected_step(torch, fe, prompts, images):
-    """``fe._step`` at t=50 on standard-normal noise drawn from seed 2."""
+def injected_step(torch, fe, prompts, images, denoising_from=None, use_ddim_inversion=False):
+    """``fe._step`` (or, with ``denoising_from`` or ``use_ddim_inversion``,
+    ``fe._multistep``) at t=50 on standard-normal noise drawn from seed 2."""
     bsz = images.shape[0]
     pe = prompts[0].expand(bsz, -1, -1)
     pooled = None if prompts[2] is None else prompts[2].expand(bsz, -1)
@@ -467,21 +515,25 @@ def injected_step(torch, fe, prompts, images):
     gen = torch.Generator(device='cuda').manual_seed(2)
     posterior, noise = (torch.randn((bsz, 4, lat, lat), generator=gen, device='cuda')
                         for _ in range(2))
-    return fe._step(images.to(fe.dtype), pe, pooled, fe._img2img_kit(50), posterior, noise,
-                    torch.bfloat16)
+    if denoising_from is None and not use_ddim_inversion:
+        return fe._step(images.to(fe.dtype), pe, pooled, fe._img2img_kit(50), posterior, noise,
+                        torch.bfloat16)
+    return fe._multistep(images.to(fe.dtype), pe, pooled, 50, denoising_from,
+                         use_ddim_inversion, posterior, noise, torch.bfloat16)
 
 
-def check_twin_step(torch, fe, attn_ops, fa, prompts, images, keys, label):
+def check_twin_step(torch, fe, attn_ops, fa, prompts, images, keys, label, tol=TAP_REL_TOL,
+                    **kwargs):
     """The same step with the kernels and with every kernel call on its
     plain twin, on the same noise: relative L2 per feature."""
-    with_kernel = injected_step(torch, fe, prompts, images)
+    with_kernel = injected_step(torch, fe, prompts, images, **kwargs)
     with patched_wrappers(attn_ops, twin_of(fa)):
-        with_twin = injected_step(torch, fe, prompts, images)
+        with_twin = injected_step(torch, fe, prompts, images, **kwargs)
     for key in keys:
         a, b = with_kernel[key].float(), with_twin[key].float()
         rel = ((a - b).norm() / b.norm()).item()
-        print(f'  {label} kernel vs twin step, {key}: rel_l2={rel:.3e} (allowed {TAP_REL_TOL:g})')
-        if not rel <= TAP_REL_TOL:
+        print(f'  {label} kernel vs twin step, {key}: rel_l2={rel:.3e} (allowed {tol:g})')
+        if not rel <= tol:
             raise RuntimeError(f'{label} {key} differs between kernel and twin: {rel}')
 
 
@@ -498,23 +550,25 @@ def open_path(torch, name):
     return fe, prompts, torch.rand(2, 3, size, size, generator=gen, device='cuda') * 2 - 1
 
 
-def extract(fe, prompts, images):
-    return fe.extract(prompts, images.shape[0], images, image_type='tensor', t=50)
+def extract(fe, prompts, images, **kwargs):
+    """One public extract at t=50; ``kwargs`` are a path's ``'extract'``
+    arguments."""
+    return fe.extract(prompts, images.shape[0], images, image_type='tensor', t=50, **kwargs)
 
 
-def extract_times(torch, fe, prompts, images, calls):
+def extract_times(torch, fe, prompts, images, calls, **kwargs):
     """``calls`` extracts after three untimed ones; per call the host time
     to enqueue it and the time between CUDA events around it, in ms, each
     list sorted."""
     for _ in range(3):
-        extract(fe, prompts, images)
+        extract(fe, prompts, images, **kwargs)
     torch.cuda.synchronize()
     host, device = [], []
     for _ in range(calls):
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        extract(fe, prompts, images)
+        extract(fe, prompts, images, **kwargs)
         stop.record()
         host.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
@@ -522,10 +576,10 @@ def extract_times(torch, fe, prompts, images, calls):
     return sorted(host), sorted(device)
 
 
-def time_extract(torch, fe, prompts, images, label, card):
-    """Median ms, img/s and peak memory over TIMED_CALLS calls."""
+def time_extract(torch, fe, prompts, images, label, card, calls=TIMED_CALLS, **kwargs):
+    """Median ms, img/s and peak memory over ``calls`` calls."""
     torch.cuda.reset_peak_memory_stats()
-    host, times = extract_times(torch, fe, prompts, images, TIMED_CALLS)
+    host, times = extract_times(torch, fe, prompts, images, calls, **kwargs)
     ms = times[len(times) // 2]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f'{label} over {len(times)} calls: median {ms:.2f} ms (min {times[0]:.2f}, '
@@ -534,13 +588,13 @@ def time_extract(torch, fe, prompts, images, label, card):
           f'peak memory {peak:.2f} GiB ({card})', flush=True)
 
 
-def drive_path(torch, fa, attn_ops, fe, prompts, images, expected_counts, label):
+def drive_path(torch, fa, attn_ops, fe, prompts, images, expected_counts, label, **kwargs):
     """One extract with every count set to 0 just before it and read just
-    after; returns (features, counts, recorded kernel shapes)."""
+    after; returns (features, counts, recorded kernel calls)."""
     shapes = []
     with patched_wrappers(attn_ops, recording(shapes)):
         reset_counts(fa)
-        feats = extract(fe, prompts, images)
+        feats = extract(fe, prompts, images, **kwargs)
         torch.cuda.synchronize()
         counts = read_counts(fa)
     print(f'{label} extract: kernel launches {counts} (expected {expected_counts})', flush=True)
@@ -791,7 +845,7 @@ def main() -> int:
 
     # 2. every kernel against its twin, with times, at every path shape
     gen = torch.Generator(device='cuda').manual_seed(0)
-    numbers = {}   # (kernel, shape) -> bf16 numbers
+    numbers = {}   # (kernel, shape, dtype name) -> numbers
     for dtype_name in ('bfloat16', 'float32'):
         for kernel, shapes in (('flash_attention', B1_SHAPES),
                                ('flash_attention_with_lse', STORE_SHAPES),
@@ -802,13 +856,13 @@ def main() -> int:
             for shape in (shapes if dtype_name == 'bfloat16' else []) + SPLIT_RAGGED[kernel]:
                 res = compare(torch, fa, kernel, shape, dtype_name, gen, split=True)
                 if dtype_name == 'bfloat16':
-                    numbers[kernel, shape] = res
+                    numbers[kernel, shape, dtype_name] = res
         # B4 on no path: contiguous inputs (the kernels line's), then
         # head-split views
         for shape in SHORT_SHAPES + [SHORT_RAGGED]:
             res = compare(torch, fa, 'short_attention', shape, dtype_name, gen)
             if dtype_name == 'bfloat16' and shape in SHORT_SHAPES:
-                numbers['short_attention', shape] = res
+                numbers['short_attention', shape, dtype_name] = res
         for shape in (SHORT_SHAPES if dtype_name == 'bfloat16' else []) + [SHORT_RAGGED]:
             compare(torch, fa, 'short_attention', shape, dtype_name, gen, split=True)
     for kernel, shape in (('flash_attention', B1_SHAPES[0]),
@@ -817,19 +871,28 @@ def main() -> int:
                           ('headmean_probs', STORE_SHAPES[2]),
                           ('short_attention', SHORT_SHAPES[4])):
         compare(torch, fa, kernel, shape, 'float16', gen, split=True)
+    # the fp32 store kernels at the shape SD-2.1's upcast hands them (phase 11)
+    for kernel in ('flash_attention_with_lse', 'headmean_probs'):
+        for shape in FP32_STORE_SHAPES:
+            numbers[kernel, shape, 'float32'] = compare(torch, fa, kernel, shape, 'float32', gen,
+                                                        split=True)
     torch.cuda.empty_cache()
     print(f'phase 2 done: {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB still allocated '
           '(what phases 3 to 7 count in their peak beside their own)', flush=True)
 
     # 3 and 4: SDXL single-step extraction (the port's first slice) and its
     # timing; 5: path A, SD-1.5 with the attention store; 6: path B, the
-    # attention store on SDXL
+    # attention store on SDXL; 9: SDXL multi-step with 'vae-out'; 10:
+    # Playground v2; 11: SD-2.1 with the upcast store, then DDIM inversion
     # phase 8 (SDXL from a checkpoint) runs after phase 4; its tree feeds phase 7
     runs, shapes = {}, {}
     tree_dir = tempfile.TemporaryDirectory(prefix='chip_smoke_tree_')
     tree = tree_dir.name
-    for phase, timing_phase, name in ((3, 4, 'xl'), (5, 5, 'sd15_store'), (6, 6, 'xl_store')):
+    for phase, timing_phase, name in ((3, 4, 'xl'), (5, 5, 'sd15_store'), (6, 6, 'xl_store'),
+                                      (9, 9, 'xl_multistep'), (10, 10, 'pgv2'),
+                                      (11, 11, 'sd21_store')):
         path = PATHS[name]
+        kwargs = path.get('extract', {})
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -843,21 +906,32 @@ def main() -> int:
               f'pooled {pooled}', flush=True)
         feats, runs[name], shapes[name] = drive_path(
             torch, fa, attn_ops, fe, prompts, images,
-            {**dict(zip(WRAPPERS, path['launches'])), 'short_attention': 0}, f'phase {phase}')
+            {**dict(zip(WRAPPERS, path['launches'])), 'short_attention': 0}, f'phase {phase}',
+            **kwargs)
         check_feats(torch, feats, path['feats'], f'phase {phase}')
         if 'attention' in path['args']:
-            gib = sum(s[0] * s[2] * s[3] * 2 for n, s in shapes[name]
+            gib = sum(s[0] * s[2] * s[3] * 2 for n, s, _ in shapes[name]
                       if n == 'headmean_probs') / 2 ** 30
             print(f'  phase {phase} head-mean maps from B3 kept by the store: {gib:.3f} GiB (bf16)')
-        check_twin_step(torch, fe, attn_ops, fa, prompts, images, path['feats'], f'phase {phase}')
+        check_twin_step(torch, fe, attn_ops, fa, prompts, images, path['feats'], f'phase {phase}',
+                        tol=MULTISTEP_REL_TOL if kwargs else TAP_REL_TOL, **kwargs)
         size = path['args']['img_size']
         time_extract(torch, fe, prompts, images,
-                     f'phase {timing_phase} {name} extract {size}^2 batch 2', card)
+                     f'phase {timing_phase} {name} extract {size}^2 batch 2'
+                     f'{"".join(f", {k}={v}" for k, v in kwargs.items())}', card,
+                     path.get('calls', TIMED_CALLS), **kwargs)
         if name == TREE_PATH:
             shapes['checkpoint'] = []
             runs['checkpoint'] = check_checkpoint(torch, fa, attn_ops, fe, prompts, images,
                                                   feats, build_gib, tree, card,
                                                   shapes['checkpoint'])
+        if name == INVERSION_PATH:
+            label = f'phase {phase} use_ddim_inversion'
+            inv, runs['sd21_inversion'], shapes['sd21_inversion'] = drive_path(
+                torch, fa, attn_ops, fe, prompts, images,
+                {**dict(zip(WRAPPERS, INVERSION_LAUNCHES)), 'short_attention': 0}, label,
+                use_ddim_inversion=True)
+            check_feats(torch, inv, path['feats'], label)
         del fe, feats
         torch.cuda.empty_cache()
 
@@ -868,9 +942,9 @@ def main() -> int:
     finally:
         tree_dir.cleanup()
 
-    # the kernels line: per kernel, the launches of the four paths and the
-    # sum over those launches of each shape's bf16 numbers from phase 2 (a
-    # shape phase 2 did not hold, such as the CLI's trailing batch of 1, is
+    # the kernels line: per kernel, the launches of every path and the sum
+    # over those launches of each (shape, dtype)'s numbers from phase 2 (one
+    # phase 2 did not hold, such as the CLI's trailing batch of 1, is
     # compared and timed here); B4, which no path launches, sums one call
     # at each of its phase-2 shapes
     kernels = []
@@ -880,20 +954,20 @@ def main() -> int:
                  'launches_by_path': {p: r[name] for p, r in runs.items()},
                  'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0,
                  'library_ms': 0.0, 'call_loop_ms': 0.0, 'shapes': {}}
-        calls = [s for path in shapes.values() for n, s in path if n == name]
+        calls = [(s, dt) for path in shapes.values() for n, s, dt in path if n == name]
         if len(calls) != entry['launches']:
             raise RuntimeError(f'{name}: {len(calls)} recorded calls, {entry["launches"]} launches')
         if name == 'short_attention':
-            calls = list(SHORT_SHAPES)
+            calls = [(s, 'bfloat16') for s in SHORT_SHAPES]
             entry['timed_over'] = 'one bf16 call at each phase-2 shape; no path launches B4'
             entry['b1_ms'] = entry['explicit_ms'] = 0.0
-        for shape in sorted(set(calls)):
-            if (name, shape) not in numbers:
-                numbers[name, shape] = compare(torch, fa, name, shape, 'bfloat16', gen,
-                                               split=True)
-            res = numbers[name, shape]
-            count = calls.count(shape)
-            entry['shapes'][str(shape)] = {'calls': count, **res}
+        for shape, dt in sorted(set(calls)):
+            if (name, shape, dt) not in numbers:
+                numbers[name, shape, dt] = compare(torch, fa, name, shape, dt, gen, split=True)
+            res = numbers[name, shape, dt]
+            count = calls.count((shape, dt))
+            label = str(shape) if dt == 'bfloat16' else f'{shape} {dt}'
+            entry['shapes'][label] = {'calls': count, 'dtype': dt, **res}
             entry['max_abs_err'] = max(entry['max_abs_err'], res['max_abs_err'])
             for key in ('ms', 'plain_ms', 'bound_ms', 'b1_ms', 'explicit_ms', 'call_loop_ms'):
                 if key in entry:

@@ -2,16 +2,19 @@
 ``diffusion_feature_tpu/facade.py``), mirroring the reference's
 ``diffusion_feature.FeatureExtractor`` (feature/diffusion_feature.py:26-517).
 
-Ported: single-step extraction for SDXL (``version='xl'``, and the tiny
-``'test-xl'``) and SD-1.5 (``'1-5'``, ``'test-sd'``): CLIP tokenize -> the
-text encoders -> image preprocess -> VAE encode + posterior sample ->
-add_noise at the img2img timestep of ``t`` (Euler for SDXL, PNDM for
-SD-1.5) -> scale_model_input -> one U-Net forward with the requested taps
--> store post-processing, plus the attention store (``attention=``) and its
-aggregated ``'attn'`` feature; weights from a local diffusers checkpoint
-(``weights=``, ``weights_variant=``) or at random from ``seed``, and offline
-LoRA merging.  What is not ported raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+Ported: extraction for SD-1.5 (``'1-5'``, ``'test-sd'``), SD-2.1 (``'2-1'``),
+SDXL (``'xl'``, ``'test-xl'``) and Playground v2 (``'pgv2'``): CLIP tokenize
+-> the text encoders (long prompts in chunks) -> image preprocess -> VAE
+encode + posterior sample -> add_noise at the img2img timestep of ``t``
+(Euler, or PNDM for SD-1.5) -> scale_model_input -> one U-Net forward with
+the requested taps -> store post-processing; or, with ``denoising_from``, a
+scheduler walk down to ``t`` first, and with ``use_ddim_inversion`` a DDIM
+inversion in place of the noise.  The attention store (``attention=``) gives
+the aggregated ``'attn'`` feature, the ``'vae-out'`` layer the decoded image
+of one scheduler step; ``extract_ensemble`` crosses timesteps with prompts.
+Weights come from a local diffusers checkpoint (``weights=``,
+``weights_variant=``) or at random from ``seed``, with offline LoRA merging.
+What is not ported raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from .configs import resolve_layer_config
+from .ddim_inversion import ddim_invert
 from .enumerate_layers import enumerate_layers
 from .io.images import preprocess_pil_batch, resize_tensor_batch
 from .models.clip_text import CLIPTextConfig, CLIPTextModel
@@ -40,6 +44,7 @@ from .schedulers.diffusion import EulerDiscreteScheduler, make_scheduler, scalar
 from .store import aggregate_attention, postprocess_taps
 from .taps import TapSpec, declared_ids, is_filtered_id
 from .tokenizers.clip_bpe import load_clip_tokenizer
+from .utils.prompt import encode_long_prompt
 
 _DTYPES = {'bfloat16': torch.bfloat16, 'float16': torch.float16, 'float32': torch.float32}
 TEXT_DIRS = ('text_encoder', 'text_encoder_2')
@@ -135,8 +140,8 @@ class FeatureExtractor:
         self.dtype = _DTYPES[dtype]
         self.feature_dtype = torch.bfloat16
         self.taps = TapSpec.from_config(resolve_layer_config(layer))
-        if not self.taps.accept_all and 'vae-out' in self.taps.ids:
-            raise not_ported("the 'vae-out' layer", 'VAE decoder and vae-out')
+        # the 'vae-out' pseudo-layer: one scheduler step decoded to an image
+        self.store_vae_output = not self.taps.accept_all and 'vae-out' in self.taps.ids
         self.attention = list(attention) if attention else None
         # the store's size band (reference components/attention.py:542, :569)
         self._attn_sizes = None
@@ -193,10 +198,10 @@ class FeatureExtractor:
 
     def save_weights(self, root: str, variant: Optional[str] = None,
                      unet_shards: int = 1) -> Dict[str, Tuple[int, float]]:
-        """Write the U-Net, the VAE (its encoder half and quant_conv) and the
-        text encoders as a diffusers checkpoint dir that ``weights=`` loads:
-        a config.json and safetensors files per component, named with
-        ``variant`` and the U-Net in ``unet_shards`` files.  Returns
+        """Write the U-Net, the VAE and the text encoders as a diffusers
+        checkpoint dir that ``weights=`` loads: a config.json and
+        safetensors files per component, named with ``variant`` and the
+        U-Net in ``unet_shards`` files.  Returns
         {component: (bytes written, seconds)}, as ``load_stats``."""
         comps = [('unet', self.unet, self.spec.unet), ('vae', self.vae, self.spec.vae),
                  *zip(TEXT_DIRS, self.text_encoders, self.spec.text_encoders)]
@@ -213,7 +218,7 @@ class FeatureExtractor:
         suggestions (the reference silently drops unknown ids)."""
         known = declared_ids(self.unet)
         # 'attn' is assembled only when attention categories were requested
-        pseudo = {'attn'} if self.attention else set()
+        pseudo = {'vae-out', 'attn'} if self.attention else {'vae-out'}
         unknown = [i for i in sorted(self.taps.ids)
                    if i not in known and i not in pseudo and not is_filtered_id(i)]
         if not unknown:
@@ -252,17 +257,23 @@ class FeatureExtractor:
             with open(prompt_file) as f:
                 prompt_str = f.read()
         if len(prompt_str.split(' ')) > 70:
-            raise not_ported('prompts of more than 70 words', 'Long prompts')
+            # the first tokenizer and encoder alone, in chunks: no pooled embedding
+            self._require_text_encoders()
+            pe, ne = encode_long_prompt(self.tokenizers[0], self.text_encoders[0], prompt_str)
+            return pe.to(self.device), ne.to(self.device), None, None
         pe, pooled = self._encode_one(prompt_str)
         ne, neg_pooled = self._encode_one('')
         return pe, ne, pooled, neg_pooled
 
-    @torch.inference_mode()
-    def _encode_one(self, text: str):
+    def _require_text_encoders(self):
         if not self.text_encoders:
             raise ValueError('the text encoders were offloaded persistently '
                              '(offload_prompt_encoder(persistent=True)); pass pre-encoded '
                              'prompts, or rebuild the extractor to encode raw strings')
+
+    @torch.inference_mode()
+    def _encode_one(self, text: str):
+        self._require_text_encoders()
         penultimate = self.spec.clip_layer == 'penultimate'
         embeds, pooled = [], None
         for tok, te in zip(self.tokenizers, self.text_encoders):
@@ -294,17 +305,24 @@ class FeatureExtractor:
                 t: int = 50, denoising_from: Optional[int] = None,
                 use_control: bool = False,
                 use_ddim_inversion: bool = False) -> Dict[str, torch.Tensor]:
-        """One img2img step at ``t``; returns {tap_id: NCHW tensor} in bf16
-        (attention maps (B, H, Sq, Sk)), plus 'attn' (B, sum of Sk over the
-        aggregated maps, img/8, img/8) with ``attention=``.  ``use_control``
-        has no effect without a ControlNet, as in the JAX facade."""
-        if denoising_from is not None:
-            raise not_ported('denoising_from (multi-step extraction)',
-                             'Other U-Net versions and multi-step paths')
-        if use_ddim_inversion:
-            raise not_ported('use_ddim_inversion', 'Other U-Net versions and multi-step paths')
-        pe, _, pooled, _ = prompts
-        pe = torch.as_tensor(pe).to(self.device, self.dtype)
+        """Features of one img2img extraction at ``t``: {tap_id: NCHW tensor}
+        in bf16 (attention maps (B, H, Sq, Sk)), plus 'attn' (B, sum of Sk
+        over the aggregated maps, img/8, img/8) with ``attention=`` and
+        'vae-out' (B, 3, img, img) when that layer was requested.
+        ``denoising_from`` starts the latents there and walks the scheduler
+        down to ``t`` first; ``use_ddim_inversion`` inverts the image with
+        DDIM up to ``t`` in place of adding noise.  ``use_control`` has no
+        effect without a ControlNet, as in the JAX facade."""
+        spec = self.spec
+        if use_ddim_inversion and (spec.unet.addition_embed_type is not None
+                                   or spec.scheduler_config.prediction_type != 'epsilon'):
+            # the reference runs DDIM inversion on the epsilon SD U-Nets only
+            raise NotImplementedError(
+                'use_ddim_inversion supports the epsilon-prediction SD '
+                "U-Net families ('1-5'/'2-1'), as in the reference")
+        pe = torch.as_tensor(prompts[0]).to(self.device, self.dtype)
+        pooled = prompts[2] if spec.clip_layer == 'penultimate' else None
+        self._check_conditioning(pe, pooled)
         pe = pe.expand(batch_size, *pe.shape[1:])
         if pooled is not None:
             pooled = torch.as_tensor(pooled).to(self.device, self.dtype)
@@ -320,24 +338,91 @@ class FeatureExtractor:
         # drawn in fp32 and cast inside the step (JAX utils.normal_like)
         posterior_noise = torch.randn(shape, generator=self._noise_gen, device=self.device)
         noise = torch.randn(shape, generator=self._noise_gen, device=self.device)
-        return self._step(img, pe, pooled, self._img2img_kit(int(t)), posterior_noise, noise,
-                          self.feature_dtype)
+        if denoising_from is None and not use_ddim_inversion:
+            return self._step(img, pe, pooled, self._img2img_kit(int(t)), posterior_noise, noise,
+                              self.feature_dtype)
+        return self._multistep(img, pe, pooled, int(t), denoising_from, use_ddim_inversion,
+                               posterior_noise, noise, self.feature_dtype)
+
+    def extract_ensemble(self, prompts, batch_size: int, image, image_type: str = 'image',
+                         ts: Sequence[int] = (50,), prompt_list: Optional[Sequence] = None,
+                         concat: bool = True):
+        """Extract at every t in ``ts``, crossed with every prompt set of
+        ``prompt_list`` when given (else ``prompts``), and concatenate each
+        layer along channels in (t index, prompt index) order: {layer: (B,
+        len(ts) * len(prompt sets) * C, h, w)}; with ``concat=False``
+        {(t_index, prompt_index): features}."""
+        prompt_sets = list(prompt_list) if prompt_list is not None else [prompts]
+        per = {(ti, pi): self.extract(p, batch_size, image, image_type=image_type, t=int(t))
+               for pi, p in enumerate(prompt_sets) for ti, t in enumerate(ts)}
+        if not concat:
+            return per
+        keys = sorted(per)
+        return {layer: torch.cat([per[k][layer] for k in keys], dim=1) for layer in per[keys[0]]}
+
+    def _check_conditioning(self, pe, pooled):
+        """Refuse, before any compute, prompts the U-Net cannot take: a
+        context of another width, or no pooled embedding for SDXL's
+        micro-conditioning (long prompts are encoded by the first encoder
+        alone and carry none).  The JAX facade fails on them inside its
+        step."""
+        cfg = self.spec.unet
+        if pe.shape[-1] != cfg.cross_attention_dim:
+            raise ValueError(
+                f'prompt embeddings are {pe.shape[-1]} wide, the {self.version!r} U-Net '
+                f'attends to {cfg.cross_attention_dim}-wide context; a prompt of more than 70 '
+                'words is encoded by the first text encoder alone')
+        if cfg.addition_embed_type == 'text_time' and pooled is None:
+            raise ValueError(f'the {self.version!r} U-Net needs the pooled prompt embedding '
+                             '(text_time micro-conditioning), and these prompts carry none')
 
     def _img2img_kit(self, t: int) -> Dict[str, float]:
         """The Euler and PNDM branches of the JAX facade's ``_img2img_kit``:
         model timestep T (SDXL's leading schedule maps t=50 to 50), noise
-        injection latents <- A*latents + B*noise, and the scale_model_input
-        divisor S.  (X and C, for vae-out, wait for the VAE decoder.)"""
+        injection latents <- A*latents + B*noise, the scale_model_input
+        divisor S, the x0 reconstruction x0 = X1*latents + X2*model_output,
+        and one fresh-state scheduler step for 'vae-out',
+        prev = C1*x0 + C2*latents + C3*model_output, each folded for the
+        prediction type."""
         sched = self.scheduler
         state = sched.set_timesteps(1000)
         timesteps, _ = sched.get_timesteps(state, 1000, t / 1000)
         lt = timesteps[0]
+        pred = sched.config.prediction_type
         if isinstance(sched, EulerDiscreteScheduler):
-            sigma = float(state.sigmas[sched.sigma_index(state, lt)])
-            return {'T': float(lt), 'A': 1.0, 'B': sigma, 'S': float(np.sqrt(sigma ** 2 + 1))}
-        a_t = float(sched.alphas_cumprod[int(lt)])   # PNDM: DDPM-family noising
-        return {'T': float(lt), 'A': float(np.sqrt(a_t)), 'B': float(np.sqrt(1 - a_t)),
-                'S': 1.0}
+            idx = sched.sigma_index(state, lt)
+            sigma, sigma_next = float(state.sigmas[idx]), float(state.sigmas[idx + 1])
+            A, B, S = 1.0, sigma, float(np.sqrt(sigma ** 2 + 1))
+            if pred == 'v_prediction':
+                c = sigma ** 2 + 1
+                X1, X2 = 1.0 / c, float(-sigma / np.sqrt(c))
+            elif pred == 'sample':
+                X1, X2 = 0.0, 1.0
+            else:
+                X1, X2 = 1.0, -sigma
+            r = (sigma_next - sigma) / sigma
+            C1, C2, C3 = -r, 1.0 + r, 0.0
+        else:   # PNDM: DDPM-family noising, counter-0 PLMS step
+            if pred == 'sample':
+                # diffusers' PLMS step has no 'sample' form either
+                raise NotImplementedError("prediction_type='sample' with PNDMScheduler")
+            ti = int(lt)
+            prev_t = ti - sched.step_size(state)
+            a_t = float(sched.alphas_cumprod[ti])
+            a_prev = float(sched.alphas_cumprod[prev_t]) if prev_t >= 0 else 1.0
+            A, B, S = float(np.sqrt(a_t)), float(np.sqrt(1 - a_t)), 1.0
+            beta_t, beta_prev = 1 - a_t, 1 - a_prev
+            denom = a_t * np.sqrt(beta_prev) + np.sqrt(a_t * beta_t * a_prev)
+            C1, C2, C3 = 0.0, float(np.sqrt(a_prev / a_t)), float(-(a_prev - a_t) / denom)
+            if pred == 'v_prediction':
+                # out' = sqrt(a_t)*mo + sqrt(beta_t)*sample
+                C2 += C3 * float(np.sqrt(beta_t))
+                C3 *= float(np.sqrt(a_t))
+                X1, X2 = A, -B
+            else:
+                X1, X2 = 1.0 / A, -B / A
+        return {'T': float(lt), 'A': A, 'B': B, 'S': S, 'X1': float(X1), 'X2': float(X2),
+                'C1': C1, 'C2': C2, 'C3': C3}
 
     def _added_cond(self, pooled, bsz: int):
         """SDXL text_time micro-conditioning: time ids [h, w, 0, 0, h, w]
@@ -349,24 +434,88 @@ class FeatureExtractor:
                                 device=self.device).repeat(bsz, 1)
         return {'text_embeds': pooled, 'time_ids': time_ids}
 
+    def _forward(self, lat_in, timestep, pe, pooled, out_dtype):
+        """The U-Net forward with taps and store, then the store
+        post-processing (the JAX ``_collect_feats``): returns (model output,
+        features)."""
+        feats = {}
+        out = self.unet(lat_in, timestep, pe, self._added_cond(pooled, lat_in.shape[0]),
+                        feats=feats)
+        store = feats.pop(ATTN_STORE, {})
+        feats = postprocess_taps(feats, resize_ratio=self.feature_resize, out_dtype=out_dtype)
+        if self.attention:
+            agg = aggregate_attention(store, self.attention, self.img_size, out_dtype)
+            if agg is not None:
+                feats['attn'] = agg
+        return out, feats
+
+    def _decode(self, latents, out_dtype):
+        """'vae-out': scaled latents decoded to images, in ``out_dtype``
+        (None keeps the compute dtype), with no feature_resize."""
+        cfg = self.spec.vae
+        img = self.vae.decode(latents / scalar_like(cfg.scaling_factor, latents)
+                              + scalar_like(cfg.shift_factor, latents))
+        return img.to(out_dtype or img.dtype)
+
     @torch.inference_mode()
     def _step(self, img, pe, pooled, kit, posterior_noise, noise, out_dtype):
-        """Steps 4-8 of the slice (the JAX ``_get_step_fn_generic`` program):
-        VAE encode + posterior sample -> latents*A + noise*B -> /S -> U-Net
-        with taps -> store post-processing to ``out_dtype`` (None keeps the
-        compute dtype), and the attention store's aggregate as 'attn'.
+        """The single step (the JAX ``_get_step_fn_generic`` program): VAE
+        encode + posterior sample -> latents*A + noise*B -> /S -> U-Net with
+        taps -> store post-processing to ``out_dtype`` (None keeps the
+        compute dtype), and 'vae-out' from the kit's fresh-state step.
         Noise tensors are standard-normal draws of the latent shape, cast
         here to the model dtype."""
         latents = self.vae(img, posterior_noise)
         latents = (scalar_like(kit['A'], latents) * latents
                    + scalar_like(kit['B'], latents) * noise.to(latents.dtype))
-        feats = {}
-        self.unet(latents / scalar_like(kit['S'], latents), kit['T'], pe,
-                  self._added_cond(pooled, latents.shape[0]), feats=feats)
-        store = feats.pop(ATTN_STORE, {})
-        out = postprocess_taps(feats, resize_ratio=self.feature_resize, out_dtype=out_dtype)
-        if self.attention:
-            agg = aggregate_attention(store, self.attention, self.img_size, out_dtype)
-            if agg is not None:
-                out['attn'] = agg
-        return out
+        out, feats = self._forward(latents / scalar_like(kit['S'], latents), kit['T'], pe, pooled,
+                                   out_dtype)
+        if self.store_vae_output:
+            x0 = scalar_like(kit['X1'], latents) * latents + scalar_like(kit['X2'], latents) * out
+            lat2 = (scalar_like(kit['C1'], latents) * x0
+                    + scalar_like(kit['C2'], latents) * latents
+                    + scalar_like(kit['C3'], latents) * out)
+            feats['vae-out'] = self._decode(lat2, out_dtype)
+        return feats
+
+    @torch.inference_mode()
+    def _multistep(self, img, pe, pooled, t: int, denoising_from: Optional[int],
+                   use_ddim_inversion: bool, posterior_noise, noise, out_dtype):
+        """The multi-step paths (the JAX ``_get_step_fn``).  Timesteps: with
+        ``denoising_from`` within 50 of ``t`` the 1000-step schedule from
+        ``denoising_from``, else the 100-step one at strength
+        ``denoising_from / 100`` (JAX's quirk: t=50, denoising_from=200
+        starts at 991), cut at the last timestep >= ``t``.  The latents are
+        noised at the first (or DDIM-inverted up to ``t``), walked through
+        ``sched.step`` over all but the last with forwards whose taps and
+        store maps are discarded, then the last forward keeps them.
+        'vae-out' decodes one step of the fresh schedule from there."""
+        sched = self.scheduler
+        state = sched.set_timesteps(1000)
+        if denoising_from is None:
+            timesteps = sched.get_timesteps(state, 1000, t / 1000)[0][:1]
+        else:
+            if denoising_from - t <= 50:
+                timesteps, _ = sched.get_timesteps(state, 1000, denoising_from / 1000)
+            else:
+                state = sched.set_timesteps(100)
+                timesteps, _ = sched.get_timesteps(state, 100, denoising_from / 100)
+            timesteps = timesteps[:sum(1 for ts in timesteps if ts >= t)]
+        latent_t, walk, t = timesteps[0], timesteps[:-1], timesteps[-1]
+        if use_ddim_inversion:
+            latents = ddim_invert(self, img, pe, posterior_noise, stop_at_t=t)
+        else:
+            latents = self.vae(img, posterior_noise)
+            latents = sched.add_noise(state, latents, noise.to(latents.dtype), latent_t)
+        added = self._added_cond(pooled, latents.shape[0])
+        walk_state = state
+        for ts in walk:
+            # the same routing as the last forward; taps and maps are dropped
+            out = self.unet(sched.scale_model_input(state, latents, ts), float(ts), pe, added)
+            latents, walk_state = sched.step(walk_state, out, ts, latents)
+        out, feats = self._forward(sched.scale_model_input(state, latents, t), float(t), pe,
+                                   pooled, out_dtype)
+        if self.store_vae_output:
+            lat2, _ = sched.step(state, out, t, latents)
+            feats['vae-out'] = self._decode(lat2, out_dtype)
+        return feats

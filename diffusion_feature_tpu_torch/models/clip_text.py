@@ -2,9 +2,10 @@
 with the transformers checkpoint key names (``text_model.encoder.layers.N...``,
 ``text_projection``).
 
-SDXL uses CLIP ViT-L (hidden_states[-2]) and OpenCLIP bigG (hidden_states[-2]
-plus the pooled EOS token through ``text_projection``); SD-1.5 uses CLIP
-ViT-L's final-layernormed output and no pooled embedding.
+SDXL and Playground v2 use CLIP ViT-L (hidden_states[-2]) and OpenCLIP bigG
+(hidden_states[-2] plus the pooled EOS token through ``text_projection``);
+SD-1.5 uses CLIP ViT-L's final-layernormed output and no pooled embedding,
+SD-2.1 OpenCLIP ViT-H's (23 of its 24 layers, as diffusers ships it).
 """
 
 from __future__ import annotations
@@ -68,6 +69,9 @@ class CLIPTextConfig:
 
 
 CLIP_VIT_L = CLIPTextConfig()
+OPENCLIP_VIT_H = CLIPTextConfig(hidden_size=1024, intermediate_size=4096,
+                                num_hidden_layers=23, num_attention_heads=16,
+                                hidden_act='gelu')
 OPENCLIP_BIGG = CLIPTextConfig(hidden_size=1280, intermediate_size=5120,
                                num_hidden_layers=32, num_attention_heads=20,
                                hidden_act='gelu', projection_dim=1280)

@@ -139,16 +139,23 @@ class Attention(nn.Module):
     post-softmax (B, H, Sq, Sk).  With ``attn_store`` the head-mean map of
     a query count inside the size band is kept in ``feats[ATTN_STORE]``.
     Without a requested map or store the fused path (flash kernel where the
-    gate admits the shape) runs."""
+    gate admits the shape) runs.  ``upcast`` (SD-2.1's ``upcast_attention``)
+    hands the store's kernels fp32 q, k and v; the explicit path's scores
+    are fp32 anyway and the flash path ignores it, as in the JAX package.
+    ``plain`` (set by ``UNet2DConditionModel.forward(plain=True)``) runs
+    every attention on the fused path, with no taps and no store."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  cross_attention_dim: Optional[int] = None,
                  taps: TapSpec = EMPTY, tap_name: str = '',
-                 attn_store: Optional[AttnStoreCfg] = None, is_cross: bool = False):
+                 attn_store: Optional[AttnStoreCfg] = None, is_cross: bool = False,
+                 upcast: bool = False):
         super().__init__()
         inner = heads * dim_head
         ctx_dim = query_dim if cross_attention_dim is None else cross_attention_dim
         self.heads = heads
+        self.upcast = upcast
+        self.plain = False
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(ctx_dim, inner, bias=False)
         self.to_v = nn.Linear(ctx_dim, inner, bias=False)
@@ -169,6 +176,8 @@ class Attention(nn.Module):
     def forward(self, x, context=None, feats=None, mask=None):
         ctx = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+        if self.plain:
+            return self.to_out[0](attention_fused(q, k, v, self.heads, mask=mask))
         self.tap_site.put(feats, 'q', q)
         self.tap_site.put(feats, 'k', k)
         self.tap_site.put(feats, 'v', v)
@@ -181,9 +190,11 @@ class Attention(nn.Module):
             mean_p = probs.mean(dim=1) if store else None
         elif store and mask is None:
             # head-mean kernels: the per-head (B,H,Sq,Sk) tensor never exists
-            out_h, mean_p = attention_with_headmean_heads(
-                *(split_heads(t, self.heads) for t in (q, k, v)))
-            out = merge_heads(out_h)
+            heads = [split_heads(t, self.heads) for t in (q, k, v)]
+            if self.upcast:   # fp32 kernels (JAX models/layers.py:205-208)
+                heads = [t.float() for t in heads]
+            out_h, mean_p = attention_with_headmean_heads(*heads)
+            out, mean_p = merge_heads(out_h).to(q.dtype), mean_p.to(q.dtype)
         elif store:
             out, probs = attention_with_probs(q, k, v, self.heads, mask=mask)
             mean_p = probs.mean(dim=1)
@@ -225,15 +236,16 @@ class BasicTransformerBlock(nn.Module):
 
     def __init__(self, dim: int, heads: int, dim_head: int, cross_attention_dim: int,
                  taps: TapSpec = EMPTY, tap_name: str = '',
-                 attn_store: Optional[AttnStoreCfg] = None):
+                 attn_store: Optional[AttnStoreCfg] = None, upcast_attention: bool = False):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn1 = Attention(dim, heads, dim_head, taps=taps,
-                               tap_name=child_id(tap_name, 'self'), attn_store=attn_store)
+                               tap_name=child_id(tap_name, 'self'), attn_store=attn_store,
+                               upcast=upcast_attention)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.attn2 = Attention(dim, heads, dim_head, cross_attention_dim, taps=taps,
                                tap_name=child_id(tap_name, 'cross'), attn_store=attn_store,
-                               is_cross=True)
+                               is_cross=True, upcast=upcast_attention)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim, taps=taps, tap_name=child_id(tap_name, 'ffn'))
         self.tap_site = TapSite(taps, tap_name, ('out',))
@@ -253,7 +265,8 @@ class Transformer2DModel(nn.Module):
 
     def __init__(self, in_channels: int, heads: int, dim_head: int, depth: int,
                  cross_attention_dim: int, use_linear_projection: bool = False,
-                 norm_eps: float = 1e-6, taps: TapSpec = EMPTY, tap_name: str = '',
+                 upcast_attention: bool = False, norm_eps: float = 1e-6,
+                 taps: TapSpec = EMPTY, tap_name: str = '',
                  attn_store: Optional[AttnStoreCfg] = None):
         super().__init__()
         inner = heads * dim_head
@@ -268,7 +281,7 @@ class Transformer2DModel(nn.Module):
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(inner, heads, dim_head, cross_attention_dim, taps=taps,
                                   tap_name=child_id(tap_name, f'block{i}'),
-                                  attn_store=attn_store)
+                                  attn_store=attn_store, upcast_attention=upcast_attention)
             for i in range(depth)])
         self.tap_site = TapSite(taps, tap_name, ('out',))
 

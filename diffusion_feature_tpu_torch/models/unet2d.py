@@ -16,10 +16,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..roadmap import not_ported
 from ..taps import EMPTY, TapSite, TapSpec, child_id
 from .layers import (
-    AttnStoreCfg, Downsample2D, ResnetBlock2D, TimestepEmbedding, Transformer2DModel,
+    Attention, AttnStoreCfg, Downsample2D, ResnetBlock2D, TimestepEmbedding, Transformer2DModel,
     Upsample2D, timestep_embedding,
 )
 
@@ -40,6 +39,7 @@ class UNetConfig:
     transformer_layers_per_block: Tuple[int, ...] = (1, 1, 1, 1)
     cross_attention_dim: int = 768
     use_linear_projection: bool = False
+    upcast_attention: bool = False                  # fp32 attention (SD-2.1)
     addition_embed_type: Optional[str] = None       # 'text_time' for SDXL
     addition_time_embed_dim: int = 256
     projection_class_embeddings_input_dim: int = 2816
@@ -56,10 +56,7 @@ class UNetConfig:
         """Adapt a diffusers unet/config.json, as the JAX package does
         (fine-tunes may deviate from the presets).  diffusers names the
         head count ``attention_head_dim`` and leaves ``num_attention_heads``
-        null; either is read.  ``upcast_attention`` is not ported."""
-        if d.get('upcast_attention', False):
-            raise not_ported('upcast_attention: true (fp32 q/k/v into the attention kernels)',
-                             'Other U-Net versions and multi-step paths')
+        null; either is read.  A null ``upcast_attention`` reads as false."""
         n_blocks = len(d.get('block_out_channels', SD15_UNET.block_out_channels))
 
         def per_block(v, default):
@@ -79,6 +76,7 @@ class UNetConfig:
             transformer_layers_per_block=per_block(d.get('transformer_layers_per_block'), 1),
             cross_attention_dim=d.get('cross_attention_dim', 768),
             use_linear_projection=d.get('use_linear_projection', False),
+            upcast_attention=bool(d.get('upcast_attention')),
             addition_embed_type=d.get('addition_embed_type'),
             addition_time_embed_dim=d.get('addition_time_embed_dim', 256),
             projection_class_embeddings_input_dim=d.get(
@@ -98,6 +96,12 @@ class UNetConfig:
 
 
 SD15_UNET = UNetConfig()
+SD21_UNET = UNetConfig(
+    num_attention_heads=(5, 10, 20, 20),
+    cross_attention_dim=1024,
+    use_linear_projection=True,
+    upcast_attention=True,
+)
 SDXL_UNET = UNetConfig(
     block_out_channels=(320, 640, 1280),
     down_block_types=('DownBlock2D', 'CrossAttnDownBlock2D', 'CrossAttnDownBlock2D'),
@@ -132,7 +136,8 @@ def _transformer(cfg: UNetConfig, channels: int, heads: int, depth: int, taps, t
                  attn_store):
     return Transformer2DModel(
         channels, heads, channels // heads, depth, cfg.cross_attention_dim,
-        use_linear_projection=cfg.use_linear_projection, taps=taps, tap_name=tap_name,
+        use_linear_projection=cfg.use_linear_projection,
+        upcast_attention=cfg.upcast_attention, taps=taps, tap_name=tap_name,
         attn_store=attn_store)
 
 
@@ -279,7 +284,23 @@ class UNet2DConditionModel(nn.Module):
         self.conv_out = nn.Conv2d(ch0, cfg.out_channels, 3, padding=1)
         self.tap_site = TapSite(taps, '', ('unet-in', 'unet-after-conv-in', 'unet-out'))
 
-    def forward(self, sample, timestep, encoder_hidden_states, added_cond=None, feats=None):
+    def forward(self, sample, timestep, encoder_hidden_states, added_cond=None, feats=None,
+                plain: bool = False):
+        """``plain`` runs the JAX package's tap-free twin of the U-Net (DDIM
+        inversion's forwards): no taps, no store, every attention on the
+        fused path."""
+        if not plain:
+            return self._forward(sample, timestep, encoder_hidden_states, added_cond, feats)
+        attns = [m for m in self.modules() if isinstance(m, Attention)]
+        for m in attns:
+            m.plain = True
+        try:
+            return self._forward(sample, timestep, encoder_hidden_states, added_cond, None)
+        finally:
+            for m in attns:
+                m.plain = False
+
+    def _forward(self, sample, timestep, encoder_hidden_states, added_cond, feats):
         cfg = self.cfg
         dtype = self.conv_in.weight.dtype
         self.tap_site.put(feats, 'unet-in', sample)

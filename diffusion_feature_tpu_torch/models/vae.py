@@ -1,8 +1,6 @@
-"""AutoencoderKL encoder and posterior sample (port of
-``diffusion_feature_tpu/models/vae.py``), NCHW, diffusers key names.
-
-The decoder and the 'vae-out' pseudo-layer are not ported yet (ROADMAP.md,
-Queue A: 'VAE decoder and vae-out').
+"""AutoencoderKL (port of ``diffusion_feature_tpu/models/vae.py``), NCHW,
+diffusers key names: the encoder with the posterior sample, and the decoder
+behind ``post_quant_conv`` that the facade's 'vae-out' pseudo-layer runs.
 """
 
 from __future__ import annotations
@@ -15,12 +13,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention_fused
+from ..ops.resize import interpolate_nearest_nchw
 from ..roadmap import not_ported
 
 
 @dataclasses.dataclass(frozen=True)
 class VAEConfig:
     in_channels: int = 3
+    out_channels: int = 3
     latent_channels: int = 4
     block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
     layers_per_block: int = 2
@@ -36,6 +36,7 @@ class VAEConfig:
             raise not_ported('a VAE without quant_conv (use_quant_conv: false)', 'DiT families')
         return VAEConfig(
             in_channels=d.get('in_channels', 3),
+            out_channels=d.get('out_channels', 3),
             latent_channels=d.get('latent_channels', 4),
             block_out_channels=tuple(d.get('block_out_channels', (128, 256, 512, 512))),
             layers_per_block=d.get('layers_per_block', 2),
@@ -46,7 +47,7 @@ class VAEConfig:
     def to_diffusers_config(self) -> dict:
         d = {k: list(v) if isinstance(v, tuple) else v
              for k, v in dataclasses.asdict(self).items()}
-        return {'_class_name': 'AutoencoderKL', 'out_channels': 3, **d}
+        return {'_class_name': 'AutoencoderKL', **d}
 
 
 SD_VAE = VAEConfig()
@@ -151,16 +152,74 @@ class Encoder(nn.Module):
         return self.conv_out(F.silu(self.conv_norm_out(x)))
 
 
+class VAEUpBlock(nn.Module):
+    """Decoder level: ``layers`` resnets, then (but at the last level) a
+    nearest x2 upsample and a 3x3 conv."""
+
+    def __init__(self, in_ch: int, out_ch: int, layers: int, add_upsample: bool,
+                 eps: float = 1e-6):
+        super().__init__()
+        self.resnets = nn.ModuleList([VAEResnetBlock(in_ch if r == 0 else out_ch, out_ch, eps)
+                                      for r in range(layers)])
+        if add_upsample:
+            us = nn.Module()
+            us.conv = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+            self.upsamplers = nn.ModuleList([us])
+        else:
+            self.upsamplers = None
+
+    def forward(self, x):
+        for res in self.resnets:
+            x = res(x)
+        if self.upsamplers is not None:
+            x = self.upsamplers[0].conv(interpolate_nearest_nchw(
+                x, (x.shape[2] * 2, x.shape[3] * 2)))
+        return x
+
+
+class Decoder(nn.Module):
+    """conv_in -> mid block (the encoder's, whose d=512 head over 16384
+    tokens takes B1 at 1024^2) -> up blocks of ``layers_per_block + 1``
+    resnets -> GroupNorm, SiLU, conv_out."""
+
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        chans = list(reversed(cfg.block_out_channels))
+        self.conv_in = nn.Conv2d(cfg.latent_channels, chans[0], 3, padding=1)
+        self.mid_block = VAEMidBlock(chans[0], cfg.norm_eps)
+        self.up_blocks = nn.ModuleList([])
+        ch = chans[0]
+        for level, out_ch in enumerate(chans):
+            self.up_blocks.append(VAEUpBlock(ch, out_ch, cfg.layers_per_block + 1,
+                                             level != len(chans) - 1, cfg.norm_eps))
+            ch = out_ch
+        self.conv_norm_out = nn.GroupNorm(32, ch, eps=cfg.norm_eps)
+        self.conv_out = nn.Conv2d(ch, cfg.out_channels, 3, padding=1)
+
+    def forward(self, z):
+        x = self.mid_block(self.conv_in(z))
+        for blk in self.up_blocks:
+            x = blk(x)
+        return self.conv_out(F.silu(self.conv_norm_out(x)))
+
+
 class AutoencoderKL(nn.Module):
-    """Encoder + quant_conv; ``forward(images, posterior_noise)`` samples the
-    diagonal Gaussian posterior and returns scaled latents (the pipelines'
-    ``prepare_latents``)."""
+    """Encoder + quant_conv and post_quant_conv + decoder;
+    ``forward(images, posterior_noise)`` samples the diagonal Gaussian
+    posterior and returns scaled latents (the pipelines'
+    ``prepare_latents``), ``decode`` maps latents back to images."""
 
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         self.cfg = cfg
         self.encoder = Encoder(cfg)
         self.quant_conv = nn.Conv2d(cfg.latent_channels * 2, cfg.latent_channels * 2, 1)
+        self.decoder = Decoder(cfg)
+        self.post_quant_conv = nn.Conv2d(cfg.latent_channels, cfg.latent_channels, 1)
+
+    def decode(self, latents):
+        """Unscaled latents NCHW -> images NCHW (JAX ``AutoencoderKL.decode``)."""
+        return self.decoder(self.post_quant_conv(latents.to(self.post_quant_conv.weight.dtype)))
 
     def encode_moments(self, images):
         """images NCHW in [-1, 1] -> (mean, logvar) stacked on channels."""

@@ -53,9 +53,12 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 def _softmax_attention(qh, kh, vh, scale, mask):
     """Explicit attention on heads with the JAX package's numerics: fp32
     scores (plus mask), softmax, probabilities cast to the input dtype, PV
-    accumulated in fp32 and cast back.  Scores are fp32 whatever the input
-    dtype, which is what SD-2.1's ``upcast_attention`` asks for, so the port
-    has no upcast switch."""
+    accumulated in fp32 and cast back.  The scores always come from q and k
+    cast to fp32, which is what SD-2.1's ``upcast_attention`` asks of this
+    path (JAX ``ops/attention.py:195-196``; without it JAX accumulates the
+    same exact products in fp32), so the explicit path needs no switch.
+    Where upcast does change the computation, the store's kernels take fp32
+    q, k and v: the U-Net ``Attention`` casts them."""
     dtype = qh.dtype
     scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
     if mask is not None:

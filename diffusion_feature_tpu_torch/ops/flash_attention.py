@@ -27,10 +27,10 @@ mbarrier rings and consumer warpgroups run ``wgmma`` with the scores in
 registers (B1/B2 ``flash_hopper.cuh``: online softmax, d=512 computes each
 score once; B3 ``headmean_hopper.cuh``: a ring over heads, the mean kept
 in registers, a persistent grid; B4 ``short_hopper.cuh``: two passes, the
-row maxima first).  ``hopper_common.cuh`` holds what they share.  float32,
-a test dtype, keeps exact ``mma.sync``-layout FMA kernels
-(``flash_f32.cu``, ``headmean_f32.cu``, ``short_f32.cu``).  See the
-sources.
+row maxima first).  ``hopper_common.cuh`` holds what they share.  float32
+keeps exact ``mma.sync``-layout FMA kernels (``flash_f32.cu``,
+``headmean_f32.cu``, ``short_f32.cu``); besides the tests, SD-2.1's
+upcast attention store runs B2 and B3 in fp32.  See the sources.
 
 Inputs: every kernel takes (B, H, S, D) tensors with unit stride along D
 and 16-byte aligned bases and strides (``tma_strides``), so the head-split

@@ -3,9 +3,7 @@ ROADMAP.md Queue A item that brings it."""
 
 #: Queue A items the port's messages cite, by title.
 QUEUE_A = {
-    'VAE decoder and vae-out': 3,
-    'Long prompts': 6,
-    'Other U-Net versions and multi-step paths': 7,
+    'Generation and background extraction': 7,
     'ControlNet and depth': 8,
     'DiT families': 9,
     'Multi-GPU': 11,

@@ -1,14 +1,16 @@
-"""Euler discrete and PNDM schedulers (port of the Euler part and the PNDM
-timestep table of ``diffusion_feature_tpu/schedulers/diffusion.py``).
+"""Euler discrete, PNDM and DDIM schedulers (port of the U-Net schedulers
+of ``diffusion_feature_tpu/schedulers/diffusion.py``).
 
 The schedule tables are built in numpy exactly as the JAX package builds
 them, which reproduces diffusers' arrays: with linspace spacing Euler maps
 t=50 to timestep 49 (``timesteps[1000 - t] == t - 1``); SDXL's leading
 spacing with steps_offset 1 maps it to 50; PNDM's table carries diffusers'
-duplicated entry.  Only the scaled-linear beta schedule (SD, SDXL) is
-ported, and only what single-step img2img extraction needs: PNDM's PLMS
-``step`` and the other schedulers (DDIM, DDPM, DPM-Solver) are not ported
-yet (ROADMAP.md, Queue A: 'Other U-Net versions and multi-step paths').
+duplicated entry.  Only the scaled-linear beta schedule (SD, SD-2.1, SDXL)
+is ported.  ``step`` works on a state of any step count (the facade's
+``denoising_from`` walk switches to a 100-step state); PLMS history rides
+the state (``ets``, ``counter``, ``cur_sample``), which ``step`` returns
+updated and never mutates.  DDPM and DPM-Solver come with the families
+that use them (ROADMAP.md, Queue A: 'DiT families').
 """
 
 from __future__ import annotations
@@ -25,26 +27,39 @@ class SchedulerConfig:
     num_train_timesteps: int = 1000
     beta_start: float = 0.00085
     beta_end: float = 0.012
+    prediction_type: str = 'epsilon'   # or 'v_prediction' / 'sample'
     timestep_spacing: str = 'linspace'
     steps_offset: int = 0
 
 
 @dataclasses.dataclass
 class SchedulerState:
-    """Per-``set_timesteps`` tables (host numpy)."""
+    """Per-``set_timesteps`` tables (host numpy) and the PLMS history."""
+    num_inference_steps: int
     timesteps: np.ndarray                  # descending
     sigmas: Optional[np.ndarray] = None    # Euler: one per timestep, then 0
+    ets: tuple = ()                        # PLMS: the last 4 model outputs
+    counter: int = 0
+    cur_sample: Optional[torch.Tensor] = None
 
 
 class _Scheduler:
-    """The scaled-linear schedule's cumulative alphas and the pipelines'
-    img2img timestep selection, shared by the schedulers."""
+    """The scaled-linear schedule's cumulative alphas, the leading-spacing
+    timestep table and the pipelines' img2img timestep selection, shared by
+    the schedulers."""
 
     def __init__(self, config: SchedulerConfig = SchedulerConfig()):
         self.config = config
         betas = np.linspace(config.beta_start ** 0.5, config.beta_end ** 0.5,
                             config.num_train_timesteps, dtype=np.float64) ** 2
         self.alphas_cumprod = np.cumprod(1.0 - betas)
+        self.final_alpha_cumprod = 1.0
+
+    def set_timesteps(self, num_inference_steps: int) -> SchedulerState:
+        step_ratio = self.config.num_train_timesteps // num_inference_steps
+        timesteps = (np.arange(0, num_inference_steps) * step_ratio).round()[::-1]
+        return SchedulerState(num_inference_steps,
+                              timesteps.astype(np.int64) + self.config.steps_offset)
 
     def get_timesteps(self, state: SchedulerState, num_inference_steps: int,
                       strength: float) -> Tuple[np.ndarray, int]:
@@ -53,11 +68,39 @@ class _Scheduler:
         t_start = max(num_inference_steps - init_timestep, 0)
         return state.timesteps[t_start:], num_inference_steps - t_start
 
+    def step_size(self, state: SchedulerState) -> int:
+        return self.config.num_train_timesteps // state.num_inference_steps
+
+    def add_noise(self, state: SchedulerState, sample: torch.Tensor, noise: torch.Tensor,
+                  timestep) -> torch.Tensor:
+        """sqrt(abar_t) x0 + sqrt(1 - abar_t) eps (the DDPM family's)."""
+        a = float(self.alphas_cumprod[int(timestep)])
+        return (scalar_like(np.sqrt(a), sample) * sample
+                + scalar_like(np.sqrt(1 - a), sample) * noise)
+
+    def scale_model_input(self, state: SchedulerState, sample: torch.Tensor,
+                          timestep) -> torch.Tensor:
+        return sample
+
+    def _predict_x0_eps(self, model_output, sample, alpha_prod_t):
+        """(x0, eps) under the configured prediction type."""
+        sqrt_a = scalar_like(np.sqrt(alpha_prod_t), sample)
+        sqrt_1ma = scalar_like(np.sqrt(1 - alpha_prod_t), sample)
+        pt = self.config.prediction_type
+        if pt == 'epsilon':
+            return (sample - sqrt_1ma * model_output) / sqrt_a, model_output
+        if pt == 'v_prediction':
+            return (sqrt_a * sample - sqrt_1ma * model_output,
+                    sqrt_a * model_output + sqrt_1ma * sample)
+        if pt == 'sample':
+            return model_output, (sample - sqrt_a * model_output) / sqrt_1ma
+        raise ValueError(pt)
+
 
 class EulerDiscreteScheduler(_Scheduler):
-    """Euler discrete (SDXL default).  sigma_t = sqrt((1 - abar) / abar);
-    img2img adds noise as x0 + sigma * eps and the model input is scaled by
-    1 / sqrt(sigma^2 + 1)."""
+    """Euler discrete (SD-2.1, SDXL, Playground v2).  sigma_t =
+    sqrt((1 - abar) / abar); img2img adds noise as x0 + sigma * eps and the
+    model input is scaled by 1 / sqrt(sigma^2 + 1)."""
 
     def __init__(self, config: SchedulerConfig = SchedulerConfig()):
         super().__init__(config)
@@ -76,7 +119,8 @@ class EulerDiscreteScheduler(_Scheduler):
         else:
             raise NotImplementedError(f'timestep spacing {spacing!r} is not ported yet')
         sigmas = np.interp(timesteps, np.arange(n), self._train_sigmas)
-        return SchedulerState(timesteps, np.concatenate([sigmas, [0.0]]).astype(np.float32))
+        return SchedulerState(num_inference_steps, timesteps,
+                              np.concatenate([sigmas, [0.0]]).astype(np.float32))
 
     def sigma_index(self, state: SchedulerState, timestep) -> int:
         return int(np.nonzero(np.isclose(state.timesteps, float(timestep)))[0][0])
@@ -91,23 +135,96 @@ class EulerDiscreteScheduler(_Scheduler):
         sigma = float(state.sigmas[self.sigma_index(state, timestep)])
         return sample / scalar_like(np.sqrt(sigma ** 2 + 1), sample)
 
+    def step(self, state: SchedulerState, model_output: torch.Tensor, timestep,
+             sample: torch.Tensor):
+        """One Euler step from ``timestep`` to the next sigma of ``state``;
+        returns (prev_sample, state)."""
+        i = self.sigma_index(state, timestep)
+        sigma, sigma_next = float(state.sigmas[i]), float(state.sigmas[i + 1])
+        pt = self.config.prediction_type
+        if pt == 'epsilon':
+            x0 = sample - scalar_like(sigma, sample) * model_output
+        elif pt == 'v_prediction':
+            c = sigma ** 2 + 1
+            x0 = (model_output * scalar_like(-sigma / np.sqrt(c), sample)
+                  + sample / scalar_like(c, sample))
+        else:
+            x0 = model_output
+        deriv = (sample - x0) / scalar_like(sigma, sample)
+        return sample + deriv * scalar_like(sigma_next - sigma, sample), state
+
 
 class PNDMScheduler(_Scheduler):
-    """PNDM with skip_prk_steps (the SD-1.5 config): the timestep table with
-    diffusers' duplicated second entry, which shifts the img2img timestep
-    by one against Euler.  img2img noises as sqrt(abar) x0 + sqrt(1-abar) eps
-    and leaves the model input unscaled."""
+    """PNDM with skip_prk_steps (the SD-1.5 config): PLMS only.  The
+    timestep table carries diffusers' duplicated second entry, which shifts
+    the img2img timestep by one against Euler.  img2img noises as
+    sqrt(abar) x0 + sqrt(1-abar) eps and leaves the model input unscaled."""
 
     def set_timesteps(self, num_inference_steps: int) -> SchedulerState:
         step_ratio = self.config.num_train_timesteps // num_inference_steps
         base = (np.arange(0, num_inference_steps) * step_ratio).round() + self.config.steps_offset
         plms = np.concatenate([base[:-1], base[-2:-1], base[-1:]])[::-1]
-        return SchedulerState(plms.astype(np.int64))
+        return SchedulerState(num_inference_steps, plms.astype(np.int64))
+
+    def step(self, state: SchedulerState, model_output: torch.Tensor, timestep,
+             sample: torch.Tensor):
+        """PLMS linear multistep (diffusers ``step_plms``): the first call
+        steps with its own output, the second (the duplicated timestep)
+        re-steps the first call's sample with the mean of both outputs, the
+        later ones blend the last 2, 3 or 4 outputs.  Returns
+        (prev_sample, the state with the history updated)."""
+        t = int(timestep)
+        prev_t = t - self.step_size(state)
+        ets, counter, cur_sample = state.ets, state.counter, state.cur_sample
+        if counter != 1:
+            ets = (ets + (model_output,))[-4:]
+        else:
+            prev_t, t = t, t + self.step_size(state)
+        if len(ets) == 1 and counter == 0:
+            out, cur_sample = model_output, sample
+        elif len(ets) == 1 and counter == 1:
+            out, sample, cur_sample = (model_output + ets[-1]) / 2, cur_sample, None
+        elif len(ets) == 2:
+            out = (3 * ets[-1] - ets[-2]) / 2
+        elif len(ets) == 3:
+            out = (23 * ets[-1] - 16 * ets[-2] + 5 * ets[-3]) / 12
+        else:
+            out = (55 * ets[-1] - 59 * ets[-2] + 37 * ets[-3] - 9 * ets[-4]) / 24
+        prev = self._prev_sample(sample, t, prev_t, out)
+        return prev, dataclasses.replace(state, ets=ets, counter=counter + 1,
+                                         cur_sample=cur_sample)
+
+    def _prev_sample(self, sample, t: int, prev_t: int, model_output):
+        a_t = float(self.alphas_cumprod[t])
+        a_prev = float(self.alphas_cumprod[prev_t]) if prev_t >= 0 else 1.0
+        beta_t, beta_prev = 1 - a_t, 1 - a_prev
+        if self.config.prediction_type == 'v_prediction':
+            model_output = (scalar_like(np.sqrt(a_t), sample) * model_output
+                            + scalar_like(np.sqrt(beta_t), sample) * sample)
+        denom = a_t * np.sqrt(beta_prev) + np.sqrt(a_t * beta_t * a_prev)
+        return (scalar_like(np.sqrt(a_prev / a_t), sample) * sample
+                - scalar_like((a_prev - a_t) / denom, sample) * model_output)
+
+
+class DDIMScheduler(_Scheduler):
+    """Deterministic DDIM (eta=0); its ladder and ``final_alpha_cumprod``
+    are what DDIM inversion walks (``ddim_inversion.py``)."""
+
+    def step(self, state: SchedulerState, model_output: torch.Tensor, timestep,
+             sample: torch.Tensor):
+        t = int(timestep)
+        prev_t = t - self.step_size(state)
+        a_t = float(self.alphas_cumprod[t])
+        a_prev = float(self.alphas_cumprod[prev_t]) if prev_t >= 0 else self.final_alpha_cumprod
+        x0, eps = self._predict_x0_eps(model_output, sample, a_t)
+        return (scalar_like(np.sqrt(a_prev), sample) * x0
+                + scalar_like(np.sqrt(1 - a_prev), sample) * eps), state
 
 
 def make_scheduler(kind: str, config: SchedulerConfig):
-    """'euler' or 'pndm' (``models.registry.ModelSpec.scheduler``)."""
-    return {'euler': EulerDiscreteScheduler, 'pndm': PNDMScheduler}[kind](config)
+    """'euler', 'pndm' or 'ddim' (``models.registry.ModelSpec.scheduler``)."""
+    return {'euler': EulerDiscreteScheduler, 'pndm': PNDMScheduler,
+            'ddim': DDIMScheduler}[kind](config)
 
 
 def scalar_like(value: float, like: torch.Tensor) -> torch.Tensor:

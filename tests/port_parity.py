@@ -1,6 +1,6 @@
 """Set-up shared by the PyTorch port's parity tests (tests/test_torch_*.py):
-a JAX facade whose random parameters are drawn with numpy, and checkpoint
-dirs written by the port that the JAX facade also loads.
+a JAX facade whose random parameters are drawn with numpy, the port loaded
+with them, and the noise of the JAX facade's key chain.
 
 The JAX facade's own random init runs Flax's ``init`` eagerly, which
 compiles every op of the model on the CPU: ~25 s for each tiny ``test-*``
@@ -27,8 +27,7 @@ from diffusion_feature_tpu.models.registry import get_model_spec
 from diffusion_feature_tpu.models.unet2d import UNet2DConditionModel
 from diffusion_feature_tpu.models.vae import AutoencoderKL
 from diffusion_feature_tpu.tokenizers.clip_bpe import load_clip_tokenizer
-from diffusion_feature_tpu_torch.models.convert import params_from_jax, save_component
-from synth_checkpoint import synth_state_from_template
+from diffusion_feature_tpu_torch.models.convert import params_from_jax
 
 
 def _param_shapes(spec, unet, vae, text_encoders):
@@ -120,18 +119,3 @@ def assert_params_round_trip(tree, module):
     for path, val in want.items():
         np.testing.assert_array_equal(np.asarray(got[path]), np.asarray(val), err_msg=str(path))
 
-
-def write_port_checkpoint(port, root, variant=None, unet_shards=1, seed=1):
-    """Write ``port``'s weights as a diffusers checkpoint dir
-    (``save_weights``), with the VAE decoder's tensors added: the port has
-    no decoder and leaves them unused, the JAX facade loads strictly and
-    needs them.  They are drawn from ``seed`` in the JAX template's shapes."""
-    port.save_weights(str(root), variant=variant, unet_shards=unet_shards)
-    vae = AutoencoderKL(cfg=get_model_spec(port.version).vae)
-    shapes = jax.eval_shape(lambda: vae.init(jax.random.PRNGKey(0), jnp.zeros((1, 3, 16, 16)),
-                                             method=AutoencoderKL.full_pass)['params'])
-    decoder = synth_state_from_template({k: v for k, v in shapes.items()
-                                         if k in ('decoder', 'post_quant_conv')}, seed=seed)
-    save_component(str(root), 'vae', {**port.vae.state_dict(),
-                                      **{k: torch.from_numpy(v) for k, v in decoder.items()}},
-                   port.spec.vae.to_diffusers_config(), variant=variant)

@@ -24,7 +24,7 @@ from diffusion_feature_tpu_torch.enumerate_layers import enumerate_layers
 from diffusion_feature_tpu_torch.io import dump
 from diffusion_feature_tpu_torch.native import AsyncDumpWriter
 from diffusion_feature_tpu_torch.ops import flash_attention as fa
-from port_parity import jax_facade, jax_noise, load_jax_params, write_port_checkpoint
+from port_parity import jax_facade, jax_noise, load_jax_params
 
 
 # ------------------------------------------------------------- enumeration
@@ -49,8 +49,8 @@ def test_show_all_layers_matches_enumeration():
 def test_enumeration_of_unported_version_names_its_item():
     with pytest.raises(NotImplementedError, match="Queue A item 9: 'DiT families'"):
         enumerate_layers('flux', 1024)
-    with pytest.raises(NotImplementedError, match='Queue A item 7'):
-        enumerate_layers('2-1', 512)
+    with pytest.raises(NotImplementedError, match="Queue A item 9: 'DiT families'"):
+        enumerate_layers('pixart-sigma', 1024)
 
 
 # ------------------------------------------------------------------- dumps
@@ -164,16 +164,20 @@ def _run_both(monkeypatch, tmp_path, images, flags, port_factory, jax_factory=No
     def port_with_jax_noise(*args, **kwargs):
         port = port_factory(*args, **kwargs)
         lat = IMG_SIZE // port.vae_scale
-        step = port._step
 
-        def jax_noise_step(img, pe, pooled, kit, posterior, noise, out_dtype):
-            # the JAX CLI pads the trailing batch to BATCH; its real rows come first
-            n = img.shape[0]
-            posterior, noise = (x[:n] for x in jax_noise(SEED, (BATCH, 4, lat, lat), len(calls)))
-            calls.append(n)
-            return step(img, pe, pooled, kit, posterior, noise, out_dtype)
+        def with_jax_noise(method):
+            # _step and _multistep take (img, ..., posterior, noise, out_dtype)
+            def call(img, *args):
+                # the JAX CLI pads the trailing batch to BATCH; its real rows come first
+                n = img.shape[0]
+                posterior, noise = (x[:n] for x in jax_noise(SEED, (BATCH, 4, lat, lat),
+                                                             len(calls)))
+                calls.append(n)
+                return method(img, *args[:-3], posterior, noise, args[-1])
+            return call
 
-        monkeypatch.setattr(port, '_step', jax_noise_step)
+        for name in ('_step', '_multistep'):
+            monkeypatch.setattr(port, name, with_jax_noise(getattr(port, name)))
         return port
 
     if jax_factory is not None:
@@ -220,6 +224,39 @@ def test_cli_trees_match_jax(monkeypatch, tmp_path, facades, images, flags, coun
         assert _tree(ref_root) == ['imgA.npy', 'imgB.npy', 'imgC.npy']
 
 
+VAE_OUT_LAYERS = {**json.loads(LAYER_JSON), 'vae-out': True}
+
+
+@pytest.fixture(scope='module')
+def vae_out_facades():
+    """``facades`` with the 'vae-out' layer added."""
+    jfe = jax_facade(VAE_OUT_LAYERS, 'test-sd', IMG_SIZE, SEED)
+    port = FeatureExtractor(VAE_OUT_LAYERS, 'test-sd', device='cpu', dtype='float32',
+                            img_size=IMG_SIZE)
+    load_jax_params(jfe, port)
+    return jfe, port
+
+
+@pytest.mark.parametrize('flags', [[], ['--denoising_from', '56']],
+                         ids=['vae-out', 'denoising_from'])
+def test_cli_vae_out_and_denoising_from_match_jax(monkeypatch, tmp_path, vae_out_facades,
+                                                  images, flags):
+    """A 'vae-out' layer in --layer (the decoded image, 3 x 64 x 64 per
+    image) on the single step and after a --denoising_from walk (7 PLMS
+    forwards): the JAX CLI's tree."""
+    jfe, port = vae_out_facades
+
+    def jax_factory(*args, **kwargs):
+        jfe._rng = jax.random.PRNGKey(SEED)
+        return jfe
+
+    flags = ['--layer', json.dumps(VAE_OUT_LAYERS), *flags]
+    ref_root, ours_root = _run_both(monkeypatch, tmp_path, images, flags,
+                                    lambda *args, **kwargs: port, jax_factory)
+    _assert_trees_match(ref_root, ours_root, 9)
+    assert np.load(ours_root / 'vae-out' / 'train0.npy').shape == (3, IMG_SIZE, IMG_SIZE)
+
+
 def test_cli_show_all_layers_writes_record(monkeypatch, tmp_path, capsys):
     monkeypatch.chdir(tmp_path)
     port_cli.main(['--version', 'test-xl', '--img_size', '64', '--show_all_layers',
@@ -233,15 +270,14 @@ def test_cli_show_all_layers_writes_record(monkeypatch, tmp_path, capsys):
 
 @pytest.fixture(scope='module')
 def checkpoint(tmp_path_factory):
-    """A test-sd checkpoint dir written by the port (with the VAE decoder
-    tensors the JAX facade needs) holding two weight sets: the un-suffixed
-    one from seed 2 and an 'fp16' variant from seed 1; and a peft LoRA over
-    two U-Net projections."""
+    """A test-sd checkpoint dir written by the port holding two weight sets:
+    the un-suffixed one from seed 2 and an 'fp16' variant from seed 1; and a
+    peft LoRA over two U-Net projections."""
     root = tmp_path_factory.mktemp('ckpt')
     for seed, variant in ((2, None), (1, 'fp16')):
         port = FeatureExtractor({'unet-out': True}, 'test-sd', device='cpu', dtype='float32',
                                 img_size=IMG_SIZE, seed=seed)
-        write_port_checkpoint(port, root, variant=variant)
+        port.save_weights(str(root), variant=variant)
     rs = np.random.RandomState(4)
     blk = 'unet.mid_block.attentions.0.transformer_blocks.0'
     lora = {f'{blk}.{p}.lora_{ab}.weight': (rs.randn(*shape) * 0.5).astype(np.float32)
@@ -264,12 +300,9 @@ def test_weight_flags_match_jax_cli(monkeypatch, tmp_path, images, checkpoint, f
 
 
 @pytest.mark.parametrize('flags,item', [
-    (['--control', 'canny'], 8),
-    (['--denoising_from', '100'], 7), (['--use_ddim_inversion'], 7),
-    (['--layer', '{"vae-out": true}'], 3), (['--dp', '2'], 11), (['--tp', '2'], 11),
+    (['--control', 'canny'], 8), (['--dp', '2'], 11), (['--tp', '2'], 11),
     (['--sp', '2'], 11), (['--transformer_8bit', 'true'], 9),
-], ids=['control', 'denoising_from', 'ddim_inversion', 'vae-out', 'dp', 'tp', 'sp',
-        'transformer_8bit'])
+], ids=['control', 'dp', 'tp', 'sp', 'transformer_8bit'])
 def test_unported_flags_raise(tmp_path, images, flags, item):
     args = ['--version', 'test-sd', '--img_size', '64', '--device', 'cpu', '--prompt', 'a',
             '--input_dir', str(images / 'imgA.png'), '--output_dir', str(tmp_path), '--layer',

@@ -444,3 +444,78 @@ def test_bf16_file_lands_in_bf16_without_fp32_copy(cuda, tmp_path):
     assert linear.weight.is_cuda and linear.weight.dtype == torch.bfloat16
     assert torch.equal(linear.weight.cpu(), weight)
     assert peak <= 1.05 * weight.numel() * 2, peak
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('layout', ['contiguous', 'head-split'])
+def test_fp32_store_kernels_at_sd21_store_shape(cuda, layout):
+    """SD-2.1's upcast store at 512^2 hands B2 and B3 fp32 q, k and v of
+    (2, 10, 1024, 1024, 64): the fp32 kernels against their twins there."""
+    b, h, s, d = 2, 10, 1024, 64
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (_layout(cuda, torch.float32, layout, b, h, s, d, gen) for _ in range(3))
+    fa.lse_launches = fa.headmean_launches = 0
+    out, lse = fa.flash_attention_with_lse(q, k, v, scale=d ** -0.5)
+    mean_p = fa.headmean_probs(q, k, lse, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert (fa.lse_launches, fa.headmean_launches) == (1, 1)
+    assert out.dtype == mean_p.dtype == torch.float32
+    r_out, r_lse = fa.flash_attention_with_lse_reference(q, k, v, d ** -0.5)
+    _assert_matches(out, r_out, torch.float32)
+    torch.testing.assert_close(lse, r_lse, atol=1e-4, rtol=1e-5)
+    _assert_map_matches(mean_p, fa.headmean_probs_reference(q, k, lse, d ** -0.5),
+                        torch.float32, s)
+
+
+@pytest.mark.cuda
+def test_upcast_store_attention_runs_fp32_kernels(cuda, monkeypatch):
+    """A bf16 U-Net attention with upcast and the store: B2 and B3 get fp32
+    q, k and v (one launch each), the output and map come back in bf16 and
+    agree with the explicit path."""
+    from diffusion_feature_tpu_torch.models.layers import ATTN_STORE, Attention, AttnStoreCfg
+    torch.manual_seed(12)
+    layer = Attention(640, 10, 64, attn_store=AttnStoreCfg('up', 32, 32, frozenset({'up_self'})),
+                      upcast=True).to(cuda, torch.bfloat16)
+    x = torch.randn(2, 1024, 640, device=cuda).bfloat16()
+    seen = []
+    for name in ('flash_attention_with_lse', 'headmean_probs'):
+        real = getattr(attn, name)
+        monkeypatch.setattr(attn, name, lambda q, *a, _n=name, _r=real, **kw: (
+            seen.append((_n, q.dtype)) or _r(q, *a, **kw)))
+    feats = {}
+    fa.lse_launches = fa.headmean_launches = 0
+    with torch.inference_mode():
+        out = layer(x, feats=feats)
+        torch.cuda.synchronize()
+        assert (fa.lse_launches, fa.headmean_launches) == (1, 1)
+        assert seen == [('flash_attention_with_lse', torch.float32),
+                        ('headmean_probs', torch.float32)]
+        [mean_p] = feats[ATTN_STORE]['up_self']
+        assert out.dtype == mean_p.dtype == torch.bfloat16
+        q, k, v = (attn.split_heads(p(x), 10).float()
+                   for p in (layer.to_q, layer.to_k, layer.to_v))
+        r_out, probs = attn.attention_with_probs_heads(q, k, v)
+        _assert_matches(out, layer.to_out[0](attn.merge_heads(r_out).bfloat16()), torch.bfloat16)
+        _assert_map_matches(mean_p, probs.mean(1), torch.bfloat16, 1024)
+
+
+@pytest.mark.cuda
+def test_vae_decoder_mid_attention_routes_to_b1(cuda, monkeypatch):
+    """The decoder's mid block at a 128^2 latent (SDXL's at 1024^2): one
+    head of d=512 over 16384 tokens, one B1 launch per decode, the decode
+    within the bf16 tolerance of the same decode on B1's twin."""
+    from diffusion_feature_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    torch.manual_seed(13)
+    vae = AutoencoderKL(VAEConfig(block_out_channels=(32, 512), layers_per_block=1))
+    vae = vae.to(cuda, torch.bfloat16).eval()
+    z = torch.randn(1, 4, 128, 128, device=cuda)
+    with torch.inference_mode():
+        fa.launches = 0
+        img = vae.decode(z)
+        torch.cuda.synchronize()
+        assert fa.launches == 1 and img.shape == (1, 3, 256, 256)
+        monkeypatch.setattr(attn, 'flash_attention',
+                            lambda q, k, v, scale: fa.flash_attention_reference(q, k, v, scale))
+        ref = vae.decode(z)
+    rel = ((img.float() - ref.float()).norm() / ref.float().norm()).item()
+    assert rel <= _TOL[torch.bfloat16], rel

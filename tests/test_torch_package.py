@@ -45,7 +45,8 @@ def test_port_imports_no_jax():
         '    importlib.import_module(name)\n'
         'want = {"diffusion_feature_tpu_torch." + n for n in ("extract_feature", '
         '"enumerate_layers", "io.dump", "io.prefetch", "native.build", "native.dump_writer", '
-        '"ops.flash_attention", "facade", "io.safetensors", "models.lora")}\n'
+        '"ops.flash_attention", "facade", "io.safetensors", "models.lora", "ddim_inversion", '
+        '"utils.prompt")}\n'
         'assert want <= names, want - names\n'
         'bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "flax", '
         '"diffusion_feature_tpu", "safetensors", "transformers"))\n'

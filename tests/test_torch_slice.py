@@ -136,9 +136,7 @@ def test_params_round_trip(pair, component):
         i = int(component[-1])
         tree, module = jfe.params['text'][i], port.text_encoders[i]
     elif component == 'vae':
-        # the port has the encoder half only
-        tree = {k: jfe.params['vae'][k] for k in ('encoder', 'quant_conv')}
-        module = port.vae
+        tree, module = jfe.params['vae'], port.vae
     else:
         tree, module = jfe.params['unet'], port.unet
     assert_params_round_trip(tree, module)
@@ -158,25 +156,16 @@ def test_layer_validation_suggests_near_miss():
 
 
 @pytest.mark.parametrize('kwargs', [
-    {'weights': 'upcast_attention'}, {'control': ['canny']},
-    {'attention': ['up_cross'], 'version': 'pixart-sigma'}, {'version': '2-1'},
-    {'layer': {'vae-out': True}},
-], ids=['weights', 'control', 'attention', 'version', 'vae-out'])
+    {'weights': 'use_quant_conv'}, {'control': ['canny']},
+    {'attention': ['up_cross'], 'version': 'pixart-sigma'}, {'version': 'if'},
+], ids=['weights', 'control', 'attention', 'version'])
 def test_unported_options_raise(tmp_path, kwargs):
     args = dict(layer={'mid-vit-out': True}, version='test-xl', device='cpu', img_size=SIZE)
     args.update(kwargs)
     if 'weights' in kwargs:
-        # a checkpoint whose U-Net asks for fp32 attention (Queue A item 7)
-        (tmp_path / 'unet').mkdir()
-        (tmp_path / 'unet' / 'config.json').write_text('{"upcast_attention": true}')
+        # a checkpoint whose VAE has no quant convs, as Flux's (Queue A item 9)
+        (tmp_path / 'vae').mkdir()
+        (tmp_path / 'vae' / 'config.json').write_text('{"use_quant_conv": false}')
         args['weights'] = str(tmp_path)
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         FeatureExtractor(**args)
-
-
-@pytest.mark.parametrize('kwargs', [{'denoising_from': 100}, {'use_ddim_inversion': True}],
-                         ids=['denoising_from', 'ddim_inversion'])
-def test_unported_extract_paths_raise(pair, image, kwargs):
-    _, port = pair
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        port.extract(None, BATCH, image, image_type='tensor', **kwargs)

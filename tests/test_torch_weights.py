@@ -33,7 +33,7 @@ from diffusion_feature_tpu_torch import facade as port_facade
 from diffusion_feature_tpu_torch.io.safetensors import DTYPES, load_file, save_file
 from diffusion_feature_tpu_torch.models import clip_text, convert, lora, unet2d, vae
 from diffusion_feature_tpu_torch.ops import flash_attention as fa
-from port_parity import jax_noise, write_port_checkpoint
+from port_parity import jax_noise
 from synth_checkpoint import write_sd_checkpoint
 from test_golden_parity import TINY_CFG
 
@@ -218,13 +218,20 @@ SDXL_UNET_JSON = {   # stable-diffusion-xl-base-1.0 unet/config.json
 ], ids=['tiny', 'tiny-xl', 'sd15', 'sdxl', 'sdxl-written', 'test-xl-written'])
 def test_unet_config_adapter_equals_jax(cfg, preset):
     ours = unet2d.UNetConfig.from_diffusers_config(cfg)
-    _same_fields(ours, junet.UNetConfig.from_diffusers_config(cfg))
+    ref = junet.UNetConfig.from_diffusers_config(cfg)
+    # diffusers writes a null upcast_attention, which JAX keeps as None and
+    # the port reads as False: both run without upcast
+    _same_fields(ours, dataclasses.replace(ref, upcast_attention=bool(ref.upcast_attention)))
     assert preset is None or ours == preset
 
 
 def test_unet_upcast_attention_is_not_ported():
-    with pytest.raises(NotImplementedError, match='Queue A item 7'):
-        unet2d.UNetConfig.from_diffusers_config({**SD15_UNET_JSON, 'upcast_attention': True})
+    """Named for what it held before upcast_attention was ported: now that
+    ``upcast_attention: true`` adapts, as JAX's adapter does."""
+    ours = unet2d.UNetConfig.from_diffusers_config({**SD15_UNET_JSON, 'upcast_attention': True})
+    assert ours == dataclasses.replace(unet2d.SD15_UNET, upcast_attention=True)
+    _same_fields(ours, junet.UNetConfig.from_diffusers_config(
+        {**SD15_UNET_JSON, 'upcast_attention': True}))
 
 
 SDXL_VAE_JSON = {'_class_name': 'AutoencoderKL', 'block_out_channels': [128, 256, 512, 512],
@@ -329,11 +336,11 @@ def test_sd_checkpoint_taps_match_jax(sd_checkpoint, sd_pair):
     assert port.spec.text_encoders[0].intermediate_size == 64
     _same_fields(port.spec.text_encoders[0], jfe.spec.text_encoders[0])
     _assert_step_matches_jax(jfe, port)
-    # the decoder and post_quant_conv come back unused, not as an error
+    # the whole VAE loads: the decoder and post_quant_conv too, nothing unused
     state = convert.load_component_state(sd_checkpoint, 'vae')
-    unused = convert.load_state_into(copy.deepcopy(port.vae), state, torch.float32, 'cpu')
-    assert unused and all(k.startswith(('decoder', 'post_quant_conv')) for k in unused)
-    assert {k.split('.')[0] for k in unused} == {'decoder', 'post_quant_conv'}
+    assert 'post_quant_conv.weight' in state
+    assert any(k.startswith('decoder.up_blocks.') for k in state)
+    assert convert.load_state_into(copy.deepcopy(port.vae), state, torch.float32, 'cpu') == []
     # so does an older CLIP checkpoint's I64 position_ids
     state = {**convert.load_component_state(sd_checkpoint, 'text_encoder'),
              'text_model.embeddings.position_ids': torch.arange(77)[None]}
@@ -359,12 +366,11 @@ def _write_tokenizer(d):
 @pytest.fixture(scope='module')
 def xl_tree(tmp_path_factory):
     """(random-init test-xl extractor, the dir it wrote): bf16-variant names,
-    the U-Net in two shards, a tokenizer_2 dir, and the VAE's decoder
-    tensors, which the JAX facade needs and the port leaves unused."""
+    the U-Net in two shards, a tokenizer_2 dir, and the whole VAE."""
     root = str(tmp_path_factory.mktemp('xl_tree'))
     src = FeatureExtractor(LAYERS, 'test-xl', device='cpu', dtype='float32', img_size=SIZE,
                            seed=5)
-    write_port_checkpoint(src, root, variant='bf16', unet_shards=2)
+    src.save_weights(root, variant='bf16', unet_shards=2)
     _write_tokenizer(os.path.join(root, 'tokenizer_2'))
     return src, root
 

@@ -80,7 +80,8 @@ def main() -> int:
                           'card': chip_smoke.card_line()}))
         return 0
     fe, prompts, images = chip_smoke.open_path(torch, args.path)
-    _, times = chip_smoke.extract_times(torch, fe, prompts, images, CALLS)
+    _, times = chip_smoke.extract_times(torch, fe, prompts, images, CALLS,
+                                        **chip_smoke.PATHS[args.path].get('extract', {}))
     n = len(times)
     print(json.dumps({'root': args.root, 'path': args.path, 'calls': n,
                       'median_ms': times[n // 2], 'q1_ms': times[n // 4],

@@ -52,11 +52,12 @@ def main() -> int:
     card = chip_smoke.card_line()
     for name in chip_smoke.PATHS:
         fe, prompts, images = chip_smoke.open_path(torch, name)
+        kwargs = chip_smoke.PATHS[name].get('extract', {})
         host, device = chip_smoke.extract_times(torch, fe, prompts, images,
-                                                chip_smoke.TIMED_CALLS)
+                                                chip_smoke.TIMED_CALLS, **kwargs)
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
-            chip_smoke.extract(fe, prompts, images)
+            chip_smoke.extract(fe, prompts, images, **kwargs)
             torch.cuda.synchronize()
         kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         by_kind, other, busy_us = {}, {}, 0.0
