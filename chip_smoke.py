@@ -69,7 +69,36 @@ Phases (each prints its numbers on lines of its own):
      'up_self']: 7 B1 (bf16) and 3 B2 and 3 B3 in fp32 (upcast_attention),
      'attn' (2, 1434, 64, 64), the twin step, its timing; then one
      extract(t=50, use_ddim_inversion=True): 5 inversion forwards of 10 B1
-     each and the last forward's 7 B1, 3 B2 and 3 B3, finite features.
+     each and the last forward's 7 B1, 3 B2 and 3 B3, finite features;
+ 12. generation (after 7): (a) the port's generate_with_extraction.main at
+     its defaults from a temporary working directory (SD-1.5, 512^2,
+     '15-practical', 50 PNDM steps = 51 U-Net calls, guidance 7.5): a
+     512x512 PNG, the kept calls exactly {1, 10, 20, 30, 40} for every
+     layer, each over the CFG-doubled batch 2 and finite, and B1 launches
+     equal to those derived from the config (51 x 10; the 512^2 decoder's
+     head stays explicit); (b) SDXL sample() at 1024^2, batch 1, 50 Euler
+     steps, guidance 5.0, one up-level tap: images (1, 3, 1024, 1024) in
+     [0, 1], 50 x 70 + 1 (the decoder) B1 launches, then a timed sample (ms
+     per sample and per step, peak memory); (c) the SD-1.5 sample at 4 steps
+     (5 calls) on the kernels and on the twins: images and every tap
+     encounter within MULTISTEP_REL_TOL; (d) the 50-step SD-1.5 sample in
+     bf16 (timed) and in fp32 (the same weights, upcast) from one fp32
+     draw: relative L2 and cosine of the final latents and images, the
+     cosine of the taps at calls 1/10/20/30/40, gated on finiteness only;
+ 13. ControlNet and depth: a random tree in a temporary dir (phase 12's
+     SD-1.5 weights as a diffusers tree; controlnet_canny and
+     controlnet_depth with SD-1.5's encoder and the (16, 32, 96, 256)
+     conditioning stack, every weight drawn, the zero convs too; an
+     Intel/dpt-large-shaped depth_estimator in transformers' keys, fp32),
+     loaded with FeatureExtractor('15-amalgamation', version='1-5',
+     weights=..., control=['canny', 'depth']); extract(t=50,
+     use_control=True) at batch 2: 10 + 2 x 4 B1 launches (the U-Net, each
+     ControlNet's levels 0 and 1), finite taps that differ from the step
+     without control, the twin step within TAP_REL_TOL, its timing and peak
+     memory; the host time of canny_edges and of the DPT estimator per
+     512^2 image (and the DPT forward on the card); then the CLI with
+     --weights and --control canny depth over three seeded 512^2 images:
+     36 B1 launches and the .npy tree.
 Phase 2 also holds B2 and B3 in fp32 at phase 11's store shape (the fp32
 kernels, timed against the fp32 non-tensor peak), and B4 (short
 attention), which no path routes to, as in the JAX package: against its
@@ -214,6 +243,26 @@ TREE_PATH, TREE_VARIANT, TREE_UNET_SHARDS = 'xl', 'bf16', 2
 LOAD_PEAK_RATIO = 1.05   # the load's peak over the random-init build's (PERF.md section 2)
 LORA_BLOCK = 'down_blocks.2.attentions.0.transformer_blocks.0.attn1'
 LORA_RANK, LORA_ALPHA = 4, 8.0
+# phase 12: generation.  (a) the port's generate_with_extraction CLI at its
+# defaults (SD-1.5, 512^2, '15-practical', 50 PNDM steps = 51 U-Net calls,
+# guidance 7.5, keeping calls 1, 10, 20, 30, 40); (b) SDXL sample() at
+# 1024^2, batch 1, 50 Euler steps, guidance 5.0, one up-level tap; (c) the
+# SD-1.5 sample at TWIN_SAMPLE_STEPS on the kernels and on the twins; (d)
+# the SD-1.5 50-step sample in bf16 and in fp32 from one fp32 draw.  Raw
+# taps of every call stay on the card, hence small layer sets
+XL_SAMPLE = dict(layer={'up-level1-repeat0-vit-block0-out': True}, version='xl',
+                 img_size=1024)
+XL_SAMPLE_STEPS, XL_GUIDANCE = 50, 5.0
+TWIN_SAMPLE_STEPS = 4                 # 5 PNDM calls
+DRIFT_STEPS = (1, 10, 20, 30, 40)     # the encounters whose features the drift compares
+# phase 13: SD-1.5 with a Canny and a depth ControlNet from a random tree
+# (lllyasviel/sd-controlnet-canny's and -depth's architecture: SD-1.5's
+# encoder, the (16, 32, 96, 256) conditioning stack; Intel/dpt-large's
+# depth estimator), '15-amalgamation', 512^2, batch 2
+CONTROL_ARGS = dict(layer='15-amalgamation', version='1-5', img_size=512)
+CONTROL_KINDS = ('canny', 'depth')
+CONTROL_FEATS = {k: v for k, v in AMALGAMATION_15.items() if k != 'attn'}
+CONTROL_CLI_IMAGES = 3
 
 
 def card_line() -> str:
@@ -811,6 +860,365 @@ def check_checkpoint(torch, fa, attn_ops, fe, prompts, images, first_feats, buil
     return counts
 
 
+def b1_per_forward(fa, cfg, latent: int, encoder_only: bool = False) -> int:
+    """B1 launches of one U-Net forward on a ``latent``^2 latent (with
+    ``encoder_only``, of one ControlNet: the down levels and the mid block),
+    derived from the config: the self-attentions whose shape the gate admits
+    on the card (cross-attention's 77 keys never pass)."""
+    levels = len(cfg.block_out_channels)
+
+    def passes(level):
+        tokens = (latent >> level) ** 2
+        d = cfg.block_out_channels[level] // cfg.num_attention_heads[level]
+        return fa.is_flash_compatible((1, 1, tokens, d), (1, 1, tokens, d))
+
+    depth = cfg.transformer_layers_per_block
+    n = sum(cfg.layers_per_block * depth[lv] for lv, kind in enumerate(cfg.down_block_types)
+            if kind == 'CrossAttnDownBlock2D' and passes(lv))
+    n += depth[-1] if passes(levels - 1) else 0
+    if not encoder_only:
+        n += sum((cfg.layers_per_block + 1) * depth[levels - 1 - u]
+                 for u, kind in enumerate(cfg.up_block_types)
+                 if kind == 'CrossAttnUpBlock2D' and passes(levels - 1 - u))
+    return n
+
+
+def vae_b1(fa, cfg, latent: int) -> int:
+    """B1 launches of the VAE encoder's (or decoder's) mid-block attention:
+    one head as wide as the last level, over the latent's tokens."""
+    d = cfg.block_out_channels[-1]
+    return int(fa.is_flash_compatible((1, 1, latent ** 2, d), (1, 1, latent ** 2, d)))
+
+
+def only_b1(b1):
+    """The four launch counts of a path that launches ``b1`` B1 kernels and
+    nothing else."""
+    return {'flash_attention': b1, 'flash_attention_with_lse': 0, 'headmean_probs': 0,
+            'short_attention': 0}
+
+
+def rel_cos(a, b):
+    """(relative L2 of a against b, cosine of a and b), in fp64."""
+    a, b = a.double().flatten(), b.double().flatten()
+    return ((a - b).norm() / b.norm()).item(), (a @ b / (a.norm() * b.norm())).item()
+
+
+def peak_above(torch, fn):
+    """(fn(), GiB at the peak of the call above what was allocated before
+    it, GiB allocated before it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2 ** 30, base / 2 ** 30
+
+
+def timed_sample(torch, fe, prompts, noise, steps, guidance):
+    """``fe._sample`` on ``noise`` with CUDA events around it; returns
+    (images, features, latents, ms, the call's peak memory in GiB above what
+    was allocated before it, GiB allocated before it)."""
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def run():
+        start.record()
+        out = fe._sample(*prompts, noise, steps, guidance)
+        stop.record()
+        return out
+    out, peak, base = peak_above(torch, run)
+    return (*out, start.elapsed_time(stop), peak, base)
+
+
+def check_generation(torch, fa, attn_ops, card, shapes, runs):
+    """Phase 12 (a) to (d); returns the CLI's SD-1.5 extractor."""
+    from PIL import Image
+    from diffusion_feature_tpu_torch import FeatureExtractor, generate_with_extraction
+    from diffusion_feature_tpu_torch.models.registry import get_model_spec
+    from diffusion_feature_tpu_torch.schedulers.diffusion import make_scheduler
+
+    # (a) the CLI at its defaults
+    args = generate_with_extraction.build_parser().parse_args([])
+    spec = get_model_spec(args.version)
+    latent = args.img_size // 2 ** (len(spec.vae.block_out_channels) - 1)
+    calls = len(make_scheduler(spec.scheduler, spec.scheduler_config)
+                .set_timesteps(args.steps).timesteps)
+    per_call, decode = b1_per_forward(fa, spec.unet, latent), vae_b1(fa, spec.vae, latent)
+    want = only_b1(calls * per_call + decode)
+    print(f'phase 12a generate_with_extraction at its defaults ({args.version} {args.img_size}^2, '
+          f'{args.layer}, {args.steps} steps, guidance {args.guidance_scale}, store_steps '
+          f'{args.store_steps}): {calls} U-Net calls x {per_call} B1 + {decode} (decoder) = '
+          f'{want["flash_attention"]} B1 launches expected', flush=True)
+    shapes['gen_cli'] = []
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        out = io.StringIO()
+        with patched_wrappers(attn_ops, recording(shapes['gen_cli'])):
+            reset_counts(fa)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                fe = generate_with_extraction.main([])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            runs['gen_cli'] = read_counts(fa)
+        size = Image.open(args.output).size
+    lines = out.getvalue().splitlines()
+    print(f'phase 12a cli: {seconds:.1f} s for main() (model build included), {len(lines)} lines, '
+          f'first {lines[0]!r}, last {lines[-1]!r}; image {size}; kernel launches '
+          f'{runs["gen_cli"]} ({card})', flush=True)
+    if runs['gen_cli'] != want or size != (args.img_size, args.img_size):
+        raise RuntimeError(f'phase 12a: launches {runs["gen_cli"]} != {want} or image {size}')
+    kept = fe.get_background_extraction()
+    for layer, by_step in sorted(kept.items()):
+        bad = [i for i, v in by_step.items()
+               if v.shape[0] != 2 or not bool(torch.isfinite(v.float()).all())]
+        print(f'  {layer}: kept {sorted(by_step)} of {fe._background_feats[layer]["count"]}, '
+              f'{tuple(by_step[1].shape)} {by_step[1].dtype}')
+        if sorted(by_step) != sorted(args.store_steps) or bad:
+            raise RuntimeError(f'phase 12a {layer}: kept {sorted(by_step)}, bad {bad}')
+    if set(kept) != set(fe.taps.ids):
+        raise RuntimeError(f'phase 12a: kept layers {sorted(kept)} != {sorted(fe.taps.ids)}')
+
+    # (b) SDXL sample() at 1024^2
+    xl = FeatureExtractor(**XL_SAMPLE, device='cuda', dtype='bfloat16', seed=0)
+    xl_prompts = xl.encode_prompt('a photograph of an astronaut riding a horse')
+    xl_latent = xl.img_size // xl.vae_scale
+    xl_calls = len(xl.scheduler.set_timesteps(XL_SAMPLE_STEPS).timesteps)
+    want = only_b1(xl_calls * b1_per_forward(fa, xl.spec.unet, xl_latent)
+                  + vae_b1(fa, xl.spec.vae, xl_latent))
+    shapes['xl_sample'] = []
+    with patched_wrappers(attn_ops, recording(shapes['xl_sample'])):
+        reset_counts(fa)
+        images, feats = xl.sample(xl_prompts, 1, XL_SAMPLE_STEPS, XL_GUIDANCE)
+        torch.cuda.synchronize()
+        runs['xl_sample'] = read_counts(fa)
+    lo, hi = images.float().min().item(), images.float().max().item()
+    print(f'phase 12b xl sample {xl.img_size}^2 batch 1, {XL_SAMPLE_STEPS} Euler steps, guidance '
+          f'{XL_GUIDANCE}: images {tuple(images.shape)} {images.dtype} in [{lo:.4f}, {hi:.4f}]; '
+          f'kernel launches {runs["xl_sample"]} (expected {want}: {xl_calls} calls)', flush=True)
+    ok = (runs['xl_sample'] == want and tuple(images.shape) == (1, 3, xl.img_size, xl.img_size)
+          and 0 <= lo and hi <= 1 and bool(torch.isfinite(images.float()).all()))
+    if not ok:
+        raise RuntimeError('phase 12b: xl sample launches, shape or range')
+    for key, encounters in feats.items():
+        if len(encounters) != xl_calls or encounters[0].shape[0] != 2:
+            raise RuntimeError(f'phase 12b {key}: {len(encounters)} encounters')
+    del images, feats
+    noise = torch.randn((1, 4, xl_latent, xl_latent),
+                        generator=torch.Generator(device='cuda').manual_seed(7), device='cuda')
+    *_, ms, gib, base = timed_sample(torch, xl, xl_prompts, noise, XL_SAMPLE_STEPS, XL_GUIDANCE)
+    print(f'phase 12b xl sample timed: {ms:.2f} ms per sample, {ms / xl_calls:.2f} ms per step '
+          f'({xl_calls} U-Net calls at CFG batch 2 and the decode); peak memory {gib:.2f} GiB '
+          f'above the {base:.2f} GiB held before it ({card})', flush=True)
+    del xl
+    torch.cuda.empty_cache()
+
+    # (c) SD-1.5 sample on the kernels and on the twins, from one draw
+    prompts = fe.encode_prompt(args.prompt)
+    noise = torch.randn((1, 4, latent, latent),
+                        generator=torch.Generator(device='cuda').manual_seed(7), device='cuda')
+    with_kernel = fe._sample(*prompts, noise, TWIN_SAMPLE_STEPS, args.guidance_scale)
+    with patched_wrappers(attn_ops, twin_of(fa)):
+        with_twin = fe._sample(*prompts, noise, TWIN_SAMPLE_STEPS, args.guidance_scale)
+    pairs = [('images', with_kernel[0], with_twin[0])]
+    pairs += [(f'{k} call {i + 1}', a, b) for k in with_twin[1]
+              for i, (a, b) in enumerate(zip(with_kernel[1][k], with_twin[1][k]))]
+    worst = max(rel_cos(a, b)[0] for _, a, b in pairs)
+    print(f'phase 12c sd15 sample, {TWIN_SAMPLE_STEPS} steps, kernel vs twin: images and '
+          f'{len(pairs) - 1} tap encounters, worst rel_l2={worst:.3e} (allowed '
+          f'{MULTISTEP_REL_TOL:g})', flush=True)
+    if not worst <= MULTISTEP_REL_TOL:
+        raise RuntimeError(f'phase 12c: kernel vs twin {worst}')
+    del with_kernel, with_twin
+
+    # (d) bf16 against fp32, the same weights (fp32 copies of the bf16
+    # ones) and the same fp32 draw
+    runs16 = timed_sample(torch, fe, prompts, noise, args.steps, args.guidance_scale)
+    print(f'phase 12d sd15 sample bf16 timed: {runs16[3]:.2f} ms per sample, '
+          f'{runs16[3] / calls:.2f} ms per step ({calls} U-Net calls at CFG batch 2 and the '
+          f'decode); peak memory {runs16[4]:.2f} GiB above the {runs16[5]:.2f} GiB held before '
+          f'it ({card})', flush=True)
+    fe32 = FeatureExtractor(args.layer, args.version, device='cuda', dtype='float32',
+                            img_size=args.img_size, seed=0)
+    for _, a, b in module_pairs(fe, fe32):
+        b.load_state_dict(a.state_dict())
+    runs32 = timed_sample(torch, fe32, fe32.encode_prompt(args.prompt), noise, args.steps,
+                          args.guidance_scale)
+    print(f'phase 12d sd15 sample fp32: {runs32[3]:.2f} ms, peak {runs32[4]:.2f} GiB above the '
+          f'{runs32[5]:.2f} GiB held before it ({card})')
+    for name, i in (('latents', 2), ('images', 0)):
+        rel, cos = rel_cos(runs16[i], runs32[i])
+        finite = bool(torch.isfinite(runs16[i].float()).all() and torch.isfinite(runs32[i]).all())
+        print(f'phase 12d drift bf16 vs fp32, final {name}: rel_l2={rel:.4e} cosine={cos:.6f} '
+              f'finite={finite}', flush=True)
+        if not finite:
+            raise RuntimeError(f'phase 12d: {name} not finite')
+    for key in sorted(runs32[1]):
+        cos = [rel_cos(runs16[1][key][i - 1], runs32[1][key][i - 1])[1] for i in DRIFT_STEPS]
+        print(f'  drift {key}: cosine at calls {DRIFT_STEPS}: '
+              + ' '.join(f'{c:.6f}' for c in cos))
+        if not all(c == c for c in cos):
+            raise RuntimeError(f'phase 12d {key}: not finite')
+    del fe32, runs16, runs32
+    torch.cuda.empty_cache()
+    return fe
+
+
+def write_control_tree(torch, fe15, tree):
+    """``fe15``'s weights as a diffusers tree under ``tree``, with a random
+    ``controlnet_{kind}`` per CONTROL_KINDS (every weight drawn, the zero
+    convs too, as a trained net's) and a random Intel/dpt-large-shaped
+    ``depth_estimator`` (fp32, transformers' keys)."""
+    from diffusion_feature_tpu_torch.models import controlnet
+    from diffusion_feature_tpu_torch.models.convert import random_module, save_component
+    from diffusion_feature_tpu_torch.models.depth import DPTConfig, DPTDepthModel
+    fe15.save_weights(tree)
+    for i, kind in enumerate(CONTROL_KINDS):
+        net = random_module(lambda: controlnet.ControlNetModel(
+            fe15.spec.unet, controlnet.cond_embed_channels(fe15.vae_scale)),
+            'cuda', torch.bfloat16, torch.Generator(device='cuda').manual_seed(20 + i))
+        save_component(tree, f'controlnet_{kind}', net.state_dict(), net.to_diffusers_config())
+    dpt = random_module(lambda: DPTDepthModel(DPTConfig()), 'cuda', torch.float32,
+                        torch.Generator(device='cuda').manual_seed(30))
+    save_component(tree, 'depth_estimator', dpt.state_dict(),
+                   DPTConfig().to_transformers_config())
+
+
+def check_control(torch, fa, attn_ops, card, fe15, shapes, runs):
+    """Phase 13: a random SD-1.5 + ControlNet + DPT tree written and loaded,
+    the control extract, its twin step and timing, the preprocessors' host
+    times, then the CLI with --control over three images."""
+    import numpy as np
+    from diffusion_feature_tpu_torch import FeatureExtractor
+    from diffusion_feature_tpu_torch.enumerate_layers import enumerate_layers
+    from diffusion_feature_tpu_torch.models import controlnet
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_control_') as tree:
+        t0 = time.perf_counter()
+        write_control_tree(torch, fe15, tree)
+        nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(tree)
+                     for f in fs)
+        print(f'phase 13 tree: {nbytes / 1e9:.3f} GB in {time.perf_counter() - t0:.1f} s '
+              f'({sorted(os.listdir(tree))})', flush=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fe = FeatureExtractor(**CONTROL_ARGS, device='cuda', dtype='bfloat16', seed=0,
+                              weights=tree, control=list(CONTROL_KINDS))
+        prompts = fe.encode_prompt('a photo of a cat')
+        torch.cuda.synchronize()
+        print(f'phase 13 build from the tree with control={list(CONTROL_KINDS)}: '
+              f'{time.perf_counter() - t0:.1f} s, peak '
+              f'{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB', flush=True)
+        size = CONTROL_ARGS['img_size']
+        gen = torch.Generator(device='cuda').manual_seed(1)
+        images = torch.rand(2, 3, size, size, generator=gen, device='cuda') * 2 - 1
+        latent = size // fe.vae_scale
+        per_net = b1_per_forward(fa, fe.spec.unet, latent, encoder_only=True)
+        want = only_b1(b1_per_forward(fa, fe.spec.unet, latent)
+                      + len(CONTROL_KINDS) * per_net + vae_b1(fa, fe.spec.vae, latent))
+        print(f'phase 13 B1 per control extract: U-Net {b1_per_forward(fa, fe.spec.unet, latent)}'
+              f' + {len(CONTROL_KINDS)} ControlNets x {per_net} + VAE encoder '
+              f'{vae_b1(fa, fe.spec.vae, latent)}')
+        feats, runs['control'], shapes['control'] = drive_path(
+            torch, fa, attn_ops, fe, prompts, images, want, 'phase 13', use_control=True)
+        check_feats(torch, feats, CONTROL_FEATS, 'phase 13')
+
+        # the control images as extract makes them from tensors
+        control = fe.control_pipe.prepare_control_images(
+            fe.control_pipe.tensors_to_pil(images.to(fe.dtype)), 2)
+        pe = prompts[0].expand(2, -1, -1)
+        gen = torch.Generator(device='cuda').manual_seed(2)
+        posterior, noise = (torch.randn((2, 4, latent, latent), generator=gen, device='cuda')
+                            for _ in range(2))
+
+        def step(ctrl):
+            return fe._step(images.to(fe.dtype), pe, None, fe._img2img_kit(50), posterior,
+                            noise, torch.bfloat16, ctrl)
+        with_kernel = step(control)
+        with patched_wrappers(attn_ops, twin_of(fa)):
+            with_twin = step(control)
+        plain = step(None)
+        for key in CONTROL_FEATS:
+            rel = rel_cos(with_kernel[key], with_twin[key])[0]
+            moved = rel_cos(plain[key], with_kernel[key])[0]
+            finite = bool(torch.isfinite(with_kernel[key].float()).all())
+            print(f'  phase 13 {key}: kernel vs twin rel_l2={rel:.3e} (allowed {TAP_REL_TOL:g}); '
+                  f'use_control=False vs True rel_l2={moved:.3e}; finite={finite}')
+            if not (rel <= TAP_REL_TOL and moved > 0 and finite):
+                raise RuntimeError(f'phase 13 {key}: twin {rel}, moved {moved}, finite {finite}')
+        del with_kernel, with_twin, plain
+        time_extract(torch, fe, prompts, images, f'phase 13 control extract {size}^2 batch 2, '
+                     f'{len(CONTROL_KINDS)} ControlNets', card, use_control=True)
+
+        # the preprocessors on one 512^2 image
+        pil = fe.control_pipe.tensors_to_pil(images[:1].to(fe.dtype))[0]
+        arr = np.asarray(pil)
+        canny_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            controlnet.canny_edges(arr)
+            canny_s.append(time.perf_counter() - t0)
+        est = fe.control_pipe.nets[CONTROL_KINDS.index('depth')].preprocess
+        est(pil)
+        est_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            est(pil)
+            est_s.append(time.perf_counter() - t0)
+        x = torch.zeros(1, 3, est.cfg.image_size, est.cfg.image_size, device='cuda')
+        fwd = {}
+        # as set for this run (no TF32 anywhere), then with PyTorch's default
+        # for convolutions (cuDNN in TF32; matrix products stay fp32)
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            with torch.inference_mode():
+                fwd[tf32] = (time_ms(torch, lambda: est.model(x), runs=3),
+                             peak_above(torch, lambda: est.model(x))[1])
+        torch.backends.cudnn.allow_tf32 = False
+        print(f'phase 13 host: canny_edges {sorted(canny_s)[1] * 1e3:.1f} ms per {size}^2 image '
+              f'(numpy); DPT estimator {sorted(est_s)[1] * 1e3:.1f} ms per {size}^2 image (PIL '
+              f'resizes, fp32 forward, min/max, resize back), of which the forward at '
+              f'{est.cfg.image_size}^2 is {fwd[False][0]:.2f} ms on the card, peak '
+              f'{fwd[False][1]:.2f} GiB above the weights; with cuDNN convolutions in TF32 '
+              f'{fwd[True][0]:.2f} ms, peak {fwd[True][1]:.2f} GiB ({card})', flush=True)
+        del fe, feats
+        torch.cuda.empty_cache()
+
+        # the CLI with --control over three images
+        with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+            write_images(CONTROL_CLI_IMAGES, size)
+            shapes['control_cli'] = []
+            with patched_wrappers(attn_ops, recording(shapes['control_cli'])):
+                reset_counts(fa)
+                seconds, lines = run_cli([
+                    '--version', CONTROL_ARGS['version'], '--img_size', str(size),
+                    '--layer', CONTROL_ARGS['layer'], '--batch_size', '2',
+                    '--prompt', 'a photo of a cat', '--input_dir', 'imgs/*.png',
+                    '--output_dir', 'out', '--weights', tree, '--control', *CONTROL_KINDS])
+                torch.cuda.synchronize()
+                runs['control_cli'] = read_counts(fa)
+            batches = -(-CONTROL_CLI_IMAGES // 2)
+            want_cli = only_b1(batches * want['flash_attention'])
+            rate = [line for line in lines if line.endswith('img/s)')]
+            print(f'phase 13 cli --control {" ".join(CONTROL_KINDS)}: {seconds:.1f} s for main(), '
+                  f'{rate[0]}; kernel launches {runs["control_cli"]} (expected {want_cli}) '
+                  f'({card})', flush=True)
+            if runs['control_cli'] != want_cli:
+                raise RuntimeError(f'phase 13 cli: launches {runs["control_cli"]}')
+            enumerated = enumerate_layers(CONTROL_ARGS['version'], size)
+            layers = sorted(os.listdir('out'))
+            if layers != sorted(CONTROL_FEATS):
+                raise RuntimeError(f'phase 13 cli: layer dirs {layers}')
+            for layer in layers:
+                names = sorted(os.listdir(os.path.join('out', layer)))
+                if names != [f'train{i}.npy' for i in range(CONTROL_CLI_IMAGES)]:
+                    raise RuntimeError(f'phase 13 cli {layer}: files {names}')
+                for name in names:
+                    arr = np.load(os.path.join('out', layer, name))
+                    if (arr.shape != enumerated[layer][1:] or arr.dtype != np.float16
+                            or not np.isfinite(arr).all()):
+                        raise RuntimeError(f'phase 13 cli {layer}/{name}: {arr.shape} {arr.dtype}')
+                print(f'  {layer}: {len(names)} x {arr.shape} float16 finite')
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -941,6 +1349,13 @@ def main() -> int:
         runs['cli'] = check_cli(torch, fa, attn_ops, card, shapes['cli'], tree)
     finally:
         tree_dir.cleanup()
+
+    # 12. generation; 13. ControlNet and depth, from the generation CLI's
+    # SD-1.5 weights
+    fe15 = check_generation(torch, fa, attn_ops, card, shapes, runs)
+    check_control(torch, fa, attn_ops, card, fe15, shapes, runs)
+    del fe15
+    torch.cuda.empty_cache()
 
     # the kernels line: per kernel, the launches of every path and the sum
     # over those launches of each (shape, dtype)'s numbers from phase 2 (one

@@ -12,9 +12,13 @@ scheduler walk down to ``t`` first, and with ``use_ddim_inversion`` a DDIM
 inversion in place of the noise.  The attention store (``attention=``) gives
 the aggregated ``'attn'`` feature, the ``'vae-out'`` layer the decoded image
 of one scheduler step; ``extract_ensemble`` crosses timesteps with prompts.
+``control=`` adds ControlNets (Canny, DPT depth) to the tapped forward;
+``sample`` generates images with the taps of every step, and
+``set_background_extraction`` keeps chosen encounters of them.
 Weights come from a local diffusers checkpoint (``weights=``,
 ``weights_variant=``) or at random from ``seed``, with offline LoRA merging.
-What is not ported raises ``NotImplementedError`` naming its ROADMAP.md item.
+The JAX package's other model versions raise ``NotImplementedError`` naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -33,39 +37,21 @@ from .enumerate_layers import enumerate_layers
 from .io.images import preprocess_pil_batch, resize_tensor_batch
 from .models.clip_text import CLIPTextConfig, CLIPTextModel
 from .models.convert import (load_component_config, load_component_state, load_state_into,
-                             save_component)
+                             random_module, save_component)
+from .models.controlnet import ControlNetPipeline
 from .models.layers import ATTN_STORE
 from .models.lora import apply_lora_to_module
 from .models.registry import ModelSpec, get_model_spec
 from .models.unet2d import UNet2DConditionModel, UNetConfig
 from .models.vae import AutoencoderKL, VAEConfig
-from .roadmap import not_ported
 from .schedulers.diffusion import EulerDiscreteScheduler, make_scheduler, scalar_like
-from .store import aggregate_attention, postprocess_taps
+from .store import aggregate_attention, postprocess_taps, select_background_encounters
 from .taps import TapSpec, declared_ids, is_filtered_id
 from .tokenizers.clip_bpe import load_clip_tokenizer
 from .utils.prompt import encode_long_prompt
 
 _DTYPES = {'bfloat16': torch.bfloat16, 'float16': torch.float16, 'float32': torch.float32}
 TEXT_DIRS = ('text_encoder', 'text_encoder_2')
-
-
-def _random_module(make, device, dtype, generator):
-    """Build ``make()`` on the meta device, then materialise it on ``device``
-    with a deterministic random init drawn from ``generator``: weights of
-    rank >= 2 ~ N(0, 1/fan_in), norm scales 1, biases 0."""
-    with torch.device('meta'):
-        module = make()
-    module = module.to(dtype=dtype).to_empty(device=device)
-    with torch.no_grad():
-        for name, p in module.named_parameters():
-            if p.dim() >= 2:
-                p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
-            elif name.endswith('weight'):
-                p.fill_(1.0)
-            else:
-                p.zero_()
-    return module.eval().requires_grad_(False)
 
 
 def _adapt_spec_to_checkpoint(spec: ModelSpec, weights: str) -> ModelSpec:
@@ -98,8 +84,9 @@ def _adapt_spec_to_checkpoint(spec: ModelSpec, weights: str) -> ModelSpec:
 
 
 class FeatureExtractor:
-    """``encode_prompt``, ``offload_prompt_encoder``, ``preprocess_image``
-    and ``extract`` with the JAX facade's signatures and return values.
+    """``encode_prompt``, ``offload_prompt_encoder``, ``preprocess_image``,
+    ``extract``, ``extract_ensemble``, ``sample`` and the background
+    extraction pair with the JAX facade's signatures and return values.
 
     weights: a local diffusers checkpoint dir (``unet``, ``vae``,
     ``text_encoder``[``_2``], each a config.json and safetensors or ``.bin``
@@ -111,7 +98,11 @@ class FeatureExtractor:
     ``seed``.  offline_lora (with offline_lora_filename): a LoRA merged
     into the U-Net after its weights.  The noise of ``extract`` has its own
     generator, seeded from ``seed``, so it does not depend on where the
-    weights came from.
+    weights came from; ``sample`` draws its initial latents from it too.
+    control: ControlNet kinds ('canny', 'depth') or (kind, preprocessor)
+    pairs, a depth pair naming a transformers DPT dir; weights from
+    ``{weights}/controlnet_{kind}`` and ``{weights}/depth_estimator`` where
+    present (the JAX ``ControlNetPipeline``).
     attention: attention-store categories ('{down|mid|up}_{self|cross}');
     their head-mean maps of the size band ``attn_store_sizes`` (tokens per
     side, default (img_size/32, img_size/16)) come back as ``feats['attn']``.
@@ -125,8 +116,6 @@ class FeatureExtractor:
                  weights: Optional[str] = None, weights_variant: Optional[str] = None,
                  seed: int = 0, attn_store_sizes: Optional[Tuple[int, int]] = None,
                  validate_layers: bool = True):
-        if control:
-            raise not_ported('control= (ControlNet)', 'ControlNet and depth')
         if weights and os.path.isfile(os.path.join(weights, 'tpu_bundle.json')):
             raise ValueError(f'{weights} is a deployment bundle of the JAX package; the port '
                              'loads the diffusers checkpoint dir it was exported from instead')
@@ -162,7 +151,7 @@ class FeatureExtractor:
         def build(make, component):
             if weights:
                 return self._load_component(make, weights, weights_variant, component)
-            return _random_module(make, self.device, self.dtype, init_gen)
+            return random_module(make, self.device, self.dtype, init_gen)
 
         self.unet = build(lambda: UNet2DConditionModel(spec.unet, self.taps, self._attn_sizes,
                                                        tuple(self.attention or ())), 'unet')
@@ -180,6 +169,10 @@ class FeatureExtractor:
             apply_lora_to_module(self.unet, offline_lora, offline_lora_filename)
         if validate_layers and not self.taps.accept_all:
             self._validate_layer_ids()
+        # background extraction: the encounters to keep and what was kept
+        self.store_idx: Optional[list] = None
+        self._background_feats: Dict[str, dict] = {}
+        self.control_pipe = ControlNetPipeline(self, control, weights) if control else None
 
     def _load_component(self, make, root: str, variant: Optional[str], component: str):
         """Build ``make()`` on the meta device and fill it from the
@@ -311,8 +304,13 @@ class FeatureExtractor:
         'vae-out' (B, 3, img, img) when that layer was requested.
         ``denoising_from`` starts the latents there and walks the scheduler
         down to ``t`` first; ``use_ddim_inversion`` inverts the image with
-        DDIM up to ``t`` in place of adding noise.  ``use_control`` has no
-        effect without a ControlNet, as in the JAX facade."""
+        DDIM up to ``t`` in place of adding noise.  ``use_control`` adds the
+        summed residuals of the ``control=`` ControlNets, which see the
+        images (tensors in [-1, 1] turned back into PIL images) through
+        their preprocessors, at the tapped forward; it has no effect without
+        a ControlNet, as in the JAX facade.  With
+        ``set_background_extraction`` active the features are also kept,
+        as encounter 1, for ``get_background_extraction``."""
         spec = self.spec
         if use_ddim_inversion and (spec.unet.addition_embed_type is not None
                                    or spec.scheduler_config.prediction_type != 'epsilon'):
@@ -332,6 +330,10 @@ class FeatureExtractor:
         else:
             img = resize_tensor_batch(image, self.img_size)
         img = torch.as_tensor(img).to(self.device, self.dtype)
+        control = None
+        if use_control and self.control_pipe is not None:
+            raw = image if image_type == 'image' else self.control_pipe.tensors_to_pil(img)
+            control = self.control_pipe.prepare_control_images(raw, batch_size)
 
         lat = self.img_size // self.vae_scale
         shape = (img.shape[0], self.spec.vae.latent_channels, lat, lat)
@@ -339,10 +341,13 @@ class FeatureExtractor:
         posterior_noise = torch.randn(shape, generator=self._noise_gen, device=self.device)
         noise = torch.randn(shape, generator=self._noise_gen, device=self.device)
         if denoising_from is None and not use_ddim_inversion:
-            return self._step(img, pe, pooled, self._img2img_kit(int(t)), posterior_noise, noise,
-                              self.feature_dtype)
-        return self._multistep(img, pe, pooled, int(t), denoising_from, use_ddim_inversion,
-                               posterior_noise, noise, self.feature_dtype)
+            feats = self._step(img, pe, pooled, self._img2img_kit(int(t)), posterior_noise,
+                               noise, self.feature_dtype, control=control)
+        else:
+            feats = self._multistep(img, pe, pooled, int(t), denoising_from, use_ddim_inversion,
+                                    posterior_noise, noise, self.feature_dtype, control=control)
+        self._keep_background(feats)
+        return feats
 
     def extract_ensemble(self, prompts, batch_size: int, image, image_type: str = 'image',
                          ts: Sequence[int] = (50,), prompt_list: Optional[Sequence] = None,
@@ -434,13 +439,18 @@ class FeatureExtractor:
                                 device=self.device).repeat(bsz, 1)
         return {'text_embeds': pooled, 'time_ids': time_ids}
 
-    def _forward(self, lat_in, timestep, pe, pooled, out_dtype):
+    def _forward(self, lat_in, timestep, pe, pooled, out_dtype, control=None):
         """The U-Net forward with taps and store, then the store
         post-processing (the JAX ``_collect_feats``): returns (model output,
-        features)."""
+        features).  ``control`` (one condition image batch per ControlNet)
+        runs the ControlNets on the same input and adds their residuals."""
         feats = {}
-        out = self.unet(lat_in, timestep, pe, self._added_cond(pooled, lat_in.shape[0]),
-                        feats=feats)
+        added = self._added_cond(pooled, lat_in.shape[0])
+        down = mid = None
+        if control is not None:
+            down, mid = self.control_pipe.encode_all(lat_in, timestep, pe, control, added)
+        out = self.unet(lat_in, timestep, pe, added, feats=feats,
+                        down_block_additional_residuals=down, mid_block_additional_residual=mid)
         store = feats.pop(ATTN_STORE, {})
         feats = postprocess_taps(feats, resize_ratio=self.feature_resize, out_dtype=out_dtype)
         if self.attention:
@@ -458,18 +468,18 @@ class FeatureExtractor:
         return img.to(out_dtype or img.dtype)
 
     @torch.inference_mode()
-    def _step(self, img, pe, pooled, kit, posterior_noise, noise, out_dtype):
+    def _step(self, img, pe, pooled, kit, posterior_noise, noise, out_dtype, control=None):
         """The single step (the JAX ``_get_step_fn_generic`` program): VAE
         encode + posterior sample -> latents*A + noise*B -> /S -> U-Net with
         taps -> store post-processing to ``out_dtype`` (None keeps the
         compute dtype), and 'vae-out' from the kit's fresh-state step.
         Noise tensors are standard-normal draws of the latent shape, cast
-        here to the model dtype."""
+        here to the model dtype; ``control`` goes to ``_forward``."""
         latents = self.vae(img, posterior_noise)
         latents = (scalar_like(kit['A'], latents) * latents
                    + scalar_like(kit['B'], latents) * noise.to(latents.dtype))
         out, feats = self._forward(latents / scalar_like(kit['S'], latents), kit['T'], pe, pooled,
-                                   out_dtype)
+                                   out_dtype, control)
         if self.store_vae_output:
             x0 = scalar_like(kit['X1'], latents) * latents + scalar_like(kit['X2'], latents) * out
             lat2 = (scalar_like(kit['C1'], latents) * x0
@@ -480,7 +490,7 @@ class FeatureExtractor:
 
     @torch.inference_mode()
     def _multistep(self, img, pe, pooled, t: int, denoising_from: Optional[int],
-                   use_ddim_inversion: bool, posterior_noise, noise, out_dtype):
+                   use_ddim_inversion: bool, posterior_noise, noise, out_dtype, control=None):
         """The multi-step paths (the JAX ``_get_step_fn``).  Timesteps: with
         ``denoising_from`` within 50 of ``t`` the 1000-step schedule from
         ``denoising_from``, else the 100-step one at strength
@@ -488,8 +498,9 @@ class FeatureExtractor:
         starts at 991), cut at the last timestep >= ``t``.  The latents are
         noised at the first (or DDIM-inverted up to ``t``), walked through
         ``sched.step`` over all but the last with forwards whose taps and
-        store maps are discarded, then the last forward keeps them.
-        'vae-out' decodes one step of the fresh schedule from there."""
+        store maps are discarded, then the last forward keeps them; the
+        ControlNets (``control``) join that last forward only.  'vae-out'
+        decodes one step of the fresh schedule from there."""
         sched = self.scheduler
         state = sched.set_timesteps(1000)
         if denoising_from is None:
@@ -514,8 +525,102 @@ class FeatureExtractor:
             out = self.unet(sched.scale_model_input(state, latents, ts), float(ts), pe, added)
             latents, walk_state = sched.step(walk_state, out, ts, latents)
         out, feats = self._forward(sched.scale_model_input(state, latents, t), float(t), pe,
-                                   pooled, out_dtype)
+                                   pooled, out_dtype, control)
         if self.store_vae_output:
             lat2, _ = sched.step(state, out, t, latents)
             feats['vae-out'] = self._decode(lat2, out_dtype)
         return feats
+
+    # --------------------------------------------------------------- sampling
+    def sample(self, prompts, batch_size: int = 1, num_inference_steps: int = 50,
+               guidance_scale: float = 7.5, return_features: bool = True,
+               unrolled: bool = False):
+        """Text-to-image generation with the taps firing at every denoising
+        step, the substrate of background extraction (reference
+        generate_with_extraction.py: a StableDiffusionPipeline run with the
+        store capturing selected U-Net calls).
+
+        ``prompts`` is ``encode_prompt``'s 4-tuple, broadcast to
+        ``batch_size``; with ``guidance_scale`` > 1 every U-Net call runs
+        the [negative; positive] batch and combines its halves
+        (classifier-free guidance).  Returns (images (B, 3, H, W) in [0, 1],
+        features), the features {layer: tuple of the raw tap of every U-Net
+        call, step-major, over the CFG-doubled batch} as the JAX facade
+        returns them (no store post-processing, no cast), or None with
+        ``return_features=False``.  The initial latents are a standard
+        normal draw from the extract's noise generator in fp32, cast, then
+        scaled by the schedule's ``init_noise_sigma``.  ``unrolled`` is
+        accepted for the JAX signature: this loop is the JAX facade's
+        unrolled one, which its scanned loop equals."""
+        del unrolled
+        spec = self.spec
+
+        def bcast(x):
+            if x is None:
+                return None
+            x = torch.as_tensor(x).to(self.device, self.dtype)
+            return x.expand(batch_size, *x.shape[1:])
+
+        pe, ne, pooled, neg_pooled = (bcast(x) for x in prompts)
+        if spec.clip_layer != 'penultimate':
+            pooled = neg_pooled = None
+        self._check_conditioning(pe, pooled)
+        lat = self.img_size // self.vae_scale
+        noise = torch.randn((batch_size, spec.unet.in_channels, lat, lat),
+                            generator=self._noise_gen, device=self.device)
+        images, feats, _ = self._sample(pe, ne, pooled, neg_pooled, noise,
+                                        int(num_inference_steps), float(guidance_scale))
+        self._keep_background(feats)
+        return images, (feats if return_features else None)
+
+    @torch.inference_mode()
+    def _sample(self, pe, ne, pooled, neg_pooled, noise, num_inference_steps: int,
+                guidance_scale: float):
+        """The generation loop (the JAX ``_get_sample_fn``'s unrolled
+        ``run``) from ``noise``, a standard-normal draw of the latent shape:
+        the latents are the noise in the model dtype times
+        ``init_noise_sigma``; per timestep scale_model_input, one U-Net
+        forward on the (CFG-doubled) batch with the taps, the guidance
+        combine and the scheduler's ``step``; then the VAE decode mapped to
+        [0, 1].  Returns (images, {layer: tuple of per-call raw taps}, the
+        final latents)."""
+        sched = self.scheduler
+        state = sched.set_timesteps(num_inference_steps)
+        do_cfg = guidance_scale > 1.0
+        latents = noise.to(self.dtype)
+        latents = latents * scalar_like(state.init_noise_sigma, latents)
+        ctx = torch.cat([ne, pe]) if do_cfg else pe
+        pp = torch.cat([neg_pooled, pooled]) if do_cfg and pooled is not None else pooled
+        added = self._added_cond(pp, ctx.shape[0])
+        merged: Dict[str, tuple] = {}
+        step_state = state
+        for t in state.timesteps:
+            model_in = torch.cat([latents] * 2) if do_cfg else latents
+            model_in = sched.scale_model_input(step_state, model_in, t)
+            taps = {}
+            out = self.unet(model_in, float(t), ctx, added, feats=taps)
+            taps.pop(ATTN_STORE, None)   # sample() runs no attention store
+            for key, val in taps.items():
+                merged[key] = merged.get(key, ()) + (val,)
+            out = out[:, :latents.shape[1]]
+            if do_cfg:
+                uncond, cond = out.chunk(2)
+                out = uncond + guidance_scale * (cond - uncond)
+            latents, step_state = sched.step(step_state, out, t, latents)
+        images = (self._decode(latents, None) / 2 + 0.5).clamp(0.0, 1.0)
+        return images, merged, latents
+
+    # ------------------------------------------------------------- background
+    def set_background_extraction(self, idxs):
+        """Keep the features of these 1-based U-Net-call encounters from
+        every later ``sample`` (or ``extract``, encounter 1)."""
+        self.store_idx = list(idxs)
+
+    def get_background_extraction(self):
+        """{layer: {encounter: tensor}} of the last ``sample`` or
+        ``extract`` since ``set_background_extraction``."""
+        return {k: v['feat'] for k, v in self._background_feats.items()}
+
+    def _keep_background(self, feats):
+        if self.store_idx is not None:
+            self._background_feats = select_background_encounters(feats, self.store_idx)

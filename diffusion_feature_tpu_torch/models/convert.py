@@ -12,7 +12,8 @@ is chosen per component dir with the JAX package's variant rules.
 ``params_from_jax`` is the inverse of the JAX ``convert_torch_state``: each
 key of a port module's ``state_dict`` is normalised, looked up in the
 flattened Flax tree, and transposed back (Dense (I, O) -> Linear (O, I);
-Conv HWIO -> OIHW).  Takes numpy-convertible leaves; needs no JAX.
+Conv HWIO -> OIHW; a kernel==stride ConvTranspose (k, k, I, O) -> (I, O,
+k, k)).  Takes numpy-convertible leaves; needs no JAX.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Dict, Iterable, List, Mapping, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,16 +54,19 @@ def _flatten(tree, prefix=()) -> Dict[str, object]:
     return flat
 
 
-def params_from_jax(flax_params: Mapping, module: nn.Module) -> Dict[str, torch.Tensor]:
+def params_from_jax(flax_params: Mapping, module: nn.Module,
+                    jax_name: Optional[Callable[[str], str]] = None) -> Dict[str, torch.Tensor]:
     """Build a state_dict for ``module`` from a JAX parameter tree.
 
     Every key of ``module.state_dict()`` must be found; tensors come back in
     the module's dtype.  Tree entries the module does not have (e.g. the
-    VAE decoder for the encoder-only port) are ignored."""
+    VAE decoder for the encoder-only port) are ignored.  ``jax_name`` maps
+    a key to the JAX module's own name, in the same dotted form, where the
+    two differ (the DPT's transformers keys)."""
     flat = _flatten(flax_params)
     out = {}
     for key, ref in module.state_dict().items():
-        base, _, leaf = key.rpartition('.')
+        base, _, leaf = (jax_name(key) if jax_name else key).rpartition('.')
         norm_base = _normalize_key(base)
         for cand in _LEAF_CANDIDATES.get(leaf, (leaf,)):
             norm = f'{norm_base}_{cand}' if norm_base else cand
@@ -73,7 +77,12 @@ def params_from_jax(flax_params: Mapping, module: nn.Module) -> Dict[str, torch.
                            f"{','.join(_LEAF_CANDIDATES.get(leaf, (leaf,)))}}}")
         arr = np.array(flat[norm], dtype=np.float32)
         if cand == 'kernel':
-            arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
+            if arr.ndim == 2:
+                arr = arr.T
+            elif isinstance(module.get_submodule(key.rpartition('.')[0]), nn.ConvTranspose2d):
+                arr = arr.transpose(2, 3, 0, 1)     # (k, k, in, out) -> (in, out, k, k)
+            else:
+                arr = arr.transpose(3, 2, 0, 1)     # HWIO -> OIHW
         if arr.shape != tuple(ref.shape):
             raise ValueError(f'{key} <- {norm}: shape {arr.shape}, want {tuple(ref.shape)}')
         out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(ref.dtype)
@@ -82,9 +91,15 @@ def params_from_jax(flax_params: Mapping, module: nn.Module) -> Dict[str, torch.
 
 # ------------------------------------------------------------ checkpoints
 _SHARD_RE = re.compile(r'-\d{5}-of-\d{5}$')
-#: the weight file's base name per component dir (diffusers / transformers)
-WEIGHTS_NAME = {'unet': 'diffusion_pytorch_model', 'vae': 'diffusion_pytorch_model',
-                'text_encoder': 'model', 'text_encoder_2': 'model'}
+
+
+def weights_name(component: str) -> str:
+    """The weight file's base name in a component dir: transformers' models
+    (the text encoders, the depth estimator) write 'model', diffusers'
+    (U-Net, VAE, ControlNets) 'diffusion_pytorch_model'."""
+    if component.startswith('text_encoder') or component == 'depth_estimator':
+        return 'model'
+    return 'diffusion_pytorch_model'
 
 
 def _group_weight_files(files: Iterable[str], ext: str):
@@ -214,7 +229,7 @@ def save_component(root: str, component: str, state: Mapping[str, torch.Tensor],
     os.makedirs(d, exist_ok=True)
     with open(os.path.join(d, 'config.json'), 'w') as f:
         json.dump(config, f, indent=2)
-    stem = WEIGHTS_NAME[component] + (f'.{variant}' if variant else '')
+    stem = weights_name(component) + (f'.{variant}' if variant else '')
     keys = list(state)
     sizes = [state[k].numel() * state[k].element_size() for k in keys]
     total, groups, acc = sum(sizes), [[] for _ in range(shards)], 0
@@ -227,3 +242,21 @@ def save_component(root: str, component: str, state: Mapping[str, torch.Tensor],
                 else f'{stem}.safetensors')
         written[name] = save_file({k: state[k] for k in group}, os.path.join(d, name))
     return written
+
+
+def random_module(make, device, dtype, generator) -> nn.Module:
+    """Build ``make()`` on the meta device, then materialise it on ``device``
+    with a deterministic random init drawn from ``generator``: weights of
+    rank >= 2 ~ N(0, 1/fan_in), norm scales 1, biases 0."""
+    with torch.device('meta'):
+        module = make()
+    module = module.to(dtype=dtype).to_empty(device=device)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if p.dim() >= 2:
+                p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
+            elif name.endswith('weight'):
+                p.fill_(1.0)
+            else:
+                p.zero_()
+    return module.eval().requires_grad_(False)

@@ -225,6 +225,27 @@ class CrossAttnUpBlock2D(nn.Module):
         return x
 
 
+def embed_time(module, cfg: UNetConfig, timestep, added_cond, x):
+    """The timestep embedding through ``module.time_embedding``, plus SDXL's
+    text_time micro-conditioning through ``module.add_embedding``
+    (reference diffusion_feature.py:324-354), for the batch of ``x`` in its
+    dtype; shared by the U-Net and the ControlNet."""
+    bsz, dtype = x.shape[0], x.dtype
+    timesteps = torch.full((bsz,), float(timestep), dtype=torch.float32, device=x.device)
+    t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0],
+                               flip_sin_to_cos=cfg.flip_sin_to_cos,
+                               downscale_freq_shift=cfg.freq_shift).to(dtype)
+    emb = module.time_embedding(t_emb)
+    if cfg.addition_embed_type == 'text_time':
+        time_embeds = timestep_embedding(
+            added_cond['time_ids'].reshape(-1), cfg.addition_time_embed_dim,
+            flip_sin_to_cos=cfg.flip_sin_to_cos, downscale_freq_shift=cfg.freq_shift)
+        add_embeds = torch.cat([added_cond['text_embeds'].to(dtype),
+                                time_embeds.reshape(bsz, -1).to(dtype)], dim=-1)
+        emb = emb + module.add_embedding(add_embeds)
+    return emb
+
+
 class UNet2DConditionModel(nn.Module):
     """forward(sample NCHW, timestep, encoder_hidden_states, added_cond=None,
     feats=None) -> noise prediction NCHW; requested taps land in ``feats``.
@@ -285,41 +306,34 @@ class UNet2DConditionModel(nn.Module):
         self.tap_site = TapSite(taps, '', ('unet-in', 'unet-after-conv-in', 'unet-out'))
 
     def forward(self, sample, timestep, encoder_hidden_states, added_cond=None, feats=None,
-                plain: bool = False):
+                plain: bool = False, down_block_additional_residuals=None,
+                mid_block_additional_residual=None):
         """``plain`` runs the JAX package's tap-free twin of the U-Net (DDIM
         inversion's forwards): no taps, no store, every attention on the
-        fused path."""
+        fused path.  The additional residuals are a ControlNet's: one per
+        skip, added to the skips (not to the mid block's input, as in
+        diffusers), and one added to the mid block's output."""
+        residuals = (down_block_additional_residuals, mid_block_additional_residual)
         if not plain:
-            return self._forward(sample, timestep, encoder_hidden_states, added_cond, feats)
+            return self._forward(sample, timestep, encoder_hidden_states, added_cond, feats,
+                                 *residuals)
         attns = [m for m in self.modules() if isinstance(m, Attention)]
         for m in attns:
             m.plain = True
         try:
-            return self._forward(sample, timestep, encoder_hidden_states, added_cond, None)
+            return self._forward(sample, timestep, encoder_hidden_states, added_cond, None,
+                                 *residuals)
         finally:
             for m in attns:
                 m.plain = False
 
-    def _forward(self, sample, timestep, encoder_hidden_states, added_cond, feats):
+    def _forward(self, sample, timestep, encoder_hidden_states, added_cond, feats,
+                 down_residuals=None, mid_residual=None):
         cfg = self.cfg
         dtype = self.conv_in.weight.dtype
         self.tap_site.put(feats, 'unet-in', sample)
         x = sample.to(dtype)
-        bsz = x.shape[0]
-
-        timesteps = torch.full((bsz,), float(timestep), dtype=torch.float32, device=x.device)
-        t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0],
-                                   flip_sin_to_cos=cfg.flip_sin_to_cos,
-                                   downscale_freq_shift=cfg.freq_shift).to(dtype)
-        emb = self.time_embedding(t_emb)
-        if cfg.addition_embed_type == 'text_time':
-            # SDXL micro-conditioning (reference diffusion_feature.py:324-354)
-            time_embeds = timestep_embedding(
-                added_cond['time_ids'].reshape(-1), cfg.addition_time_embed_dim,
-                flip_sin_to_cos=cfg.flip_sin_to_cos, downscale_freq_shift=cfg.freq_shift)
-            add_embeds = torch.cat([added_cond['text_embeds'].to(dtype),
-                                    time_embeds.reshape(bsz, -1).to(dtype)], dim=-1)
-            emb = emb + self.add_embedding(add_embeds)
+        emb = embed_time(self, cfg, timestep, added_cond, x)
         context = encoder_hidden_states.to(dtype)
 
         x = self.conv_in(x)
@@ -328,7 +342,11 @@ class UNet2DConditionModel(nn.Module):
         for blk in self.down_blocks:
             x, outs = blk(x, emb, context, feats)
             skips.extend(outs)
+        if down_residuals is not None:
+            skips = [s + r.to(s.dtype) for s, r in zip(skips, down_residuals)]
         x = self.mid_block(x, emb, context, feats)
+        if mid_residual is not None:
+            x = x + mid_residual.to(x.dtype)
         n = cfg.layers_per_block + 1
         for blk in self.up_blocks:
             block_skips, skips = skips[-n:], skips[:-n]

@@ -3,8 +3,6 @@ ROADMAP.md Queue A item that brings it."""
 
 #: Queue A items the port's messages cite, by title.
 QUEUE_A = {
-    'Generation and background extraction': 7,
-    'ControlNet and depth': 8,
     'DiT families': 9,
     'Multi-GPU': 11,
 }

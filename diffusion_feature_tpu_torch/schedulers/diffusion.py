@@ -38,6 +38,7 @@ class SchedulerState:
     num_inference_steps: int
     timesteps: np.ndarray                  # descending
     sigmas: Optional[np.ndarray] = None    # Euler: one per timestep, then 0
+    init_noise_sigma: float = 1.0          # generation's initial latent scale
     ets: tuple = ()                        # PLMS: the last 4 model outputs
     counter: int = 0
     cur_sample: Optional[torch.Tensor] = None
@@ -118,9 +119,13 @@ class EulerDiscreteScheduler(_Scheduler):
             timesteps += self.config.steps_offset
         else:
             raise NotImplementedError(f'timestep spacing {spacing!r} is not ported yet')
-        sigmas = np.interp(timesteps, np.arange(n), self._train_sigmas)
-        return SchedulerState(num_inference_steps, timesteps,
-                              np.concatenate([sigmas, [0.0]]).astype(np.float32))
+        sigmas = np.concatenate([np.interp(timesteps, np.arange(n), self._train_sigmas),
+                                 [0.0]]).astype(np.float32)
+        # diffusers scales the initial latents by the inference schedule's
+        # largest sigma: plain for linspace spacing, sqrt(max^2 + 1) otherwise
+        smax = float(sigmas.max())
+        init = smax if spacing == 'linspace' else float(np.sqrt(smax ** 2 + 1))
+        return SchedulerState(num_inference_steps, timesteps, sigmas, init_noise_sigma=init)
 
     def sigma_index(self, state: SchedulerState, timestep) -> int:
         return int(np.nonzero(np.isclose(state.timesteps, float(timestep)))[0][0])

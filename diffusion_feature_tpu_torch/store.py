@@ -1,8 +1,8 @@
 """Feature post-processing (port of ``diffusion_feature_tpu/store.py``): the
 reference's ``FeatureStore.store`` filter pipeline
 (feature/components/feature_extractor.py:31-77) as a function on tensors,
-and the attention store's aggregation (the JAX facade's
-``_aggregate_attention``)."""
+the attention store's aggregation (the JAX facade's
+``_aggregate_attention``) and background extraction's encounter filter."""
 
 from __future__ import annotations
 
@@ -78,3 +78,19 @@ def aggregate_attention(store: Dict[str, List[torch.Tensor]], categories: Sequen
         return None
     out = torch.cat(all_attns, dim=1)
     return out.to(out_dtype) if out_dtype else out
+
+
+def select_background_encounters(taps: Dict[str, object], store_idx) -> Dict[str, dict]:
+    """Background extraction's filter: per layer, the encounters whose
+    1-based index is in ``store_idx``, as {layer: {'feat': {idx: tensor},
+    'count': n}}, the reference's stored entry (feature_extractor.py:68-76).
+    A layer's value is a tuple of encounters (``sample``) or one tensor
+    (``extract``: the single encounter 1)."""
+    store_idx = set(store_idx)
+    out = {}
+    for tap_id, feats in taps.items():
+        if not isinstance(feats, tuple):
+            feats = (feats,)
+        out[tap_id] = {'feat': {i: f for i, f in enumerate(feats, start=1) if i in store_idx},
+                       'count': len(feats)}
+    return out

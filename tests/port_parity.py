@@ -59,10 +59,14 @@ def _draw(shapes, seed):
             return jnp.zeros(s.shape, s.dtype)
         if name == 'scale':
             return jnp.ones(s.shape, s.dtype)
-        if name == 'kernel':
+        if name == 'kernel' or name.endswith('_kernel'):
             fan_in = int(np.prod(s.shape[:-1]))
         elif name == 'embedding':
             fan_in = s.shape[-1]
+        elif name.endswith('_bias'):
+            return jnp.zeros(s.shape, s.dtype)
+        elif name in ('cls_token', 'position_embeddings'):   # the DPT's, ViT-sized
+            fan_in = 2500
         else:
             raise KeyError(f'no initialiser for parameter {jax.tree_util.keystr(path)}')
         return jnp.asarray(rs.randn(*s.shape).astype(np.float32) * fan_in ** -0.5)
@@ -107,6 +111,50 @@ def jax_noise(seed: int, lat_shape, call: int = 0):
         rng, step_rng = jax.random.split(rng)
     return tuple(torch.from_numpy(np.array(jax.random.normal(r, lat_shape, np.float32)))
                  for r in jax.random.split(step_rng))
+
+
+def jax_sample_noise(seed: int, lat_shape, call: int = 0):
+    """The initial latents' draw of a facade's ``sample`` number ``call``
+    (0 is the first, with no extract before it), as a torch tensor: one
+    split(rng) -> (rng, sample_rng) per call (facade.py:1551), then
+    split(sample_rng) -> (rng, r0) and an fp32 normal from r0 (:1761)."""
+    rng = jax.random.PRNGKey(seed)
+    for _ in range(call + 1):
+        rng, sample_rng = jax.random.split(rng)
+    _, r0 = jax.random.split(sample_rng)
+    return torch.from_numpy(np.array(jax.random.normal(r0, lat_shape, np.float32)))
+
+
+def jax_control(jfe, nets, seed: int = 0):
+    """Give the JAX facade ``jfe`` ControlNets, as ``control=`` builds them
+    (``ControlNetPipeline``), but with parameters drawn by ``_draw`` (zero
+    convs non-zero, as a trained checkpoint's) instead of the eager Flax
+    init: ``nets`` are (kind, preprocessor or None) pairs, net ``i``'s
+    parameters drawn from ``seed + i``."""
+    from diffusion_feature_tpu.models.controlnet import ControlNetPipeline, ControlNetSpec
+    spec = jfe.spec
+    pipe = ControlNetPipeline.__new__(ControlNetPipeline)
+    pipe.dtype, pipe.img_size = jfe.dtype, jfe.img_size
+    n_stages = max(1, (jfe.vae_scale - 1).bit_length())
+    cond_ch = ((16, 32, 96, 256) if n_stages == 3
+               else tuple([16] + [32 * 2 ** i for i in range(n_stages)]))
+    pipe.nets = [ControlNetSpec(kind, spec.unet, jfe.dtype, pre, cond_embed_channels=cond_ch)
+                 for kind, pre in nets]
+    lat = jfe.img_size // jfe.vae_scale
+    added = None
+    if spec.unet.addition_embed_type == 'text_time':
+        last = spec.text_encoders[-1]
+        added = {'text_embeds': jnp.zeros((1, last.projection_dim or last.hidden_size)),
+                 'time_ids': jnp.zeros((1, 6))}
+    args = (jnp.zeros((1, spec.unet.in_channels, lat, lat)), 50,
+            jnp.zeros((1, 77, spec.unet.cross_attention_dim)),
+            jnp.zeros((1, 3, jfe.img_size, jfe.img_size)), 1.0, added)
+    jfe.params['controlnet'] = [
+        _draw(jax.eval_shape(lambda n=net: n.model.init(jax.random.PRNGKey(0), *args)['params']),
+              seed + i)
+        for i, net in enumerate(pipe.nets)]
+    jfe.control_pipe = pipe
+    return pipe
 
 
 def assert_params_round_trip(tree, module):

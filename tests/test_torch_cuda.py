@@ -1,6 +1,7 @@
 """The Hopper attention kernels (flash B1, flash with logsumexp B2, head-mean
-B3, short attention B4) against their plain twins, on the card; and the
-checkpoint loader filling modules on the card.
+B3, short attention B4) against their plain twins, on the card; the
+checkpoint loader filling modules on the card; and generation and a
+ControlNet extract at a small size with their kernels against the twins.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU (the
 kernels have no CPU mode).  The file imports torch and the port only, so it
@@ -9,6 +10,9 @@ also runs where the JAX package's dependencies are missing:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
 
+import contextlib
+
+import numpy as np
 import pytest
 import torch
 
@@ -519,3 +523,85 @@ def test_vae_decoder_mid_attention_routes_to_b1(cuda, monkeypatch):
         ref = vae.decode(z)
     rel = ((img.float() - ref.float()).norm() / ref.float().norm()).item()
     assert rel <= _TOL[torch.bfloat16], rel
+
+
+@contextlib.contextmanager
+def _on_twins():
+    """Every kernel call of the attention ops on its plain twin."""
+    twins = {'flash_attention': fa.flash_attention_reference,
+             'flash_attention_with_lse': fa.flash_attention_with_lse_reference,
+             'headmean_probs': fa.headmean_probs_reference}
+    real = {name: getattr(attn, name) for name in twins}
+    for name, twin in twins.items():
+        setattr(attn, name, lambda *args, scale, _twin=twin: _twin(*args, scale))
+    try:
+        yield
+    finally:
+        for name, wrapper in real.items():
+            setattr(attn, name, wrapper)
+
+
+def _rel_l2(a, b):
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+@pytest.mark.cuda
+def test_sample_on_card_matches_twins(cuda):
+    """A 2-step SD-1.5 sample at 256² (3 PNDM calls, CFG batch 2): each
+    U-Net call launches B1 at the 1024-token level-0 self-attentions (2
+    down, 3 up; the VAE's d=512 head at 1024 tokens stays explicit), and the
+    images and every tap encounter agree with the same sample on the
+    twins (5e-2 relative L2: three forwards, as the multi-step tolerance)."""
+    layer = {'up-level3-repeat0-vit-block0-self-q': True, 'mid-vit-block0-out': True}
+    fe = FeatureExtractor(layer, '1-5', device=cuda, img_size=256, seed=0)
+    pe, ne, _, _ = fe.encode_prompt('a photo of a cat')
+    noise = torch.randn((1, 4, 32, 32), generator=torch.Generator(device=cuda).manual_seed(1),
+                        device=cuda)
+    fa.launches = 0
+    images, feats, _ = fe._sample(pe, ne, None, None, noise, 2, 7.5)
+    torch.cuda.synchronize()
+    assert fa.launches == 3 * 5
+    with _on_twins():
+        ref_images, ref, _ = fe._sample(pe, ne, None, None, noise, 2, 7.5)
+    assert images.shape == (1, 3, 256, 256) and torch.isfinite(images.float()).all()
+    assert _rel_l2(images, ref_images) <= 5e-2
+    for key, encounters in ref.items():
+        assert len(feats[key]) == len(encounters) == 3
+        for a, b in zip(feats[key], encounters):
+            assert a.shape[0] == 2 and _rel_l2(a, b) <= 5e-2, key
+
+
+@pytest.mark.cuda
+def test_control_extract_on_card_matches_twins(cuda):
+    """control=['canny'] on SD-1.5 at 256², zero convs drawn non-zero: the
+    U-Net's 5 B1 launches and the ControlNet's 2 (its level-0 copy), and
+    the features within 2e-2 relative L2 of the same step on the twins."""
+    from PIL import Image
+    layer = {'up-level3-repeat0-vit-block0-self-q': True, 'unet-out': True}
+    fe = FeatureExtractor(layer, '1-5', device=cuda, img_size=256, seed=0, control=['canny'])
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    with torch.no_grad():
+        for conv in fe.control_pipe.nets[0].model.zero_convs():
+            conv.weight.normal_(0.0, 0.02, generator=gen)
+    arr = np.kron(np.random.RandomState(3).randint(0, 256, (8, 8, 3)), np.ones((32, 32, 1)))
+    images = [Image.fromarray(arr.astype(np.uint8))]
+    img = torch.from_numpy(fe.preprocess_image(images[0])).to(cuda, fe.dtype)
+    control = fe.control_pipe.prepare_control_images(images, 1)
+    pe = fe.encode_prompt('a photo of a cat')[0]
+    posterior, noise = (torch.randn((1, 4, 32, 32), generator=gen, device=cuda) for _ in range(2))
+
+    def step():
+        return fe._step(img, pe, None, fe._img2img_kit(50), posterior, noise, torch.bfloat16,
+                        control)
+    fa.launches = 0
+    feats = step()
+    torch.cuda.synchronize()
+    assert fa.launches == 5 + 2
+    with _on_twins():
+        ref = step()
+    plain = fe._step(img, pe, None, fe._img2img_kit(50), posterior, noise, torch.bfloat16)
+    for key in layer:
+        assert torch.isfinite(feats[key].float()).all()
+        assert _rel_l2(feats[key], ref[key]) <= 2e-2, key
+    assert _rel_l2(plain['unet-out'], feats['unet-out']) > 2e-2

@@ -409,7 +409,7 @@ def test_loaded_extractor_equals_random_init_source(xl_tree):
 def test_weights_build_no_random_init(sd_checkpoint, monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError('random init with weights=')
-    monkeypatch.setattr(port_facade, '_random_module', refuse)
+    monkeypatch.setattr(port_facade, 'random_module', refuse)
     fe = FeatureExtractor(LAYERS, 'test-sd', device='cpu', dtype='float32', img_size=SIZE,
                           weights=sd_checkpoint)
     assert set(fe.load_stats) == {'unet', 'vae', 'text_encoder'}

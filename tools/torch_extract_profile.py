@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where one extract of the PyTorch port spends its time on the card.
+"""Where one extract (or one sample) of the PyTorch port spends its time on
+the card.
 
-    python3 tools/torch_extract_profile.py
+    python3 tools/torch_extract_profile.py [NAME ...]
 
 For each of the paths ``chip_smoke.py`` drives (``chip_smoke.PATHS``),
 after ``chip_smoke.extract_times``'s three warm-up calls: the median host
@@ -10,13 +11,22 @@ it over ``chip_smoke.TIMED_CALLS`` calls, then one extract under
 ``torch.profiler`` with the device kernels summed by kind (flash and
 head-mean kernels, matrix products, convolutions and their layout
 transposes, normalisations, resizes, the rest, with the rest's largest
-kernels by name).  Prints one JSON line per path.
+kernels by name).  The same for chip_smoke's generation and ControlNet
+paths: ``sd15-gen`` (the generate_with_extraction defaults) and ``xl-gen``
+(phase 12b's sample) after one warm-up sample, over 3 samples;
+``sd15-control`` (phase 13's extract, from a random tree written to a
+temporary dir).  NAMEs pick paths (default: all).  Prints one JSON line
+per path, with the profiled call's peak memory above what was allocated
+before it.  Convolutions run as PyTorch sets them by default (cuDNN may
+use TF32), unlike chip_smoke.py, which turns TF32 off.
 """
 
 import json
 import os
 import re
 import sys
+import tempfile
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
@@ -41,6 +51,64 @@ def kind_of(name: str) -> str:
     return 'elementwise/other'
 
 
+OTHER_PATHS = ('sd15-gen', 'xl-gen', 'sd15-control')
+
+
+def open_extract(torch, name):
+    """(extractor, one extract, host ms, device ms) of a chip_smoke path."""
+    fe, prompts, images = chip_smoke.open_path(torch, name)
+    kwargs = chip_smoke.PATHS[name].get('extract', {})
+    host, device = chip_smoke.extract_times(torch, fe, prompts, images, chip_smoke.TIMED_CALLS,
+                                            **kwargs)
+    return fe, lambda: chip_smoke.extract(fe, prompts, images, **kwargs), host, device
+
+
+def open_other(torch, name, tmp):
+    """The same for the generation and ControlNet paths; ``tmp`` holds the
+    ControlNet path's tree."""
+    from diffusion_feature_tpu_torch import FeatureExtractor, generate_with_extraction
+    args = generate_with_extraction.build_parser().parse_args([])
+    if name == 'sd15-control':
+        src = FeatureExtractor(args.layer, args.version, img_size=args.img_size, seed=0)
+        chip_smoke.write_control_tree(torch, src, tmp)
+        del src
+        fe = FeatureExtractor(**chip_smoke.CONTROL_ARGS, weights=tmp, seed=0,
+                              control=list(chip_smoke.CONTROL_KINDS))
+        prompts = fe.encode_prompt('a photo of a cat')
+        size = fe.img_size
+        images = torch.rand(2, 3, size, size, generator=torch.Generator(device='cuda')
+                            .manual_seed(1), device='cuda') * 2 - 1
+        host, device = chip_smoke.extract_times(torch, fe, prompts, images, chip_smoke.TIMED_CALLS,
+                                                use_control=True)
+        return (fe, lambda: chip_smoke.extract(fe, prompts, images, use_control=True), host,
+                device)
+    if name == 'sd15-gen':
+        fe = FeatureExtractor(args.layer, args.version, img_size=args.img_size, seed=0)
+        steps, guidance = args.steps, args.guidance_scale
+    else:
+        fe = FeatureExtractor(**chip_smoke.XL_SAMPLE, seed=0)
+        steps, guidance = chip_smoke.XL_SAMPLE_STEPS, chip_smoke.XL_GUIDANCE
+    prompts = fe.encode_prompt(args.prompt)
+    lat = fe.img_size // fe.vae_scale
+    noise = torch.randn((1, 4, lat, lat), generator=torch.Generator(device='cuda').manual_seed(7),
+                        device='cuda')
+
+    def run():
+        return fe._sample(*prompts, noise, steps, guidance)
+    run()
+    host, device = [], []
+    for _ in range(3):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        run()
+        stop.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        device.append(start.elapsed_time(stop))
+    return fe, run, sorted(host), sorted(device)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -50,15 +118,19 @@ def main() -> int:
 
     fa.build()
     card = chip_smoke.card_line()
-    for name in chip_smoke.PATHS:
-        fe, prompts, images = chip_smoke.open_path(torch, name)
-        kwargs = chip_smoke.PATHS[name].get('extract', {})
-        host, device = chip_smoke.extract_times(torch, fe, prompts, images,
-                                                chip_smoke.TIMED_CALLS, **kwargs)
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            chip_smoke.extract(fe, prompts, images, **kwargs)
+    names = sys.argv[1:] or [*chip_smoke.PATHS, *OTHER_PATHS]
+    for name in names:
+        with tempfile.TemporaryDirectory() as tmp:
+            fe, run, host, device = open_other(torch, name, tmp) if name in OTHER_PATHS \
+                else open_extract(torch, name)
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            with torch.profiler.profile(activities=acts) as prof:
+                run()
+                torch.cuda.synchronize()
+            peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
         kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         by_kind, other, busy_us = {}, {}, 0.0
         for e in kernels:
@@ -77,7 +149,7 @@ def main() -> int:
             'host_enqueue_ms_median': host[len(host) // 2],
             'extract_ms_median': device[len(device) // 2],
             'profiled_kernels': len(kernels), 'device_busy_ms': busy_us / 1e3,
-            'device_span_ms': span_us / 1e3,
+            'device_span_ms': span_us / 1e3, 'peak_gib_above_held': peak_gib,
             'by_kind_ms_count': {k: [round(v[0], 3), v[1]] for k, v in
                                  sorted(by_kind.items(), key=lambda kv: -kv[1][0])},
             'top_other_ms': {k: round(v, 3) for k, v in
