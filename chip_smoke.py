@@ -98,7 +98,26 @@ Phases (each prints its numbers on lines of its own):
      memory; the host time of canny_edges and of the DPT estimator per
      512^2 image (and the DPT forward on the card); then the CLI with
      --weights and --control canny depth over three seeded 512^2 images:
-     36 B1 launches and the .npy tree.
+     36 B1 launches and the .npy tree;
+ 14. PixArt (after 13), random weights from seed 0, bf16, batch 2, t=50,
+     the JAX benchmark's DiT taps (vit-block13-out, vit-block20-out,
+     vit-block20-cross-q, vit-block27-out): (a) pixart-sigma at 1024^2
+     (28 blocks of 16 heads x 72 over 4096 tokens, T5-XXL over 300
+     tokens): 29 B1 launches (the 28 self-attentions and the SDXL VAE's
+     d=512 head), (b) the same with attention=['up_cross', 'up_self']:
+     1/28/28 and 'attn' (2, 300 + 4096, 128, 128), (c) pixart-alpha at
+     512^2: 28 B1; each with its features, the same step on the twins
+     within TAP_REL_TOL and its timing; (d) (a)'s extractor written by
+     save_weights (T5-XXL in 4 shards, ~11 GB in all) and loaded back:
+     parameters, prompts and the first public extract torch.equal, load
+     GB/s, load peak within LOAD_PEAK_RATIO; (e) the CLI on that tree
+     over 3 images (58 B1); (f) generate_with_extraction on pixart-alpha
+     at 512^2 with the DiT taps and its defaults (50 DPM-Solver steps,
+     guidance 7.5, calls 1/10/20/30/40 kept): 1400 B1, the sample timed,
+     then a 4-step sample on the kernels and on the twins within
+     MULTISTEP_REL_TOL.  The counts come from the config through the JAX
+     package's gate, with no head-width condition (dit_launches), so a
+     width the card's kernels lack fails them.
 Phase 2 also holds B2 and B3 in fp32 at phase 11's store shape (the fp32
 kernels, timed against the fp32 non-tensor peak), and B4 (short
 attention), which no path routes to, as in the JAX package: against its
@@ -107,6 +126,9 @@ bands of SD-1.5 and SDXL at 512^2, the JAX docstring's measured (16, 20,
 256, {256, 77}, 64) and a ragged shape, on contiguous tensors and on
 head-split views, with its time beside B1's, SDPA's and the explicit
 path's there, all (its twin too) timed as CUDA graphs of 20 calls.
+Phase 2's shapes include PixArt's d=72 self-attention at 4096 and 1024
+tokens for B1, B2 and B3 (and B4 at 256 tokens, with d=72 in its width
+tuple), with ragged head-split d=72 shapes (a 144-byte head stride).
 Every path runs with all four counts set to 0 and expects 0 B4 launches.
 Launches are recorded with their dtype, and the kernels line sums each
 (shape, dtype)'s numbers.
@@ -136,21 +158,28 @@ B1_SHAPES = [
     (2, 8, 4096, 4096, 40),     # SD-1.5 U-Net level-0 self-attention @512^2
     (2, 8, 1024, 1024, 80),     # SD-1.5 U-Net level-1 self-attention @512^2
     (2, 8, 1024, 1024, 160),    # SD-1.5 U-Net level-2 self-attention @1024^2
+    (2, 16, 4096, 4096, 72),    # PixArt-Sigma DiT self-attention @1024^2
+    (2, 16, 1024, 1024, 72),    # PixArt-alpha DiT self-attention @512^2
 ]
 STORE_SHAPES = [                # B2 and B3: the attention store's self-attentions
     (2, 8, 1024, 1024, 80),     # path A: SD-1.5 up-level2
     (2, 20, 1024, 1024, 64),    # path B: SDXL up-level0
     (2, 10, 4096, 4096, 64),    # path B: SDXL up-level1
+    (2, 16, 4096, 4096, 72),    # phase 14b: PixArt-Sigma's blocks @1024^2
+    (2, 16, 1024, 1024, 72),    # PixArt @512^2
 ]
 # phase 11: SD-2.1's upcast store hands B2 and B3 fp32 q, k and v
 FP32_STORE_SHAPES = [(2, 10, 1024, 1024, 64)]   # SD-2.1 up-level2 @512^2
 RAGGED = (1, 2, 1000, 333, 64)
 # B1/B2/B3 on head-split views: ragged lengths at d=40 (TMA zero-fills the
-# columns up to the mma depth) and at d=512 (B1 only: one score pass over
-# two consumer warpgroups)
-SPLIT_RAGGED = {'flash_attention': [RAGGED, (1, 2, 1000, 333, 40), (1, 1, 1000, 777, 512)],
-                'flash_attention_with_lse': [RAGGED, (1, 2, 1000, 333, 40)],
-                'headmean_probs': [RAGGED, (1, 2, 1000, 333, 40)]}
+# columns up to the mma depth), at d=72 (144-byte head stride; zero fill up
+# to depth 80, the epilogue stops at column 72) and at d=512 (B1 only: one
+# score pass over two consumer warpgroups)
+SPLIT_RAGGED = {'flash_attention': [RAGGED, (1, 2, 1000, 333, 40), (1, 16, 1000, 333, 72),
+                                    (1, 1, 1000, 777, 512)],
+                'flash_attention_with_lse': [RAGGED, (1, 2, 1000, 333, 40),
+                                             (1, 16, 1000, 333, 72)],
+                'headmean_probs': [RAGGED, (1, 2, 1000, 333, 40), (1, 16, 1000, 333, 72)]}
 SHORT_SHAPES = [                # B4: the short-sequence bands (no path launches it)
     (2, 8, 256, 256, 160),      # SD-1.5 @512^2 level-2 self-attention
     (2, 8, 256, 77, 160),       # and its cross-attention
@@ -158,6 +187,7 @@ SHORT_SHAPES = [                # B4: the short-sequence bands (no path launches
     (2, 20, 256, 77, 64),       # and its cross-attention
     (16, 20, 256, 256, 64),     # the JAX docstring's measured shapes
     (16, 20, 256, 77, 64),
+    (2, 16, 256, 256, 72),      # PixArt's heads at 256^2 (d=72 shares B4's width tuple)
 ]
 SHORT_RAGGED = (1, 2, 200, 333, 64)
 # bf16: the output is rounded to bf16 and fp32 sums run in another order;
@@ -183,6 +213,8 @@ AMALGAMATION_15 = {  # tap id -> shape at 512^2, batch 2, plus the store
     'attn': (2, 77 + 77 + 256 + 1024, 64, 64),
 }
 XL_STORE = {**XL_PRACTICAL, 'attn': (2, 1024 + 4096, 128, 128)}
+DIT_TAPS = dict.fromkeys(('vit-block13-out', 'vit-block20-out', 'vit-block20-cross-q',
+                          'vit-block27-out'), True)
 # the paths phases 3 to 6 and 9 to 11 drive, at random weights from seed 0,
 # bf16, batch 2, t=50: FeatureExtractor's arguments, extract's arguments
 # beyond t (none: the single step), the B1/B2/B3 launches of one extract,
@@ -210,6 +242,17 @@ PATHS = {
     'sd21_store': {'args': dict(layer='15-amalgamation', version='2-1', img_size=512,
                                 attention=['up_cross', 'up_self']),
                    'launches': (7, 3, 3), 'feats': AMALGAMATION_15},
+    # phase 14, PixArt: the JAX benchmark's DiT taps (bench.py:203-208); the
+    # launches come from the config through the gate (dit_launches)
+    'pixart_sigma': {'args': dict(layer=DIT_TAPS, version='pixart-sigma', img_size=1024),
+                     'launches': None, 'feats': dict.fromkeys(DIT_TAPS, (2, 1152, 64, 64))},
+    'pixart_sigma_store': {'args': dict(layer=DIT_TAPS, version='pixart-sigma', img_size=1024,
+                                        attention=['up_cross', 'up_self']),
+                           'launches': None,
+                           'feats': {**dict.fromkeys(DIT_TAPS, (2, 1152, 64, 64)),
+                                     'attn': (2, 300 + 4096, 128, 128)}},
+    'pixart_alpha': {'args': dict(layer=DIT_TAPS, version='pixart-alpha', img_size=512),
+                     'launches': None, 'feats': dict.fromkeys(DIT_TAPS, (2, 1152, 32, 32))},
 }
 # phase 11's DDIM inversion extract: 5 inverted steps (timesteps 11 to 51,
 # the first >= 49) through the plain U-Net, 10 B1 each, then the last forward
@@ -263,6 +306,13 @@ CONTROL_ARGS = dict(layer='15-amalgamation', version='1-5', img_size=512)
 CONTROL_KINDS = ('canny', 'depth')
 CONTROL_FEATS = {k: v for k, v in AMALGAMATION_15.items() if k != 'attn'}
 CONTROL_CLI_IMAGES = 3
+# phase 14: PixArt.  (d) pixart-sigma's random tree, T5-XXL (~9.5 GB in
+# bf16) in PIXART_TEXT_SHARDS files; (e) the CLI on it over CLI_IMAGES;
+# (f) the generation CLI on pixart-alpha 512^2 with the DiT taps, its other
+# flags at their defaults, then a TWIN_SAMPLE_STEPS sample on the twins
+PIXART_TREE_PATH, PIXART_TEXT_SHARDS = 'pixart_sigma', 4
+PIXART_GEN_ARGS = ['--version', 'pixart-alpha', '--img_size', '512', '--layer',
+                   json.dumps(DIT_TAPS)]
 
 
 def card_line() -> str:
@@ -559,16 +609,19 @@ def injected_step(torch, fe, prompts, images, denoising_from=None, use_ddim_inve
     ``fe._multistep``) at t=50 on standard-normal noise drawn from seed 2."""
     bsz = images.shape[0]
     pe = prompts[0].expand(bsz, -1, -1)
-    pooled = None if prompts[2] is None else prompts[2].expand(bsz, -1)
+    # PixArt's prompts are (embeds, mask, negative embeds, negative mask)
+    pixart = fe.spec.family == 'pixart'
+    pooled = None if pixart or prompts[2] is None else prompts[2].expand(bsz, -1)
+    mask = prompts[1].expand(bsz, -1) if pixart else None
     lat = fe.img_size // fe.vae_scale
     gen = torch.Generator(device='cuda').manual_seed(2)
     posterior, noise = (torch.randn((bsz, 4, lat, lat), generator=gen, device='cuda')
                         for _ in range(2))
     if denoising_from is None and not use_ddim_inversion:
         return fe._step(images.to(fe.dtype), pe, pooled, fe._img2img_kit(50), posterior, noise,
-                        torch.bfloat16)
+                        torch.bfloat16, mask=mask)
     return fe._multistep(images.to(fe.dtype), pe, pooled, 50, denoising_from,
-                         use_ddim_inversion, posterior, noise, torch.bfloat16)
+                         use_ddim_inversion, posterior, noise, torch.bfloat16, mask=mask)
 
 
 def check_twin_step(torch, fe, attn_ops, fa, prompts, images, keys, label, tol=TAP_REL_TOL,
@@ -738,12 +791,12 @@ def module_pairs(a, b):
               for i, (x, y) in enumerate(zip(a.text_encoders, b.text_encoders)))]
 
 
-def rates(stats, verb, card):
+def rates(stats, verb, card, phase='8'):
     for comp, (nbytes, seconds) in stats.items():
         print(f'  {verb} {comp}: {nbytes / 1e9:.3f} GB in {seconds:.3f} s, '
               f'{nbytes / 1e9 / seconds:.3f} GB/s ({card})')
     nbytes, seconds = (sum(v[i] for v in stats.values()) for i in (0, 1))
-    print(f'phase 8 {verb} total: {nbytes / 1e9:.3f} GB in {seconds:.3f} s, '
+    print(f'phase {phase} {verb} total: {nbytes / 1e9:.3f} GB in {seconds:.3f} s, '
           f'{nbytes / 1e9 / seconds:.3f} GB/s ({card})', flush=True)
 
 
@@ -890,6 +943,27 @@ def vae_b1(fa, cfg, latent: int) -> int:
     return int(fa.is_flash_compatible((1, 1, latent ** 2, d), (1, 1, latent ** 2, d)))
 
 
+def dit_launches(fa, fe) -> dict:
+    """The four launch counts of one PixArt extract, derived from the config
+    through the JAX package's gate (no head-width condition: a width the
+    card's kernels lack then fails the count instead of moving the
+    self-attentions to the explicit path unseen): each block's
+    self-attention on B1, or with the store's 'up_self' in its band on B2
+    and B3 (cross-attention carries the T5 mask: explicit), and the VAE
+    encoder's mid head."""
+    cfg = fe.spec.dit
+    latent = fe.img_size // fe.vae_scale
+    tokens = (latent // cfg.patch_size) ** 2
+    shape = (1, cfg.num_attention_heads, tokens, cfg.attention_head_dim)
+    store = ('up_self' in (fe.attention or ())
+             and fe._attn_sizes[0] ** 2 <= tokens <= fe._attn_sizes[1] ** 2)
+    flash = cfg.num_layers * fa.is_flash_compatible(shape, shape, head_dims=None)
+    lse = cfg.num_layers * fa.is_flash_compatible(shape, shape, 512, head_dims=None)
+    return {'flash_attention': (0 if store else flash) + vae_b1(fa, fe.spec.vae, latent),
+            'flash_attention_with_lse': lse if store else 0,
+            'headmean_probs': lse if store else 0, 'short_attention': 0}
+
+
 def only_b1(b1):
     """The four launch counts of a path that launches ``b1`` B1 kernels and
     nothing else."""
@@ -914,15 +988,16 @@ def peak_above(torch, fn):
     return out, (torch.cuda.max_memory_allocated() - base) / 2 ** 30, base / 2 ** 30
 
 
-def timed_sample(torch, fe, prompts, noise, steps, guidance):
-    """``fe._sample`` on ``noise`` with CUDA events around it; returns
-    (images, features, latents, ms, the call's peak memory in GiB above what
-    was allocated before it, GiB allocated before it)."""
+def timed_sample(torch, fe, prompts, noise, steps, guidance, mask=None):
+    """``fe._sample`` on ``noise`` (PixArt's with the CFG ``mask``) with
+    CUDA events around it; returns (images, features, latents, ms, the
+    call's peak memory in GiB above what was allocated before it, GiB
+    allocated before it)."""
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
     def run():
         start.record()
-        out = fe._sample(*prompts, noise, steps, guidance)
+        out = fe._sample(*prompts, noise, steps, guidance, mask)
         stop.record()
         return out
     out, peak, base = peak_above(torch, run)
@@ -1219,6 +1294,210 @@ def check_control(torch, fa, attn_ops, card, fe15, shapes, runs):
                 print(f'  {layer}: {len(names)} x {arr.shape} float16 finite')
 
 
+def open_pixart(torch, name):
+    """``open_path`` of a PixArt path with its build's peak memory in GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    fe, prompts, images = open_path(torch, name)
+    torch.cuda.synchronize()
+    gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    print(f'phase 14 {name} build + encode_prompt: {time.perf_counter() - t0:.1f} s, peak '
+          f'{gib:.3f} GiB; prompt_embeds {tuple(prompts[0].shape)}, mask '
+          f'{tuple(prompts[1].shape)} {prompts[1].dtype} with {int(prompts[1].sum())} tokens',
+          flush=True)
+    return fe, prompts, images, gib
+
+
+def check_pixart_path(torch, fa, attn_ops, card, name, shapes, runs, label):
+    """Phase 14 (a) to (c): one PixArt path's extract with exact launch
+    counts, its features, the same step on the twins and its timing;
+    returns (extractor, prompts, images, first features, build GiB)."""
+    fe, prompts, images, gib = open_pixart(torch, name)
+    path = PATHS[name]
+    want = dit_launches(fa, fe)
+    feats, runs[name], shapes[name] = drive_path(torch, fa, attn_ops, fe, prompts, images, want,
+                                                 label)
+    check_feats(torch, feats, path['feats'], label)
+    check_twin_step(torch, fe, attn_ops, fa, prompts, images, path['feats'], label)
+    size = path['args']['img_size']
+    time_extract(torch, fe, prompts, images, f'{label} {name} extract {size}^2 batch 2', card)
+    return fe, prompts, images, feats, gib
+
+
+def check_pixart_tree(torch, fa, attn_ops, card, fe, prompts, images, first_feats, build_gib,
+                      tree, shapes, runs):
+    """Phase 14 (d) and (e): ``fe`` (pixart-sigma at random) written by
+    ``save_weights`` and loaded back, parameters and first extract
+    ``torch.equal``, then the CLI over three images on the tree."""
+    import numpy as np
+    from diffusion_feature_tpu_torch import FeatureExtractor
+    from diffusion_feature_tpu_torch.enumerate_layers import enumerate_layers
+    args = PATHS[PIXART_TREE_PATH]['args']
+    written = fe.save_weights(tree, text_shards=PIXART_TEXT_SHARDS)
+    files = sorted(os.path.relpath(os.path.join(d, f), tree)
+                   for d, _, names in os.walk(tree) for f in names)
+    print(f'phase 14d tree of {sum(n for n, _ in written.values())} bytes: {files}')
+    rates(written, 'write', card, '14d')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    loaded = FeatureExtractor(**args, dtype='bfloat16', device='cuda', seed=0, weights=tree)
+    loaded_prompts = loaded.encode_prompt('a photo of a cat')
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    rates(loaded.load_stats, 'load', card, '14d')
+    print(f'phase 14d build from the tree + encode_prompt: {seconds:.1f} s; peak memory '
+          f'{peak:.3f} GiB while loading vs {build_gib:.3f} GiB for the random-init build '
+          f'(ratio {peak / build_gib:.4f}, allowed {LOAD_PEAK_RATIO}) ({card})', flush=True)
+    if peak > LOAD_PEAK_RATIO * build_gib:
+        raise RuntimeError(f'phase 14d: load peak {peak:.3f} GiB over {LOAD_PEAK_RATIO} x '
+                           f'{build_gib:.3f} GiB')
+    for name, a, b in module_pairs(fe, loaded):
+        sa, sb = a.state_dict(), b.state_dict()
+        bad = [k for k in sa if k not in sb or not torch.equal(sa[k], sb[k])]
+        if bad or sa.keys() != sb.keys():
+            raise RuntimeError(f'phase 14d {name}: parameters differ from the source: {bad[:5]}')
+        print(f'  {name}: {len(sa)} parameters torch.equal to the source')
+    if not all(torch.equal(a, b) for a, b in zip(prompts, loaded_prompts)):
+        raise RuntimeError('phase 14d: encode_prompt differs from the source')
+    feats, runs['pixart_loaded'], shapes['pixart_loaded'] = drive_path(
+        torch, fa, attn_ops, loaded, loaded_prompts, images, dit_launches(fa, loaded),
+        'phase 14d loaded')
+    assert_equal_feats(torch, feats, first_feats, 'phase 14d first public extract vs the source')
+    want = dit_launches(fa, loaded)
+    del loaded, feats
+    torch.cuda.empty_cache()
+
+    # (e) the CLI on the tree, over three images in batches of 2 and 1
+    size = args['img_size']
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        write_images(CLI_IMAGES, size)
+        shapes['pixart_cli'] = []
+        with patched_wrappers(attn_ops, recording(shapes['pixart_cli'])):
+            reset_counts(fa)
+            seconds, lines = run_cli([
+                '--version', args['version'], '--img_size', str(size), '--layer',
+                json.dumps(args['layer']), '--batch_size', '2', '--prompt', 'a photo of a cat',
+                '--input_dir', 'imgs/*.png', '--output_dir', 'out', '--weights', tree])
+            torch.cuda.synchronize()
+            runs['pixart_cli'] = read_counts(fa)
+        batches = -(-CLI_IMAGES // 2)
+        want = {k: batches * v for k, v in want.items()}
+        rate = [line for line in lines if line.endswith('img/s)')]
+        print(f'phase 14e cli {args["version"]} {size}^2 on the tree: {seconds:.1f} s for '
+              f'main() (model build included), {rate[0]}; kernel launches {runs["pixart_cli"]} '
+              f'(expected {want}) ({card})', flush=True)
+        if runs['pixart_cli'] != want:
+            raise RuntimeError(f'phase 14e: launches {runs["pixart_cli"]} != {want}')
+        enumerated = enumerate_layers(args['version'], size)
+        layers = sorted(os.listdir('out'))
+        if layers != sorted(DIT_TAPS):
+            raise RuntimeError(f'phase 14e: layer dirs {layers}')
+        for layer in layers:
+            names = sorted(os.listdir(os.path.join('out', layer)))
+            if names != [f'train{i}.npy' for i in range(CLI_IMAGES)]:
+                raise RuntimeError(f'phase 14e {layer}: files {names}')
+            for name in names:
+                arr = np.load(os.path.join('out', layer, name))
+                if (arr.shape != enumerated[layer][1:] or arr.dtype != np.float16
+                        or not np.isfinite(arr).all()):
+                    raise RuntimeError(f'phase 14e {layer}/{name}: {arr.shape} {arr.dtype}')
+            print(f'  {layer}: {len(names)} x {arr.shape} float16 finite')
+
+
+def check_pixart_generation(torch, fa, attn_ops, card, shapes, runs):
+    """Phase 14 (f): the generation CLI on pixart-alpha, then a short
+    sample on the kernels and on the twins."""
+    from PIL import Image
+    from diffusion_feature_tpu_torch import generate_with_extraction
+    args = generate_with_extraction.build_parser().parse_args(PIXART_GEN_ARGS)
+    shapes['pixart_gen'] = []
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        out = io.StringIO()
+        with patched_wrappers(attn_ops, recording(shapes['pixart_gen'])):
+            reset_counts(fa)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                fe = generate_with_extraction.main(PIXART_GEN_ARGS)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            runs['pixart_gen'] = read_counts(fa)
+        size = Image.open(args.output).size
+    calls = len(fe.scheduler.set_timesteps(args.steps).timesteps)
+    latent = fe.img_size // fe.vae_scale
+    per_call = dit_launches(fa, fe)['flash_attention'] - vae_b1(fa, fe.spec.vae, latent)
+    want = only_b1(calls * per_call + vae_b1(fa, fe.spec.vae, latent))
+    lines = out.getvalue().splitlines()
+    print(f'phase 14f generate_with_extraction {" ".join(PIXART_GEN_ARGS[:4])} (steps '
+          f'{args.steps}, guidance {args.guidance_scale}, store_steps {args.store_steps}): '
+          f'{seconds:.1f} s for main() (model build included), image {size}; {calls} DiT calls '
+          f'x {per_call} B1 + decoder; kernel launches {runs["pixart_gen"]} (expected {want}) '
+          f'({card})', flush=True)
+    if runs['pixart_gen'] != want or size != (args.img_size, args.img_size):
+        raise RuntimeError(f'phase 14f: launches {runs["pixart_gen"]} or image {size}')
+    kept = fe.get_background_extraction()
+    for layer, by_step in sorted(kept.items()):
+        bad = [i for i, v in by_step.items()
+               if v.shape[0] != 2 or not bool(torch.isfinite(v.float()).all())]
+        print(f'  {layer}: kept {sorted(by_step)} of {fe._background_feats[layer]["count"]}, '
+              f'{tuple(by_step[1].shape)} {by_step[1].dtype}')
+        if sorted(by_step) != sorted(args.store_steps) or bad:
+            raise RuntimeError(f'phase 14f {layer}: kept {sorted(by_step)}, bad {bad}')
+    if set(kept) != set(DIT_TAPS):
+        raise RuntimeError(f'phase 14f: kept layers {sorted(kept)}')
+    pe, mask, ne, nmask = fe.encode_prompt(args.prompt)
+    noise = torch.randn((1, 4, latent, latent),
+                        generator=torch.Generator(device='cuda').manual_seed(7), device='cuda')
+    cfg_mask = torch.cat([nmask, mask])
+    *_, ms, gib, base = timed_sample(torch, fe, (pe, ne, None, None), noise, args.steps,
+                                     args.guidance_scale, cfg_mask)
+    print(f'phase 14f pixart-alpha sample timed: {ms:.2f} ms per sample, {ms / calls:.2f} ms per '
+          f'step ({calls} DiT calls at CFG batch 2 and the decode); peak memory {gib:.2f} GiB '
+          f'above the {base:.2f} GiB held before it ({card})', flush=True)
+    run = (pe, ne, None, None, noise, TWIN_SAMPLE_STEPS, args.guidance_scale, cfg_mask)
+    with_kernel = fe._sample(*run)
+    with patched_wrappers(attn_ops, twin_of(fa)):
+        with_twin = fe._sample(*run)
+    pairs = [('images', with_kernel[0], with_twin[0])]
+    pairs += [(f'{k} call {i + 1}', a, b) for k in with_twin[1]
+              for i, (a, b) in enumerate(zip(with_kernel[1][k], with_twin[1][k]))]
+    worst = max(rel_cos(a, b)[0] for _, a, b in pairs)
+    print(f'phase 14f pixart-alpha sample, {TWIN_SAMPLE_STEPS} steps, kernel vs twin: images and '
+          f'{len(pairs) - 1} tap encounters, worst rel_l2={worst:.3e} (allowed '
+          f'{MULTISTEP_REL_TOL:g})', flush=True)
+    if not worst <= MULTISTEP_REL_TOL:
+        raise RuntimeError(f'phase 14f: kernel vs twin {worst}')
+    del fe, with_kernel, with_twin
+    torch.cuda.empty_cache()
+
+
+def check_pixart(torch, fa, attn_ops, card, shapes, runs):
+    """Phase 14: PixArt-Sigma 1024^2 (a), with the store (b), PixArt-alpha
+    512^2 (c), Sigma's tree written and loaded (d), the CLI on it (e), the
+    generation CLI and a kernel-vs-twin sample on PixArt-alpha (f).  Each
+    extractor is freed before the next is built (T5-XXL is ~9.5 GB)."""
+    fe, prompts, images, first, gib = check_pixart_path(
+        torch, fa, attn_ops, card, 'pixart_sigma', shapes, runs, 'phase 14a')
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_pixart_') as tree:
+        check_pixart_tree(torch, fa, attn_ops, card, fe, prompts, images, first, gib, tree,
+                          shapes, runs)
+    del fe, first
+    torch.cuda.empty_cache()
+    for name, label in (('pixart_sigma_store', 'phase 14b'), ('pixart_alpha', 'phase 14c')):
+        fe, *_ = check_pixart_path(torch, fa, attn_ops, card, name, shapes, runs, label)
+        if name == 'pixart_sigma_store':
+            gib = sum(s[0] * s[2] * s[3] * 2 for n, s, _ in shapes[name]
+                      if n == 'headmean_probs') / 2 ** 30
+            print(f'  phase 14b head-mean maps from B3 kept by the store: {gib:.3f} GiB (bf16)')
+        del fe, _
+        torch.cuda.empty_cache()
+    check_pixart_generation(torch, fa, attn_ops, card, shapes, runs)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1277,7 +1556,8 @@ def main() -> int:
                           ('flash_attention', SPLIT_RAGGED['flash_attention'][-1]),
                           ('flash_attention_with_lse', STORE_SHAPES[1]),
                           ('headmean_probs', STORE_SHAPES[2]),
-                          ('short_attention', SHORT_SHAPES[4])):
+                          ('short_attention', SHORT_SHAPES[4]),
+                          ('flash_attention', B1_SHAPES[-1])):
         compare(torch, fa, kernel, shape, 'float16', gen, split=True)
     # the fp32 store kernels at the shape SD-2.1's upcast hands them (phase 11)
     for kernel in ('flash_attention_with_lse', 'headmean_probs'):
@@ -1356,6 +1636,9 @@ def main() -> int:
     check_control(torch, fa, attn_ops, card, fe15, shapes, runs)
     del fe15
     torch.cuda.empty_cache()
+
+    # 14. PixArt
+    check_pixart(torch, fa, attn_ops, card, shapes, runs)
 
     # the kernels line: per kernel, the launches of every path and the sum
     # over those launches of each (shape, dtype)'s numbers from phase 2 (one

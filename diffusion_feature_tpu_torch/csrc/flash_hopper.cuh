@@ -29,8 +29,11 @@
 //   place, and CUDA graphs capture them.  Tiles are 64 columns wide (128
 //   bytes) in the 128-byte swizzle wgmma's descriptors expect; a wider head
 //   is several such "atoms".  Rows past S and columns past D (d=40 up to
-//   the mma depth 48, d=80 and d=160 up to the next atom) are zero-filled by
-//   TMA; keys past Sk are masked to -inf, rows past Sq are never stored.
+//   the mma depth 48, d=72 up to 80, d=80 and d=160 up to the next atom)
+//   are zero-filled by TMA; keys past Sk are masked to -inf, rows past Sq
+//   are never stored.  P V's N is D itself (m64n72k16 at d=72), and the
+//   epilogue writes columns up to D only: in (B, S, H, D) memory the next
+//   columns are the next head's.
 // * wgmma.  S = Q K^T runs with both operands in shared memory; the online
 //   softmax uses exp2 with the scale folded in; P stays in registers as the
 //   A operand of P V (the accumulator layout of S is the A-fragment layout
@@ -547,6 +550,7 @@ int forward(const void* q, const void* k, const void* v, void* o, float* lse, in
     switch (d) {
       case 40: return launch<T, 40, true>(q, k, v, o, lse, b, h, sq, sk, scale, strides, s);
       case 64: return launch<T, 64, true>(q, k, v, o, lse, b, h, sq, sk, scale, strides, s);
+      case 72: return launch<T, 72, true>(q, k, v, o, lse, b, h, sq, sk, scale, strides, s);
       case 80: return launch<T, 80, true>(q, k, v, o, lse, b, h, sq, sk, scale, strides, s);
       case 128: return launch<T, 128, true>(q, k, v, o, lse, b, h, sq, sk, scale, strides, s);
       case 160: return launch<T, 160, true>(q, k, v, o, lse, b, h, sq, sk, scale, strides, s);
@@ -556,6 +560,7 @@ int forward(const void* q, const void* k, const void* v, void* o, float* lse, in
   switch (d) {
     case 40: return launch<T, 40, false>(q, k, v, o, lse, b, h, sq, sk, scale, strides, s);
     case 64: return launch<T, 64, false>(q, k, v, o, lse, b, h, sq, sk, scale, strides, s);
+    case 72: return launch<T, 72, false>(q, k, v, o, lse, b, h, sq, sk, scale, strides, s);
     case 80: return launch<T, 80, false>(q, k, v, o, lse, b, h, sq, sk, scale, strides, s);
     case 128: return launch<T, 128, false>(q, k, v, o, lse, b, h, sq, sk, scale, strides, s);
     case 160: return launch<T, 160, false>(q, k, v, o, lse, b, h, sq, sk, scale, strides, s);

@@ -144,6 +144,7 @@ extern "C" int dft_headmean_probs(const void* q, const void* k, const float* lse
   switch (d) {
     case 40: return launch<40>(q, k, lse, out, b, h, sq, sk, scale, strides, s);
     case 64: return launch<64>(q, k, lse, out, b, h, sq, sk, scale, strides, s);
+    case 72: return launch<72>(q, k, lse, out, b, h, sq, sk, scale, strides, s);
     case 80: return launch<80>(q, k, lse, out, b, h, sq, sk, scale, strides, s);
     case 128: return launch<128>(q, k, lse, out, b, h, sq, sk, scale, strides, s);
     case 160: return launch<160>(q, k, lse, out, b, h, sq, sk, scale, strides, s);

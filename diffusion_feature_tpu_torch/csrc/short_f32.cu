@@ -199,6 +199,7 @@ extern "C" int dft_short_attention_forward(const void* q, const void* k, const v
   switch (d) {
     case 40: return launch<40>(q, k, v, o, b, h, sq, sk, scale, strides, s);
     case 64: return launch<64>(q, k, v, o, b, h, sq, sk, scale, strides, s);
+    case 72: return launch<72>(q, k, v, o, b, h, sq, sk, scale, strides, s);
     case 80: return launch<80>(q, k, v, o, b, h, sq, sk, scale, strides, s);
     case 128: return launch<128>(q, k, v, o, b, h, sq, sk, scale, strides, s);
     case 160: return launch<160>(q, k, v, o, b, h, sq, sk, scale, strides, s);

@@ -1,13 +1,13 @@
 """Layer enumeration without weights or compute (port of
 ``diffusion_feature_tpu/enumerate_layers.py``).
 
-``enumerate_layers(version, img_size)`` builds the version's U-Net with
-every tap requested on PyTorch's meta device and runs one forward on meta
-tensors, which carry shapes and no data: the counterpart of the JAX
-package's ``jax.eval_shape``.  The full-size architectures are enumerated
-in seconds on any host, with no memory for weights or activations.  The
-kernel wrappers take their plain twins on meta tensors, so no kernel is
-built or launched.
+``enumerate_layers(version, img_size)`` builds the version's U-Net (or
+PixArt DiT) with every tap requested on PyTorch's meta device and runs one
+forward on meta tensors, which carry shapes and no data: the counterpart of
+the JAX package's ``jax.eval_shape``.  The full-size architectures are
+enumerated in seconds on any host, with no memory for weights or
+activations.  The kernel wrappers take their plain twins on meta tensors,
+so no kernel is built or launched.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from .models.dit_pixart import PixArtTransformer2D
 from .models.registry import get_model_spec
 from .models.unet2d import UNet2DConditionModel
 from .taps import TapSpec
@@ -32,15 +33,20 @@ def enumerate_layers(version: str, img_size: int = None,
     lat = img_size // 2 ** (len(spec.vae.block_out_channels) - 1)
     feats = {}
     with torch.device('meta'), torch.no_grad():
-        unet = UNet2DConditionModel(spec.unet, TapSpec.all())
-        added = None
-        if spec.unet.addition_embed_type == 'text_time':
-            last = spec.text_encoders[-1]
-            pooled = last.projection_dim or last.hidden_size
-            added = {'text_embeds': torch.empty(batch_size, pooled),
-                     'time_ids': torch.empty(batch_size, 6)}
-        unet(torch.empty(batch_size, spec.unet.in_channels, lat, lat), 50.0,
-             torch.empty(batch_size, 77, spec.unet.cross_attention_dim), added, feats=feats)
+        if spec.family == 'pixart':
+            dit = PixArtTransformer2D(spec.dit, TapSpec.all())
+            dit(torch.empty(batch_size, spec.dit.in_channels, lat, lat), 50.0,
+                torch.empty(batch_size, spec.prompt_max_length, spec.t5.d_model), feats=feats)
+        else:
+            unet = UNet2DConditionModel(spec.unet, TapSpec.all())
+            added = None
+            if spec.unet.addition_embed_type == 'text_time':
+                last = spec.text_encoders[-1]
+                pooled = last.projection_dim or last.hidden_size
+                added = {'text_embeds': torch.empty(batch_size, pooled),
+                         'time_ids': torch.empty(batch_size, 6)}
+            unet(torch.empty(batch_size, spec.unet.in_channels, lat, lat), 50.0,
+                 torch.empty(batch_size, 77, spec.unet.cross_attention_dim), added, feats=feats)
     out = {}
     for tap_id, val in feats.items():
         shape = tuple(val.shape)

@@ -1,6 +1,7 @@
-"""FeatureExtractor for the U-Net family in PyTorch (port of
-``diffusion_feature_tpu/facade.py``), mirroring the reference's
-``diffusion_feature.FeatureExtractor`` (feature/diffusion_feature.py:26-517).
+"""FeatureExtractor in PyTorch (port of ``diffusion_feature_tpu/facade.py``),
+mirroring the reference's ``diffusion_feature.FeatureExtractor``
+(feature/diffusion_feature.py:26-517).  It dispatches on the model's
+family (``spec.family``): the U-Nets, or the PixArt DiTs.
 
 Ported: extraction for SD-1.5 (``'1-5'``, ``'test-sd'``), SD-2.1 (``'2-1'``),
 SDXL (``'xl'``, ``'test-xl'``) and Playground v2 (``'pgv2'``): CLIP tokenize
@@ -9,7 +10,12 @@ encode + posterior sample -> add_noise at the img2img timestep of ``t``
 (Euler, or PNDM for SD-1.5) -> scale_model_input -> one U-Net forward with
 the requested taps -> store post-processing; or, with ``denoising_from``, a
 scheduler walk down to ``t`` first, and with ``use_ddim_inversion`` a DDIM
-inversion in place of the noise.  The attention store (``attention=``) gives
+inversion in place of the noise.  PixArt-alpha and PixArt-Sigma
+(``'pixart-alpha'``, ``'pixart-sigma'``, ``'pixart-sigma-512'``,
+``'test-pixart'``) take the same path with the T5 encoder (prompts come as
+(embeds, mask, negative embeds, negative mask)), DPM-Solver, and the DiT,
+whose learned-sigma half of the output is dropped; they have no ControlNet
+and no DDIM inversion, as in the JAX package.  The attention store (``attention=``) gives
 the aggregated ``'attn'`` feature, the ``'vae-out'`` layer the decoded image
 of one scheduler step; ``extract_ensemble`` crosses timesteps with prompts.
 ``control=`` adds ControlNets (Canny, DPT depth) to the tapped forward;
@@ -39,15 +45,19 @@ from .models.clip_text import CLIPTextConfig, CLIPTextModel
 from .models.convert import (load_component_config, load_component_state, load_state_into,
                              random_module, save_component)
 from .models.controlnet import ControlNetPipeline
+from .models.dit_pixart import PixArtConfig, PixArtTransformer2D
 from .models.layers import ATTN_STORE
 from .models.lora import apply_lora_to_module
 from .models.registry import ModelSpec, get_model_spec
+from .models.t5 import T5Config, T5EncoderModel, t5_checkpoint_state
 from .models.unet2d import UNet2DConditionModel, UNetConfig
 from .models.vae import AutoencoderKL, VAEConfig
-from .schedulers.diffusion import EulerDiscreteScheduler, make_scheduler, scalar_like
+from .schedulers.diffusion import (DPMSolverMultistepScheduler, EulerDiscreteScheduler,
+                                   make_scheduler, scalar_like)
 from .store import aggregate_attention, postprocess_taps, select_background_encounters
 from .taps import TapSpec, declared_ids, is_filtered_id
 from .tokenizers.clip_bpe import load_clip_tokenizer
+from .tokenizers.t5_tok import load_t5_tokenizer
 from .utils.prompt import encode_long_prompt
 
 _DTYPES = {'bfloat16': torch.bfloat16, 'float16': torch.float16, 'float32': torch.float32}
@@ -55,18 +65,25 @@ TEXT_DIRS = ('text_encoder', 'text_encoder_2')
 
 
 def _adapt_spec_to_checkpoint(spec: ModelSpec, weights: str) -> ModelSpec:
-    """Rebuild the U-Net, VAE and text-encoder configs from the checkpoint's
-    own config.json files where present (JAX ``_adapt_spec_to_checkpoint``,
-    U-Net family), so fine-tunes that deviate from the presets load exactly.
-    An unreadable config keeps the preset, as there; a field the port cannot
-    honour raises."""
+    """Rebuild the denoiser, VAE and text-encoder configs from the
+    checkpoint's own config.json files where present (JAX
+    ``_adapt_spec_to_checkpoint``), so fine-tunes that deviate from the
+    presets load exactly.  An unreadable config keeps the preset, as there;
+    a field the port cannot honour raises."""
     updates = {}
 
     def has(component):
         return os.path.exists(os.path.join(weights, component, 'config.json'))
 
     try:
-        if has('unet'):
+        if spec.family == 'pixart':
+            if has('transformer'):
+                updates['dit'] = PixArtConfig.from_diffusers_config(
+                    load_component_config(weights, 'transformer'))
+            if has('text_encoder'):
+                updates['t5'] = T5Config.from_diffusers_config(
+                    load_component_config(weights, 'text_encoder'), spec.t5)
+        elif has('unet'):
             updates['unet'] = UNetConfig.from_diffusers_config(
                 load_component_config(weights, 'unet'))
         if has('vae'):
@@ -90,7 +107,8 @@ class FeatureExtractor:
 
     weights: a local diffusers checkpoint dir (``unet``, ``vae``,
     ``text_encoder``[``_2``], each a config.json and safetensors or ``.bin``
-    files; ``tokenizer``[``_2``] when present).  The architecture follows
+    files; ``tokenizer``[``_2``] when present; PixArt: ``transformer``,
+    ``vae``, ``text_encoder`` (T5) and ``tokenizer/spiece.model``).  The architecture follows
     its config.json files, and each module is filled straight from the
     files, with no random init.  weights_variant: the weight set to load
     ('fp16', 'bf16', ..., 'main'), falling back per component to the
@@ -102,10 +120,12 @@ class FeatureExtractor:
     control: ControlNet kinds ('canny', 'depth') or (kind, preprocessor)
     pairs, a depth pair naming a transformers DPT dir; weights from
     ``{weights}/controlnet_{kind}`` and ``{weights}/depth_estimator`` where
-    present (the JAX ``ControlNetPipeline``).
-    attention: attention-store categories ('{down|mid|up}_{self|cross}');
-    their head-mean maps of the size band ``attn_store_sizes`` (tokens per
-    side, default (img_size/32, img_size/16)) come back as ``feats['attn']``.
+    present (the JAX ``ControlNetPipeline``); U-Nets only.
+    attention: attention-store categories ('{down|mid|up}_{self|cross}';
+    PixArt's blocks are 'up'); their head-mean maps of the size band
+    ``attn_store_sizes`` (tokens per side, default (img_size/32,
+    img_size/16), PixArt's (img_size/32, img_size/8)) come back as
+    ``feats['attn']``.
     """
 
     def __init__(self, layer, version: str, device='cuda', dtype: str = 'bfloat16',
@@ -120,6 +140,11 @@ class FeatureExtractor:
             raise ValueError(f'{weights} is a deployment bundle of the JAX package; the port '
                              'loads the diffusers checkpoint dir it was exported from instead')
         self.spec: ModelSpec = get_model_spec(version)
+        if control and self.spec.family != 'unet':
+            # the JAX ControlNetPipeline builds its nets from spec.unet
+            raise ValueError(f'control= needs a U-Net version: {version!r} is a '
+                             f'{self.spec.family} DiT, and the ControlNets copy a U-Net '
+                             'encoder (models/controlnet.py)')
         if weights:
             self.spec = _adapt_spec_to_checkpoint(self.spec, weights)
         self.version = version
@@ -135,8 +160,9 @@ class FeatureExtractor:
         # the store's size band (reference components/attention.py:542, :569)
         self._attn_sizes = None
         if self.attention:
+            top = img_size // (8 if self.spec.family == 'pixart' else 16)
             self._attn_sizes = (tuple(attn_store_sizes) if attn_store_sizes is not None
-                                else (img_size // 32, img_size // 16))
+                                else (img_size // 32, top))
         self.scheduler = make_scheduler(self.spec.scheduler, self.spec.scheduler_config)
         self.vae_scale = 2 ** (len(self.spec.vae.block_out_channels) - 1)
         # the extract's noise and the random init draw from generators of
@@ -148,23 +174,36 @@ class FeatureExtractor:
 
         spec = self.spec
 
-        def build(make, component):
+        def build(make, component, adapt=None):
             if weights:
-                return self._load_component(make, weights, weights_variant, component)
+                return self._load_component(make, weights, weights_variant, component, adapt)
             return random_module(make, self.device, self.dtype, init_gen)
 
-        self.unet = build(lambda: UNet2DConditionModel(spec.unet, self.taps, self._attn_sizes,
-                                                       tuple(self.attention or ())), 'unet')
-        self.vae = build(lambda: AutoencoderKL(spec.vae), 'vae')
-        self.text_encoders = tuple(build(lambda c=c: CLIPTextModel(c), d)
-                                   for c, d in zip(spec.text_encoders, TEXT_DIRS))
+        categories = tuple(self.attention or ())
         tok_dirs = [os.path.join(weights, d) if weights else None
                     for d in ('tokenizer', 'tokenizer_2')]
-        # tokenizer_2 (OpenCLIP) pads with id 0; the first pads with EOS
-        self.tokenizers = tuple(
-            load_clip_tokenizer(d if d and os.path.isdir(d) else None, vocab_size=c.vocab_size,
-                                pad_with_eos=(i == 0))
-            for i, (d, c) in enumerate(zip(tok_dirs, spec.text_encoders)))
+        pixart = spec.family == 'pixart'
+        # the DiT keeps the facade's attribute name of the denoiser
+        self.unet = (build(lambda: PixArtTransformer2D(spec.dit, self.taps, self._attn_sizes,
+                                                       categories), 'transformer') if pixart
+                     else build(lambda: UNet2DConditionModel(spec.unet, self.taps,
+                                                             self._attn_sizes, categories),
+                                'unet'))
+        self.vae = build(lambda: AutoencoderKL(spec.vae), 'vae')
+        if pixart:
+            self.text_encoders = (build(lambda: T5EncoderModel(spec.t5), 'text_encoder',
+                                        t5_checkpoint_state),)
+            self.tokenizers = (load_t5_tokenizer(tok_dirs[0],
+                                                 model_max_length=spec.prompt_max_length,
+                                                 vocab_size=spec.t5.vocab_size),)
+        else:
+            self.text_encoders = tuple(build(lambda c=c: CLIPTextModel(c), d)
+                                       for c, d in zip(spec.text_encoders, TEXT_DIRS))
+            # tokenizer_2 (OpenCLIP) pads with id 0; the first pads with EOS
+            self.tokenizers = tuple(
+                load_clip_tokenizer(d if d and os.path.isdir(d) else None,
+                                    vocab_size=c.vocab_size, pad_with_eos=(i == 0))
+                for i, (d, c) in enumerate(zip(tok_dirs, spec.text_encoders)))
         if offline_lora:
             apply_lora_to_module(self.unet, offline_lora, offline_lora_filename)
         if validate_layers and not self.taps.accept_all:
@@ -174,14 +213,18 @@ class FeatureExtractor:
         self._background_feats: Dict[str, dict] = {}
         self.control_pipe = ControlNetPipeline(self, control, weights) if control else None
 
-    def _load_component(self, make, root: str, variant: Optional[str], component: str):
+    def _load_component(self, make, root: str, variant: Optional[str], component: str,
+                        adapt=None):
         """Build ``make()`` on the meta device and fill it from the
-        checkpoint's ``component`` dir: parameters are allocated once, at
-        the compute dtype, and never initialised at random."""
+        checkpoint's ``component`` dir (its tensors through ``adapt``, where
+        given): parameters are allocated once, at the compute dtype, and
+        never initialised at random."""
         with torch.device('meta'):
             module = make()
         t0 = time.perf_counter()
         state = load_component_state(root, component, variant=variant)
+        if adapt is not None:
+            state = adapt(state)
         unused = set(load_state_into(module, state, self.dtype, self.device))
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
@@ -189,20 +232,27 @@ class FeatureExtractor:
         self.load_stats[component] = (nbytes, time.perf_counter() - t0)
         return module.eval().requires_grad_(False)
 
-    def save_weights(self, root: str, variant: Optional[str] = None,
-                     unet_shards: int = 1) -> Dict[str, Tuple[int, float]]:
-        """Write the U-Net, the VAE and the text encoders as a diffusers
-        checkpoint dir that ``weights=`` loads: a config.json and
-        safetensors files per component, named with ``variant`` and the
-        U-Net in ``unet_shards`` files.  Returns
-        {component: (bytes written, seconds)}, as ``load_stats``."""
-        comps = [('unet', self.unet, self.spec.unet), ('vae', self.vae, self.spec.vae),
-                 *zip(TEXT_DIRS, self.text_encoders, self.spec.text_encoders)]
+    def save_weights(self, root: str, variant: Optional[str] = None, unet_shards: int = 1,
+                     text_shards: int = 1) -> Dict[str, Tuple[int, float]]:
+        """Write the denoiser (U-Net, or PixArt's transformer), the VAE and
+        the text encoders as a diffusers checkpoint dir that ``weights=``
+        loads: a config.json and safetensors files per component, named
+        with ``variant``, the denoiser in ``unet_shards`` files and each
+        text encoder in ``text_shards``.  Returns {component: (bytes
+        written, seconds)}, as ``load_stats``."""
+        spec = self.spec
+        if spec.family == 'pixart':
+            comps = [('transformer', self.unet, spec.dit), ('vae', self.vae, spec.vae),
+                     ('text_encoder', self.text_encoders[0], spec.t5)]
+        else:
+            comps = [('unet', self.unet, spec.unet), ('vae', self.vae, spec.vae),
+                     *zip(TEXT_DIRS, self.text_encoders, spec.text_encoders)]
         stats = {}
-        for comp, module, cfg in comps:
+        for i, (comp, module, cfg) in enumerate(comps):
             t0 = time.perf_counter()
+            shards = unet_shards if i == 0 else text_shards if comp in TEXT_DIRS else 1
             files = save_component(root, comp, module.state_dict(), cfg.to_diffusers_config(),
-                                   variant, unet_shards if comp == 'unet' else 1)
+                                   variant, shards)
             stats[comp] = (sum(files.values()), time.perf_counter() - t0)
         return stats
 
@@ -243,12 +293,17 @@ class FeatureExtractor:
                       prompt_file: Optional[str] = None):
         """Returns (prompt_embeds, negative_prompt_embeds, pooled,
         negative_pooled), the reference's 4-tuple (diffusion_feature.py:203-206);
-        the pooled entries are None for a 'final'-layer model (SD-1.5)."""
+        the pooled entries are None for a 'final'-layer model (SD-1.5).
+        PixArt: (prompt_embeds, mask, negative_prompt_embeds, negative_mask),
+        the T5 embeddings of ``prompt_max_length`` tokens and their int32
+        (1, L) attention masks (diffusion_feature.py:195-202)."""
         if (prompt_str is None) == (prompt_file is None):
             raise ValueError('pass exactly one of prompt_str and prompt_file')
         if prompt_file:
             with open(prompt_file) as f:
                 prompt_str = f.read()
+        if self.spec.family == 'pixart':
+            return (*self._encode_t5(prompt_str), *self._encode_t5(''))
         if len(prompt_str.split(' ')) > 70:
             # the first tokenizer and encoder alone, in chunks: no pooled embedding
             self._require_text_encoders()
@@ -277,6 +332,18 @@ class FeatureExtractor:
             pooled = pool   # the last encoder's pooled output wins (text_encoder_2)
         pe = torch.cat([e.to(self.device) for e in embeds], dim=-1)
         return pe, pooled.to(self.device) if penultimate else None
+
+    @torch.inference_mode()
+    def _encode_t5(self, text: str):
+        """(T5 embeddings (1, L, d_model), int32 mask (1, L)) of ``text``
+        padded or cut to the tokenizer's ``prompt_max_length``."""
+        self._require_text_encoders()
+        ids, mask = self.tokenizers[0]([text])
+        te = self.text_encoders[0]
+        dev = next(te.parameters()).device
+        mask = torch.tensor(mask, dtype=torch.int32, device=dev)
+        emb = te(torch.tensor(ids, dtype=torch.long, device=dev), mask)
+        return emb.to(self.device), mask.to(self.device)
 
     def offload_prompt_encoder(self, persistent: bool = False):
         """Free the text encoders' device memory (reference
@@ -310,9 +377,11 @@ class FeatureExtractor:
         their preprocessors, at the tapped forward; it has no effect without
         a ControlNet, as in the JAX facade.  With
         ``set_background_extraction`` active the features are also kept,
-        as encounter 1, for ``get_background_extraction``."""
+        as encounter 1, for ``get_background_extraction``.  PixArt's
+        ``prompts`` carry the T5 mask second, broadcast to the batch."""
         spec = self.spec
-        if use_ddim_inversion and (spec.unet.addition_embed_type is not None
+        if use_ddim_inversion and (spec.family != 'unet'
+                                   or spec.unet.addition_embed_type is not None
                                    or spec.scheduler_config.prediction_type != 'epsilon'):
             # the reference runs DDIM inversion on the epsilon SD U-Nets only
             raise NotImplementedError(
@@ -325,6 +394,10 @@ class FeatureExtractor:
         if pooled is not None:
             pooled = torch.as_tensor(pooled).to(self.device, self.dtype)
             pooled = pooled.expand(batch_size, *pooled.shape[1:])
+        mask = None
+        if spec.family == 'pixart':
+            mask = torch.as_tensor(prompts[1]).to(self.device)
+            mask = mask.expand(batch_size, *mask.shape[1:])
         if image_type == 'image':
             img = preprocess_pil_batch(image, self.img_size)
         else:
@@ -342,10 +415,11 @@ class FeatureExtractor:
         noise = torch.randn(shape, generator=self._noise_gen, device=self.device)
         if denoising_from is None and not use_ddim_inversion:
             feats = self._step(img, pe, pooled, self._img2img_kit(int(t)), posterior_noise,
-                               noise, self.feature_dtype, control=control)
+                               noise, self.feature_dtype, control=control, mask=mask)
         else:
             feats = self._multistep(img, pe, pooled, int(t), denoising_from, use_ddim_inversion,
-                                    posterior_noise, noise, self.feature_dtype, control=control)
+                                    posterior_noise, noise, self.feature_dtype, control=control,
+                                    mask=mask)
         self._keep_background(feats)
         return feats
 
@@ -366,11 +440,17 @@ class FeatureExtractor:
         return {layer: torch.cat([per[k][layer] for k in keys], dim=1) for layer in per[keys[0]]}
 
     def _check_conditioning(self, pe, pooled):
-        """Refuse, before any compute, prompts the U-Net cannot take: a
+        """Refuse, before any compute, prompts the denoiser cannot take: a
         context of another width, or no pooled embedding for SDXL's
         micro-conditioning (long prompts are encoded by the first encoder
         alone and carry none).  The JAX facade fails on them inside its
         step."""
+        if self.spec.family == 'pixart':
+            width = self.spec.dit.caption_channels
+            if pe.shape[-1] != width:
+                raise ValueError(f'prompt embeddings are {pe.shape[-1]} wide, the '
+                                 f'{self.version!r} DiT takes {width}-wide T5 embeddings')
+            return
         cfg = self.spec.unet
         if pe.shape[-1] != cfg.cross_attention_dim:
             raise ValueError(
@@ -382,7 +462,8 @@ class FeatureExtractor:
                              '(text_time micro-conditioning), and these prompts carry none')
 
     def _img2img_kit(self, t: int) -> Dict[str, float]:
-        """The Euler and PNDM branches of the JAX facade's ``_img2img_kit``:
+        """The Euler, DPM-Solver and PNDM branches of the JAX facade's
+        ``_img2img_kit``:
         model timestep T (SDXL's leading schedule maps t=50 to 50), noise
         injection latents <- A*latents + B*noise, the scale_model_input
         divisor S, the x0 reconstruction x0 = X1*latents + X2*model_output,
@@ -407,6 +488,22 @@ class FeatureExtractor:
                 X1, X2 = 1.0, -sigma
             r = (sigma_next - sigma) / sigma
             C1, C2, C3 = -r, 1.0 + r, 0.0
+        elif isinstance(sched, DPMSolverMultistepScheduler):
+            # DDPM-family noising; the step of a fresh state has no x0
+            # history, so it is first order: prev = C2*latents + C1*x0
+            ti = int(lt)
+            prev_t = sched.prev_timestep(state, ti)
+            a_t = float(sched.alphas_cumprod[ti])
+            A, B, S = float(np.sqrt(a_t)), float(np.sqrt(1 - a_t)), 1.0
+            h = sched.lambda_t[prev_t] - sched.lambda_t[ti]
+            C1 = float(-sched.alpha_t[prev_t] * np.expm1(-h))
+            C2, C3 = float(sched.sigma_t[prev_t] / sched.sigma_t[ti]), 0.0
+            if pred == 'sample':
+                X1, X2 = 0.0, 1.0
+            elif pred == 'v_prediction':
+                X1, X2 = A, -B
+            else:
+                X1, X2 = 1.0 / A, -B / A
         else:   # PNDM: DDPM-family noising, counter-0 PLMS step
             if pred == 'sample':
                 # diffusers' PLMS step has no 'sample' form either
@@ -431,16 +528,27 @@ class FeatureExtractor:
 
     def _added_cond(self, pooled, bsz: int):
         """SDXL text_time micro-conditioning: time ids [h, w, 0, 0, h, w]
-        (reference diffusion_feature.py:534); None for a U-Net without it."""
-        if self.spec.unet.addition_embed_type != 'text_time':
+        (reference diffusion_feature.py:534); None for a denoiser without
+        it."""
+        if self.spec.family != 'unet' or self.spec.unet.addition_embed_type != 'text_time':
             return None
         s = float(self.img_size)
         time_ids = torch.tensor([[s, s, 0.0, 0.0, s, s]], dtype=self.dtype,
                                 device=self.device).repeat(bsz, 1)
         return {'text_embeds': pooled, 'time_ids': time_ids}
 
-    def _forward(self, lat_in, timestep, pe, pooled, out_dtype, control=None):
-        """The U-Net forward with taps and store, then the store
+    def _denoise(self, model_in, timestep, pe, added, mask, feats=None, down=None, mid=None):
+        """One denoiser forward: the U-Net (with SDXL's ``added`` and a
+        ControlNet's residuals ``down``/``mid``), or PixArt's DiT (with the
+        T5 ``mask``) whose learned-sigma half is dropped, as the JAX facade
+        drops it before the scheduler (diffusers' contract)."""
+        if self.spec.family == 'pixart':
+            return self.unet(model_in, timestep, pe, mask, feats=feats)[:, :model_in.shape[1]]
+        return self.unet(model_in, timestep, pe, added, feats=feats,
+                         down_block_additional_residuals=down, mid_block_additional_residual=mid)
+
+    def _forward(self, lat_in, timestep, pe, pooled, out_dtype, control=None, mask=None):
+        """The denoiser forward with taps and store, then the store
         post-processing (the JAX ``_collect_feats``): returns (model output,
         features).  ``control`` (one condition image batch per ControlNet)
         runs the ControlNets on the same input and adds their residuals."""
@@ -449,8 +557,7 @@ class FeatureExtractor:
         down = mid = None
         if control is not None:
             down, mid = self.control_pipe.encode_all(lat_in, timestep, pe, control, added)
-        out = self.unet(lat_in, timestep, pe, added, feats=feats,
-                        down_block_additional_residuals=down, mid_block_additional_residual=mid)
+        out = self._denoise(lat_in, timestep, pe, added, mask, feats, down, mid)
         store = feats.pop(ATTN_STORE, {})
         feats = postprocess_taps(feats, resize_ratio=self.feature_resize, out_dtype=out_dtype)
         if self.attention:
@@ -468,18 +575,20 @@ class FeatureExtractor:
         return img.to(out_dtype or img.dtype)
 
     @torch.inference_mode()
-    def _step(self, img, pe, pooled, kit, posterior_noise, noise, out_dtype, control=None):
+    def _step(self, img, pe, pooled, kit, posterior_noise, noise, out_dtype, control=None,
+              mask=None):
         """The single step (the JAX ``_get_step_fn_generic`` program): VAE
-        encode + posterior sample -> latents*A + noise*B -> /S -> U-Net with
-        taps -> store post-processing to ``out_dtype`` (None keeps the
+        encode + posterior sample -> latents*A + noise*B -> /S -> denoiser
+        with taps -> store post-processing to ``out_dtype`` (None keeps the
         compute dtype), and 'vae-out' from the kit's fresh-state step.
         Noise tensors are standard-normal draws of the latent shape, cast
-        here to the model dtype; ``control`` goes to ``_forward``."""
+        here to the model dtype; ``control`` goes to ``_forward``, PixArt's
+        T5 ``mask`` (B, L) to the DiT."""
         latents = self.vae(img, posterior_noise)
         latents = (scalar_like(kit['A'], latents) * latents
                    + scalar_like(kit['B'], latents) * noise.to(latents.dtype))
         out, feats = self._forward(latents / scalar_like(kit['S'], latents), kit['T'], pe, pooled,
-                                   out_dtype, control)
+                                   out_dtype, control, mask)
         if self.store_vae_output:
             x0 = scalar_like(kit['X1'], latents) * latents + scalar_like(kit['X2'], latents) * out
             lat2 = (scalar_like(kit['C1'], latents) * x0
@@ -490,7 +599,8 @@ class FeatureExtractor:
 
     @torch.inference_mode()
     def _multistep(self, img, pe, pooled, t: int, denoising_from: Optional[int],
-                   use_ddim_inversion: bool, posterior_noise, noise, out_dtype, control=None):
+                   use_ddim_inversion: bool, posterior_noise, noise, out_dtype, control=None,
+                   mask=None):
         """The multi-step paths (the JAX ``_get_step_fn``).  Timesteps: with
         ``denoising_from`` within 50 of ``t`` the 1000-step schedule from
         ``denoising_from``, else the 100-step one at strength
@@ -522,10 +632,11 @@ class FeatureExtractor:
         walk_state = state
         for ts in walk:
             # the same routing as the last forward; taps and maps are dropped
-            out = self.unet(sched.scale_model_input(state, latents, ts), float(ts), pe, added)
+            out = self._denoise(sched.scale_model_input(state, latents, ts), float(ts), pe, added,
+                                mask)
             latents, walk_state = sched.step(walk_state, out, ts, latents)
         out, feats = self._forward(sched.scale_model_input(state, latents, t), float(t), pe,
-                                   pooled, out_dtype, control)
+                                   pooled, out_dtype, control, mask)
         if self.store_vae_output:
             lat2, _ = sched.step(state, out, t, latents)
             feats['vae-out'] = self._decode(lat2, out_dtype)
@@ -541,12 +652,13 @@ class FeatureExtractor:
         store capturing selected U-Net calls).
 
         ``prompts`` is ``encode_prompt``'s 4-tuple, broadcast to
-        ``batch_size``; with ``guidance_scale`` > 1 every U-Net call runs
-        the [negative; positive] batch and combines its halves
-        (classifier-free guidance).  Returns (images (B, 3, H, W) in [0, 1],
-        features), the features {layer: tuple of the raw tap of every U-Net
-        call, step-major, over the CFG-doubled batch} as the JAX facade
-        returns them (no store post-processing, no cast), or None with
+        ``batch_size``; with ``guidance_scale`` > 1 every denoiser call runs
+        the [negative; positive] batch (PixArt's masks concatenated the
+        same way) and combines its halves (classifier-free guidance).
+        Returns (images (B, 3, H, W) in [0, 1], features), the features
+        {layer: tuple of the raw tap of every denoiser call, step-major,
+        over the CFG-doubled batch} as the JAX facade returns them (no
+        store post-processing, no cast), or None with
         ``return_features=False``.  The initial latents are a standard
         normal draw from the extract's noise generator in fp32, cast, then
         scaled by the schedule's ``init_noise_sigma``.  ``unrolled`` is
@@ -555,35 +667,45 @@ class FeatureExtractor:
         del unrolled
         spec = self.spec
 
-        def bcast(x):
+        def bcast(x, dtype=None):
             if x is None:
                 return None
-            x = torch.as_tensor(x).to(self.device, self.dtype)
+            x = torch.as_tensor(x).to(self.device, dtype or self.dtype)
             return x.expand(batch_size, *x.shape[1:])
 
-        pe, ne, pooled, neg_pooled = (bcast(x) for x in prompts)
-        if spec.clip_layer != 'penultimate':
+        mask = None
+        if spec.family == 'pixart':
+            pe, pmask, ne, nmask = prompts
             pooled = neg_pooled = None
+            pmask, nmask = bcast(pmask, torch.int32), bcast(nmask, torch.int32)
+            mask = torch.cat([nmask, pmask]) if guidance_scale > 1.0 else pmask
+            pe, ne = bcast(pe), bcast(ne)
+        else:
+            pe, ne, pooled, neg_pooled = (bcast(x) for x in prompts)
+            if spec.clip_layer != 'penultimate':
+                pooled = neg_pooled = None
         self._check_conditioning(pe, pooled)
         lat = self.img_size // self.vae_scale
-        noise = torch.randn((batch_size, spec.unet.in_channels, lat, lat),
-                            generator=self._noise_gen, device=self.device)
+        channels = spec.dit.in_channels if spec.family == 'pixart' else spec.unet.in_channels
+        noise = torch.randn((batch_size, channels, lat, lat), generator=self._noise_gen,
+                            device=self.device)
         images, feats, _ = self._sample(pe, ne, pooled, neg_pooled, noise,
-                                        int(num_inference_steps), float(guidance_scale))
+                                        int(num_inference_steps), float(guidance_scale), mask)
         self._keep_background(feats)
         return images, (feats if return_features else None)
 
     @torch.inference_mode()
     def _sample(self, pe, ne, pooled, neg_pooled, noise, num_inference_steps: int,
-                guidance_scale: float):
+                guidance_scale: float, mask=None):
         """The generation loop (the JAX ``_get_sample_fn``'s unrolled
         ``run``) from ``noise``, a standard-normal draw of the latent shape:
         the latents are the noise in the model dtype times
-        ``init_noise_sigma``; per timestep scale_model_input, one U-Net
-        forward on the (CFG-doubled) batch with the taps, the guidance
-        combine and the scheduler's ``step``; then the VAE decode mapped to
-        [0, 1].  Returns (images, {layer: tuple of per-call raw taps}, the
-        final latents)."""
+        ``init_noise_sigma``; per timestep scale_model_input, one denoiser
+        forward on the (CFG-doubled) batch with the taps (PixArt's with the
+        T5 ``mask``, already CFG-doubled), the guidance combine and the
+        scheduler's ``step``; then the VAE decode mapped to [0, 1].
+        Returns (images, {layer: tuple of per-call raw taps}, the final
+        latents)."""
         sched = self.scheduler
         state = sched.set_timesteps(num_inference_steps)
         do_cfg = guidance_scale > 1.0
@@ -598,7 +720,7 @@ class FeatureExtractor:
             model_in = torch.cat([latents] * 2) if do_cfg else latents
             model_in = sched.scale_model_input(step_state, model_in, t)
             taps = {}
-            out = self.unet(model_in, float(t), ctx, added, feats=taps)
+            out = self._denoise(model_in, float(t), ctx, added, mask, taps)
             taps.pop(ATTN_STORE, None)   # sample() runs no attention store
             for key, val in taps.items():
                 merged[key] = merged.get(key, ()) + (val,)

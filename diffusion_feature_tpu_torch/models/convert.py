@@ -30,7 +30,7 @@ from torch import nn
 from ..io.safetensors import load_file, save_file
 
 # torch leaf name -> Flax leaf names to try, in order
-_LEAF_CANDIDATES = {'weight': ('kernel', 'scale', 'embedding'), 'bias': ('bias',)}
+_LEAF_CANDIDATES = {'weight': ('kernel', 'scale', 'embedding', 'weight'), 'bias': ('bias',)}
 
 
 def _normalize_key(key: str) -> str:

@@ -1,4 +1,4 @@
-"""U-Net building blocks with activation taps (port of
+"""U-Net and DiT building blocks with activation taps (port of
 ``diffusion_feature_tpu/models/layers.py``; block math promoted from the
 golden-parity transcriptions in ``tests/torch_ref.py``).
 
@@ -66,15 +66,17 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool 
 
 
 class TimestepEmbedding(nn.Module):
-    """linear_1 -> SiLU -> linear_2 (diffusers TimestepEmbedding)."""
+    """linear_1 -> act -> linear_2 (diffusers TimestepEmbedding; act_fn
+    'silu', or 'gelu', exact, as DeepFloyd-IF's)."""
 
-    def __init__(self, in_dim: int, embed_dim: int):
+    def __init__(self, in_dim: int, embed_dim: int, act_fn: str = 'silu'):
         super().__init__()
         self.linear_1 = nn.Linear(in_dim, embed_dim)
         self.linear_2 = nn.Linear(embed_dim, embed_dim)
+        self.act = F.gelu if act_fn == 'gelu' else F.silu
 
     def forward(self, x):
-        return self.linear_2(F.silu(self.linear_1(x)))
+        return self.linear_2(self.act(self.linear_1(x)))
 
 
 class ResnetBlock2D(nn.Module):
@@ -142,6 +144,7 @@ class Attention(nn.Module):
     gate admits the shape) runs.  ``upcast`` (SD-2.1's ``upcast_attention``)
     hands the store's kernels fp32 q, k and v; the explicit path's scores
     are fp32 anyway and the flash path ignores it, as in the JAX package.
+    ``qkv_bias``: biased q/k/v projections (the DiTs').
     ``plain`` (set by ``UNet2DConditionModel.forward(plain=True)``) runs
     every attention on the fused path, with no taps and no store."""
 
@@ -149,16 +152,16 @@ class Attention(nn.Module):
                  cross_attention_dim: Optional[int] = None,
                  taps: TapSpec = EMPTY, tap_name: str = '',
                  attn_store: Optional[AttnStoreCfg] = None, is_cross: bool = False,
-                 upcast: bool = False):
+                 upcast: bool = False, qkv_bias: bool = False):
         super().__init__()
         inner = heads * dim_head
         ctx_dim = query_dim if cross_attention_dim is None else cross_attention_dim
         self.heads = heads
         self.upcast = upcast
         self.plain = False
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(ctx_dim, inner, bias=False)
-        self.to_v = nn.Linear(ctx_dim, inner, bias=False)
+        self.to_q = nn.Linear(query_dim, inner, bias=qkv_bias)
+        self.to_k = nn.Linear(ctx_dim, inner, bias=qkv_bias)
+        self.to_v = nn.Linear(ctx_dim, inner, bias=qkv_bias)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
         self.tap_site = TapSite(taps, tap_name, ('q', 'k', 'v', 'map'))
         # The JAX U-Net computes head-mean maps in every place whose size is
@@ -215,13 +218,32 @@ class GEGLU(nn.Module):
         return h * F.gelu(gate)
 
 
-class FeedForward(nn.Module):
-    """GEGLU MLP; tap 'inner' on the gated activation (after net[0])."""
+class GELU(nn.Module):
+    """proj -> GELU (diffusers' GELU activation block); tanh-approximate
+    for activation_fn='gelu-approximate' (the DiTs')."""
 
-    def __init__(self, dim: int, taps: TapSpec = EMPTY, tap_name: str = ''):
+    def __init__(self, dim: int, inner: int, approximate: str = 'none'):
+        super().__init__()
+        self.proj = nn.Linear(dim, inner)
+        self.approximate = approximate
+
+    def forward(self, x):
+        return F.gelu(self.proj(x), approximate=self.approximate)
+
+
+class FeedForward(nn.Module):
+    """GEGLU (or, with activation_fn 'gelu'/'gelu-approximate', GELU) MLP;
+    tap 'inner' on the activation (after net[0])."""
+
+    def __init__(self, dim: int, taps: TapSpec = EMPTY, tap_name: str = '',
+                 activation_fn: str = 'geglu'):
         super().__init__()
         inner = dim * 4
-        self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(), nn.Linear(inner, dim)])
+        if activation_fn == 'geglu':
+            act = GEGLU(dim, inner)
+        else:
+            act = GELU(dim, inner, 'tanh' if activation_fn == 'gelu-approximate' else 'none')
+        self.net = nn.ModuleList([act, nn.Identity(), nn.Linear(inner, dim)])
         self.tap_site = TapSite(taps, tap_name, ('inner',))
 
     def forward(self, x, feats=None):

@@ -1,6 +1,8 @@
 """Model registry: version string -> architecture and schedule (port of
-the U-Net entries of ``diffusion_feature_tpu/models/registry.py``: ``1-5``,
-``2-1``, ``xl``, ``pgv2``, ``test-sd`` and ``test-xl``).
+``diffusion_feature_tpu/models/registry.py``: the U-Nets ``1-5``, ``2-1``,
+``xl``, ``pgv2``, ``test-sd`` and ``test-xl``, and the PixArt DiTs
+``pixart-alpha``, ``pixart-sigma``, ``pixart-sigma-512`` and
+``test-pixart``).
 
 Without a weights path models initialise deterministically at random, which
 exercises every shape and the data flow at full width.  The JAX package's
@@ -11,59 +13,86 @@ that ports them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 from ..roadmap import not_ported
 from ..schedulers.diffusion import SchedulerConfig
 from .clip_text import (CLIP_VIT_L, OPENCLIP_BIGG, OPENCLIP_VIT_H, CLIPTextConfig,
                         tiny_clip_config)
+from .dit_pixart import (PIXART_ALPHA_512, PIXART_SIGMA_512, PIXART_SIGMA_1024, PixArtConfig,
+                         tiny_pixart_config)
+from .t5 import T5_XXL, T5Config, tiny_t5_config
 from .unet2d import SD15_UNET, SD21_UNET, SDXL_UNET, UNetConfig, tiny_unet_config
 from .vae import SD_VAE, SDXL_VAE, VAEConfig, tiny_vae_config
 
 SD_SCHED = SchedulerConfig(beta_start=0.00085, beta_end=0.012, steps_offset=1)
 XL_SCHED = SchedulerConfig(beta_start=0.00085, beta_end=0.012, steps_offset=1,
                            timestep_spacing='leading')
+PIXART_SCHED = SchedulerConfig(beta_start=0.0001, beta_end=0.02, beta_schedule='linear')
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
-    """A U-Net model: its scheduler ('euler' | 'pndm'), U-Net, VAE, and CLIP
-    encoders whose chosen hidden states are concatenated: 'final' (the
-    final-layernormed output, no pooled embedding; SD-1.5, SD-2.1) or
-    'penultimate' (hidden_states[-2], with the last encoder's pooled output;
-    SDXL, Playground v2)."""
+    """A model: its family ('unet' | 'pixart'), scheduler ('euler' | 'pndm'
+    | 'dpmsolver') and VAE, and the family's denoiser and text encoders.
+    U-Nets: ``unet`` and CLIP encoders whose chosen hidden states are
+    concatenated: 'final' (the final-layernormed output, no pooled
+    embedding; SD-1.5, SD-2.1) or 'penultimate' (hidden_states[-2], with
+    the last encoder's pooled output; SDXL, Playground v2).  PixArt: the
+    DiT ``dit`` and the T5 encoder ``t5`` over ``prompt_max_length``
+    tokens."""
     version: str
+    family: str
     hf_id: str                         # provenance only; nothing is downloaded
     scheduler: str
     scheduler_config: SchedulerConfig
-    unet: UNetConfig
-    vae: VAEConfig
-    text_encoders: Tuple[CLIPTextConfig, ...]
     default_img_size: int
+    vae: VAEConfig
+    unet: Optional[UNetConfig] = None
+    text_encoders: Tuple[CLIPTextConfig, ...] = ()
     clip_layer: str = 'final'
+    dit: Optional[PixArtConfig] = None
+    t5: Optional[T5Config] = None
+    prompt_max_length: int = 77
+
+
+def _unet(version, hf_id, scheduler, sched_cfg, unet, vae, text_encoders, size, **kw):
+    return ModelSpec(version, 'unet', hf_id, scheduler, sched_cfg, size, vae, unet,
+                     text_encoders, **kw)
+
+
+def _pixart(version, hf_id, dit, vae, size, prompt_max_length, t5=T5_XXL):
+    return ModelSpec(version, 'pixart', hf_id, 'dpmsolver', PIXART_SCHED, size, vae, dit=dit,
+                     t5=t5, prompt_max_length=prompt_max_length)
 
 
 _REGISTRY = {spec.version: spec for spec in (
-    ModelSpec('1-5', 'stable-diffusion-v1-5/stable-diffusion-v1-5', 'pndm', SD_SCHED,
-              SD15_UNET, SD_VAE, (CLIP_VIT_L,), 512),
-    ModelSpec('2-1', 'stabilityai/stable-diffusion-2-1-base', 'euler', SD_SCHED, SD21_UNET,
-              SD_VAE, (OPENCLIP_VIT_H,), 512),
-    ModelSpec('xl', 'stabilityai/stable-diffusion-xl-base-1.0', 'euler', XL_SCHED, SDXL_UNET,
-              SDXL_VAE, (CLIP_VIT_L, OPENCLIP_BIGG), 1024, clip_layer='penultimate'),
-    ModelSpec('pgv2', 'playgroundai/playground-v2-1024px-aesthetic', 'euler', XL_SCHED,
-              SDXL_UNET, SDXL_VAE, (CLIP_VIT_L, OPENCLIP_BIGG), 1024,
-              clip_layer='penultimate'),
-    ModelSpec('test-sd', '(random-init test model)', 'pndm', SD_SCHED,
-              tiny_unet_config(cross_dim=32), tiny_vae_config(), (tiny_clip_config(32),), 64),
-    ModelSpec('test-xl', '(random-init test model)', 'euler', XL_SCHED,
-              tiny_unet_config(cross_dim=64, with_xl_embeds=True), tiny_vae_config(),
-              (tiny_clip_config(32), tiny_clip_config(32, projection_dim=32)), 64,
-              clip_layer='penultimate'),
+    _unet('1-5', 'stable-diffusion-v1-5/stable-diffusion-v1-5', 'pndm', SD_SCHED, SD15_UNET,
+          SD_VAE, (CLIP_VIT_L,), 512),
+    _unet('2-1', 'stabilityai/stable-diffusion-2-1-base', 'euler', SD_SCHED, SD21_UNET, SD_VAE,
+          (OPENCLIP_VIT_H,), 512),
+    _unet('xl', 'stabilityai/stable-diffusion-xl-base-1.0', 'euler', XL_SCHED, SDXL_UNET,
+          SDXL_VAE, (CLIP_VIT_L, OPENCLIP_BIGG), 1024, clip_layer='penultimate'),
+    _unet('pgv2', 'playgroundai/playground-v2-1024px-aesthetic', 'euler', XL_SCHED, SDXL_UNET,
+          SDXL_VAE, (CLIP_VIT_L, OPENCLIP_BIGG), 1024, clip_layer='penultimate'),
+    _unet('test-sd', '(random-init test model)', 'pndm', SD_SCHED,
+          tiny_unet_config(cross_dim=32), tiny_vae_config(), (tiny_clip_config(32),), 64),
+    _unet('test-xl', '(random-init test model)', 'euler', XL_SCHED,
+          tiny_unet_config(cross_dim=64, with_xl_embeds=True), tiny_vae_config(),
+          (tiny_clip_config(32), tiny_clip_config(32, projection_dim=32)), 64,
+          clip_layer='penultimate'),
+    _pixart('pixart-alpha', 'PixArt-alpha/PixArt-XL-2-512x512', PIXART_ALPHA_512, SD_VAE, 512,
+            120),
+    _pixart('pixart-sigma', 'PixArt-alpha/PixArt-Sigma-XL-2-1024-MS', PIXART_SIGMA_1024,
+            SDXL_VAE, 1024, 300),
+    _pixart('pixart-sigma-512', 'PixArt-alpha/PixArt-Sigma-XL-2-512-MS', PIXART_SIGMA_512,
+            SDXL_VAE, 512, 300),
+    _pixart('test-pixart', '(random-init test model)', tiny_pixart_config(), tiny_vae_config(),
+            64, 24, tiny_t5_config()),
 )}
 
 
-_UNPORTED = dict.fromkeys(('pixart-alpha', 'pixart-sigma', 'pixart-sigma-512', 'hunyuan',
-                           'flux', 'if', 'test-pixart', 'test-hunyuan', 'test-flux', 'test-if'),
+_UNPORTED = dict.fromkeys(('hunyuan', 'flux', 'if', 'test-hunyuan', 'test-flux', 'test-if'),
                           'DiT families')
 
 

@@ -59,11 +59,11 @@ from pathlib import Path
 
 import torch
 
-#: Head widths B1 is built for: the U-Nets' 40, 64, 80, 128, 160 and the
-#: VAE's single 512-wide head.
-SUPPORTED_HEAD_DIMS = (40, 64, 80, 128, 160, 512)
-#: Head widths B2, B3 and B4 are built for (the U-Nets' heads).
-HEADMEAN_HEAD_DIMS = (40, 64, 80, 128, 160)
+#: Head widths B1 is built for: the U-Nets' 40, 64, 80, 128, 160, PixArt's
+#: 72 and the VAE's single 512-wide head.
+SUPPORTED_HEAD_DIMS = (40, 64, 72, 80, 128, 160, 512)
+#: Head widths B2, B3 and B4 are built for (the U-Nets' and PixArt's heads).
+HEADMEAN_HEAD_DIMS = (40, 64, 72, 80, 128, 160)
 #: B4 takes at most this many keys (its exact softmax walks every key tile
 #: twice, and the fp32 kernel keeps a 64 x Sk score tile in shared memory).
 SHORT_MAX_KEYS = 512

@@ -1,13 +1,24 @@
 """What is not ported yet raises ``NotImplementedError`` naming the
-ROADMAP.md Queue A item that brings it."""
+ROADMAP.md Queue A item (a module) or Queue B item (a kernel) that brings
+it."""
 
 #: Queue A items the port's messages cite, by title.
 QUEUE_A = {
     'DiT families': 9,
     'Multi-GPU': 11,
 }
+#: Queue B items ("Still to port") the port's messages cite, by title.
+QUEUE_B = {
+    'Int8 weight-only dense': 3,
+}
+#: What an item still lacks, where part of it is ported.
+REMAINING = {
+    'DiT families': 'HunyuanDiT, Flux and DeepFloyd-IF (PixArt is ported)',
+}
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP.md, Queue A "
-                               f"item {QUEUE_A[item]}: '{item}')")
+def not_ported(what: str, item: str, queue: str = 'A') -> NotImplementedError:
+    number = (QUEUE_A if queue == 'A' else QUEUE_B)[item]
+    rest = f'; still to come there: {REMAINING[item]}' if item in REMAINING else ''
+    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP.md, Queue {queue} "
+                               f"item {number}: '{item}'{rest})")

@@ -1,16 +1,17 @@
-"""Euler discrete, PNDM and DDIM schedulers (port of the U-Net schedulers
-of ``diffusion_feature_tpu/schedulers/diffusion.py``).
+"""Euler discrete, PNDM, DDIM and DPM-Solver++ (2M) schedulers (port of
+``diffusion_feature_tpu/schedulers/diffusion.py``).
 
 The schedule tables are built in numpy exactly as the JAX package builds
 them, which reproduces diffusers' arrays: with linspace spacing Euler maps
 t=50 to timestep 49 (``timesteps[1000 - t] == t - 1``); SDXL's leading
 spacing with steps_offset 1 maps it to 50; PNDM's table carries diffusers'
-duplicated entry.  Only the scaled-linear beta schedule (SD, SD-2.1, SDXL)
-is ported.  ``step`` works on a state of any step count (the facade's
-``denoising_from`` walk switches to a 100-step state); PLMS history rides
-the state (``ets``, ``counter``, ``cur_sample``), which ``step`` returns
-updated and never mutates.  DDPM and DPM-Solver come with the families
-that use them (ROADMAP.md, Queue A: 'DiT families').
+duplicated entry; DPM-Solver's rounded linspace maps t=50 to 50.  The beta
+schedules are scaled-linear (SD, SD-2.1, SDXL) and linear (PixArt).
+``step`` works on a state of any step count (the facade's
+``denoising_from`` walk switches to a 100-step state); PLMS history and
+DPM-Solver's last two x0 predictions ride the state (``ets``, ``counter``,
+``cur_sample``), which ``step`` returns updated and never mutates.  DDPM
+comes with the families that use it (ROADMAP.md, Queue A: 'DiT families').
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ class SchedulerConfig:
     num_train_timesteps: int = 1000
     beta_start: float = 0.00085
     beta_end: float = 0.012
+    beta_schedule: str = 'scaled_linear'   # or 'linear'
     prediction_type: str = 'epsilon'   # or 'v_prediction' / 'sample'
     timestep_spacing: str = 'linspace'
     steps_offset: int = 0
@@ -39,20 +41,30 @@ class SchedulerState:
     timesteps: np.ndarray                  # descending
     sigmas: Optional[np.ndarray] = None    # Euler: one per timestep, then 0
     init_noise_sigma: float = 1.0          # generation's initial latent scale
-    ets: tuple = ()                        # PLMS: the last 4 model outputs
+    ets: tuple = ()                        # PLMS: the last 4 model outputs;
+    #                                        DPM-Solver: the last 2 (x0, t)
     counter: int = 0
     cur_sample: Optional[torch.Tensor] = None
 
 
+def make_betas(schedule: str, beta_start: float, beta_end: float, n: int) -> np.ndarray:
+    """The training betas (JAX ``make_betas``), float64."""
+    if schedule == 'linear':
+        return np.linspace(beta_start, beta_end, n, dtype=np.float64)
+    if schedule == 'scaled_linear':
+        return np.linspace(beta_start ** 0.5, beta_end ** 0.5, n, dtype=np.float64) ** 2
+    raise NotImplementedError(f'beta schedule {schedule!r} is not ported yet')
+
+
 class _Scheduler:
-    """The scaled-linear schedule's cumulative alphas, the leading-spacing
-    timestep table and the pipelines' img2img timestep selection, shared by
-    the schedulers."""
+    """The beta schedule's cumulative alphas, the leading-spacing timestep
+    table and the pipelines' img2img timestep selection, shared by the
+    schedulers."""
 
     def __init__(self, config: SchedulerConfig = SchedulerConfig()):
         self.config = config
-        betas = np.linspace(config.beta_start ** 0.5, config.beta_end ** 0.5,
-                            config.num_train_timesteps, dtype=np.float64) ** 2
+        betas = make_betas(config.beta_schedule, config.beta_start, config.beta_end,
+                           config.num_train_timesteps)
         self.alphas_cumprod = np.cumprod(1.0 - betas)
         self.final_alpha_cumprod = 1.0
 
@@ -226,10 +238,57 @@ class DDIMScheduler(_Scheduler):
                 + scalar_like(np.sqrt(1 - a_prev), sample) * eps), state
 
 
+class DPMSolverMultistepScheduler(_Scheduler):
+    """DPM-Solver++ (2M), the PixArt pipelines' scheduler: the rounded
+    linspace ladder, DDPM-family noising, and a first-order step, then
+    second-order ones from the last two x0 predictions (kept in the
+    state's ``ets`` with their timesteps)."""
+
+    def __init__(self, config: SchedulerConfig = SchedulerConfig()):
+        super().__init__(config)
+        self.alpha_t = np.sqrt(self.alphas_cumprod)
+        self.sigma_t = np.sqrt(1 - self.alphas_cumprod)
+        self.lambda_t = np.log(self.alpha_t) - np.log(self.sigma_t)
+
+    def set_timesteps(self, num_inference_steps: int) -> SchedulerState:
+        n = self.config.num_train_timesteps
+        timesteps = np.linspace(0, n - 1, num_inference_steps + 1).round()[::-1][:-1]
+        return SchedulerState(num_inference_steps, timesteps.astype(np.int64))
+
+    def prev_timestep(self, state: SchedulerState, timestep) -> int:
+        """The ladder's next timestep after ``timestep`` (0 after the last)."""
+        ts = state.timesteps
+        idx = int(np.nonzero(ts == int(timestep))[0][0])
+        return int(ts[idx + 1]) if idx + 1 < len(ts) else 0
+
+    def step(self, state: SchedulerState, model_output: torch.Tensor, timestep,
+             sample: torch.Tensor):
+        """One multistep DPM-Solver++ update to the ladder's next timestep:
+        prev = (sigma_p / sigma_s) sample - alpha_p expm1(-h) D, with D the
+        x0 prediction, or from the second step on its extrapolation
+        x0 + (x0 - x0_prev) / (2r) over the log-SNR steps' ratio r.
+        Returns (prev_sample, the state with the x0 history updated)."""
+        t = int(timestep)
+        prev_t = self.prev_timestep(state, t)
+        x0, _ = self._predict_x0_eps(model_output, sample, float(self.alphas_cumprod[t]))
+        h = self.lambda_t[prev_t] - self.lambda_t[t]
+        ets = (state.ets + ((x0, t),))[-2:]
+        d = x0
+        if len(ets) >= 2:
+            x0_prev, t_prev = ets[-2]
+            r = (self.lambda_t[t] - self.lambda_t[int(t_prev)]) / h if h != 0 else 1.0
+            if r != 0:
+                d = x0 + (x0 - x0_prev) / scalar_like(2 * r, x0)
+        prev = (scalar_like(self.sigma_t[prev_t] / self.sigma_t[t], sample) * sample
+                - scalar_like(self.alpha_t[prev_t] * np.expm1(-h), sample) * d)
+        return prev, dataclasses.replace(state, ets=ets, counter=state.counter + 1)
+
+
 def make_scheduler(kind: str, config: SchedulerConfig):
-    """'euler', 'pndm' or 'ddim' (``models.registry.ModelSpec.scheduler``)."""
+    """'euler', 'pndm', 'ddim' or 'dpmsolver'
+    (``models.registry.ModelSpec.scheduler``)."""
     return {'euler': EulerDiscreteScheduler, 'pndm': PNDMScheduler,
-            'ddim': DDIMScheduler}[kind](config)
+            'ddim': DDIMScheduler, 'dpmsolver': DPMSolverMultistepScheduler}[kind](config)
 
 
 def scalar_like(value: float, like: torch.Tensor) -> torch.Tensor:

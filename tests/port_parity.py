@@ -9,6 +9,13 @@ test needs only that both sides share the parameters, so they are drawn here
 from a seed with the distributions Flax's initialisers use (kernels and
 embeddings N(0, 1/fan_in), norm scales 1, biases 0) and handed to the facade
 through its ``external_model`` argument.
+
+Importing this module also sets PyTorch to one intra-op thread.  The suite
+runs several workers on the host's cores, and each worker's default pool
+(one thread per core) then oversubscribes them; the tiny models' forwards
+are thousands of small operators, each of which waits for every thread of
+the pool: under such load a 95-forward walk of test-sd took 112 s with the
+default pool and 2 s with one thread.
 """
 
 import types
@@ -23,29 +30,42 @@ from flax import traverse_util
 from diffusion_feature_tpu import FeatureExtractor as JaxFeatureExtractor
 from diffusion_feature_tpu.models.clip_text import CLIPTextModel
 from diffusion_feature_tpu.models.convert import convert_torch_state
+from diffusion_feature_tpu.models.dit_pixart import PixArtTransformer2D
 from diffusion_feature_tpu.models.registry import get_model_spec
+from diffusion_feature_tpu.models.t5 import T5EncoderModel
 from diffusion_feature_tpu.models.unet2d import UNet2DConditionModel
 from diffusion_feature_tpu.models.vae import AutoencoderKL
 from diffusion_feature_tpu.tokenizers.clip_bpe import load_clip_tokenizer
+from diffusion_feature_tpu.tokenizers.t5_tok import load_t5_tokenizer
+from diffusion_feature_tpu_torch.models import t5 as port_t5
 from diffusion_feature_tpu_torch.models.convert import params_from_jax
+
+torch.set_num_threads(1)
 
 
 def _param_shapes(spec, unet, vae, text_encoders):
     def init():
         rng = jax.random.PRNGKey(0)
-        added = None
-        if spec.unet.addition_embed_type == 'text_time':
-            last = spec.text_encoders[-1]
-            added = {'text_embeds': jnp.zeros((1, last.projection_dim or last.hidden_size)),
-                     'time_ids': jnp.zeros((1, 6))}
-        sample = jnp.zeros((1, spec.unet.in_channels, 8, 8))
-        ctx = jnp.zeros((1, 77, spec.unet.cross_attention_dim))
+        if spec.family == 'pixart':
+            ids = jnp.zeros((1, spec.prompt_max_length), jnp.int32)
+            ctx = jnp.zeros((1, spec.prompt_max_length, spec.t5.d_model))
+            denoiser = unet.init(rng, jnp.zeros((1, spec.dit.in_channels, 8, 8)), 50, ctx,
+                                 jnp.ones_like(ids))['params']
+        else:
+            ids = jnp.zeros((1, 77), jnp.int32)
+            added = None
+            if spec.unet.addition_embed_type == 'text_time':
+                last = spec.text_encoders[-1]
+                added = {'text_embeds': jnp.zeros((1, last.projection_dim or last.hidden_size)),
+                         'time_ids': jnp.zeros((1, 6))}
+            sample = jnp.zeros((1, spec.unet.in_channels, 8, 8))
+            ctx = jnp.zeros((1, 77, spec.unet.cross_attention_dim))
+            denoiser = unet.init(rng, sample, 50, ctx, added)['params']
         return {
-            'unet': unet.init(rng, sample, 50, ctx, added)['params'],
+            'unet': denoiser,
             'vae': vae.init(rng, jnp.zeros((1, 3, 16, 16)),
                             method=AutoencoderKL.full_pass)['params'],
-            'text': [te.init(rng, jnp.zeros((1, 77), jnp.int32))['params']
-                     for te in text_encoders],
+            'text': [te.init(rng, ids)['params'] for te in text_encoders],
         }
     return jax.eval_shape(init)
 
@@ -57,11 +77,11 @@ def _draw(shapes, seed):
         name = path[-1].key
         if name == 'bias':
             return jnp.zeros(s.shape, s.dtype)
-        if name == 'scale':
+        if name in ('scale', 'weight'):       # norm scales (T5's RMS norm: 'weight')
             return jnp.ones(s.shape, s.dtype)
         if name == 'kernel' or name.endswith('_kernel'):
             fan_in = int(np.prod(s.shape[:-1]))
-        elif name == 'embedding':
+        elif name in ('embedding', 'scale_shift_table'):   # the DiT's: N(0, 1/dim)
             fan_in = s.shape[-1]
         elif name.endswith('_bias'):
             return jnp.zeros(s.shape, s.dtype)
@@ -75,19 +95,27 @@ def _draw(shapes, seed):
 
 
 def jax_facade(layer, version: str, img_size: int, seed: int = 0, **kwargs):
-    """The JAX facade of a U-Net ``version`` at fp32 with fp32 features
-    (``train_unet=True`` only drops its bf16 feature cast), random
+    """The JAX facade of a U-Net or PixArt ``version`` at fp32 with fp32
+    features (``train_unet=True`` only drops its bf16 feature cast), random
     parameters drawn from ``seed``.  ``kwargs`` go to the facade (e.g.
     ``attention=``, ``attn_store_sizes=``, ``validate_layers=``)."""
     spec = get_model_spec(version)
-    unet = UNet2DConditionModel(cfg=spec.unet, dtype=jnp.float32)
     vae = AutoencoderKL(cfg=spec.vae, dtype=jnp.float32)
-    text_encoders = tuple(CLIPTextModel(cfg=c, dtype=jnp.float32) for c in spec.text_encoders)
-    models = types.SimpleNamespace(
-        unet=unet, vae=vae, text_encoders=text_encoders,
+    if spec.family == 'pixart':
+        unet = PixArtTransformer2D(cfg=spec.dit, dtype=jnp.float32)
+        text_encoders = (T5EncoderModel(cfg=spec.t5, dtype=jnp.float32),)
+        tokenizers = (load_t5_tokenizer(None, model_max_length=spec.prompt_max_length,
+                                        vocab_size=spec.t5.vocab_size),)
+    else:
+        unet = UNet2DConditionModel(cfg=spec.unet, dtype=jnp.float32)
+        text_encoders = tuple(CLIPTextModel(cfg=c, dtype=jnp.float32)
+                              for c in spec.text_encoders)
         # the first tokenizer pads with EOS, OpenCLIP's with id 0, as the facade builds them
-        tokenizers=tuple(load_clip_tokenizer(None, vocab_size=c.vocab_size, pad_with_eos=i == 0)
-                         for i, c in enumerate(spec.text_encoders)),
+        tokenizers = tuple(load_clip_tokenizer(None, vocab_size=c.vocab_size,
+                                               pad_with_eos=i == 0)
+                           for i, c in enumerate(spec.text_encoders))
+    models = types.SimpleNamespace(
+        unet=unet, vae=vae, text_encoders=text_encoders, tokenizers=tokenizers,
         params=_draw(_param_shapes(spec, unet, vae, text_encoders), seed))
     return JaxFeatureExtractor(layer, version, img_size=img_size, dtype='float32', seed=seed,
                                train_unet=True, external_model=models, **kwargs)
@@ -98,7 +126,8 @@ def load_jax_params(jfe, port):
     port.unet.load_state_dict(params_from_jax(jfe.params['unet'], port.unet))
     port.vae.load_state_dict(params_from_jax(jfe.params['vae'], port.vae))
     for te, tree in zip(port.text_encoders, jfe.params['text']):
-        te.load_state_dict(params_from_jax(tree, te))
+        t5 = isinstance(te, port_t5.T5EncoderModel)
+        te.load_state_dict(params_from_jax(tree, te, port_t5.jax_param_name if t5 else None))
 
 
 def jax_noise(seed: int, lat_shape, call: int = 0):

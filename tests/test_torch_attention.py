@@ -14,6 +14,7 @@ import jax.numpy as jnp
 from diffusion_feature_tpu.models.registry import get_model_spec as jax_model_spec
 from diffusion_feature_tpu.ops import attention as jax_attn
 from diffusion_feature_tpu.ops import flash_attention as jax_fa
+from diffusion_feature_tpu_torch.models import registry
 from diffusion_feature_tpu_torch.ops import attention as attn
 from diffusion_feature_tpu_torch.ops import flash_attention as fa
 
@@ -28,8 +29,9 @@ def _close(ours, ref, atol, rtol):
 
 
 # fp32 on both sides; 1e-4 covers summation order (online vs one-shot softmax)
-@pytest.mark.parametrize('shape', [(1, 2, 512, 512, 64), (1, 1, 512, 512, 512)],
-                         ids=['d64', 'd512'])
+@pytest.mark.parametrize('shape', [(1, 2, 512, 512, 64), (1, 1, 512, 512, 512),
+                                   (1, 2, 512, 512, 72)],
+                         ids=['d64', 'd512', 'd72'])
 def test_flash_twin_matches_jax_kernel(shape):
     b, h, sq, sk, d = shape
     q, k, v = _rand(0, b, h, sq, d), _rand(1, b, h, sk, d), _rand(2, b, h, sk, d)
@@ -53,6 +55,8 @@ def test_flash_twin_matches_jax_kernel(shape):
     ((2, 8, 4096, 40), (2, 8, 4096, 40), True),       # SD-1.5 level 0 @512^2
     ((2, 8, 1024, 80), (2, 8, 1024, 80), True),       # SD-1.5 level 1 @512^2
     ((2, 16, 4096, 88), (2, 16, 4096, 88), False),    # HunyuanDiT: d=88 not built yet
+    ((2, 16, 4096, 72), (2, 16, 4096, 72), True),     # PixArt-Sigma @1024^2
+    ((2, 16, 1024, 72), (2, 16, 300, 72), False),     # PixArt cross-attention (masked)
 ])
 def test_gate(q_shape, k_shape, expect):
     assert fa.is_flash_compatible(q_shape, k_shape) is expect
@@ -63,25 +67,44 @@ def test_gate(q_shape, k_shape, expect):
         jax_fa.is_flash_compatible(q_shape, k_shape)
 
 
+SHIPPED = ('1-5', '2-1', 'xl', 'pgv2', 'pixart-alpha', 'pixart-sigma', 'pixart-sigma-512')
+
+
+def _attention_shapes(spec, img):
+    """Every attention shape of one model (the JAX package's spec) and its
+    VAE at ``img``^2, batch 2: the U-Net's self- and cross-attention per
+    level or the DiT's over its patch tokens (cross over the T5 tokens),
+    and the VAE's mid-block head."""
+    lat = img // 2 ** (len(spec.vae.block_out_channels) - 1)
+    if spec.family == 'pixart':
+        cfg = spec.dit
+        h, d, s = cfg.num_attention_heads, cfg.attention_head_dim, (lat // cfg.patch_size) ** 2
+        yield (2, h, s, d), (2, h, s, d)
+        yield (2, h, s, d), (2, h, spec.prompt_max_length, d)
+    else:
+        cfg = spec.unet
+        for level, ch in enumerate(cfg.block_out_channels):
+            h, s = cfg.num_attention_heads[level], (lat >> level) ** 2
+            d = ch // h
+            yield (2, h, s, d), (2, h, s, d)
+            yield (2, h, s, d), (2, h, 77, d)
+    d = spec.vae.block_out_channels[-1]
+    yield (2, 1, lat * lat, d), (2, 1, lat * lat, d)
+
+
 def _shipped_attention_shapes():
-    """Every attention shape of the shipped U-Nets and their VAE at 512^2
-    and 1024^2, batch 2: self- and cross-attention per level, VAE mid."""
-    for version in ('1-5', '2-1', 'xl', 'pgv2'):
-        cfg = jax_model_spec(version).unet
+    """Every attention shape of the shipped U-Nets and DiTs and their VAEs
+    at 512^2 and 1024^2, batch 2."""
+    for version in SHIPPED:
         for img in (512, 1024):
-            lat = img // 8
-            for level, ch in enumerate(cfg.block_out_channels):
-                h, s = cfg.num_attention_heads[level], (lat >> level) ** 2
-                d = ch // h
-                yield (2, h, s, d), (2, h, s, d)
-                yield (2, h, s, d), (2, h, 77, d)
-            yield (2, 1, lat * lat, 512), (2, 1, lat * lat, 512)
+            yield from _attention_shapes(jax_model_spec(version), img)
 
 
 @pytest.mark.parametrize('min_seq', [1024, 512], ids=['flash', 'headmean'])
 def test_gate_equals_jax_on_shipped_unets(min_seq):
     """With the widened head dims the port's gate, head-dim condition
-    included, is the JAX gate on every shipped U-Net and VAE shape."""
+    included, is the JAX gate on every shipped U-Net, DiT and VAE shape
+    (the PixArt DiTs' d=72 too)."""
     dims = fa.SUPPORTED_HEAD_DIMS if min_seq == 1024 else fa.HEADMEAN_HEAD_DIMS
     shapes = list(_shipped_attention_shapes())
     for q_shape, k_shape in shapes:
@@ -90,6 +113,25 @@ def test_gate_equals_jax_on_shipped_unets(min_seq):
             want = False    # the VAE head never feeds the attention store
         assert fa.is_flash_compatible(q_shape, k_shape, min_seq, dims) is want, q_shape
     assert sum(jax_fa.is_flash_compatible(q, k, min_seq=min_seq) for q, k in shapes) > 10
+
+
+@pytest.mark.parametrize('min_seq', [1024, 512], ids=['flash', 'headmean'])
+def test_every_gate_passing_width_is_built(min_seq):
+    """Every attention of every published version the port registers, at
+    512^2 and 1024^2, that JAX's gate sends to a kernel has its head width
+    among the widths that kernel is built for, so none goes to the explicit
+    path on the card where JAX takes the kernel.  (The test-* models are
+    CPU test models: their d=8 and d=16 heads are built for no kernel.)"""
+    dims = fa.SUPPORTED_HEAD_DIMS if min_seq == 1024 else fa.HEADMEAN_HEAD_DIMS
+    versions = [v for v, s in registry._REGISTRY.items() if not v.startswith('test-')]
+    assert set(SHIPPED) <= set(versions)
+    for version in versions:
+        for img in (512, 1024):
+            for q_shape, k_shape in _attention_shapes(jax_model_spec(version), img):
+                if min_seq == 512 and q_shape[-1] == 512:
+                    continue    # the VAE head never feeds the attention store
+                if jax_fa.is_flash_compatible(q_shape, k_shape, min_seq=min_seq):
+                    assert q_shape[-1] in dims, (version, img, q_shape)
 
 
 _LSE_SHAPE = (1, 2, 512, 512, 64)     # the smallest shape the head-mean gate passes
@@ -107,6 +149,32 @@ def test_flash_lse_twin_matches_jax_kernel():
     assert lse.dtype == torch.float32 and lse.shape == (b, h, sq)
     _close(lse, r_lse, atol=1e-5, rtol=1e-5)
     assert fa.lse_launches == 0
+
+
+def test_flash_lse_twin_matches_jax_kernel_d72():
+    """B2's twin at PixArt's head width, at the smallest shape the
+    head-mean gate passes."""
+    b, h, sq, sk, d = (1, 2, 512, 512, 72)
+    q, k, v = _rand(15, b, h, sq, d), _rand(16, b, h, sk, d), _rand(17, b, h, sk, d)
+    out, lse = fa.flash_attention_with_lse(torch.from_numpy(q), torch.from_numpy(k),
+                                           torch.from_numpy(v), scale=d ** -0.5)
+    r_out, r_lse = jax_fa.flash_attention_with_lse(jnp.asarray(q), jnp.asarray(k),
+                                                   jnp.asarray(v), scale=d ** -0.5)
+    _close(out, r_out, atol=1e-4, rtol=1e-4)
+    _close(lse, r_lse, atol=1e-5, rtol=1e-5)
+
+
+def test_headmean_twin_matches_jax_kernel_d72():
+    """B3's twin at PixArt's head width, on the JAX kernel's logsumexp."""
+    b, h, sq, sk, d = (1, 2, 512, 512, 72)
+    q, k = _rand(18, b, h, sq, d), _rand(19, b, h, sk, d)
+    _, lse = jax_fa.flash_attention_with_lse(jnp.asarray(q), jnp.asarray(k), jnp.asarray(k),
+                                             scale=d ** -0.5)
+    ours = fa.headmean_probs(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(np.array(lse)), scale=d ** -0.5)
+    ref = jax_fa.headmean_probs(jnp.asarray(q), jnp.asarray(k), lse, scale=d ** -0.5,
+                                out_dtype=jnp.float32)
+    _close(ours, ref, atol=1e-6, rtol=1e-4)
 
 
 def test_headmean_twin_matches_jax_kernel():

@@ -50,7 +50,7 @@ def test_enumeration_of_unported_version_names_its_item():
     with pytest.raises(NotImplementedError, match="Queue A item 9: 'DiT families'"):
         enumerate_layers('flux', 1024)
     with pytest.raises(NotImplementedError, match="Queue A item 9: 'DiT families'"):
-        enumerate_layers('pixart-sigma', 1024)
+        enumerate_layers('hunyuan', 1024)
 
 
 # ------------------------------------------------------------------- dumps
@@ -154,7 +154,8 @@ def facades():
     return jfe, port
 
 
-def _run_both(monkeypatch, tmp_path, images, flags, port_factory, jax_factory=None):
+def _run_both(monkeypatch, tmp_path, images, flags, port_factory, jax_factory=None,
+              version='test-sd', layers=LAYER_JSON):
     """Both CLIs over the 3 images (batches of 2 and 1), each from a fresh
     key chain; the port's step gets the JAX noise of the same call.
     ``port_factory`` (and ``jax_factory``, else the JAX facade itself)
@@ -184,8 +185,8 @@ def _run_both(monkeypatch, tmp_path, images, flags, port_factory, jax_factory=No
     if jax_factory is not None:
         monkeypatch.setattr(jax_cli, 'FeatureExtractor', jax_factory)
     monkeypatch.setattr(port_cli, 'FeatureExtractor', port_with_jax_noise)
-    common = ['--version', 'test-sd', '--img_size', str(IMG_SIZE), '--dtype', 'float32',
-              '--batch_size', str(BATCH), '--layer', LAYER_JSON, '--prompt', 'a photo of a cat',
+    common = ['--version', version, '--img_size', str(IMG_SIZE), '--dtype', 'float32',
+              '--batch_size', str(BATCH), '--layer', layers, '--prompt', 'a photo of a cat',
               '--input_dir', str(images / '*.png'), *flags]
     jax_cli.main([*common, '--output_dir', str(tmp_path / 'jax')])
     fa.launches = 0
@@ -258,6 +259,40 @@ def test_cli_vae_out_and_denoising_from_match_jax(monkeypatch, tmp_path, vae_out
     assert np.load(ours_root / 'vae-out' / 'train0.npy').shape == (3, IMG_SIZE, IMG_SIZE)
 
 
+PIXART_LAYERS = {'vit-block0-out': True, 'vit-block1-cross-q': True, 'vit-block1-ffn-inner': True}
+
+
+def test_cli_pixart_matches_jax(monkeypatch, tmp_path, images):
+    """--version test-pixart through both CLIs: the T5 prompt 4-tuple
+    (embeds, mask, negative embeds, negative mask) goes through unchanged,
+    DPM-Solver's kit, the DiT's taps: the JAX CLI's tree."""
+    jfe = jax_facade(PIXART_LAYERS, 'test-pixart', IMG_SIZE, SEED)
+    port = FeatureExtractor(PIXART_LAYERS, 'test-pixart', device='cpu', dtype='float32',
+                            img_size=IMG_SIZE)
+    load_jax_params(jfe, port)
+
+    def jax_factory(*args, **kwargs):
+        assert args[1] == 'test-pixart'
+        jfe._rng = jax.random.PRNGKey(SEED)
+        return jfe
+
+    def port_factory(*args, **kwargs):
+        assert args[1] == 'test-pixart'
+        return port
+
+    ref_root, ours_root = _run_both(monkeypatch, tmp_path, images, [], port_factory,
+                                    jax_factory, 'test-pixart', json.dumps(PIXART_LAYERS))
+    _assert_trees_match(ref_root, ours_root, 9)
+
+
+def test_cli_control_on_pixart_says_why(tmp_path, images):
+    args = ['--version', 'test-pixart', '--img_size', '64', '--device', 'cpu', '--prompt', 'a',
+            '--input_dir', str(images / 'imgA.png'), '--output_dir', str(tmp_path), '--layer',
+            '{"vit-block0-out": true}', '--control', 'canny']
+    with pytest.raises(ValueError, match='control= needs a U-Net version'):
+        port_cli.main(args)
+
+
 def test_cli_show_all_layers_writes_record(monkeypatch, tmp_path, capsys):
     monkeypatch.chdir(tmp_path)
     port_cli.main(['--version', 'test-xl', '--img_size', '64', '--show_all_layers',
@@ -301,8 +336,8 @@ def test_weight_flags_match_jax_cli(monkeypatch, tmp_path, images, checkpoint, f
 
 
 @pytest.mark.parametrize('flags,item', [
-    # ControlNet is ported; on a DiT family it is not (the version raises)
-    (['--control', 'canny', '--version', 'test-pixart'], 9), (['--dp', '2'], 11),
+    # ControlNet is ported; on an unported DiT family the version raises
+    (['--control', 'canny', '--version', 'test-flux'], 9), (['--dp', '2'], 11),
     (['--tp', '2'], 11), (['--sp', '2'], 11), (['--transformer_8bit', 'true'], 9),
 ], ids=['control', 'dp', 'tp', 'sp', 'transformer_8bit'])
 def test_unported_flags_raise(tmp_path, images, flags, item):

@@ -51,8 +51,9 @@ def cuda():
 @pytest.mark.parametrize('dtype', list(_TOL), ids=str)
 @pytest.mark.parametrize('shape', [(1, 2, 1000, 333, 64), (2, 3, 130, 77, 128),
                                    (1, 1, 300, 700, 512), (1, 2, 1000, 333, 40),
-                                   (2, 2, 200, 600, 80), (1, 3, 130, 77, 160)],
-                         ids=['d64', 'd128', 'd512', 'd40', 'd80', 'd160'])
+                                   (2, 2, 200, 600, 80), (1, 3, 130, 77, 160),
+                                   (2, 3, 1000, 333, 72)],
+                         ids=['d64', 'd128', 'd512', 'd40', 'd80', 'd160', 'd72'])
 def test_kernel_matches_twin(cuda, dtype, shape):
     b, h, sq, sk, d = shape
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -75,7 +76,8 @@ def _qkv(cuda, dtype, b, h, sq, sk, d, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', list(_TOL), ids=str)
 @pytest.mark.parametrize('shape', [(1, 2, 1000, 333, 64), (2, 2, 300, 77, 40),
-                                   (1, 3, 130, 700, 160)], ids=['d64', 'd40', 'd160'])
+                                   (1, 3, 130, 700, 160), (2, 3, 300, 333, 72)],
+                         ids=['d64', 'd40', 'd160', 'd72'])
 def test_lse_and_headmean_kernels_match_twins(cuda, dtype, shape):
     """B2's output and logsumexp, then B3 on B2's logsumexp, at ragged
     lengths (odd Sk: scalar stores)."""
@@ -159,8 +161,9 @@ def test_kernel_raises_on_unsupported_input(cuda):
 @pytest.mark.parametrize('dtype', list(_TOL), ids=str)
 @pytest.mark.parametrize('shape', [(1, 2, 200, 333, 64), (2, 3, 256, 77, 40),
                                    (2, 2, 128, 512, 160), (1, 3, 130, 1, 80),
-                                   (2, 2, 256, 256, 128)],
-                         ids=['ragged-d64', 'cross-d40', 'sk512-d160', 'one-key-d80', 'd128'])
+                                   (2, 2, 256, 256, 128), (2, 3, 200, 300, 72)],
+                         ids=['ragged-d64', 'cross-d40', 'sk512-d160', 'one-key-d80', 'd128',
+                              'ragged-d72'])
 def test_short_kernel_matches_twin(cuda, dtype, shape):
     """B4 at ragged Sq and Sk (masked key padding, zero-filled rows), the
     most keys it takes, and a single key."""
@@ -220,10 +223,11 @@ def _split(cuda, dtype, b, h, s, d, gen):
 @pytest.mark.parametrize('lse,shape', [
     *((lse, shape) for lse in (False, True)
       for shape in [(2, 10, 1024, 1024, 64), (2, 8, 1000, 333, 40), (1, 3, 300, 700, 160),
-                    (2, 2, 130, 77, 80)]),
+                    (2, 2, 130, 77, 80), (2, 16, 1024, 1024, 72), (1, 16, 1000, 333, 72)]),
     (False, (1, 1, 1000, 1000, 512)),   # B2 has no d=512 instance: the VAE never feeds the store
 ], ids=[f'{k}-{d}' for k in ('b1', 'b2') for d in ('d64', 'ragged-d40', 'ragged-d160',
-                                                   'ragged-d80')] + ['b1-ragged-d512'])
+                                                   'ragged-d80', 'd72', 'ragged-d72')]
+    + ['b1-ragged-d512'])
 def test_kernel_reads_head_split_views(cuda, dtype, lse, shape):
     """B1 and B2 on the head-split views of (B, S, H*D) projections, read
     in place (no copy), at ragged lengths; the output is (B, S, H, D)
@@ -251,11 +255,12 @@ def test_kernel_reads_head_split_views(cuda, dtype, lse, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16], ids=str)
 @pytest.mark.parametrize('shape', [(2, 8, 4096, 4096, 40), (2, 1, 4096, 4096, 512),
-                                   (2, 20, 1024, 1024, 64)], ids=['d40', 'd512', 'd64'])
+                                   (2, 20, 1024, 1024, 64), (2, 16, 4096, 4096, 72)],
+                         ids=['d40', 'd512', 'd64', 'd72'])
 def test_kernel_matches_twin_at_path_widths(cuda, dtype, shape):
     """B1 at SD-1.5's d=40 level and at the VAE's d=512 head (4096 tokens:
-    the one-pass score tiles over many key tiles), and SDXL's d=64 level,
-    on contiguous inputs."""
+    the one-pass score tiles over many key tiles), SDXL's d=64 level and
+    PixArt-Sigma's d=72 self-attention at 1024^2, on contiguous inputs."""
     b, h, sq, sk, d = shape
     q, k, v = _qkv(cuda, dtype, *shape, seed=6)
     out = fa.flash_attention(q, k, v, scale=d ** -0.5)
@@ -312,7 +317,7 @@ def _assert_map_matches(mean_p, ref, dtype, sk):
 
 
 _HEADMEAN_CASES = [(2, 3, 1000, 333, 40), (1, 4, 300, 640, 64), (2, 2, 130, 77, 80),
-                   (1, 3, 256, 256, 128), (1, 3, 130, 700, 160)]
+                   (1, 3, 256, 256, 128), (1, 3, 130, 700, 160), (2, 16, 1024, 1024, 72)]
 
 
 @pytest.mark.cuda
@@ -337,7 +342,7 @@ def test_headmean_kernel_layouts_and_widths(cuda, dtype, layout, shape):
 
 
 _SHORT_CASES = [(2, 3, 200, 333, 40), (1, 4, 256, 512, 64), (2, 2, 130, 300, 80),
-                (1, 3, 256, 256, 128), (1, 3, 130, 512, 160)]
+                (1, 3, 256, 256, 128), (1, 3, 130, 512, 160), (2, 16, 256, 300, 72)]
 
 
 @pytest.mark.cuda
@@ -347,7 +352,7 @@ _SHORT_CASES = [(2, 3, 200, 333, 40), (1, 4, 256, 512, 64), (2, 2, 130, 300, 80)
 def test_short_kernel_layouts_and_widths(cuda, dtype, layout, shape):
     """B4 against its twin at every built width, on contiguous tensors and
     on head-split views, at ragged lengths, with the key tiles kept for the
-    second pass (d=40, d=64 up to 512 keys) and reloaded (d=80 at 300 keys,
+    second pass (d=40, d=64 up to 512 keys) and reloaded (d=72, d=80 at 300 keys,
     d=128 at 256, d=160 at 512); the output is (B, S, H, D) memory."""
     b, h, sq, sk, d = shape
     gen = torch.Generator(device=cuda).manual_seed(9)
@@ -605,3 +610,30 @@ def test_control_extract_on_card_matches_twins(cuda):
         assert torch.isfinite(feats[key].float()).all()
         assert _rel_l2(feats[key], ref[key]) <= 2e-2, key
     assert _rel_l2(plain['unet-out'], feats['unet-out']) > 2e-2
+
+
+@pytest.mark.cuda
+def test_pixart_step_routes_self_attention_to_b1(cuda):
+    """PixArt-alpha's DiT at full width (28 blocks of 16 heads x 72) on a
+    512^2 image's 64^2 latent, batch 2: one forward launches B1 once per
+    block (1024 tokens; cross-attention carries the T5 mask and stays
+    explicit), and its prediction is within the bf16 tolerance, in relative
+    L2, of the same forward on B1's twin."""
+    from diffusion_feature_tpu_torch.models.convert import random_module
+    from diffusion_feature_tpu_torch.models.dit_pixart import (PIXART_ALPHA_512,
+                                                                 PixArtTransformer2D)
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    dit = random_module(lambda: PixArtTransformer2D(PIXART_ALPHA_512), cuda, torch.bfloat16, gen)
+    x = torch.randn(2, 4, 64, 64, generator=gen, device=cuda)
+    ctx = torch.randn(2, 120, 4096, generator=gen, device=cuda).bfloat16()
+    mask = torch.zeros(2, 120, dtype=torch.int32, device=cuda)
+    mask[:, :10] = 1
+    with torch.inference_mode():
+        fa.launches = fa.lse_launches = fa.headmean_launches = 0
+        out = dit(x, 500.0, ctx, mask)
+        torch.cuda.synchronize()
+        assert (fa.launches, fa.lse_launches, fa.headmean_launches) == (28, 0, 0)
+        with _on_twins():
+            ref = dit(x, 500.0, ctx, mask)
+    assert out.shape == (2, 8, 64, 64) and torch.isfinite(out.float()).all()
+    assert _rel_l2(out, ref) <= _TOL[torch.bfloat16]

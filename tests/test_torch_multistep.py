@@ -272,10 +272,10 @@ def test_extract_ensemble_matches_jax(pairs, image, monkeypatch, concat):
                                prompt_list=sets, concat=concat)
     step, calls = port._step, []
 
-    def jax_noise_step(img, pe, pooled, kit, posterior, noise, out_dtype, control=None):
+    def jax_noise_step(img, pe, pooled, kit, posterior, noise, out_dtype, **kwargs):
         posterior, noise = jax_noise(SEED, posterior.shape, len(calls))
         calls.append(kit['T'])
-        return step(img, pe, pooled, kit, posterior, noise, out_dtype, control=control)
+        return step(img, pe, pooled, kit, posterior, noise, out_dtype, **kwargs)
 
     monkeypatch.setattr(port, '_step', jax_noise_step)
     monkeypatch.setattr(port, 'feature_dtype', None)

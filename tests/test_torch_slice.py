@@ -156,9 +156,9 @@ def test_layer_validation_suggests_near_miss():
 
 
 @pytest.mark.parametrize('kwargs', [
-    # ControlNet is ported; on a DiT family it is not (the version raises)
+    # ControlNet and PixArt are ported; on an unported DiT family the version raises
     {'weights': 'use_quant_conv'}, {'control': ['canny'], 'version': 'test-flux'},
-    {'attention': ['up_cross'], 'version': 'pixart-sigma'}, {'version': 'if'},
+    {'attention': ['up_cross'], 'version': 'hunyuan'}, {'version': 'if'},
 ], ids=['weights', 'control', 'attention', 'version'])
 def test_unported_options_raise(tmp_path, kwargs):
     args = dict(layer={'mid-vit-out': True}, version='test-xl', device='cpu', img_size=SIZE)

@@ -4,7 +4,8 @@ the card.
 
     python3 tools/torch_extract_profile.py [NAME ...]
 
-For each of the paths ``chip_smoke.py`` drives (``chip_smoke.PATHS``),
+For each of the paths ``chip_smoke.py`` drives (``chip_smoke.PATHS``: the
+U-Net paths of phases 3 to 11 and PixArt's of phase 14),
 after ``chip_smoke.extract_times``'s three warm-up calls: the median host
 time to enqueue one extract and the median time between CUDA events around
 it over ``chip_smoke.TIMED_CALLS`` calls, then one extract under
