@@ -118,6 +118,22 @@ Phases (each prints its numbers on lines of its own):
      MULTISTEP_REL_TOL.  The counts come from the config through the JAX
      package's gate, with no head-width condition (dit_launches), so a
      width the card's kernels lack fails them.
+ 15. HunyuanDiT (after 14), random weights from seed 0, bf16, batch 2,
+     t=50, the JAX benchmark's taps (vit-block{13,20,27,39}-self-q):
+     (a) 'hunyuan' at 1024^2 (40 blocks of 16 heads x 88 over 4096
+     tokens, BERT over 77 and mT5 over 256 tokens): 41 B1 launches (the
+     40 self-attentions and the SDXL VAE's d=512 head); (d) its extractor
+     written by save_weights (~7.9 GB, mT5 in 2 shards) and loaded back:
+     parameters, prompts and the first public extract torch.equal, load
+     GB/s, load peak within LOAD_PEAK_RATIO, then the CLI on the tree over
+     3 images (82 B1); (b) (a) with attention=['up_cross', 'up_self']:
+     the store takes the explicit path, as in JAX, so 1/0/0 and 'attn'
+     (2, 333 + 4096, 128, 128); (c) 'hunyuan' at 512^2: 40 B1 at 1024
+     tokens; each with the same step on the twins within TAP_REL_TOL and
+     its timing; (e) generate_with_extraction on 'hunyuan' at 512^2 with
+     the taps (50 DDPM steps, guidance 7.5): 2000 B1, the sample timed,
+     then a 4-step sample on the kernels and on the twins (the same DDPM
+     step noise) within MULTISTEP_REL_TOL.  Counts from dit_launches.
 Phase 2 also holds B2 and B3 in fp32 at phase 11's store shape (the fp32
 kernels, timed against the fp32 non-tensor peak), and B4 (short
 attention), which no path routes to, as in the JAX package: against its
@@ -128,7 +144,10 @@ head-split views, with its time beside B1's, SDPA's and the explicit
 path's there, all (its twin too) timed as CUDA graphs of 20 calls.
 Phase 2's shapes include PixArt's d=72 self-attention at 4096 and 1024
 tokens for B1, B2 and B3 (and B4 at 256 tokens, with d=72 in its width
-tuple), with ragged head-split d=72 shapes (a 144-byte head stride).
+tuple), with ragged head-split d=72 shapes (a 144-byte head stride), and
+HunyuanDiT's d=88 at the same shapes (a 176-byte head stride; B2 and B3
+have no caller at d=88, their numbers are the kernels line's
+'no_caller_shapes'), each in bf16, fp32 and fp16.
 Every path runs with all four counts set to 0 and expects 0 B4 launches.
 Launches are recorded with their dtype, and the kernels line sums each
 (shape, dtype)'s numbers.
@@ -160,6 +179,8 @@ B1_SHAPES = [
     (2, 8, 1024, 1024, 160),    # SD-1.5 U-Net level-2 self-attention @1024^2
     (2, 16, 4096, 4096, 72),    # PixArt-Sigma DiT self-attention @1024^2
     (2, 16, 1024, 1024, 72),    # PixArt-alpha DiT self-attention @512^2
+    (2, 16, 4096, 4096, 88),    # HunyuanDiT self-attention @1024^2
+    (2, 16, 1024, 1024, 88),    # HunyuanDiT self-attention @512^2
 ]
 STORE_SHAPES = [                # B2 and B3: the attention store's self-attentions
     (2, 8, 1024, 1024, 80),     # path A: SD-1.5 up-level2
@@ -167,19 +188,26 @@ STORE_SHAPES = [                # B2 and B3: the attention store's self-attentio
     (2, 10, 4096, 4096, 64),    # path B: SDXL up-level1
     (2, 16, 4096, 4096, 72),    # phase 14b: PixArt-Sigma's blocks @1024^2
     (2, 16, 1024, 1024, 72),    # PixArt @512^2
+    # HunyuanDiT's heads @512^2 and @1024^2: no caller (its store and maps
+    # take the explicit path, as in JAX), built and held all the same
+    (2, 16, 1024, 1024, 88),
+    (2, 16, 4096, 4096, 88),
 ]
+D88_STORE_SHAPES = STORE_SHAPES[-2:]
 # phase 11: SD-2.1's upcast store hands B2 and B3 fp32 q, k and v
 FP32_STORE_SHAPES = [(2, 10, 1024, 1024, 64)]   # SD-2.1 up-level2 @512^2
 RAGGED = (1, 2, 1000, 333, 64)
 # B1/B2/B3 on head-split views: ragged lengths at d=40 (TMA zero-fills the
 # columns up to the mma depth), at d=72 (144-byte head stride; zero fill up
-# to depth 80, the epilogue stops at column 72) and at d=512 (B1 only: one
-# score pass over two consumer warpgroups)
+# to depth 80, the epilogue stops at column 72), at d=88 (176-byte head
+# stride; depth 96, P V at N=88) and at d=512 (B1 only: one score pass over
+# two consumer warpgroups)
 SPLIT_RAGGED = {'flash_attention': [RAGGED, (1, 2, 1000, 333, 40), (1, 16, 1000, 333, 72),
-                                    (1, 1, 1000, 777, 512)],
+                                    (1, 16, 1000, 333, 88), (1, 1, 1000, 777, 512)],
                 'flash_attention_with_lse': [RAGGED, (1, 2, 1000, 333, 40),
-                                             (1, 16, 1000, 333, 72)],
-                'headmean_probs': [RAGGED, (1, 2, 1000, 333, 40), (1, 16, 1000, 333, 72)]}
+                                             (1, 16, 1000, 333, 72), (1, 16, 1000, 333, 88)],
+                'headmean_probs': [RAGGED, (1, 2, 1000, 333, 40), (1, 16, 1000, 333, 72),
+                                   (1, 16, 1000, 333, 88)]}
 SHORT_SHAPES = [                # B4: the short-sequence bands (no path launches it)
     (2, 8, 256, 256, 160),      # SD-1.5 @512^2 level-2 self-attention
     (2, 8, 256, 77, 160),       # and its cross-attention
@@ -188,7 +216,16 @@ SHORT_SHAPES = [                # B4: the short-sequence bands (no path launches
     (16, 20, 256, 256, 64),     # the JAX docstring's measured shapes
     (16, 20, 256, 77, 64),
     (2, 16, 256, 256, 72),      # PixArt's heads at 256^2 (d=72 shares B4's width tuple)
+    (2, 16, 256, 256, 88),      # HunyuanDiT's heads at 256^2 (as d=72)
 ]
+# phase 2's fp16 checks: one shape per kernel, and every d=88 shape
+FP16_SHAPES = [('flash_attention', B1_SHAPES[0]), ('flash_attention', (1, 1, 1000, 777, 512)),
+               ('flash_attention_with_lse', STORE_SHAPES[1]), ('headmean_probs', STORE_SHAPES[2]),
+               ('short_attention', SHORT_SHAPES[4]), ('flash_attention', B1_SHAPES[7]),
+               *(('flash_attention', s) for s in B1_SHAPES[-2:]),
+               *((k, s) for k in ('flash_attention_with_lse', 'headmean_probs')
+                 for s in D88_STORE_SHAPES),
+               ('short_attention', SHORT_SHAPES[-1])]
 SHORT_RAGGED = (1, 2, 200, 333, 64)
 # bf16: the output is rounded to bf16 and fp32 sums run in another order;
 # fp32: summation order alone; fp16: 3 more mantissa bits than bf16
@@ -215,6 +252,9 @@ AMALGAMATION_15 = {  # tap id -> shape at 512^2, batch 2, plus the store
 XL_STORE = {**XL_PRACTICAL, 'attn': (2, 1024 + 4096, 128, 128)}
 DIT_TAPS = dict.fromkeys(('vit-block13-out', 'vit-block20-out', 'vit-block20-cross-q',
                           'vit-block27-out'), True)
+# phase 15: the JAX benchmark's HunyuanDiT taps (bench.py:353-358)
+HUNYUAN_TAPS = dict.fromkeys(('vit-block13-self-q', 'vit-block20-self-q', 'vit-block27-self-q',
+                              'vit-block39-self-q'), True)
 # the paths phases 3 to 6 and 9 to 11 drive, at random weights from seed 0,
 # bf16, batch 2, t=50: FeatureExtractor's arguments, extract's arguments
 # beyond t (none: the single step), the B1/B2/B3 launches of one extract,
@@ -253,6 +293,17 @@ PATHS = {
                                      'attn': (2, 300 + 4096, 128, 128)}},
     'pixart_alpha': {'args': dict(layer=DIT_TAPS, version='pixart-alpha', img_size=512),
                      'launches': None, 'feats': dict.fromkeys(DIT_TAPS, (2, 1152, 32, 32))},
+    # phase 15, HunyuanDiT: the JAX benchmark's taps; launches through the
+    # gate (dit_launches)
+    'hunyuan': {'args': dict(layer=HUNYUAN_TAPS, version='hunyuan', img_size=1024),
+                'launches': None, 'feats': dict.fromkeys(HUNYUAN_TAPS, (2, 1408, 64, 64))},
+    'hunyuan_store': {'args': dict(layer=HUNYUAN_TAPS, version='hunyuan', img_size=1024,
+                                   attention=['up_cross', 'up_self']),
+                      'launches': None,
+                      'feats': {**dict.fromkeys(HUNYUAN_TAPS, (2, 1408, 64, 64)),
+                                'attn': (2, 77 + 256 + 4096, 128, 128)}},
+    'hunyuan_512': {'args': dict(layer=HUNYUAN_TAPS, version='hunyuan', img_size=512),
+                    'launches': None, 'feats': dict.fromkeys(HUNYUAN_TAPS, (2, 1408, 32, 32))},
 }
 # phase 11's DDIM inversion extract: 5 inverted steps (timesteps 11 to 51,
 # the first >= 49) through the plain U-Net, 10 B1 each, then the last forward
@@ -313,6 +364,14 @@ CONTROL_CLI_IMAGES = 3
 PIXART_TREE_PATH, PIXART_TEXT_SHARDS = 'pixart_sigma', 4
 PIXART_GEN_ARGS = ['--version', 'pixart-alpha', '--img_size', '512', '--layer',
                    json.dumps(DIT_TAPS)]
+# phase 15: HunyuanDiT.  (d) (a)'s random tree (~7.9 GB in bf16: the DiT,
+# BERT, mT5 in HUNYUAN_TEXT_SHARDS files, the SDXL VAE) and the CLI on it;
+# (e) the generation CLI at 512^2 with the benchmark's taps, its other
+# flags at their defaults (50 DDPM steps, guidance 7.5), then a
+# TWIN_SAMPLE_STEPS sample on the twins
+HUNYUAN_TREE_PATH, HUNYUAN_TEXT_SHARDS = 'hunyuan', 2
+HUNYUAN_GEN_ARGS = ['--version', 'hunyuan', '--img_size', '512', '--layer',
+                    json.dumps(HUNYUAN_TAPS)]
 
 
 def card_line() -> str:
@@ -384,6 +443,26 @@ def sass_counts(path) -> dict:
     sass = subprocess.run([tool, '-sass', path], capture_output=True, text=True, check=True,
                           timeout=300).stdout
     return {op: sass.count(op) for op in ('HGMMA', 'UTMALDG')}
+
+
+def ptxas_summary(log) -> list:
+    """One line per compiled kernel of an ``nvcc -Xptxas -v`` log: its
+    mangled name, registers and spill bytes (a kernel's template arguments,
+    such as the head width, show in the name as ``Li<n>E``)."""
+    import re
+    lines, name, spill = [], None, 'spills not reported'
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
+        if m and name:
+            spill = f'spill stores {m.group(1)} B, loads {m.group(2)} B'
+        m = re.search(r'Used (\d+) registers', line)
+        if m and name:
+            lines.append(f'{name}: {m.group(1)} registers, {spill}')
+            name = None
+    return lines
 
 
 def bound(kernel, shape, dtype_name):
@@ -606,19 +685,16 @@ def check_feats(torch, feats, expected, label):
 
 def injected_step(torch, fe, prompts, images, denoising_from=None, use_ddim_inversion=False):
     """``fe._step`` (or, with ``denoising_from`` or ``use_ddim_inversion``,
-    ``fe._multistep``) at t=50 on standard-normal noise drawn from seed 2."""
+    ``fe._multistep``) at t=50 on standard-normal noise drawn from seed 2,
+    with ``prompts`` unpacked as ``extract`` unpacks them."""
     bsz = images.shape[0]
-    pe = prompts[0].expand(bsz, -1, -1)
-    # PixArt's prompts are (embeds, mask, negative embeds, negative mask)
-    pixart = fe.spec.family == 'pixart'
-    pooled = None if pixart or prompts[2] is None else prompts[2].expand(bsz, -1)
-    mask = prompts[1].expand(bsz, -1) if pixart else None
     lat = fe.img_size // fe.vae_scale
     gen = torch.Generator(device='cuda').manual_seed(2)
+    pe, pooled, mask = fe._step_conditioning(prompts, bsz)
     posterior, noise = (torch.randn((bsz, 4, lat, lat), generator=gen, device='cuda')
                         for _ in range(2))
     if denoising_from is None and not use_ddim_inversion:
-        return fe._step(images.to(fe.dtype), pe, pooled, fe._img2img_kit(50), posterior, noise,
+        return fe._step(images.to(fe.dtype), pe, pooled, fe._step_kit(50), posterior, noise,
                         torch.bfloat16, mask=mask)
     return fe._multistep(images.to(fe.dtype), pe, pooled, 50, denoising_from,
                          use_ddim_inversion, posterior, noise, torch.bfloat16, mask=mask)
@@ -944,19 +1020,29 @@ def vae_b1(fa, cfg, latent: int) -> int:
 
 
 def dit_launches(fa, fe) -> dict:
-    """The four launch counts of one PixArt extract, derived from the config
+    """The four launch counts of one DiT extract, derived from the config
     through the JAX package's gate (no head-width condition: a width the
     card's kernels lack then fails the count instead of moving the
-    self-attentions to the explicit path unseen): each block's
-    self-attention on B1, or with the store's 'up_self' in its band on B2
-    and B3 (cross-attention carries the T5 mask: explicit), and the VAE
-    encoder's mid head."""
+    self-attentions to the explicit path unseen), and the VAE encoder's
+    mid head.  PixArt: each block's self-attention on B1, or with the
+    store's 'up_self' in its band on B2 and B3 (cross-attention carries the
+    T5 mask: explicit).  HunyuanDiT: each block's self-attention on B1,
+    except where a '-self-map' tap or the store's 'up_self' in its band
+    wants the probabilities: the explicit path then, as in JAX (no B2/B3);
+    cross-attention (333 keys) and the T5 pool are explicit."""
     cfg = fe.spec.dit
     latent = fe.img_size // fe.vae_scale
     tokens = (latent // cfg.patch_size) ** 2
-    shape = (1, cfg.num_attention_heads, tokens, cfg.attention_head_dim)
+    hunyuan = fe.spec.family == 'hunyuan'
+    head_dim = cfg.head_dim if hunyuan else cfg.attention_head_dim
+    shape = (1, cfg.num_attention_heads, tokens, head_dim)
     store = ('up_self' in (fe.attention or ())
              and fe._attn_sizes[0] ** 2 <= tokens <= fe._attn_sizes[1] ** 2)
+    if hunyuan:
+        fused = 0 if store else sum(not fe.taps.wants(f'vit-block{i}-self-map')
+                                    for i in range(cfg.num_layers))
+        return only_b1(fused * fa.is_flash_compatible(shape, shape, head_dims=None)
+                       + vae_b1(fa, fe.spec.vae, latent))
     flash = cfg.num_layers * fa.is_flash_compatible(shape, shape, head_dims=None)
     lse = cfg.num_layers * fa.is_flash_compatible(shape, shape, 512, head_dims=None)
     return {'flash_attention': (0 if store else flash) + vae_b1(fa, fe.spec.vae, latent),
@@ -988,16 +1074,16 @@ def peak_above(torch, fn):
     return out, (torch.cuda.max_memory_allocated() - base) / 2 ** 30, base / 2 ** 30
 
 
-def timed_sample(torch, fe, prompts, noise, steps, guidance, mask=None):
-    """``fe._sample`` on ``noise`` (PixArt's with the CFG ``mask``) with
-    CUDA events around it; returns (images, features, latents, ms, the
-    call's peak memory in GiB above what was allocated before it, GiB
-    allocated before it)."""
+def timed_sample(torch, fe, prompts, noise, steps, guidance, mask=None, step_noise=None):
+    """``fe._sample`` on ``noise`` (a DiT's with the CFG ``mask``, DDPM's
+    with ``step_noise``) with CUDA events around it; returns (images,
+    features, latents, ms, the call's peak memory in GiB above what was
+    allocated before it, GiB allocated before it)."""
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
     def run():
         start.record()
-        out = fe._sample(*prompts, noise, steps, guidance, mask)
+        out = fe._sample(*prompts, noise, steps, guidance, mask, step_noise)
         stop.record()
         return out
     out, peak, base = peak_above(torch, run)
@@ -1294,8 +1380,26 @@ def check_control(torch, fa, attn_ops, card, fe15, shapes, runs):
                 print(f'  {layer}: {len(names)} x {arr.shape} float16 finite')
 
 
-def open_pixart(torch, name):
-    """``open_path`` of a PixArt path with its build's peak memory in GiB."""
+def describe_prompts(prompts) -> str:
+    """A DiT's encode_prompt result in a few words: PixArt's embeddings and
+    mask, or HunyuanDiT's BERT and T5 pairs."""
+    if isinstance(prompts[0], tuple):
+        return '; '.join(f'{name} embeds {tuple(e.shape)}, mask with {int(m.sum())} tokens'
+                         for name, (e, m) in zip(('BERT', 'T5'), prompts))
+    return (f'prompt_embeds {tuple(prompts[0].shape)}, mask {tuple(prompts[1].shape)} '
+            f'{prompts[1].dtype} with {int(prompts[1].sum())} tokens')
+
+
+def flat_prompts(prompts):
+    """The tensors of an encode_prompt result, nested pairs flattened."""
+    out = []
+    for x in prompts:
+        out.extend(flat_prompts(x) if isinstance(x, tuple) else [x])
+    return out
+
+
+def open_dit(torch, name, phase):
+    """``open_path`` of a DiT path with its build's peak memory in GiB."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -1303,43 +1407,48 @@ def open_pixart(torch, name):
     fe, prompts, images = open_path(torch, name)
     torch.cuda.synchronize()
     gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-    print(f'phase 14 {name} build + encode_prompt: {time.perf_counter() - t0:.1f} s, peak '
-          f'{gib:.3f} GiB; prompt_embeds {tuple(prompts[0].shape)}, mask '
-          f'{tuple(prompts[1].shape)} {prompts[1].dtype} with {int(prompts[1].sum())} tokens',
-          flush=True)
+    print(f'phase {phase} {name} build + encode_prompt: {time.perf_counter() - t0:.1f} s, peak '
+          f'{gib:.3f} GiB; {describe_prompts(prompts)}', flush=True)
     return fe, prompts, images, gib
 
 
-def check_pixart_path(torch, fa, attn_ops, card, name, shapes, runs, label):
-    """Phase 14 (a) to (c): one PixArt path's extract with exact launch
-    counts, its features, the same step on the twins and its timing;
-    returns (extractor, prompts, images, first features, build GiB)."""
-    fe, prompts, images, gib = open_pixart(torch, name)
+def check_dit_path(torch, fa, attn_ops, card, name, shapes, runs, label):
+    """Phase 14 (a) to (c) and 15 (a) to (c): one DiT path's extract with
+    exact launch counts, its features, the same step on the twins and its
+    timing; returns (extractor, prompts, images, first features, build
+    GiB)."""
+    fe, prompts, images, gib = open_dit(torch, name, label.split()[-1][:2])
     path = PATHS[name]
     want = dit_launches(fa, fe)
     feats, runs[name], shapes[name] = drive_path(torch, fa, attn_ops, fe, prompts, images, want,
                                                  label)
     check_feats(torch, feats, path['feats'], label)
+    gib_maps = sum(s[0] * s[2] * s[3] * 2 for n, s, _ in shapes[name]
+                   if n == 'headmean_probs') / 2 ** 30
+    if gib_maps:
+        print(f'  {label} head-mean maps from B3 kept by the store: {gib_maps:.3f} GiB (bf16)')
     check_twin_step(torch, fe, attn_ops, fa, prompts, images, path['feats'], label)
     size = path['args']['img_size']
     time_extract(torch, fe, prompts, images, f'{label} {name} extract {size}^2 batch 2', card)
     return fe, prompts, images, feats, gib
 
 
-def check_pixart_tree(torch, fa, attn_ops, card, fe, prompts, images, first_feats, build_gib,
-                      tree, shapes, runs):
-    """Phase 14 (d) and (e): ``fe`` (pixart-sigma at random) written by
-    ``save_weights`` and loaded back, parameters and first extract
-    ``torch.equal``, then the CLI over three images on the tree."""
+def check_dit_tree(torch, fa, attn_ops, card, fe, prompts, images, first_feats, build_gib,
+                   tree, shapes, runs, name, text_shards, phase):
+    """Phase 14 (d) and (e), 15 (d): ``fe`` (path ``name`` at random) written
+    by ``save_weights`` (the text encoders in ``text_shards`` files) and
+    loaded back, parameters, prompts and the first extract ``torch.equal``,
+    then the CLI over three images on the tree."""
     import numpy as np
     from diffusion_feature_tpu_torch import FeatureExtractor
     from diffusion_feature_tpu_torch.enumerate_layers import enumerate_layers
-    args = PATHS[PIXART_TREE_PATH]['args']
-    written = fe.save_weights(tree, text_shards=PIXART_TEXT_SHARDS)
+    args = PATHS[name]['args']
+    tag, cli_tag = (f'{phase}d', f'{phase}{"e" if phase == 14 else "d"}')
+    written = fe.save_weights(tree, text_shards=text_shards)
     files = sorted(os.path.relpath(os.path.join(d, f), tree)
                    for d, _, names in os.walk(tree) for f in names)
-    print(f'phase 14d tree of {sum(n for n, _ in written.values())} bytes: {files}')
-    rates(written, 'write', card, '14d')
+    print(f'phase {tag} tree of {sum(n for n, _ in written.values())} bytes: {files}')
+    rates(written, 'write', card, tag)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -1349,96 +1458,116 @@ def check_pixart_tree(torch, fa, attn_ops, card, fe, prompts, images, first_feat
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-    rates(loaded.load_stats, 'load', card, '14d')
-    print(f'phase 14d build from the tree + encode_prompt: {seconds:.1f} s; peak memory '
+    rates(loaded.load_stats, 'load', card, tag)
+    print(f'phase {tag} build from the tree + encode_prompt: {seconds:.1f} s; peak memory '
           f'{peak:.3f} GiB while loading vs {build_gib:.3f} GiB for the random-init build '
           f'(ratio {peak / build_gib:.4f}, allowed {LOAD_PEAK_RATIO}) ({card})', flush=True)
     if peak > LOAD_PEAK_RATIO * build_gib:
-        raise RuntimeError(f'phase 14d: load peak {peak:.3f} GiB over {LOAD_PEAK_RATIO} x '
+        raise RuntimeError(f'phase {tag}: load peak {peak:.3f} GiB over {LOAD_PEAK_RATIO} x '
                            f'{build_gib:.3f} GiB')
-    for name, a, b in module_pairs(fe, loaded):
+    for mod, a, b in module_pairs(fe, loaded):
         sa, sb = a.state_dict(), b.state_dict()
         bad = [k for k in sa if k not in sb or not torch.equal(sa[k], sb[k])]
         if bad or sa.keys() != sb.keys():
-            raise RuntimeError(f'phase 14d {name}: parameters differ from the source: {bad[:5]}')
-        print(f'  {name}: {len(sa)} parameters torch.equal to the source')
-    if not all(torch.equal(a, b) for a, b in zip(prompts, loaded_prompts)):
-        raise RuntimeError('phase 14d: encode_prompt differs from the source')
-    feats, runs['pixart_loaded'], shapes['pixart_loaded'] = drive_path(
-        torch, fa, attn_ops, loaded, loaded_prompts, images, dit_launches(fa, loaded),
-        'phase 14d loaded')
-    assert_equal_feats(torch, feats, first_feats, 'phase 14d first public extract vs the source')
+            raise RuntimeError(f'phase {tag} {mod}: parameters differ from the source: {bad[:5]}')
+        print(f'  {mod}: {len(sa)} parameters torch.equal to the source')
+    if not all(torch.equal(a, b)
+               for a, b in zip(flat_prompts(prompts), flat_prompts(loaded_prompts))):
+        raise RuntimeError(f'phase {tag}: encode_prompt differs from the source')
+    print(f'  encode_prompt: {len(flat_prompts(prompts))} tensors torch.equal to the source')
     want = dit_launches(fa, loaded)
+    feats, runs[f'{name}_loaded'], shapes[f'{name}_loaded'] = drive_path(
+        torch, fa, attn_ops, loaded, loaded_prompts, images, want, f'phase {tag} loaded')
+    assert_equal_feats(torch, feats, first_feats,
+                       f'phase {tag} first public extract vs the source')
     del loaded, feats
     torch.cuda.empty_cache()
 
-    # (e) the CLI on the tree, over three images in batches of 2 and 1
+    # the CLI on the tree, over three images in batches of 2 and 1
     size = args['img_size']
     with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
         write_images(CLI_IMAGES, size)
-        shapes['pixart_cli'] = []
-        with patched_wrappers(attn_ops, recording(shapes['pixart_cli'])):
+        shapes[f'{name}_cli'] = []
+        with patched_wrappers(attn_ops, recording(shapes[f'{name}_cli'])):
             reset_counts(fa)
             seconds, lines = run_cli([
                 '--version', args['version'], '--img_size', str(size), '--layer',
                 json.dumps(args['layer']), '--batch_size', '2', '--prompt', 'a photo of a cat',
                 '--input_dir', 'imgs/*.png', '--output_dir', 'out', '--weights', tree])
             torch.cuda.synchronize()
-            runs['pixart_cli'] = read_counts(fa)
+            runs[f'{name}_cli'] = read_counts(fa)
         batches = -(-CLI_IMAGES // 2)
         want = {k: batches * v for k, v in want.items()}
         rate = [line for line in lines if line.endswith('img/s)')]
-        print(f'phase 14e cli {args["version"]} {size}^2 on the tree: {seconds:.1f} s for '
-              f'main() (model build included), {rate[0]}; kernel launches {runs["pixart_cli"]} '
-              f'(expected {want}) ({card})', flush=True)
-        if runs['pixart_cli'] != want:
-            raise RuntimeError(f'phase 14e: launches {runs["pixart_cli"]} != {want}')
+        print(f'phase {cli_tag} cli {args["version"]} {size}^2 on the tree: {seconds:.1f} s for '
+              f'main() (model build included), {rate[0]}; kernel launches '
+              f'{runs[f"{name}_cli"]} (expected {want}) ({card})', flush=True)
+        if runs[f'{name}_cli'] != want:
+            raise RuntimeError(f'phase {cli_tag}: launches {runs[f"{name}_cli"]} != {want}')
         enumerated = enumerate_layers(args['version'], size)
         layers = sorted(os.listdir('out'))
-        if layers != sorted(DIT_TAPS):
-            raise RuntimeError(f'phase 14e: layer dirs {layers}')
+        if layers != sorted(args['layer']):
+            raise RuntimeError(f'phase {cli_tag}: layer dirs {layers}')
         for layer in layers:
             names = sorted(os.listdir(os.path.join('out', layer)))
             if names != [f'train{i}.npy' for i in range(CLI_IMAGES)]:
-                raise RuntimeError(f'phase 14e {layer}: files {names}')
-            for name in names:
-                arr = np.load(os.path.join('out', layer, name))
+                raise RuntimeError(f'phase {cli_tag} {layer}: files {names}')
+            for file in names:
+                arr = np.load(os.path.join('out', layer, file))
                 if (arr.shape != enumerated[layer][1:] or arr.dtype != np.float16
                         or not np.isfinite(arr).all()):
-                    raise RuntimeError(f'phase 14e {layer}/{name}: {arr.shape} {arr.dtype}')
+                    raise RuntimeError(f'phase {cli_tag} {layer}/{file}: {arr.shape} {arr.dtype}')
             print(f'  {layer}: {len(names)} x {arr.shape} float16 finite')
 
 
-def check_pixart_generation(torch, fa, attn_ops, card, shapes, runs):
-    """Phase 14 (f): the generation CLI on pixart-alpha, then a short
-    sample on the kernels and on the twins."""
+def sample_inputs(torch, fe, prompt, steps):
+    """``fe._sample``'s prompts, CFG mask and DDPM step noise for
+    ``prompt`` with the empty negative: PixArt's T5 embeddings and mask,
+    or HunyuanDiT's BERT embeddings (the T5 ones in the pooled slot), the
+    pair of masks and ``steps`` standard-normal draws from seed 8."""
+    if fe.spec.family == 'hunyuan':
+        (pe, bmask), (t5, tmask) = fe.encode_prompt(prompt)
+        (ne, nbmask), (nt5, ntmask) = fe._encode_hunyuan('')
+        latent = fe.img_size // fe.vae_scale
+        gen = torch.Generator(device='cuda').manual_seed(8)
+        step_noise = [torch.randn((1, 4, latent, latent), generator=gen, device='cuda')
+                      for _ in range(steps)]
+        return ((pe, ne, t5, nt5), (torch.cat([nbmask, bmask]), torch.cat([ntmask, tmask])),
+                step_noise)
+    pe, mask, ne, nmask = fe.encode_prompt(prompt)
+    return (pe, ne, None, None), torch.cat([nmask, mask]), None
+
+
+def check_dit_generation(torch, fa, attn_ops, card, shapes, runs, gen_args, name, phase):
+    """Phase 14 (f) and 15 (e): the generation CLI with ``gen_args``, then a
+    short sample on the kernels and on the twins."""
     from PIL import Image
     from diffusion_feature_tpu_torch import generate_with_extraction
-    args = generate_with_extraction.build_parser().parse_args(PIXART_GEN_ARGS)
-    shapes['pixart_gen'] = []
+    args = generate_with_extraction.build_parser().parse_args(gen_args)
+    taps = json.loads(args.layer)
+    shapes[name] = []
     with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
         out = io.StringIO()
-        with patched_wrappers(attn_ops, recording(shapes['pixart_gen'])):
+        with patched_wrappers(attn_ops, recording(shapes[name])):
             reset_counts(fa)
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out):
-                fe = generate_with_extraction.main(PIXART_GEN_ARGS)
+                fe = generate_with_extraction.main(gen_args)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            runs['pixart_gen'] = read_counts(fa)
+            runs[name] = read_counts(fa)
         size = Image.open(args.output).size
     calls = len(fe.scheduler.set_timesteps(args.steps).timesteps)
     latent = fe.img_size // fe.vae_scale
     per_call = dit_launches(fa, fe)['flash_attention'] - vae_b1(fa, fe.spec.vae, latent)
     want = only_b1(calls * per_call + vae_b1(fa, fe.spec.vae, latent))
-    lines = out.getvalue().splitlines()
-    print(f'phase 14f generate_with_extraction {" ".join(PIXART_GEN_ARGS[:4])} (steps '
+    print(f'phase {phase} generate_with_extraction {" ".join(gen_args[:4])} (steps '
           f'{args.steps}, guidance {args.guidance_scale}, store_steps {args.store_steps}): '
           f'{seconds:.1f} s for main() (model build included), image {size}; {calls} DiT calls '
-          f'x {per_call} B1 + decoder; kernel launches {runs["pixart_gen"]} (expected {want}) '
+          f'x {per_call} B1 + decoder; kernel launches {runs[name]} (expected {want}) '
           f'({card})', flush=True)
-    if runs['pixart_gen'] != want or size != (args.img_size, args.img_size):
-        raise RuntimeError(f'phase 14f: launches {runs["pixart_gen"]} or image {size}')
+    if runs[name] != want or size != (args.img_size, args.img_size):
+        raise RuntimeError(f'phase {phase}: launches {runs[name]} or image {size}')
     kept = fe.get_background_extraction()
     for layer, by_step in sorted(kept.items()):
         bad = [i for i, v in by_step.items()
@@ -1446,19 +1575,19 @@ def check_pixart_generation(torch, fa, attn_ops, card, shapes, runs):
         print(f'  {layer}: kept {sorted(by_step)} of {fe._background_feats[layer]["count"]}, '
               f'{tuple(by_step[1].shape)} {by_step[1].dtype}')
         if sorted(by_step) != sorted(args.store_steps) or bad:
-            raise RuntimeError(f'phase 14f {layer}: kept {sorted(by_step)}, bad {bad}')
-    if set(kept) != set(DIT_TAPS):
-        raise RuntimeError(f'phase 14f: kept layers {sorted(kept)}')
-    pe, mask, ne, nmask = fe.encode_prompt(args.prompt)
+            raise RuntimeError(f'phase {phase} {layer}: kept {sorted(by_step)}, bad {bad}')
+    if set(kept) != set(taps):
+        raise RuntimeError(f'phase {phase}: kept layers {sorted(kept)}')
+    prompts, cfg_mask, step_noise = sample_inputs(torch, fe, args.prompt, args.steps)
     noise = torch.randn((1, 4, latent, latent),
                         generator=torch.Generator(device='cuda').manual_seed(7), device='cuda')
-    cfg_mask = torch.cat([nmask, mask])
-    *_, ms, gib, base = timed_sample(torch, fe, (pe, ne, None, None), noise, args.steps,
-                                     args.guidance_scale, cfg_mask)
-    print(f'phase 14f pixart-alpha sample timed: {ms:.2f} ms per sample, {ms / calls:.2f} ms per '
-          f'step ({calls} DiT calls at CFG batch 2 and the decode); peak memory {gib:.2f} GiB '
-          f'above the {base:.2f} GiB held before it ({card})', flush=True)
-    run = (pe, ne, None, None, noise, TWIN_SAMPLE_STEPS, args.guidance_scale, cfg_mask)
+    *_, ms, gib, base = timed_sample(torch, fe, prompts, noise, args.steps, args.guidance_scale,
+                                     cfg_mask, step_noise)
+    print(f'phase {phase} {args.version} sample timed: {ms:.2f} ms per sample, {ms / calls:.2f} '
+          f'ms per step ({calls} DiT calls at CFG batch 2 and the decode); peak memory '
+          f'{gib:.2f} GiB above the {base:.2f} GiB held before it ({card})', flush=True)
+    run = (*prompts, noise, TWIN_SAMPLE_STEPS, args.guidance_scale, cfg_mask,
+           None if step_noise is None else step_noise[:TWIN_SAMPLE_STEPS])
     with_kernel = fe._sample(*run)
     with patched_wrappers(attn_ops, twin_of(fa)):
         with_twin = fe._sample(*run)
@@ -1466,11 +1595,11 @@ def check_pixart_generation(torch, fa, attn_ops, card, shapes, runs):
     pairs += [(f'{k} call {i + 1}', a, b) for k in with_twin[1]
               for i, (a, b) in enumerate(zip(with_kernel[1][k], with_twin[1][k]))]
     worst = max(rel_cos(a, b)[0] for _, a, b in pairs)
-    print(f'phase 14f pixart-alpha sample, {TWIN_SAMPLE_STEPS} steps, kernel vs twin: images and '
-          f'{len(pairs) - 1} tap encounters, worst rel_l2={worst:.3e} (allowed '
+    print(f'phase {phase} {args.version} sample, {TWIN_SAMPLE_STEPS} steps, kernel vs twin: '
+          f'images and {len(pairs) - 1} tap encounters, worst rel_l2={worst:.3e} (allowed '
           f'{MULTISTEP_REL_TOL:g})', flush=True)
     if not worst <= MULTISTEP_REL_TOL:
-        raise RuntimeError(f'phase 14f: kernel vs twin {worst}')
+        raise RuntimeError(f'phase {phase}: kernel vs twin {worst}')
     del fe, with_kernel, with_twin
     torch.cuda.empty_cache()
 
@@ -1480,22 +1609,39 @@ def check_pixart(torch, fa, attn_ops, card, shapes, runs):
     512^2 (c), Sigma's tree written and loaded (d), the CLI on it (e), the
     generation CLI and a kernel-vs-twin sample on PixArt-alpha (f).  Each
     extractor is freed before the next is built (T5-XXL is ~9.5 GB)."""
-    fe, prompts, images, first, gib = check_pixart_path(
+    fe, prompts, images, first, gib = check_dit_path(
         torch, fa, attn_ops, card, 'pixart_sigma', shapes, runs, 'phase 14a')
     with tempfile.TemporaryDirectory(prefix='chip_smoke_pixart_') as tree:
-        check_pixart_tree(torch, fa, attn_ops, card, fe, prompts, images, first, gib, tree,
-                          shapes, runs)
+        check_dit_tree(torch, fa, attn_ops, card, fe, prompts, images, first, gib, tree,
+                       shapes, runs, PIXART_TREE_PATH, PIXART_TEXT_SHARDS, 14)
     del fe, first
     torch.cuda.empty_cache()
     for name, label in (('pixart_sigma_store', 'phase 14b'), ('pixart_alpha', 'phase 14c')):
-        fe, *_ = check_pixart_path(torch, fa, attn_ops, card, name, shapes, runs, label)
-        if name == 'pixart_sigma_store':
-            gib = sum(s[0] * s[2] * s[3] * 2 for n, s, _ in shapes[name]
-                      if n == 'headmean_probs') / 2 ** 30
-            print(f'  phase 14b head-mean maps from B3 kept by the store: {gib:.3f} GiB (bf16)')
+        fe, *_ = check_dit_path(torch, fa, attn_ops, card, name, shapes, runs, label)
         del fe, _
         torch.cuda.empty_cache()
-    check_pixart_generation(torch, fa, attn_ops, card, shapes, runs)
+    check_dit_generation(torch, fa, attn_ops, card, shapes, runs, PIXART_GEN_ARGS, 'pixart_gen',
+                         '14f')
+
+
+def check_hunyuan(torch, fa, attn_ops, card, shapes, runs):
+    """Phase 15: HunyuanDiT 1024^2 (a), its tree written and loaded and the
+    CLI on it (d), with the store (b), at 512^2 (c), the generation CLI
+    and a kernel-vs-twin sample at 512^2 (e).  Each extractor (~7.9 GB) is
+    freed before the next is built."""
+    fe, prompts, images, first, gib = check_dit_path(
+        torch, fa, attn_ops, card, 'hunyuan', shapes, runs, 'phase 15a')
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_hunyuan_') as tree:
+        check_dit_tree(torch, fa, attn_ops, card, fe, prompts, images, first, gib, tree,
+                       shapes, runs, HUNYUAN_TREE_PATH, HUNYUAN_TEXT_SHARDS, 15)
+    del fe, first
+    torch.cuda.empty_cache()
+    for name, label in (('hunyuan_store', 'phase 15b'), ('hunyuan_512', 'phase 15c')):
+        fe, *_ = check_dit_path(torch, fa, attn_ops, card, name, shapes, runs, label)
+        del fe, _
+        torch.cuda.empty_cache()
+    check_dit_generation(torch, fa, attn_ops, card, shapes, runs, HUNYUAN_GEN_ARGS,
+                         'hunyuan_gen', '15e')
 
 
 def main() -> int:
@@ -1515,9 +1661,8 @@ def main() -> int:
     # 1. build
     info = fa.build()
     print(f'phase 1 build: {info["seconds"]:.1f} s -> {", ".join(info["paths"])}', flush=True)
-    for line in info['log'].splitlines():
-        if 'registers' in line or 'spill' in line:
-            print(f'  ptxas: {line.strip()}')
+    for line in ptxas_summary(info['log']):
+        print(f'  ptxas: {line}')
     for path in info['paths']:
         if '_bf16_' in path or '_fp16_' in path:
             counts = sass_counts(path)
@@ -1552,12 +1697,7 @@ def main() -> int:
                 numbers['short_attention', shape, dtype_name] = res
         for shape in (SHORT_SHAPES if dtype_name == 'bfloat16' else []) + [SHORT_RAGGED]:
             compare(torch, fa, 'short_attention', shape, dtype_name, gen, split=True)
-    for kernel, shape in (('flash_attention', B1_SHAPES[0]),
-                          ('flash_attention', SPLIT_RAGGED['flash_attention'][-1]),
-                          ('flash_attention_with_lse', STORE_SHAPES[1]),
-                          ('headmean_probs', STORE_SHAPES[2]),
-                          ('short_attention', SHORT_SHAPES[4]),
-                          ('flash_attention', B1_SHAPES[-1])):
+    for kernel, shape in FP16_SHAPES:
         compare(torch, fa, kernel, shape, 'float16', gen, split=True)
     # the fp32 store kernels at the shape SD-2.1's upcast hands them (phase 11)
     for kernel in ('flash_attention_with_lse', 'headmean_probs'):
@@ -1576,9 +1716,9 @@ def main() -> int:
     runs, shapes = {}, {}
     tree_dir = tempfile.TemporaryDirectory(prefix='chip_smoke_tree_')
     tree = tree_dir.name
-    for phase, timing_phase, name in ((3, 4, 'xl'), (5, 5, 'sd15_store'), (6, 6, 'xl_store'),
-                                      (9, 9, 'xl_multistep'), (10, 10, 'pgv2'),
-                                      (11, 11, 'sd21_store')):
+    unet_paths = ((3, 4, 'xl'), (5, 5, 'sd15_store'), (6, 6, 'xl_store'),
+                  (9, 9, 'xl_multistep'), (10, 10, 'pgv2'), (11, 11, 'sd21_store'))
+    for phase, timing_phase, name in unet_paths:
         path = PATHS[name]
         kwargs = path.get('extract', {})
         torch.cuda.synchronize()
@@ -1624,8 +1764,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # 7. the CLI, on phase 8's tree
-    shapes['cli'] = []
     try:
+        shapes['cli'] = []
         runs['cli'] = check_cli(torch, fa, attn_ops, card, shapes['cli'], tree)
     finally:
         tree_dir.cleanup()
@@ -1637,8 +1777,9 @@ def main() -> int:
     del fe15
     torch.cuda.empty_cache()
 
-    # 14. PixArt
+    # 14. PixArt; 15. HunyuanDiT
     check_pixart(torch, fa, attn_ops, card, shapes, runs)
+    check_hunyuan(torch, fa, attn_ops, card, shapes, runs)
 
     # the kernels line: per kernel, the launches of every path and the sum
     # over those launches of each (shape, dtype)'s numbers from phase 2 (one
@@ -1674,7 +1815,14 @@ def main() -> int:
                                    else entry['library_ms'] + count * res['library_ms'])
         # what bounds the calls that take most of the bound
         entry['bound_by'] = max(entry['shapes'].values(),
-                                key=lambda v: v['calls'] * v['bound_ms'])['bound_by']
+                                key=lambda v: v['calls'] * v['bound_ms'],
+                                default={'bound_by': None})['bound_by']
+        if name in ('flash_attention_with_lse', 'headmean_probs'):
+            # built for HunyuanDiT's heads, which no path hands them (its store
+            # is explicit, as in JAX): phase 2's bf16 numbers on head-split views
+            entry['no_caller_shapes'] = {str(s): numbers[name, s, 'bfloat16']
+                                         for s in D88_STORE_SHAPES
+                                         if (name, s, 'bfloat16') in numbers}
         kernels.append(entry)
         print(f'{name}: {entry["launches"]} launches {entry["launches_by_path"]}, '
               f'kernel {entry["ms"]:.3f} ms, twin {entry["plain_ms"]:.3f} ms, '

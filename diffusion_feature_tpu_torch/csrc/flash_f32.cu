@@ -16,8 +16,8 @@
 // Layout: each of the 4 warps owns 16 query rows.  A fragment element
 // (row, col) of an m16n8k16 operand lives in lane 4*(row%8) + (col%8)/2, so
 // the score accumulator of two adjacent 8-key tiles is already the A operand
-// of the PV product.  Head widths: 40, 64, 72, 80, 128, 160 and 512.  d=40 is
-// zero-padded to the depth 48 in shared memory for QK^T.  Widths up to 160
+// of the PV product.  Head widths: 40, 64, 72, 80, 88, 128, 160 and 512.  d=40,
+// 72 and 88 are zero-padded to the depths 48, 80 and 96 in shared memory for QK^T.  Widths up to 160
 // keep the whole 16 x d accumulator of a warp in registers; d=512 does not
 // fit, so blockIdx.z splits its output columns into 128-wide slices and
 // each slice recomputes the scores.
@@ -196,6 +196,7 @@ int dispatch_d(const float* q, const float* k, const float* v, float* o, float* 
     case 64: return launch<64, kLse>(q, k, v, o, lse, b, h, sq, sk, scale, st, s);
     case 72: return launch<72, kLse>(q, k, v, o, lse, b, h, sq, sk, scale, st, s);
     case 80: return launch<80, kLse>(q, k, v, o, lse, b, h, sq, sk, scale, st, s);
+    case 88: return launch<88, kLse>(q, k, v, o, lse, b, h, sq, sk, scale, st, s);
     case 128: return launch<128, kLse>(q, k, v, o, lse, b, h, sq, sk, scale, st, s);
     case 160: return launch<160, kLse>(q, k, v, o, lse, b, h, sq, sk, scale, st, s);
     case 512:

@@ -29,11 +29,13 @@
 //   place, and CUDA graphs capture them.  Tiles are 64 columns wide (128
 //   bytes) in the 128-byte swizzle wgmma's descriptors expect; a wider head
 //   is several such "atoms".  Rows past S and columns past D (d=40 up to
-//   the mma depth 48, d=72 up to 80, d=80 and d=160 up to the next atom)
-//   are zero-filled by TMA; keys past Sk are masked to -inf, rows past Sq
-//   are never stored.  P V's N is D itself (m64n72k16 at d=72), and the
-//   epilogue writes columns up to D only: in (B, S, H, D) memory the next
-//   columns are the next head's.
+//   the mma depth 48, d=72 up to 80, d=88 up to 96, d=80 and d=160 up to
+//   the next atom) are zero-filled by TMA; keys past Sk are masked to -inf,
+//   rows past Sq are never stored.  P V's N is D itself (m64n72k16 at d=72,
+//   m64n88k16 at d=88), and the epilogue writes columns up to D only: in
+//   (B, S, H, D) memory the next columns are the next head's (HunyuanDiT's
+//   d=88 heads are 176 bytes apart, its tokens 2816: both multiples of the
+//   16 bytes TMA needs, so its head-split views are read in place).
 // * wgmma.  S = Q K^T runs with both operands in shared memory; the online
 //   softmax uses exp2 with the scale folded in; P stays in registers as the
 //   A operand of P V (the accumulator layout of S is the A-fragment layout
@@ -130,8 +132,9 @@ struct Cfg {
   static constexpr int kWG = 2;                             // consumer warpgroups
   static constexpr int kBM = 64 * kWG;                      // query rows per block
   // keys per tile: the scores (kBN/2), two P sets (kBN/4 each) and the
-  // accumulator (D/2) must fit a consumer's 240 registers; at d=128 and
-  // 128 keys ptxas spills 416 bytes
+  // accumulator (D/2) must fit a consumer's 240 registers; with 128 keys
+  // ptxas spills 16 bytes at d=80, 40 at d=88 and 416 at d=128.  At d=88
+  // 64 keys spill none and ran no slower on an H100 (PERF.md, PR 11)
   static constexpr int kBN = D <= 80 ? 128 : 64;
   static constexpr int kThreads = 128 * (kWG + 1);
   static constexpr uint32_t kQBytes = kAtoms * kBM * kAtomBytes;
@@ -552,6 +555,7 @@ int forward(const void* q, const void* k, const void* v, void* o, float* lse, in
       case 64: return launch<T, 64, true>(q, k, v, o, lse, b, h, sq, sk, scale, strides, s);
       case 72: return launch<T, 72, true>(q, k, v, o, lse, b, h, sq, sk, scale, strides, s);
       case 80: return launch<T, 80, true>(q, k, v, o, lse, b, h, sq, sk, scale, strides, s);
+      case 88: return launch<T, 88, true>(q, k, v, o, lse, b, h, sq, sk, scale, strides, s);
       case 128: return launch<T, 128, true>(q, k, v, o, lse, b, h, sq, sk, scale, strides, s);
       case 160: return launch<T, 160, true>(q, k, v, o, lse, b, h, sq, sk, scale, strides, s);
       default: return int(cudaErrorInvalidValue);
@@ -562,6 +566,7 @@ int forward(const void* q, const void* k, const void* v, void* o, float* lse, in
     case 64: return launch<T, 64, false>(q, k, v, o, lse, b, h, sq, sk, scale, strides, s);
     case 72: return launch<T, 72, false>(q, k, v, o, lse, b, h, sq, sk, scale, strides, s);
     case 80: return launch<T, 80, false>(q, k, v, o, lse, b, h, sq, sk, scale, strides, s);
+    case 88: return launch<T, 88, false>(q, k, v, o, lse, b, h, sq, sk, scale, strides, s);
     case 128: return launch<T, 128, false>(q, k, v, o, lse, b, h, sq, sk, scale, strides, s);
     case 160: return launch<T, 160, false>(q, k, v, o, lse, b, h, sq, sk, scale, strides, s);
     case 512: return launch<T, 512, false>(q, k, v, o, lse, b, h, sq, sk, scale, strides, s);

@@ -146,6 +146,7 @@ extern "C" int dft_headmean_probs(const void* q, const void* k, const float* lse
     case 64: return launch<64>(q, k, lse, out, b, h, sq, sk, scale, strides, s);
     case 72: return launch<72>(q, k, lse, out, b, h, sq, sk, scale, strides, s);
     case 80: return launch<80>(q, k, lse, out, b, h, sq, sk, scale, strides, s);
+    case 88: return launch<88>(q, k, lse, out, b, h, sq, sk, scale, strides, s);
     case 128: return launch<128>(q, k, lse, out, b, h, sq, sk, scale, strides, s);
     case 160: return launch<160>(q, k, lse, out, b, h, sq, sk, scale, strides, s);
     default: return int(cudaErrorInvalidValue);

@@ -31,12 +31,12 @@
 //   tile (128 keys), filled by one "full" mbarrier that counts the bytes and
 //   released by an "empty" one that each consumer warp arrives on.  The
 //   ring runs on across tiles, so the producer loads the next tile's first
-//   heads during this tile's epilogue.  Stages: 4 at d <= 64, 3 at d=72/80/128,
+//   heads during this tile's epilogue.  Stages: 4 at d <= 64, 3 at d=72/80/88/128,
 //   2 at d=160 (what fits beside the output staging in 227 KB).  The tensor
 //   maps are 4-d (d, s, h, b) with the caller's strides, so the head-split
 //   views of (B, S, H*D) projections are read in place; TMA zero-fills rows
-//   past Sq or Sk and the columns of d=40/72/80/160 up to the next 64-column
-//   atom (d=40's QK^T depth is 48, d=72's 80).
+//   past Sq or Sk and the columns of d=40/72/80/88/160 up to the next 64-column
+//   atom (d=40's QK^T depth is 48, d=72's 80, d=88's 96).
 // * wgmma.  Each consumer computes its 64 x 128 scores with m64n128k16 from
 //   shared memory (Q and K K-major, 128-byte swizzle) into registers, waits
 //   for them and exponentiates them into its sum; the two warpgroups
@@ -326,6 +326,7 @@ int forward(const void* q, const void* k, const float* lse, void* out, int b, in
     case 64: return launch<T, 64>(q, k, lse, out, b, h, sq, sk, scale, strides, s);
     case 72: return launch<T, 72>(q, k, lse, out, b, h, sq, sk, scale, strides, s);
     case 80: return launch<T, 80>(q, k, lse, out, b, h, sq, sk, scale, strides, s);
+    case 88: return launch<T, 88>(q, k, lse, out, b, h, sq, sk, scale, strides, s);
     case 128: return launch<T, 128>(q, k, lse, out, b, h, sq, sk, scale, strides, s);
     case 160: return launch<T, 160>(q, k, lse, out, b, h, sq, sk, scale, strides, s);
     default: return int(cudaErrorInvalidValue);

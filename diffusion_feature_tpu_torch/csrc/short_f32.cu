@@ -201,6 +201,7 @@ extern "C" int dft_short_attention_forward(const void* q, const void* k, const v
     case 64: return launch<64>(q, k, v, o, b, h, sq, sk, scale, strides, s);
     case 72: return launch<72>(q, k, v, o, b, h, sq, sk, scale, strides, s);
     case 80: return launch<80>(q, k, v, o, b, h, sq, sk, scale, strides, s);
+    case 88: return launch<88>(q, k, v, o, b, h, sq, sk, scale, strides, s);
     case 128: return launch<128>(q, k, v, o, b, h, sq, sk, scale, strides, s);
     case 160: return launch<160>(q, k, v, o, b, h, sq, sk, scale, strides, s);
     default: return int(cudaErrorInvalidValue);

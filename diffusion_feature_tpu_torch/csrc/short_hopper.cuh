@@ -29,12 +29,12 @@
 //   tiles do not all stay, the K tiles again) for pass 2, with "full"
 //   mbarriers that count the bytes and "empty" ones the consumer warps
 //   arrive on.  The K tiles of a head stay in shared memory for pass 2
-//   when they fit: all 512 keys at d <= 64, 256 at d=160, 128 at d=72/80/128;
+//   when they fit: all 512 keys at d <= 64, 256 at d=160, 128 at d=72/80/88/128;
 //   past that the K slots are a ring and pass 2 reloads K.  V runs through
 //   a 2-stage ring.  The tensor maps are 4-d (d, s, h, b) with the caller's
 //   strides, so head-split views are read in place; TMA zero-fills rows
-//   past Sq and Sk and the columns of d=40/72/80/160 up to the next 64-column
-//   atom; P V's N is D itself (m64n72k16 at d=72).
+//   past Sq and Sk and the columns of d=40/72/80/88/160 up to the next 64-column
+//   atom; P V's N is D itself (m64n72k16 at d=72, m64n88k16 at d=88).
 // * wgmma.  The consumer warpgroup's S = Q K^T is m64n64k16 from shared
 //   memory.  Pass 1 takes the tiles in pairs, tile j+1's product running
 //   while tile j's maxima are taken; in pass 2 tile j's scores are computed
@@ -372,6 +372,7 @@ int forward(const void* q, const void* k, const void* v, void* o, int b, int h, 
     case 64: return launch<T, 64>(q, k, v, o, b, h, sq, sk, scale, strides, s);
     case 72: return launch<T, 72>(q, k, v, o, b, h, sq, sk, scale, strides, s);
     case 80: return launch<T, 80>(q, k, v, o, b, h, sq, sk, scale, strides, s);
+    case 88: return launch<T, 88>(q, k, v, o, b, h, sq, sk, scale, strides, s);
     case 128: return launch<T, 128>(q, k, v, o, b, h, sq, sk, scale, strides, s);
     case 160: return launch<T, 160>(q, k, v, o, b, h, sq, sk, scale, strides, s);
     default: return int(cudaErrorInvalidValue);

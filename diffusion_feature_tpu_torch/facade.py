@@ -1,7 +1,7 @@
 """FeatureExtractor in PyTorch (port of ``diffusion_feature_tpu/facade.py``),
 mirroring the reference's ``diffusion_feature.FeatureExtractor``
 (feature/diffusion_feature.py:26-517).  It dispatches on the model's
-family (``spec.family``): the U-Nets, or the PixArt DiTs.
+family (``spec.family``): the U-Nets, the PixArt DiTs, or HunyuanDiT.
 
 Ported: extraction for SD-1.5 (``'1-5'``, ``'test-sd'``), SD-2.1 (``'2-1'``),
 SDXL (``'xl'``, ``'test-xl'``) and Playground v2 (``'pgv2'``): CLIP tokenize
@@ -15,7 +15,13 @@ inversion in place of the noise.  PixArt-alpha and PixArt-Sigma
 ``'test-pixart'``) take the same path with the T5 encoder (prompts come as
 (embeds, mask, negative embeds, negative mask)), DPM-Solver, and the DiT,
 whose learned-sigma half of the output is dropped; they have no ControlNet
-and no DDIM inversion, as in the JAX package.  The attention store (``attention=``) gives
+and no DDIM inversion, as in the JAX package.  HunyuanDiT (``'hunyuan'``,
+``'test-hunyuan'``) runs the JAX package's pipeline-driven single step:
+BERT and mT5 encode the prompt (``((bert embeds, mask), (t5 embeds,
+mask))``), the latents are noised at the DDPM img2img timestep of ``t``,
+and one DiT forward gives the taps (no ``vae-out``, no ``denoising_from``);
+``sample`` follows the stock HunyuanDiT pipeline (DDPM, v-prediction).
+The attention store (``attention=``) gives
 the aggregated ``'attn'`` feature, the ``'vae-out'`` layer the decoded image
 of one scheduler step; ``extract_ensemble`` crosses timesteps with prompts.
 ``control=`` adds ControlNets (Canny, DPT depth) to the tapped forward;
@@ -41,23 +47,27 @@ from .configs import resolve_layer_config
 from .ddim_inversion import ddim_invert
 from .enumerate_layers import enumerate_layers
 from .io.images import preprocess_pil_batch, resize_tensor_batch
+from .models.bert_text import BertConfig, BertTextModel, bert_checkpoint_state
 from .models.clip_text import CLIPTextConfig, CLIPTextModel
 from .models.convert import (load_component_config, load_component_state, load_state_into,
                              random_module, save_component)
 from .models.controlnet import ControlNetPipeline
 from .models.dit_pixart import PixArtConfig, PixArtTransformer2D
+from .models.hunyuan import HunyuanConfig, HunyuanDiT2D
 from .models.layers import ATTN_STORE
 from .models.lora import apply_lora_to_module
 from .models.registry import ModelSpec, get_model_spec
 from .models.t5 import T5Config, T5EncoderModel, t5_checkpoint_state
 from .models.unet2d import UNet2DConditionModel, UNetConfig
 from .models.vae import AutoencoderKL, VAEConfig
-from .schedulers.diffusion import (DPMSolverMultistepScheduler, EulerDiscreteScheduler,
-                                   make_scheduler, scalar_like)
+from .roadmap import not_ported
+from .schedulers.diffusion import (DDPMScheduler, DPMSolverMultistepScheduler,
+                                   EulerDiscreteScheduler, make_scheduler, scalar_like)
 from .store import aggregate_attention, postprocess_taps, select_background_encounters
 from .taps import TapSpec, declared_ids, is_filtered_id
 from .tokenizers.clip_bpe import load_clip_tokenizer
 from .tokenizers.t5_tok import load_t5_tokenizer
+from .tokenizers.wordpiece import load_bert_tokenizer
 from .utils.prompt import encode_long_prompt
 
 _DTYPES = {'bfloat16': torch.bfloat16, 'float16': torch.float16, 'float32': torch.float32}
@@ -76,13 +86,19 @@ def _adapt_spec_to_checkpoint(spec: ModelSpec, weights: str) -> ModelSpec:
         return os.path.exists(os.path.join(weights, component, 'config.json'))
 
     try:
-        if spec.family == 'pixart':
+        if spec.family in ('pixart', 'hunyuan'):
+            dit = PixArtConfig if spec.family == 'pixart' else HunyuanConfig
             if has('transformer'):
-                updates['dit'] = PixArtConfig.from_diffusers_config(
+                updates['dit'] = dit.from_diffusers_config(
                     load_component_config(weights, 'transformer'))
-            if has('text_encoder'):
+            # T5 sits in text_encoder_2 where BERT comes first (HunyuanDiT)
+            t5_dir = 'text_encoder' if spec.family == 'pixart' else 'text_encoder_2'
+            if has(t5_dir):
                 updates['t5'] = T5Config.from_diffusers_config(
-                    load_component_config(weights, 'text_encoder'), spec.t5)
+                    load_component_config(weights, t5_dir), spec.t5)
+            if spec.bert is not None and has('text_encoder'):
+                updates['bert'] = BertConfig.from_hf_config(
+                    load_component_config(weights, 'text_encoder'), spec.bert)
         elif has('unet'):
             updates['unet'] = UNetConfig.from_diffusers_config(
                 load_component_config(weights, 'unet'))
@@ -110,7 +126,9 @@ class FeatureExtractor:
     files; ``tokenizer``[``_2``] when present; PixArt: ``transformer``,
     ``vae``, ``text_encoder`` (T5) and ``tokenizer/spiece.model``).  The architecture follows
     its config.json files, and each module is filled straight from the
-    files, with no random init.  weights_variant: the weight set to load
+    files, with no random init (HunyuanDiT: ``transformer``, ``vae``,
+    ``text_encoder`` (BERT), ``text_encoder_2`` (mT5), ``tokenizer/vocab.txt``
+    and ``tokenizer_2/spiece.model``).  weights_variant: the weight set to load
     ('fp16', 'bf16', ..., 'main'), falling back per component to the
     un-suffixed set.  Without weights, models initialise at random from
     ``seed``.  offline_lora (with offline_lora_filename): a LoRA merged
@@ -122,10 +140,14 @@ class FeatureExtractor:
     ``{weights}/controlnet_{kind}`` and ``{weights}/depth_estimator`` where
     present (the JAX ``ControlNetPipeline``); U-Nets only.
     attention: attention-store categories ('{down|mid|up}_{self|cross}';
-    PixArt's blocks are 'up'); their head-mean maps of the size band
+    the DiTs' blocks are 'up'); their head-mean maps of the size band
     ``attn_store_sizes`` (tokens per side, default (img_size/32,
-    img_size/16), PixArt's (img_size/32, img_size/8)) come back as
+    img_size/16), the DiTs' (img_size/32, img_size/8)) come back as
     ``feats['attn']``.
+    train_unet, external_model, mesh, t5_8bit, transformer_8bit: the JAX
+    facade's keywords; False or None (their defaults) pass, and any other
+    value raises ``NotImplementedError`` naming the ROADMAP.md item that
+    ports it.
     """
 
     def __init__(self, layer, version: str, device='cuda', dtype: str = 'bfloat16',
@@ -135,7 +157,16 @@ class FeatureExtractor:
                  attention: Optional[Sequence[str]] = None,
                  weights: Optional[str] = None, weights_variant: Optional[str] = None,
                  seed: int = 0, attn_store_sizes: Optional[Tuple[int, int]] = None,
-                 validate_layers: bool = True):
+                 validate_layers: bool = True, train_unet: bool = False,
+                 external_model=None, mesh=None, t5_8bit=None, transformer_8bit=None):
+        for name, value, item, queue in (
+                ('train_unet', train_unet, 'Training and tasks', 'A'),
+                ('external_model', external_model, 'external_model', 'A'),
+                ('mesh', mesh, 'Multi-GPU', 'A'),
+                ('t5_8bit', t5_8bit, 'Int8 weight-only dense', 'B'),
+                ('transformer_8bit', transformer_8bit, 'Int8 weight-only dense', 'B')):
+            if value is not None and value is not False:
+                raise not_ported(f'FeatureExtractor({name}={value!r})', item, queue)
         if weights and os.path.isfile(os.path.join(weights, 'tpu_bundle.json')):
             raise ValueError(f'{weights} is a deployment bundle of the JAX package; the port '
                              'loads the diffusers checkpoint dir it was exported from instead')
@@ -160,7 +191,7 @@ class FeatureExtractor:
         # the store's size band (reference components/attention.py:542, :569)
         self._attn_sizes = None
         if self.attention:
-            top = img_size // (8 if self.spec.family == 'pixart' else 16)
+            top = img_size // (16 if self.spec.family == 'unet' else 8)
             self._attn_sizes = (tuple(attn_store_sizes) if attn_store_sizes is not None
                                 else (img_size // 32, top))
         self.scheduler = make_scheduler(self.spec.scheduler, self.spec.scheduler_config)
@@ -184,13 +215,24 @@ class FeatureExtractor:
                     for d in ('tokenizer', 'tokenizer_2')]
         pixart = spec.family == 'pixart'
         # the DiT keeps the facade's attribute name of the denoiser
-        self.unet = (build(lambda: PixArtTransformer2D(spec.dit, self.taps, self._attn_sizes,
-                                                       categories), 'transformer') if pixart
-                     else build(lambda: UNet2DConditionModel(spec.unet, self.taps,
-                                                             self._attn_sizes, categories),
-                                'unet'))
+        denoiser = {'pixart': PixArtTransformer2D, 'hunyuan': HunyuanDiT2D,
+                    'unet': UNet2DConditionModel}[spec.family]
+        self.unet = build(lambda: denoiser(spec.unet if denoiser is UNet2DConditionModel
+                                           else spec.dit, self.taps, self._attn_sizes,
+                                           categories),
+                          'unet' if spec.family == 'unet' else 'transformer')
         self.vae = build(lambda: AutoencoderKL(spec.vae), 'vae')
-        if pixart:
+        if spec.family == 'hunyuan':
+            # BERT WordPiece from tokenizer/vocab.txt, the hash tokenizer offline
+            self.text_encoders = (
+                build(lambda: BertTextModel(spec.bert), 'text_encoder', bert_checkpoint_state),
+                build(lambda: T5EncoderModel(spec.t5), 'text_encoder_2', t5_checkpoint_state))
+            self.tokenizers = (
+                load_bert_tokenizer(tok_dirs[0], model_max_length=spec.dit.text_len,
+                                    vocab_size=spec.bert.vocab_size),
+                load_t5_tokenizer(tok_dirs[1], model_max_length=spec.dit.text_len_t5,
+                                  vocab_size=spec.t5.vocab_size))
+        elif pixart:
             self.text_encoders = (build(lambda: T5EncoderModel(spec.t5), 'text_encoder',
                                         t5_checkpoint_state),)
             self.tokenizers = (load_t5_tokenizer(tok_dirs[0],
@@ -234,7 +276,7 @@ class FeatureExtractor:
 
     def save_weights(self, root: str, variant: Optional[str] = None, unet_shards: int = 1,
                      text_shards: int = 1) -> Dict[str, Tuple[int, float]]:
-        """Write the denoiser (U-Net, or PixArt's transformer), the VAE and
+        """Write the denoiser (U-Net, or the DiT's transformer), the VAE and
         the text encoders as a diffusers checkpoint dir that ``weights=``
         loads: a config.json and safetensors files per component, named
         with ``variant``, the denoiser in ``unet_shards`` files and each
@@ -244,6 +286,9 @@ class FeatureExtractor:
         if spec.family == 'pixart':
             comps = [('transformer', self.unet, spec.dit), ('vae', self.vae, spec.vae),
                      ('text_encoder', self.text_encoders[0], spec.t5)]
+        elif spec.family == 'hunyuan':
+            comps = [('transformer', self.unet, spec.dit), ('vae', self.vae, spec.vae),
+                     *zip(TEXT_DIRS, self.text_encoders, (spec.bert, spec.t5))]
         else:
             comps = [('unet', self.unet, spec.unet), ('vae', self.vae, spec.vae),
                      *zip(TEXT_DIRS, self.text_encoders, spec.text_encoders)]
@@ -260,8 +305,10 @@ class FeatureExtractor:
         """Fail fast on ids the U-Net does not declare, with near-miss
         suggestions (the reference silently drops unknown ids)."""
         known = declared_ids(self.unet)
-        # 'attn' is assembled only when attention categories were requested
-        pseudo = {'vae-out', 'attn'} if self.attention else {'vae-out'}
+        # 'attn' is assembled only when attention categories were requested;
+        # the pipeline-driven HunyuanDiT path decodes no 'vae-out'
+        pseudo = ({'attn'} if self.attention else set()) | (
+            set() if self.spec.family == 'hunyuan' else {'vae-out'})
         unknown = [i for i in sorted(self.taps.ids)
                    if i not in known and i not in pseudo and not is_filtered_id(i)]
         if not unknown:
@@ -272,6 +319,10 @@ class FeatureExtractor:
             if i == 'attn':
                 lines.append("  'attn' needs the attention= argument (e.g. "
                              "attention=['up_cross']) so there are aggregated maps to assemble")
+                continue
+            if i == 'vae-out':
+                lines.append("  'vae-out' is unavailable for the pipeline-driven "
+                             f'{self.spec.family} path (one denoiser forward, no decode step)')
                 continue
             near = difflib.get_close_matches(i, known, n=3, cutoff=0.55)
             hint = f" (did you mean: {', '.join(near)}?)" if near else ''
@@ -296,14 +347,19 @@ class FeatureExtractor:
         the pooled entries are None for a 'final'-layer model (SD-1.5).
         PixArt: (prompt_embeds, mask, negative_prompt_embeds, negative_mask),
         the T5 embeddings of ``prompt_max_length`` tokens and their int32
-        (1, L) attention masks (diffusion_feature.py:195-202)."""
+        (1, L) attention masks (diffusion_feature.py:195-202).  HunyuanDiT:
+        ((BERT embeddings, mask), (T5 embeddings, mask)) of the prompt alone,
+        as the JAX facade's ``_encode_hunyuan`` (its two streams travel
+        together; ``sample`` encodes the empty negative itself)."""
         if (prompt_str is None) == (prompt_file is None):
             raise ValueError('pass exactly one of prompt_str and prompt_file')
         if prompt_file:
             with open(prompt_file) as f:
                 prompt_str = f.read()
         if self.spec.family == 'pixart':
-            return (*self._encode_t5(prompt_str), *self._encode_t5(''))
+            return (*self._encode_masked(prompt_str), *self._encode_masked(''))
+        if self.spec.family == 'hunyuan':
+            return self._encode_hunyuan(prompt_str)
         if len(prompt_str.split(' ')) > 70:
             # the first tokenizer and encoder alone, in chunks: no pooled embedding
             self._require_text_encoders()
@@ -334,16 +390,21 @@ class FeatureExtractor:
         return pe, pooled.to(self.device) if penultimate else None
 
     @torch.inference_mode()
-    def _encode_t5(self, text: str):
-        """(T5 embeddings (1, L, d_model), int32 mask (1, L)) of ``text``
-        padded or cut to the tokenizer's ``prompt_max_length``."""
+    def _encode_masked(self, text: str, index: int = 0):
+        """(embeddings (1, L, width), int32 mask (1, L)) of ``text`` padded or
+        cut to the length of tokenizer ``index``, through the text encoder
+        of that index (T5, or HunyuanDiT's BERT), which takes the mask."""
         self._require_text_encoders()
-        ids, mask = self.tokenizers[0]([text])
-        te = self.text_encoders[0]
+        ids, mask = self.tokenizers[index]([text])
+        te = self.text_encoders[index]
         dev = next(te.parameters()).device
         mask = torch.tensor(mask, dtype=torch.int32, device=dev)
         emb = te(torch.tensor(ids, dtype=torch.long, device=dev), mask)
         return emb.to(self.device), mask.to(self.device)
+
+    def _encode_hunyuan(self, text: str):
+        """((BERT embeddings, mask), (T5 embeddings, mask)) of ``text``."""
+        return self._encode_masked(text, 0), self._encode_masked(text, 1)
 
     def offload_prompt_encoder(self, persistent: bool = False):
         """Free the text encoders' device memory (reference
@@ -378,8 +439,12 @@ class FeatureExtractor:
         a ControlNet, as in the JAX facade.  With
         ``set_background_extraction`` active the features are also kept,
         as encounter 1, for ``get_background_extraction``.  PixArt's
-        ``prompts`` carry the T5 mask second, broadcast to the batch."""
+        ``prompts`` carry the T5 mask second, broadcast to the batch;
+        HunyuanDiT's are ``encode_prompt``'s pairs or a raw string, and its
+        one forward at the DDPM timestep of ``t`` takes no
+        ``denoising_from`` and no DDIM inversion."""
         spec = self.spec
+        hunyuan = spec.family == 'hunyuan'
         if use_ddim_inversion and (spec.family != 'unet'
                                    or spec.unet.addition_embed_type is not None
                                    or spec.scheduler_config.prediction_type != 'epsilon'):
@@ -387,17 +452,13 @@ class FeatureExtractor:
             raise NotImplementedError(
                 'use_ddim_inversion supports the epsilon-prediction SD '
                 "U-Net families ('1-5'/'2-1'), as in the reference")
-        pe = torch.as_tensor(prompts[0]).to(self.device, self.dtype)
-        pooled = prompts[2] if spec.clip_layer == 'penultimate' else None
-        self._check_conditioning(pe, pooled)
-        pe = pe.expand(batch_size, *pe.shape[1:])
-        if pooled is not None:
-            pooled = torch.as_tensor(pooled).to(self.device, self.dtype)
-            pooled = pooled.expand(batch_size, *pooled.shape[1:])
-        mask = None
-        if spec.family == 'pixart':
-            mask = torch.as_tensor(prompts[1]).to(self.device)
-            mask = mask.expand(batch_size, *mask.shape[1:])
+        if hunyuan and denoising_from is not None:
+            raise ValueError('denoising_from is unavailable for the pipeline-driven hunyuan '
+                             'path (one denoiser forward at t), as in the JAX package')
+
+        if hunyuan and isinstance(prompts, str):
+            prompts = self._encode_hunyuan(prompts)
+        pe, pooled, mask = self._step_conditioning(prompts, batch_size)
         if image_type == 'image':
             img = preprocess_pil_batch(image, self.img_size)
         else:
@@ -414,7 +475,7 @@ class FeatureExtractor:
         posterior_noise = torch.randn(shape, generator=self._noise_gen, device=self.device)
         noise = torch.randn(shape, generator=self._noise_gen, device=self.device)
         if denoising_from is None and not use_ddim_inversion:
-            feats = self._step(img, pe, pooled, self._img2img_kit(int(t)), posterior_noise,
+            feats = self._step(img, pe, pooled, self._step_kit(int(t)), posterior_noise,
                                noise, self.feature_dtype, control=control, mask=mask)
         else:
             feats = self._multistep(img, pe, pooled, int(t), denoising_from, use_ddim_inversion,
@@ -439,12 +500,42 @@ class FeatureExtractor:
         keys = sorted(per)
         return {layer: torch.cat([per[k][layer] for k in keys], dim=1) for layer in per[keys[0]]}
 
+    def _step_conditioning(self, prompts, batch_size: int):
+        """(pe, pooled, mask) of ``encode_prompt``'s output on the device,
+        broadcast to ``batch_size`` and checked against the denoiser: the
+        U-Net's context and SDXL's pooled embedding; PixArt's T5 context and
+        its mask; HunyuanDiT's BERT context, its T5 stream in the pooled
+        slot and the pair of their masks."""
+        def bcast(x, dtype=None):
+            return self._batch(x, batch_size, dtype)
+
+        mask = None
+        if self.spec.family == 'hunyuan':
+            (pe, bmask), (pooled, tmask) = prompts
+            mask = (bcast(bmask), bcast(tmask))
+        else:
+            pe = prompts[0]
+            pooled = prompts[2] if self.spec.clip_layer == 'penultimate' else None
+            if self.spec.family == 'pixart':
+                mask = bcast(prompts[1])
+        pe, pooled = bcast(pe, self.dtype), bcast(pooled, self.dtype)
+        self._check_conditioning(pe, pooled)
+        return pe, pooled, mask
+
     def _check_conditioning(self, pe, pooled):
         """Refuse, before any compute, prompts the denoiser cannot take: a
         context of another width, or no pooled embedding for SDXL's
         micro-conditioning (long prompts are encoded by the first encoder
         alone and carry none).  The JAX facade fails on them inside its
         step."""
+        if self.spec.family == 'hunyuan':
+            cfg = self.spec.dit
+            for name, x, width in (('BERT', pe, cfg.cross_attention_dim),
+                                   ('T5', pooled, cfg.cross_attention_dim_t5)):
+                if x is None or x.shape[-1] != width:
+                    raise ValueError(f'the {self.version!r} DiT takes {width}-wide {name} '
+                                     f'embeddings, got {None if x is None else x.shape[-1]}')
+            return
         if self.spec.family == 'pixart':
             width = self.spec.dit.caption_channels
             if pe.shape[-1] != width:
@@ -526,10 +617,32 @@ class FeatureExtractor:
         return {'T': float(lt), 'A': A, 'B': B, 'S': S, 'X1': float(X1), 'X2': float(X2),
                 'C1': C1, 'C2': C2, 'C3': C3}
 
+    def _hunyuan_kit(self, t: int, num_inference_steps: int = 50) -> Dict[str, float]:
+        """The JAX facade's ``_hunyuan_kit``: the pipeline's img2img
+        timestep T of ``t`` on the ``num_inference_steps`` DDPM ladder and
+        the noising latents <- A*latents + B*noise, A = sqrt(abar_T), B =
+        sqrt(1 - abar_T)."""
+        sched = self.scheduler
+        state = sched.set_timesteps(num_inference_steps)
+        timesteps, _ = sched.get_timesteps(state, num_inference_steps, t / 1000)
+        latent_t = int(timesteps[0])
+        a = float(sched.alphas_cumprod[latent_t])
+        return {'T': float(latent_t), 'A': float(np.sqrt(a)), 'B': float(np.sqrt(1 - a))}
+
+    def _step_kit(self, t: int) -> Dict[str, float]:
+        """The single step's kit at ``t``: HunyuanDiT's pipeline kit, whose
+        latents enter the DiT unscaled (S = 1), or the img2img kit."""
+        if self.spec.family == 'hunyuan':
+            return {**self._hunyuan_kit(t), 'S': 1.0}
+        return self._img2img_kit(t)
+
     def _added_cond(self, pooled, bsz: int):
         """SDXL text_time micro-conditioning: time ids [h, w, 0, 0, h, w]
-        (reference diffusion_feature.py:534); None for a denoiser without
-        it."""
+        (reference diffusion_feature.py:534); HunyuanDiT's T5 embeddings
+        (the pooled slot carries them); None for a denoiser without
+        either."""
+        if self.spec.family == 'hunyuan':
+            return pooled
         if self.spec.family != 'unet' or self.spec.unet.addition_embed_type != 'text_time':
             return None
         s = float(self.img_size)
@@ -539,9 +652,15 @@ class FeatureExtractor:
 
     def _denoise(self, model_in, timestep, pe, added, mask, feats=None, down=None, mid=None):
         """One denoiser forward: the U-Net (with SDXL's ``added`` and a
-        ControlNet's residuals ``down``/``mid``), or PixArt's DiT (with the
-        T5 ``mask``) whose learned-sigma half is dropped, as the JAX facade
-        drops it before the scheduler (diffusers' contract)."""
+        ControlNet's residuals ``down``/``mid``), or a DiT whose
+        learned-sigma half is dropped, as the JAX facade drops it before the
+        scheduler (diffusers' contract): PixArt's with the T5 ``mask``,
+        HunyuanDiT's with the BERT ``pe``, the T5 ``added`` and ``mask`` the
+        pair of their masks."""
+        if self.spec.family == 'hunyuan':
+            bmask, tmask = mask
+            return self.unet(model_in, timestep, pe, bmask, added, tmask,
+                             feats=feats)[:, :model_in.shape[1]]
         if self.spec.family == 'pixart':
             return self.unet(model_in, timestep, pe, mask, feats=feats)[:, :model_in.shape[1]]
         return self.unet(model_in, timestep, pe, added, feats=feats,
@@ -583,7 +702,9 @@ class FeatureExtractor:
         compute dtype), and 'vae-out' from the kit's fresh-state step.
         Noise tensors are standard-normal draws of the latent shape, cast
         here to the model dtype; ``control`` goes to ``_forward``, PixArt's
-        T5 ``mask`` (B, L) to the DiT."""
+        T5 ``mask`` (B, L) to the DiT, HunyuanDiT's pair of BERT and T5
+        masks with its T5 stream in ``pooled`` (its kit's S is 1: the
+        JAX facade's ``_get_hunyuan_step_fn`` program)."""
         latents = self.vae(img, posterior_noise)
         latents = (scalar_like(kit['A'], latents) * latents
                    + scalar_like(kit['B'], latents) * noise.to(latents.dtype))
@@ -655,6 +776,12 @@ class FeatureExtractor:
         ``batch_size``; with ``guidance_scale`` > 1 every denoiser call runs
         the [negative; positive] batch (PixArt's masks concatenated the
         same way) and combines its halves (classifier-free guidance).
+        HunyuanDiT takes a raw string (the negative '' is encoded for CFG),
+        one ``encode_prompt`` result or a (positive, negative) pair of them,
+        and follows the stock HunyuanDiT pipeline: both streams and both
+        masks in [negative; positive] order, the learned sigma dropped
+        before each DDPM step, whose noise comes from the noise generator
+        too.
         Returns (images (B, 3, H, W) in [0, 1], features), the features
         {layer: tuple of the raw tap of every denoiser call, step-major,
         over the CFG-doubled batch} as the JAX facade returns them (no
@@ -668,13 +795,21 @@ class FeatureExtractor:
         spec = self.spec
 
         def bcast(x, dtype=None):
-            if x is None:
-                return None
-            x = torch.as_tensor(x).to(self.device, dtype or self.dtype)
-            return x.expand(batch_size, *x.shape[1:])
+            return self._batch(x, batch_size, dtype or self.dtype)
 
-        mask = None
-        if spec.family == 'pixart':
+        mask = step_noise = None
+        if spec.family == 'hunyuan':
+            pos, neg = self._hunyuan_sample_prompts(prompts, guidance_scale)
+            (pe, bmask), (pooled, tmask) = pos
+            pe, pooled = bcast(pe), bcast(pooled)
+            mask = (bcast(bmask, torch.int32), bcast(tmask, torch.int32))
+            ne = neg_pooled = None
+            if neg is not None:
+                (ne, nbmask), (neg_pooled, ntmask) = neg
+                ne, neg_pooled = bcast(ne), bcast(neg_pooled)
+                mask = (torch.cat([bcast(nbmask, torch.int32), mask[0]]),
+                        torch.cat([bcast(ntmask, torch.int32), mask[1]]))
+        elif spec.family == 'pixart':
             pe, pmask, ne, nmask = prompts
             pooled = neg_pooled = None
             pmask, nmask = bcast(pmask, torch.int32), bcast(nmask, torch.int32)
@@ -686,24 +821,60 @@ class FeatureExtractor:
                 pooled = neg_pooled = None
         self._check_conditioning(pe, pooled)
         lat = self.img_size // self.vae_scale
-        channels = spec.dit.in_channels if spec.family == 'pixart' else spec.unet.in_channels
-        noise = torch.randn((batch_size, channels, lat, lat), generator=self._noise_gen,
-                            device=self.device)
+        channels = spec.unet.in_channels if spec.family == 'unet' else spec.dit.in_channels
+        shape = (batch_size, channels, lat, lat)
+        noise = torch.randn(shape, generator=self._noise_gen, device=self.device)
+        if isinstance(self.scheduler, DDPMScheduler):
+            step_noise = [torch.randn(shape, generator=self._noise_gen, device=self.device)
+                          for _ in range(int(num_inference_steps))]
         images, feats, _ = self._sample(pe, ne, pooled, neg_pooled, noise,
-                                        int(num_inference_steps), float(guidance_scale), mask)
+                                        int(num_inference_steps), float(guidance_scale), mask,
+                                        step_noise)
         self._keep_background(feats)
         return images, (feats if return_features else None)
 
+    def _batch(self, x, batch_size: int, dtype=None):
+        """``x`` (1, ...) on the device, in ``dtype`` (None keeps its own),
+        expanded to ``batch_size``; None stays None."""
+        if x is None:
+            return None
+        x = torch.as_tensor(x).to(self.device, dtype)
+        return x.expand(batch_size, *x.shape[1:])
+
+    def _hunyuan_sample_prompts(self, prompts, guidance_scale: float):
+        """(positive, negative or None) ``encode_prompt`` pairs of a
+        HunyuanDiT ``sample``'s ``prompts``, as the JAX facade resolves
+        them: the negative is '' encoded here unless a pair was given, and
+        None without CFG."""
+        do_cfg = guidance_scale > 1.0
+        if isinstance(prompts, str):
+            return (self._encode_hunyuan(prompts),
+                    self._encode_hunyuan('') if do_cfg else None)
+        if isinstance(prompts[0][0], (tuple, list)):
+            pos, neg = prompts
+            return pos, (neg if do_cfg else None)
+        if not do_cfg:
+            return prompts, None
+        if not self.text_encoders:
+            raise ValueError('hunyuan sample() with guidance_scale > 1 needs a negative '
+                             'encoding: pass a raw prompt string, a (positive, negative) pair '
+                             'of encode_prompt() results, or keep the text encoders loaded so '
+                             'the empty negative prompt can be encoded here')
+        return prompts, self._encode_hunyuan('')
+
     @torch.inference_mode()
     def _sample(self, pe, ne, pooled, neg_pooled, noise, num_inference_steps: int,
-                guidance_scale: float, mask=None):
+                guidance_scale: float, mask=None, step_noise=None):
         """The generation loop (the JAX ``_get_sample_fn``'s unrolled
         ``run``) from ``noise``, a standard-normal draw of the latent shape:
         the latents are the noise in the model dtype times
         ``init_noise_sigma``; per timestep scale_model_input, one denoiser
         forward on the (CFG-doubled) batch with the taps (PixArt's with the
-        T5 ``mask``, already CFG-doubled), the guidance combine and the
-        scheduler's ``step``; then the VAE decode mapped to [0, 1].
+        T5 ``mask``, HunyuanDiT's with the T5 embeddings as ``pooled`` and
+        the pair of masks, already CFG-doubled), the guidance combine and
+        the scheduler's ``step`` (DDPM's with ``step_noise[i]``, a
+        standard-normal draw of the latent shape per step); then the VAE
+        decode mapped to [0, 1].
         Returns (images, {layer: tuple of per-call raw taps}, the final
         latents)."""
         sched = self.scheduler
@@ -716,7 +887,11 @@ class FeatureExtractor:
         added = self._added_cond(pp, ctx.shape[0])
         merged: Dict[str, tuple] = {}
         step_state = state
-        for t in state.timesteps:
+        ddpm = isinstance(sched, DDPMScheduler)
+        if ddpm and (step_noise is None or len(step_noise) != len(state.timesteps)):
+            raise ValueError(f'DDPM sampling needs one noise draw per step '
+                             f'({len(state.timesteps)})')
+        for i, t in enumerate(state.timesteps):
             model_in = torch.cat([latents] * 2) if do_cfg else latents
             model_in = sched.scale_model_input(step_state, model_in, t)
             taps = {}
@@ -728,7 +903,10 @@ class FeatureExtractor:
             if do_cfg:
                 uncond, cond = out.chunk(2)
                 out = uncond + guidance_scale * (cond - uncond)
-            latents, step_state = sched.step(step_state, out, t, latents)
+            if ddpm:
+                latents, step_state = sched.step(step_state, out, t, latents, step_noise[i])
+            else:
+                latents, step_state = sched.step(step_state, out, t, latents)
         images = (self._decode(latents, None) / 2 + 0.5).clamp(0.0, 1.0)
         return images, merged, latents
 

@@ -5,14 +5,14 @@ PyTorch port's counterpart of the root ``generate_with_extraction.py``):
         --version 1-5 --steps 50 --store_steps 1 10 20 30 40 --output generated.png
 
 A text-to-image ``sample`` runs with the taps of ``--layer`` at every
-denoiser call (the U-Net's, or PixArt's DiT's), keeps the calls numbered in
-``--store_steps`` (1-based; PNDM's 50 steps make 51 calls, DPM-Solver's
-50), writes the image and prints one ``layer step=N shape`` line per kept
+denoiser call (the U-Net's, or a DiT's: PixArt, HunyuanDiT), keeps the
+calls numbered in ``--store_steps`` (1-based; PNDM's 50 steps make 51
+calls, DPM-Solver's and DDPM's 50), writes the image and prints one ``layer step=N shape`` line per kept
 feature (reference generate_with_extraction.py:21-48).  The JAX CLI's
 flags and defaults, plus ``--device`` (default ``cuda``; ``cpu`` runs the
 kernels' plain twins).  Layer ids the version does not have are dropped
 with a warning on stderr (the JAX CLI refuses them), so the SD-1.5 default
-``--layer`` runs on any U-Net version (a PixArt version then keeps no
+``--layer`` runs on any U-Net version (a DiT version then keeps no
 layer: pass its ``vit-block{i}-*`` ids).
 """
 

@@ -47,6 +47,19 @@ class AttnStoreCfg:
     max_size: int
     categories: frozenset = frozenset()
 
+    def slot(self, is_cross: bool):
+        """(store key, (min, max) query tokens) of a self- or
+        cross-attention of this place, or (None, None) when its category
+        was not requested.  The JAX models compute head-mean maps in every
+        place whose size is in the band and let XLA drop the ones the
+        facade never reads; eager PyTorch cannot drop them, so only a
+        requested category takes the store path, and every other attention
+        stays on the fused path, which computes the same output."""
+        key = f"{self.place}_{'cross' if is_cross else 'self'}"
+        if key not in self.categories:
+            return None, None
+        return key, (self.min_size ** 2, self.max_size ** 2)
+
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
                        downscale_freq_shift: float = 0.0,
@@ -164,17 +177,8 @@ class Attention(nn.Module):
         self.to_v = nn.Linear(ctx_dim, inner, bias=qkv_bias)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
         self.tap_site = TapSite(taps, tap_name, ('q', 'k', 'v', 'map'))
-        # The JAX U-Net computes head-mean maps in every place whose size is
-        # in the band and lets XLA drop the ones the facade never reads.
-        # Eager PyTorch cannot drop them, so only a requested category takes
-        # the store path; every other attention stays on the fused path,
-        # which computes the same output.
-        self.store_key = self.store_band = None
-        if attn_store is not None:
-            key = f"{attn_store.place}_{'cross' if is_cross else 'self'}"
-            if key in attn_store.categories:
-                self.store_key = key
-                self.store_band = (attn_store.min_size ** 2, attn_store.max_size ** 2)
+        self.store_key, self.store_band = (attn_store.slot(is_cross) if attn_store is not None
+                                           else (None, None))
 
     def forward(self, x, context=None, feats=None, mask=None):
         ctx = x if context is None else context
@@ -232,13 +236,14 @@ class GELU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU (or, with activation_fn 'gelu'/'gelu-approximate', GELU) MLP;
-    tap 'inner' on the activation (after net[0])."""
+    """GEGLU (or, with activation_fn 'gelu'/'gelu-approximate', GELU) MLP
+    of ``inner`` (default 4 * dim) hidden units; tap 'inner' on the
+    activation (after net[0])."""
 
     def __init__(self, dim: int, taps: TapSpec = EMPTY, tap_name: str = '',
-                 activation_fn: str = 'geglu'):
+                 activation_fn: str = 'geglu', inner: Optional[int] = None):
         super().__init__()
-        inner = dim * 4
+        inner = dim * 4 if inner is None else inner
         if activation_fn == 'geglu':
             act = GEGLU(dim, inner)
         else:

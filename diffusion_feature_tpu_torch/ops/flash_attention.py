@@ -32,6 +32,12 @@ keeps exact ``mma.sync``-layout FMA kernels (``flash_f32.cu``,
 ``headmean_f32.cu``, ``short_f32.cu``); besides the tests, SD-2.1's
 upcast attention store runs B2 and B3 in fp32.  See the sources.
 
+Head widths: each kernel is instantiated per width (``SUPPORTED_HEAD_DIMS``,
+``HEADMEAN_HEAD_DIMS``).  A width that is no multiple of the 64-column
+tile runs QK^T over TMA's zero fill up to the next multiple of 16 (d=40 at
+48, d=72 at 80, HunyuanDiT's d=88 at 96) and P V at N = d itself
+(``m64n72k16``, ``m64n88k16``), the epilogue stopping at column d.
+
 Inputs: every kernel takes (B, H, S, D) tensors with unit stride along D
 and 16-byte aligned bases and strides (``tma_strides``), so the head-split
 view ``split_heads`` returns (stride H*D along S) is read in place.  B1, B2
@@ -60,10 +66,10 @@ from pathlib import Path
 import torch
 
 #: Head widths B1 is built for: the U-Nets' 40, 64, 80, 128, 160, PixArt's
-#: 72 and the VAE's single 512-wide head.
-SUPPORTED_HEAD_DIMS = (40, 64, 72, 80, 128, 160, 512)
-#: Head widths B2, B3 and B4 are built for (the U-Nets' and PixArt's heads).
-HEADMEAN_HEAD_DIMS = (40, 64, 72, 80, 128, 160)
+#: 72, HunyuanDiT's 88 and the VAE's single 512-wide head.
+SUPPORTED_HEAD_DIMS = (40, 64, 72, 80, 88, 128, 160, 512)
+#: Head widths B2, B3 and B4 are built for (the U-Nets' and the DiTs' heads).
+HEADMEAN_HEAD_DIMS = (40, 64, 72, 80, 88, 128, 160)
 #: B4 takes at most this many keys (its exact softmax walks every key tile
 #: twice, and the fp32 kernel keeps a 64 x Sk score tile in shared memory).
 SHORT_MAX_KEYS = 512

@@ -5,7 +5,9 @@ it."""
 #: Queue A items the port's messages cite, by title.
 QUEUE_A = {
     'DiT families': 9,
+    'Training and tasks': 10,
     'Multi-GPU': 11,
+    'external_model': 15,
 }
 #: Queue B items ("Still to port") the port's messages cite, by title.
 QUEUE_B = {
@@ -13,7 +15,7 @@ QUEUE_B = {
 }
 #: What an item still lacks, where part of it is ported.
 REMAINING = {
-    'DiT families': 'HunyuanDiT, Flux and DeepFloyd-IF (PixArt is ported)',
+    'DiT families': 'Flux and DeepFloyd-IF (PixArt and HunyuanDiT are ported)',
 }
 
 

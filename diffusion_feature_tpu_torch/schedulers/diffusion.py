@@ -1,5 +1,5 @@
-"""Euler discrete, PNDM, DDIM and DPM-Solver++ (2M) schedulers (port of
-``diffusion_feature_tpu/schedulers/diffusion.py``).
+"""Euler discrete, PNDM, DDIM, DDPM and DPM-Solver++ (2M) schedulers (port
+of ``diffusion_feature_tpu/schedulers/diffusion.py``).
 
 The schedule tables are built in numpy exactly as the JAX package builds
 them, which reproduces diffusers' arrays: with linspace spacing Euler maps
@@ -11,7 +11,9 @@ schedules are scaled-linear (SD, SD-2.1, SDXL) and linear (PixArt).
 ``denoising_from`` walk switches to a 100-step state); PLMS history and
 DPM-Solver's last two x0 predictions ride the state (``ets``, ``counter``,
 ``cur_sample``), which ``step`` returns updated and never mutates.  DDPM
-comes with the families that use it (ROADMAP.md, Queue A: 'DiT families').
+(HunyuanDiT's) takes the fixed-small variance; DeepFloyd-IF's learned
+variance and dynamic thresholding come with IF (ROADMAP.md, Queue A
+item 9).
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..roadmap import not_ported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +36,11 @@ class SchedulerConfig:
     prediction_type: str = 'epsilon'   # or 'v_prediction' / 'sample'
     timestep_spacing: str = 'linspace'
     steps_offset: int = 0
+    clip_sample: bool = False
+    thresholding: bool = False
+    dynamic_thresholding_ratio: float = 0.995
+    sample_max_value: float = 1.0
+    variance_type: str = 'fixed_small'     # DDPM
 
 
 @dataclasses.dataclass
@@ -238,6 +247,39 @@ class DDIMScheduler(_Scheduler):
                 + scalar_like(np.sqrt(1 - a_prev), sample) * eps), state
 
 
+class DDPMScheduler(_Scheduler):
+    """Ancestral DDPM (HunyuanDiT's pipeline scheduler): the leading-spacing
+    ladder, DDPM-family noising, and a step that takes the posterior mean
+    from the x0 prediction (clamped to [-1, 1] with ``clip_sample``) and
+    adds the fixed-small variance's share of ``noise``, a standard-normal
+    draw of the sample's shape, at every timestep above 0."""
+
+    def __init__(self, config: SchedulerConfig = SchedulerConfig()):
+        if config.variance_type != 'fixed_small' or config.thresholding:
+            raise not_ported(f"DDPM with variance_type={config.variance_type!r} and "
+                             f'thresholding={config.thresholding} (DeepFloyd-IF\'s scheduler)',
+                             'DiT families')
+        super().__init__(config)
+
+    def step(self, state: SchedulerState, model_output: torch.Tensor, timestep,
+             sample: torch.Tensor, noise: Optional[torch.Tensor] = None):
+        t = int(timestep)
+        prev_t = t - self.step_size(state)
+        a_t = float(self.alphas_cumprod[t])
+        a_prev = float(self.alphas_cumprod[prev_t]) if prev_t >= 0 else 1.0
+        current_alpha = a_t / a_prev
+        current_beta = 1 - current_alpha
+        x0, _ = self._predict_x0_eps(model_output, sample, a_t)
+        if self.config.clip_sample:
+            x0 = x0.clamp(-1.0, 1.0)
+        prev = (scalar_like(np.sqrt(a_prev) * current_beta / (1 - a_t), sample) * x0
+                + scalar_like(np.sqrt(current_alpha) * (1 - a_prev) / (1 - a_t), sample) * sample)
+        if t > 0 and noise is not None:
+            var = max((1 - a_prev) / (1 - a_t) * current_beta, 1e-20)
+            prev = prev + scalar_like(np.sqrt(var), sample) * noise.to(sample.dtype)
+        return prev, state
+
+
 class DPMSolverMultistepScheduler(_Scheduler):
     """DPM-Solver++ (2M), the PixArt pipelines' scheduler: the rounded
     linspace ladder, DDPM-family noising, and a first-order step, then
@@ -285,10 +327,10 @@ class DPMSolverMultistepScheduler(_Scheduler):
 
 
 def make_scheduler(kind: str, config: SchedulerConfig):
-    """'euler', 'pndm', 'ddim' or 'dpmsolver'
+    """'euler', 'pndm', 'ddim', 'ddpm' or 'dpmsolver'
     (``models.registry.ModelSpec.scheduler``)."""
-    return {'euler': EulerDiscreteScheduler, 'pndm': PNDMScheduler,
-            'ddim': DDIMScheduler, 'dpmsolver': DPMSolverMultistepScheduler}[kind](config)
+    return {'euler': EulerDiscreteScheduler, 'pndm': PNDMScheduler, 'ddim': DDIMScheduler,
+            'ddpm': DDPMScheduler, 'dpmsolver': DPMSolverMultistepScheduler}[kind](config)
 
 
 def scalar_like(value: float, like: torch.Tensor) -> torch.Tensor:

@@ -28,15 +28,19 @@ import jax.numpy as jnp
 from flax import traverse_util
 
 from diffusion_feature_tpu import FeatureExtractor as JaxFeatureExtractor
+from diffusion_feature_tpu.models.bert_text import BertTextModel
 from diffusion_feature_tpu.models.clip_text import CLIPTextModel
 from diffusion_feature_tpu.models.convert import convert_torch_state
 from diffusion_feature_tpu.models.dit_pixart import PixArtTransformer2D
+from diffusion_feature_tpu.models.hunyuan import HunyuanDiT2D
 from diffusion_feature_tpu.models.registry import get_model_spec
 from diffusion_feature_tpu.models.t5 import T5EncoderModel
 from diffusion_feature_tpu.models.unet2d import UNet2DConditionModel
 from diffusion_feature_tpu.models.vae import AutoencoderKL
 from diffusion_feature_tpu.tokenizers.clip_bpe import load_clip_tokenizer
 from diffusion_feature_tpu.tokenizers.t5_tok import load_t5_tokenizer
+from diffusion_feature_tpu.tokenizers.wordpiece import load_bert_tokenizer
+from diffusion_feature_tpu_torch.models import bert_text as port_bert
 from diffusion_feature_tpu_torch.models import t5 as port_t5
 from diffusion_feature_tpu_torch.models.convert import params_from_jax
 
@@ -46,6 +50,19 @@ torch.set_num_threads(1)
 def _param_shapes(spec, unet, vae, text_encoders):
     def init():
         rng = jax.random.PRNGKey(0)
+        if spec.family == 'hunyuan':
+            cfg = spec.dit
+            ids = jnp.zeros((1, cfg.text_len), jnp.int32)
+            denoiser = unet.init(rng, jnp.zeros((1, cfg.in_channels, 8, 8)), 50.0,
+                                 jnp.zeros((1, cfg.text_len, cfg.cross_attention_dim)), None,
+                                 jnp.zeros((1, cfg.text_len_t5, cfg.cross_attention_dim_t5)),
+                                 None)['params']
+            t5_ids = jnp.zeros((1, cfg.text_len_t5), jnp.int32)
+            text = [text_encoders[0].init(rng, ids)['params'],
+                    text_encoders[1].init(rng, t5_ids)['params']]
+            return {'unet': denoiser, 'text': text,
+                    'vae': vae.init(rng, jnp.zeros((1, 3, 16, 16)),
+                                    method=AutoencoderKL.full_pass)['params']}
         if spec.family == 'pixart':
             ids = jnp.zeros((1, spec.prompt_max_length), jnp.int32)
             ctx = jnp.zeros((1, spec.prompt_max_length, spec.t5.d_model))
@@ -87,6 +104,10 @@ def _draw(shapes, seed):
             return jnp.zeros(s.shape, s.dtype)
         elif name in ('cls_token', 'position_embeddings'):   # the DPT's, ViT-sized
             fan_in = 2500
+        elif name == 'positional_embedding':          # HunyuanDiT's T5 pool: N(0, 1/dim)
+            fan_in = s.shape[-1]
+        elif name == 'text_embedding_padding':        # HunyuanDiT's: N(0, 0.02^2)
+            fan_in = 2500
         else:
             raise KeyError(f'no initialiser for parameter {jax.tree_util.keystr(path)}')
         return jnp.asarray(rs.randn(*s.shape).astype(np.float32) * fan_in ** -0.5)
@@ -95,13 +116,21 @@ def _draw(shapes, seed):
 
 
 def jax_facade(layer, version: str, img_size: int, seed: int = 0, **kwargs):
-    """The JAX facade of a U-Net or PixArt ``version`` at fp32 with fp32
-    features (``train_unet=True`` only drops its bf16 feature cast), random
+    """The JAX facade of a U-Net, PixArt or HunyuanDiT ``version`` at fp32
+    with fp32 features (``train_unet=True`` only drops its bf16 feature cast), random
     parameters drawn from ``seed``.  ``kwargs`` go to the facade (e.g.
     ``attention=``, ``attn_store_sizes=``, ``validate_layers=``)."""
     spec = get_model_spec(version)
     vae = AutoencoderKL(cfg=spec.vae, dtype=jnp.float32)
-    if spec.family == 'pixart':
+    if spec.family == 'hunyuan':
+        unet = HunyuanDiT2D(cfg=spec.dit, dtype=jnp.float32)
+        text_encoders = (BertTextModel(cfg=spec.bert, dtype=jnp.float32),
+                         T5EncoderModel(cfg=spec.t5, dtype=jnp.float32))
+        tokenizers = (load_bert_tokenizer(None, model_max_length=spec.dit.text_len,
+                                          vocab_size=spec.bert.vocab_size),
+                      load_t5_tokenizer(None, model_max_length=spec.dit.text_len_t5,
+                                        vocab_size=spec.t5.vocab_size))
+    elif spec.family == 'pixart':
         unet = PixArtTransformer2D(cfg=spec.dit, dtype=jnp.float32)
         text_encoders = (T5EncoderModel(cfg=spec.t5, dtype=jnp.float32),)
         tokenizers = (load_t5_tokenizer(None, model_max_length=spec.prompt_max_length,
@@ -126,8 +155,17 @@ def load_jax_params(jfe, port):
     port.unet.load_state_dict(params_from_jax(jfe.params['unet'], port.unet))
     port.vae.load_state_dict(params_from_jax(jfe.params['vae'], port.vae))
     for te, tree in zip(port.text_encoders, jfe.params['text']):
-        t5 = isinstance(te, port_t5.T5EncoderModel)
-        te.load_state_dict(params_from_jax(tree, te, port_t5.jax_param_name if t5 else None))
+        te.load_state_dict(params_from_jax(tree, te, text_jax_name(te)))
+
+
+def text_jax_name(te):
+    """The JAX-name map of a port text encoder for ``params_from_jax``
+    (T5's and BERT's differ from their transformers keys), or None."""
+    if isinstance(te, port_t5.T5EncoderModel):
+        return port_t5.jax_param_name
+    if isinstance(te, port_bert.BertTextModel):
+        return port_bert.jax_param_name
+    return None
 
 
 def jax_noise(seed: int, lat_shape, call: int = 0):
@@ -152,6 +190,21 @@ def jax_sample_noise(seed: int, lat_shape, call: int = 0):
         rng, sample_rng = jax.random.split(rng)
     _, r0 = jax.random.split(sample_rng)
     return torch.from_numpy(np.array(jax.random.normal(r0, lat_shape, np.float32)))
+
+
+def jax_ddpm_sample_noise(seed: int, lat_shape, steps: int, call: int = 0):
+    """``jax_sample_noise`` and the per-step draws of a DDPM sample (the
+    JAX facade's unrolled loop splits its key once per step, facade.py:1788):
+    (initial latents' draw, [one standard-normal draw per step])."""
+    rng = jax.random.PRNGKey(seed)
+    for _ in range(call + 1):
+        rng, sample_rng = jax.random.split(rng)
+    rng, r0 = jax.random.split(sample_rng)
+    draws = []
+    for _ in range(steps):
+        rng, rn = jax.random.split(rng)
+        draws.append(torch.from_numpy(np.array(jax.random.normal(rn, lat_shape, np.float32))))
+    return torch.from_numpy(np.array(jax.random.normal(r0, lat_shape, np.float32))), draws
 
 
 def jax_control(jfe, nets, seed: int = 0):

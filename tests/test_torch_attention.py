@@ -30,8 +30,8 @@ def _close(ours, ref, atol, rtol):
 
 # fp32 on both sides; 1e-4 covers summation order (online vs one-shot softmax)
 @pytest.mark.parametrize('shape', [(1, 2, 512, 512, 64), (1, 1, 512, 512, 512),
-                                   (1, 2, 512, 512, 72)],
-                         ids=['d64', 'd512', 'd72'])
+                                   (1, 2, 512, 512, 72), (1, 2, 512, 512, 88)],
+                         ids=['d64', 'd512', 'd72', 'd88'])
 def test_flash_twin_matches_jax_kernel(shape):
     b, h, sq, sk, d = shape
     q, k, v = _rand(0, b, h, sq, d), _rand(1, b, h, sk, d), _rand(2, b, h, sk, d)
@@ -54,9 +54,10 @@ def test_flash_twin_matches_jax_kernel(shape):
     ((2, 5, 1000, 64), (2, 5, 1000, 64), False),      # not 256-aligned
     ((2, 8, 4096, 40), (2, 8, 4096, 40), True),       # SD-1.5 level 0 @512^2
     ((2, 8, 1024, 80), (2, 8, 1024, 80), True),       # SD-1.5 level 1 @512^2
-    ((2, 16, 4096, 88), (2, 16, 4096, 88), False),    # HunyuanDiT: d=88 not built yet
+    ((2, 16, 4096, 88), (2, 16, 4096, 88), True),     # HunyuanDiT @1024^2
     ((2, 16, 4096, 72), (2, 16, 4096, 72), True),     # PixArt-Sigma @1024^2
     ((2, 16, 1024, 72), (2, 16, 300, 72), False),     # PixArt cross-attention (masked)
+    ((2, 16, 1024, 88), (2, 16, 333, 88), False),     # HunyuanDiT cross-attention
 ])
 def test_gate(q_shape, k_shape, expect):
     assert fa.is_flash_compatible(q_shape, k_shape) is expect
@@ -67,16 +68,25 @@ def test_gate(q_shape, k_shape, expect):
         jax_fa.is_flash_compatible(q_shape, k_shape)
 
 
-SHIPPED = ('1-5', '2-1', 'xl', 'pgv2', 'pixart-alpha', 'pixart-sigma', 'pixart-sigma-512')
+SHIPPED = ('1-5', '2-1', 'xl', 'pgv2', 'pixart-alpha', 'pixart-sigma', 'pixart-sigma-512',
+           'hunyuan')
 
 
 def _attention_shapes(spec, img):
     """Every attention shape of one model (the JAX package's spec) and its
     VAE at ``img``^2, batch 2: the U-Net's self- and cross-attention per
-    level or the DiT's over its patch tokens (cross over the T5 tokens),
-    and the VAE's mid-block head."""
+    level or the DiT's over its patch tokens (cross over the T5 tokens;
+    HunyuanDiT's over BERT's and T5's, and its T5 pool's one query over
+    the mean and T5 tokens), and the VAE's mid-block head."""
     lat = img // 2 ** (len(spec.vae.block_out_channels) - 1)
-    if spec.family == 'pixart':
+    if spec.family == 'hunyuan':
+        cfg = spec.dit
+        h, d, s = cfg.num_attention_heads, cfg.head_dim, (lat // cfg.patch_size) ** 2
+        yield (2, h, s, d), (2, h, s, d)
+        yield (2, h, s, d), (2, h, cfg.text_len + cfg.text_len_t5, d)
+        pool = (2, 8, 1, cfg.cross_attention_dim_t5 // 8)
+        yield pool, (2, 8, cfg.text_len_t5 + 1, cfg.cross_attention_dim_t5 // 8)
+    elif spec.family == 'pixart':
         cfg = spec.dit
         h, d, s = cfg.num_attention_heads, cfg.attention_head_dim, (lat // cfg.patch_size) ** 2
         yield (2, h, s, d), (2, h, s, d)
@@ -104,7 +114,7 @@ def _shipped_attention_shapes():
 def test_gate_equals_jax_on_shipped_unets(min_seq):
     """With the widened head dims the port's gate, head-dim condition
     included, is the JAX gate on every shipped U-Net, DiT and VAE shape
-    (the PixArt DiTs' d=72 too)."""
+    (the PixArt DiTs' d=72 and HunyuanDiT's d=88 too)."""
     dims = fa.SUPPORTED_HEAD_DIMS if min_seq == 1024 else fa.HEADMEAN_HEAD_DIMS
     shapes = list(_shipped_attention_shapes())
     for q_shape, k_shape in shapes:
@@ -162,6 +172,32 @@ def test_flash_lse_twin_matches_jax_kernel_d72():
                                                    jnp.asarray(v), scale=d ** -0.5)
     _close(out, r_out, atol=1e-4, rtol=1e-4)
     _close(lse, r_lse, atol=1e-5, rtol=1e-5)
+
+
+def test_flash_lse_twin_matches_jax_kernel_d88():
+    """B2's twin at HunyuanDiT's head width (88, QK^T depth 96 on the
+    card), at the smallest shape the head-mean gate passes."""
+    b, h, sq, sk, d = (1, 2, 512, 512, 88)
+    q, k, v = _rand(20, b, h, sq, d), _rand(21, b, h, sk, d), _rand(22, b, h, sk, d)
+    out, lse = fa.flash_attention_with_lse(torch.from_numpy(q), torch.from_numpy(k),
+                                           torch.from_numpy(v), scale=d ** -0.5)
+    r_out, r_lse = jax_fa.flash_attention_with_lse(jnp.asarray(q), jnp.asarray(k),
+                                                   jnp.asarray(v), scale=d ** -0.5)
+    _close(out, r_out, atol=1e-4, rtol=1e-4)
+    _close(lse, r_lse, atol=1e-5, rtol=1e-5)
+
+
+def test_headmean_twin_matches_jax_kernel_d88():
+    """B3's twin at HunyuanDiT's head width, on the JAX kernel's logsumexp."""
+    b, h, sq, sk, d = (1, 2, 512, 512, 88)
+    q, k = _rand(23, b, h, sq, d), _rand(24, b, h, sk, d)
+    _, lse = jax_fa.flash_attention_with_lse(jnp.asarray(q), jnp.asarray(k), jnp.asarray(k),
+                                             scale=d ** -0.5)
+    ours = fa.headmean_probs(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(np.array(lse)), scale=d ** -0.5)
+    ref = jax_fa.headmean_probs(jnp.asarray(q), jnp.asarray(k), lse, scale=d ** -0.5,
+                                out_dtype=jnp.float32)
+    _close(ours, ref, atol=1e-6, rtol=1e-4)
 
 
 def test_headmean_twin_matches_jax_kernel_d72():

@@ -50,7 +50,7 @@ def test_enumeration_of_unported_version_names_its_item():
     with pytest.raises(NotImplementedError, match="Queue A item 9: 'DiT families'"):
         enumerate_layers('flux', 1024)
     with pytest.raises(NotImplementedError, match="Queue A item 9: 'DiT families'"):
-        enumerate_layers('hunyuan', 1024)
+        enumerate_layers('if', 64)
 
 
 # ------------------------------------------------------------------- dumps

@@ -52,8 +52,8 @@ def cuda():
 @pytest.mark.parametrize('shape', [(1, 2, 1000, 333, 64), (2, 3, 130, 77, 128),
                                    (1, 1, 300, 700, 512), (1, 2, 1000, 333, 40),
                                    (2, 2, 200, 600, 80), (1, 3, 130, 77, 160),
-                                   (2, 3, 1000, 333, 72)],
-                         ids=['d64', 'd128', 'd512', 'd40', 'd80', 'd160', 'd72'])
+                                   (2, 3, 1000, 333, 72), (2, 3, 1000, 333, 88)],
+                         ids=['d64', 'd128', 'd512', 'd40', 'd80', 'd160', 'd72', 'd88'])
 def test_kernel_matches_twin(cuda, dtype, shape):
     b, h, sq, sk, d = shape
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -76,8 +76,9 @@ def _qkv(cuda, dtype, b, h, sq, sk, d, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', list(_TOL), ids=str)
 @pytest.mark.parametrize('shape', [(1, 2, 1000, 333, 64), (2, 2, 300, 77, 40),
-                                   (1, 3, 130, 700, 160), (2, 3, 300, 333, 72)],
-                         ids=['d64', 'd40', 'd160', 'd72'])
+                                   (1, 3, 130, 700, 160), (2, 3, 300, 333, 72),
+                                   (2, 3, 300, 333, 88)],
+                         ids=['d64', 'd40', 'd160', 'd72', 'd88'])
 def test_lse_and_headmean_kernels_match_twins(cuda, dtype, shape):
     """B2's output and logsumexp, then B3 on B2's logsumexp, at ragged
     lengths (odd Sk: scalar stores)."""
@@ -161,9 +162,10 @@ def test_kernel_raises_on_unsupported_input(cuda):
 @pytest.mark.parametrize('dtype', list(_TOL), ids=str)
 @pytest.mark.parametrize('shape', [(1, 2, 200, 333, 64), (2, 3, 256, 77, 40),
                                    (2, 2, 128, 512, 160), (1, 3, 130, 1, 80),
-                                   (2, 2, 256, 256, 128), (2, 3, 200, 300, 72)],
+                                   (2, 2, 256, 256, 128), (2, 3, 200, 300, 72),
+                                   (2, 3, 200, 300, 88)],
                          ids=['ragged-d64', 'cross-d40', 'sk512-d160', 'one-key-d80', 'd128',
-                              'ragged-d72'])
+                              'ragged-d72', 'ragged-d88'])
 def test_short_kernel_matches_twin(cuda, dtype, shape):
     """B4 at ragged Sq and Sk (masked key padding, zero-filled rows), the
     most keys it takes, and a single key."""
@@ -223,15 +225,18 @@ def _split(cuda, dtype, b, h, s, d, gen):
 @pytest.mark.parametrize('lse,shape', [
     *((lse, shape) for lse in (False, True)
       for shape in [(2, 10, 1024, 1024, 64), (2, 8, 1000, 333, 40), (1, 3, 300, 700, 160),
-                    (2, 2, 130, 77, 80), (2, 16, 1024, 1024, 72), (1, 16, 1000, 333, 72)]),
+                    (2, 2, 130, 77, 80), (2, 16, 1024, 1024, 72), (1, 16, 1000, 333, 72),
+                    (2, 16, 1024, 1024, 88), (1, 16, 1000, 333, 88)]),
     (False, (1, 1, 1000, 1000, 512)),   # B2 has no d=512 instance: the VAE never feeds the store
 ], ids=[f'{k}-{d}' for k in ('b1', 'b2') for d in ('d64', 'ragged-d40', 'ragged-d160',
-                                                   'ragged-d80', 'd72', 'ragged-d72')]
+                                                   'ragged-d80', 'd72', 'ragged-d72', 'd88',
+                                                   'ragged-d88')]
     + ['b1-ragged-d512'])
 def test_kernel_reads_head_split_views(cuda, dtype, lse, shape):
     """B1 and B2 on the head-split views of (B, S, H*D) projections, read
-    in place (no copy), at ragged lengths; the output is (B, S, H, D)
-    memory, so merge_heads of it is a view."""
+    in place (no copy), at ragged lengths (HunyuanDiT's d=88: 176-byte
+    head and 2816-byte token strides); the output is (B, S, H, D) memory,
+    so merge_heads of it is a view."""
     b, h, sq, sk, d = shape
     gen = torch.Generator(device=cuda).manual_seed(5)
     q, k, v = (_split(cuda, dtype, b, h, s, d, gen) for s in (sq, sk, sk))
@@ -255,12 +260,14 @@ def test_kernel_reads_head_split_views(cuda, dtype, lse, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16], ids=str)
 @pytest.mark.parametrize('shape', [(2, 8, 4096, 4096, 40), (2, 1, 4096, 4096, 512),
-                                   (2, 20, 1024, 1024, 64), (2, 16, 4096, 4096, 72)],
-                         ids=['d40', 'd512', 'd64', 'd72'])
+                                   (2, 20, 1024, 1024, 64), (2, 16, 4096, 4096, 72),
+                                   (2, 16, 4096, 4096, 88)],
+                         ids=['d40', 'd512', 'd64', 'd72', 'd88'])
 def test_kernel_matches_twin_at_path_widths(cuda, dtype, shape):
     """B1 at SD-1.5's d=40 level and at the VAE's d=512 head (4096 tokens:
     the one-pass score tiles over many key tiles), SDXL's d=64 level and
-    PixArt-Sigma's d=72 self-attention at 1024^2, on contiguous inputs."""
+    PixArt-Sigma's d=72 and HunyuanDiT's d=88 self-attention at 1024^2, on
+    contiguous inputs."""
     b, h, sq, sk, d = shape
     q, k, v = _qkv(cuda, dtype, *shape, seed=6)
     out = fa.flash_attention(q, k, v, scale=d ** -0.5)
@@ -317,7 +324,8 @@ def _assert_map_matches(mean_p, ref, dtype, sk):
 
 
 _HEADMEAN_CASES = [(2, 3, 1000, 333, 40), (1, 4, 300, 640, 64), (2, 2, 130, 77, 80),
-                   (1, 3, 256, 256, 128), (1, 3, 130, 700, 160), (2, 16, 1024, 1024, 72)]
+                   (1, 3, 256, 256, 128), (1, 3, 130, 700, 160), (2, 16, 1024, 1024, 72),
+                   (2, 16, 1024, 1024, 88)]
 
 
 @pytest.mark.cuda
@@ -342,7 +350,8 @@ def test_headmean_kernel_layouts_and_widths(cuda, dtype, layout, shape):
 
 
 _SHORT_CASES = [(2, 3, 200, 333, 40), (1, 4, 256, 512, 64), (2, 2, 130, 300, 80),
-                (1, 3, 256, 256, 128), (1, 3, 130, 512, 160), (2, 16, 256, 300, 72)]
+                (1, 3, 256, 256, 128), (1, 3, 130, 512, 160), (2, 16, 256, 300, 72),
+                (2, 16, 256, 300, 88)]
 
 
 @pytest.mark.cuda
@@ -635,5 +644,43 @@ def test_pixart_step_routes_self_attention_to_b1(cuda):
         assert (fa.launches, fa.lse_launches, fa.headmean_launches) == (28, 0, 0)
         with _on_twins():
             ref = dit(x, 500.0, ctx, mask)
+    assert out.shape == (2, 8, 64, 64) and torch.isfinite(out.float()).all()
+    assert _rel_l2(out, ref) <= _TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('taps,launches', [({}, 2), ({'vit-block0-self-map': True}, 1)],
+                         ids=['fused', 'self-map'])
+def test_hunyuan_step_routes_self_attention_to_b1(cuda, taps, launches):
+    """HunyuanDiT's DiT at full width (16 heads x 88, the BERT and T5
+    widths) cut to 2 blocks, on a 512^2 image's 64^2 latent, batch 2: each
+    block's self-attention over 1024 tokens launches B1 (a '-map' tap keeps
+    its block explicit, as in JAX), cross-attention (333 keys) and the T5
+    pool stay explicit, and the prediction is within the bf16 tolerance,
+    in relative L2, of the same forward on B1's twin."""
+    import dataclasses
+    from diffusion_feature_tpu_torch.models.convert import random_module
+    from diffusion_feature_tpu_torch.models.hunyuan import HUNYUAN_DIT, HunyuanDiT2D
+    from diffusion_feature_tpu_torch.taps import TapSpec
+    cfg = dataclasses.replace(HUNYUAN_DIT, num_layers=2)
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    dit = random_module(lambda: HunyuanDiT2D(cfg, TapSpec.from_config(taps) if taps
+                                             else TapSpec()), cuda, torch.bfloat16, gen)
+    x = torch.randn(2, 4, 64, 64, generator=gen, device=cuda)
+    bert = torch.randn(2, 77, 1024, generator=gen, device=cuda).bfloat16()
+    t5 = torch.randn(2, 256, 2048, generator=gen, device=cuda).bfloat16()
+    bmask = torch.zeros(2, 77, dtype=torch.int32, device=cuda)
+    tmask = torch.zeros(2, 256, dtype=torch.int32, device=cuda)
+    bmask[:, :9], tmask[:, :12] = 1, 1
+    with torch.inference_mode():
+        fa.launches = fa.lse_launches = fa.headmean_launches = fa.short_launches = 0
+        feats = {}
+        out = dit(x, 500.0, bert, bmask, t5, tmask, feats=feats)
+        torch.cuda.synchronize()
+        assert (fa.launches, fa.lse_launches, fa.headmean_launches,
+                fa.short_launches) == (launches, 0, 0, 0)
+        assert sorted(feats) == sorted(taps)
+        with _on_twins():
+            ref = dit(x, 500.0, bert, bmask, t5, tmask)
     assert out.shape == (2, 8, 64, 64) and torch.isfinite(out.float()).all()
     assert _rel_l2(out, ref) <= _TOL[torch.bfloat16]

@@ -155,12 +155,19 @@ def test_layer_validation_suggests_near_miss():
                          device='cpu', img_size=SIZE)
 
 
-@pytest.mark.parametrize('kwargs', [
-    # ControlNet and PixArt are ported; on an unported DiT family the version raises
-    {'weights': 'use_quant_conv'}, {'control': ['canny'], 'version': 'test-flux'},
-    {'attention': ['up_cross'], 'version': 'hunyuan'}, {'version': 'if'},
-], ids=['weights', 'control', 'attention', 'version'])
-def test_unported_options_raise(tmp_path, kwargs):
+@pytest.mark.parametrize('kwargs,item', [
+    # ControlNet, PixArt and HunyuanDiT are ported; on an unported DiT family
+    # the version raises
+    ({'weights': 'use_quant_conv'}, 'A item 9'),
+    ({'control': ['canny'], 'version': 'test-flux'}, 'A item 9'),
+    ({'attention': ['up_cross'], 'version': 'flux'}, 'A item 9'), ({'version': 'if'}, 'A item 9'),
+    # the JAX facade's keywords at other values than their defaults
+    ({'train_unet': True}, 'A item 10'), ({'external_model': object()}, 'A item 15'),
+    ({'mesh': object()}, 'A item 11'), ({'t5_8bit': True}, 'B item 3'),
+    ({'transformer_8bit': True}, 'B item 3'),
+], ids=['weights', 'control', 'attention', 'version', 'train_unet', 'external_model', 'mesh',
+        't5_8bit', 'transformer_8bit'])
+def test_unported_options_raise(tmp_path, kwargs, item):
     args = dict(layer={'mid-vit-out': True}, version='test-xl', device='cpu', img_size=SIZE)
     args.update(kwargs)
     if 'weights' in kwargs:
@@ -168,5 +175,14 @@ def test_unported_options_raise(tmp_path, kwargs):
         (tmp_path / 'vae').mkdir()
         (tmp_path / 'vae' / 'config.json').write_text('{"use_quant_conv": false}')
         args['weights'] = str(tmp_path)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+    with pytest.raises(NotImplementedError, match=f'ROADMAP.md, Queue {item}:'):
         FeatureExtractor(**args)
+
+
+def test_jax_keywords_at_their_defaults_pass():
+    """train_unet, external_model, mesh, t5_8bit and transformer_8bit at the
+    JAX facade's defaults build the extractor."""
+    fe = FeatureExtractor({'mid-vit-out': True}, 'test-sd', device='cpu', img_size=SIZE,
+                          train_unet=False, external_model=None, mesh=None, t5_8bit=None,
+                          transformer_8bit=None)
+    assert fe.feature_dtype == torch.bfloat16

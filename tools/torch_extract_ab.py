@@ -2,7 +2,7 @@
 """Time one path of the PyTorch port for one checkout of the repository.
 
     python3 tools/torch_extract_ab.py ROOT [--path xl|sd15_store|xl_store]
-    python3 tools/torch_extract_ab.py ROOT --kernels
+    python3 tools/torch_extract_ab.py ROOT --kernels [--width D]
 
 Imports ``diffusion_feature_tpu_torch`` from ROOT, builds its kernels, and
 times one of ``chip_smoke.PATHS`` (default ``xl``: SDXL ``xl-practical`` at
@@ -23,6 +23,9 @@ them (``B1_SHAPES``, the CLI's trailing batch of 1, ``STORE_SHAPES``,
 ``chip_smoke.time_ms``, the median of three loops), which at the small
 shapes times the host's cost per call as well as the kernel, and as CUDA
 graphs of 20 calls (``graph_ms``: ``chip_smoke.graph_ms``, device time).
+``--width D`` keeps the shapes of head width D only.  The JSON line also
+carries ROOT's ``ptxas`` report (registers and spills) of every kernel
+instance at those widths, from the build, when this call compiled it.
 """
 
 import argparse
@@ -36,9 +39,10 @@ import chip_smoke  # noqa: E402
 CALLS = 15
 
 
-def kernel_times(torch, fa) -> tuple:
+def kernel_times(torch, fa, width=None) -> tuple:
     """({'<wrapper> (B,H,Sq,Sk,D)': ms per call in a loop of calls},
-    {the same: ms per call in CUDA graphs})."""
+    {the same: ms per call in CUDA graphs}), at head width ``width`` only
+    where given."""
     gen = torch.Generator(device='cuda').manual_seed(0)
     cli = [(1,) + shape[1:] for shape in chip_smoke.B1_SHAPES[:3]]
     loop, graph = {}, {}
@@ -48,6 +52,8 @@ def kernel_times(torch, fa) -> tuple:
                          ('short_attention', chip_smoke.SHORT_SHAPES)):
         wrapper = getattr(fa, name)
         for b, h, sq, sk, d in shapes:
+            if width is not None and d != width:
+                continue
             q, k, v = (torch.randn(b, h, s, d, generator=gen, device='cuda').to(torch.bfloat16)
                        for s in (sq, sk, sk))
             scale = d ** -0.5
@@ -65,6 +71,7 @@ def main() -> int:
     ap.add_argument('root')
     ap.add_argument('--path', choices=list(chip_smoke.PATHS), default='xl')
     ap.add_argument('--kernels', action='store_true')
+    ap.add_argument('--width', type=int, default=None)
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -73,10 +80,12 @@ def main() -> int:
         return 1
     from diffusion_feature_tpu_torch.ops import flash_attention as fa
 
-    fa.build()
+    log = fa.build()['log']
     if args.kernels:
-        loop, graph = kernel_times(torch, fa)
-        print(json.dumps({'root': args.root, 'loop_ms': loop, 'graph_ms': graph,
+        loop, graph = kernel_times(torch, fa, args.width)
+        tag = None if args.width is None else f'Li{args.width}E'
+        ptxas = [line for line in chip_smoke.ptxas_summary(log) if tag is None or tag in line]
+        print(json.dumps({'root': args.root, 'loop_ms': loop, 'graph_ms': graph, 'ptxas': ptxas,
                           'card': chip_smoke.card_line()}))
         return 0
     fe, prompts, images = chip_smoke.open_path(torch, args.path)
