@@ -690,14 +690,14 @@ def injected_step(torch, fe, prompts, images, denoising_from=None, use_ddim_inve
     bsz = images.shape[0]
     lat = fe.img_size // fe.vae_scale
     gen = torch.Generator(device='cuda').manual_seed(2)
-    pe, pooled, mask = fe._step_conditioning(prompts, bsz)
+    cond = fe._step_conditioning(prompts, bsz)
     posterior, noise = (torch.randn((bsz, 4, lat, lat), generator=gen, device='cuda')
                         for _ in range(2))
     if denoising_from is None and not use_ddim_inversion:
-        return fe._step(images.to(fe.dtype), pe, pooled, fe._step_kit(50), posterior, noise,
-                        torch.bfloat16, mask=mask)
-    return fe._multistep(images.to(fe.dtype), pe, pooled, 50, denoising_from,
-                         use_ddim_inversion, posterior, noise, torch.bfloat16, mask=mask)
+        return fe._step(images.to(fe.dtype), cond, fe._step_kit(50), posterior, noise,
+                        torch.bfloat16)
+    return fe._multistep(images.to(fe.dtype), cond, 50, denoising_from, use_ddim_inversion,
+                         posterior, noise, torch.bfloat16)
 
 
 def check_twin_step(torch, fe, attn_ops, fa, prompts, images, keys, label, tol=TAP_REL_TOL,
@@ -1074,16 +1074,18 @@ def peak_above(torch, fn):
     return out, (torch.cuda.max_memory_allocated() - base) / 2 ** 30, base / 2 ** 30
 
 
-def timed_sample(torch, fe, prompts, noise, steps, guidance, mask=None, step_noise=None):
-    """``fe._sample`` on ``noise`` (a DiT's with the CFG ``mask``, DDPM's
-    with ``step_noise``) with CUDA events around it; returns (images,
+def timed_sample(torch, fe, prompts, noise, steps, guidance, step_noise=None):
+    """``fe._sample`` on ``noise`` and the conditioning of ``prompts``
+    (DDPM's with ``step_noise``) with CUDA events around it; returns (images,
     features, latents, ms, the call's peak memory in GiB above what was
     allocated before it, GiB allocated before it)."""
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
+    conds = fe._sample_conditioning(prompts, noise.shape[0], guidance)
+
     def run():
         start.record()
-        out = fe._sample(*prompts, noise, steps, guidance, mask, step_noise)
+        out = fe._sample(*conds, noise, steps, guidance, step_noise)
         stop.record()
         return out
     out, peak, base = peak_above(torch, run)
@@ -1176,9 +1178,10 @@ def check_generation(torch, fa, attn_ops, card, shapes, runs):
     prompts = fe.encode_prompt(args.prompt)
     noise = torch.randn((1, 4, latent, latent),
                         generator=torch.Generator(device='cuda').manual_seed(7), device='cuda')
-    with_kernel = fe._sample(*prompts, noise, TWIN_SAMPLE_STEPS, args.guidance_scale)
+    conds = fe._sample_conditioning(prompts, 1, args.guidance_scale)
+    with_kernel = fe._sample(*conds, noise, TWIN_SAMPLE_STEPS, args.guidance_scale)
     with patched_wrappers(attn_ops, twin_of(fa)):
-        with_twin = fe._sample(*prompts, noise, TWIN_SAMPLE_STEPS, args.guidance_scale)
+        with_twin = fe._sample(*conds, noise, TWIN_SAMPLE_STEPS, args.guidance_scale)
     pairs = [('images', with_kernel[0], with_twin[0])]
     pairs += [(f'{k} call {i + 1}', a, b) for k in with_twin[1]
               for i, (a, b) in enumerate(zip(with_kernel[1][k], with_twin[1][k]))]
@@ -1285,14 +1288,14 @@ def check_control(torch, fa, attn_ops, card, fe15, shapes, runs):
         # the control images as extract makes them from tensors
         control = fe.control_pipe.prepare_control_images(
             fe.control_pipe.tensors_to_pil(images.to(fe.dtype)), 2)
-        pe = prompts[0].expand(2, -1, -1)
+        cond = fe._step_conditioning(prompts, 2)
         gen = torch.Generator(device='cuda').manual_seed(2)
         posterior, noise = (torch.randn((2, 4, latent, latent), generator=gen, device='cuda')
                             for _ in range(2))
 
         def step(ctrl):
-            return fe._step(images.to(fe.dtype), pe, None, fe._img2img_kit(50), posterior,
-                            noise, torch.bfloat16, ctrl)
+            return fe._step(images.to(fe.dtype), cond, fe._img2img_kit(50), posterior, noise,
+                            torch.bfloat16, ctrl)
         with_kernel = step(control)
         with patched_wrappers(attn_ops, twin_of(fa)):
             with_twin = step(control)
@@ -1521,21 +1524,17 @@ def check_dit_tree(torch, fa, attn_ops, card, fe, prompts, images, first_feats, 
 
 
 def sample_inputs(torch, fe, prompt, steps):
-    """``fe._sample``'s prompts, CFG mask and DDPM step noise for
-    ``prompt`` with the empty negative: PixArt's T5 embeddings and mask,
-    or HunyuanDiT's BERT embeddings (the T5 ones in the pooled slot), the
-    pair of masks and ``steps`` standard-normal draws from seed 8."""
+    """``sample``'s prompts for ``prompt`` with the empty negative (PixArt's
+    4-tuple, HunyuanDiT's pair of ``encode_prompt`` results) and DDPM's
+    step noise, ``steps`` standard-normal draws from seed 8 (None for the
+    other schedulers)."""
     if fe.spec.family == 'hunyuan':
-        (pe, bmask), (t5, tmask) = fe.encode_prompt(prompt)
-        (ne, nbmask), (nt5, ntmask) = fe._encode_hunyuan('')
         latent = fe.img_size // fe.vae_scale
         gen = torch.Generator(device='cuda').manual_seed(8)
         step_noise = [torch.randn((1, 4, latent, latent), generator=gen, device='cuda')
                       for _ in range(steps)]
-        return ((pe, ne, t5, nt5), (torch.cat([nbmask, bmask]), torch.cat([ntmask, tmask])),
-                step_noise)
-    pe, mask, ne, nmask = fe.encode_prompt(prompt)
-    return (pe, ne, None, None), torch.cat([nmask, mask]), None
+        return (fe.encode_prompt(prompt), fe.encode_prompt('')), step_noise
+    return fe.encode_prompt(prompt), None
 
 
 def check_dit_generation(torch, fa, attn_ops, card, shapes, runs, gen_args, name, phase):
@@ -1578,16 +1577,16 @@ def check_dit_generation(torch, fa, attn_ops, card, shapes, runs, gen_args, name
             raise RuntimeError(f'phase {phase} {layer}: kept {sorted(by_step)}, bad {bad}')
     if set(kept) != set(taps):
         raise RuntimeError(f'phase {phase}: kept layers {sorted(kept)}')
-    prompts, cfg_mask, step_noise = sample_inputs(torch, fe, args.prompt, args.steps)
+    prompts, step_noise = sample_inputs(torch, fe, args.prompt, args.steps)
     noise = torch.randn((1, 4, latent, latent),
                         generator=torch.Generator(device='cuda').manual_seed(7), device='cuda')
     *_, ms, gib, base = timed_sample(torch, fe, prompts, noise, args.steps, args.guidance_scale,
-                                     cfg_mask, step_noise)
+                                     step_noise)
     print(f'phase {phase} {args.version} sample timed: {ms:.2f} ms per sample, {ms / calls:.2f} '
           f'ms per step ({calls} DiT calls at CFG batch 2 and the decode); peak memory '
           f'{gib:.2f} GiB above the {base:.2f} GiB held before it ({card})', flush=True)
-    run = (*prompts, noise, TWIN_SAMPLE_STEPS, args.guidance_scale, cfg_mask,
-           None if step_noise is None else step_noise[:TWIN_SAMPLE_STEPS])
+    run = (*fe._sample_conditioning(prompts, 1, args.guidance_scale), noise, TWIN_SAMPLE_STEPS,
+           args.guidance_scale, None if step_noise is None else step_noise[:TWIN_SAMPLE_STEPS])
     with_kernel = fe._sample(*run)
     with patched_wrappers(attn_ops, twin_of(fa)):
         with_twin = fe._sample(*run)

@@ -20,13 +20,13 @@ from .schedulers.diffusion import DDIMScheduler, scalar_like
 
 
 @torch.inference_mode()
-def ddim_invert(extractor, img: torch.Tensor, prompt_embeds: torch.Tensor,
-                posterior_noise: torch.Tensor, *, stop_at_t, num_inference_steps: int = 100
+def ddim_invert(extractor, img: torch.Tensor, cond, posterior_noise: torch.Tensor, *, stop_at_t, num_inference_steps: int = 100
                 ) -> torch.Tensor:
     """Latents at (about) noise level ``stop_at_t``: the posterior sample of
     ``img`` (``posterior_noise`` a standard-normal fp32 draw of the latent
     shape), inverted step by step along the ascending DDIM ladder, up to and
-    including the first timestep >= ``stop_at_t``."""
+    including the first timestep >= ``stop_at_t``, each step's U-Net on the
+    conditioning object ``cond``."""
     latents = extractor.vae(img, posterior_noise)
     sched = DDIMScheduler(extractor.spec.scheduler_config)
     state = sched.set_timesteps(num_inference_steps)
@@ -36,7 +36,7 @@ def ddim_invert(extractor, img: torch.Tensor, prompt_embeds: torch.Tensor,
         t = int(ascending[i])
         a_t = sched.alphas_cumprod[max(0, t - step_size)]
         a_next = sched.alphas_cumprod[t]
-        noise_pred = extractor.unet(latents, float(t), prompt_embeds, plain=True)
+        noise_pred = cond.forward(extractor.unet, latents, float(t), plain=True)
         # x(t) from x(t - step): the inverted DDIM update (reference
         # ddim_inversion.py:38-41)
         latents = ((latents - scalar_like(np.sqrt(1 - a_t), latents) * noise_pred)

@@ -43,6 +43,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .conditioning import BY_FAMILY as CONDITIONING
 from .configs import resolve_layer_config
 from .ddim_inversion import ddim_invert
 from .enumerate_layers import enumerate_layers
@@ -444,7 +445,6 @@ class FeatureExtractor:
         one forward at the DDPM timestep of ``t`` takes no
         ``denoising_from`` and no DDIM inversion."""
         spec = self.spec
-        hunyuan = spec.family == 'hunyuan'
         if use_ddim_inversion and (spec.family != 'unet'
                                    or spec.unet.addition_embed_type is not None
                                    or spec.scheduler_config.prediction_type != 'epsilon'):
@@ -452,13 +452,11 @@ class FeatureExtractor:
             raise NotImplementedError(
                 'use_ddim_inversion supports the epsilon-prediction SD '
                 "U-Net families ('1-5'/'2-1'), as in the reference")
-        if hunyuan and denoising_from is not None:
+        if spec.family == 'hunyuan' and denoising_from is not None:
             raise ValueError('denoising_from is unavailable for the pipeline-driven hunyuan '
                              'path (one denoiser forward at t), as in the JAX package')
 
-        if hunyuan and isinstance(prompts, str):
-            prompts = self._encode_hunyuan(prompts)
-        pe, pooled, mask = self._step_conditioning(prompts, batch_size)
+        cond = self._step_conditioning(prompts, batch_size)
         if image_type == 'image':
             img = preprocess_pil_batch(image, self.img_size)
         else:
@@ -475,12 +473,11 @@ class FeatureExtractor:
         posterior_noise = torch.randn(shape, generator=self._noise_gen, device=self.device)
         noise = torch.randn(shape, generator=self._noise_gen, device=self.device)
         if denoising_from is None and not use_ddim_inversion:
-            feats = self._step(img, pe, pooled, self._step_kit(int(t)), posterior_noise,
-                               noise, self.feature_dtype, control=control, mask=mask)
+            feats = self._step(img, cond, self._step_kit(int(t)), posterior_noise, noise,
+                               self.feature_dtype, control=control)
         else:
-            feats = self._multistep(img, pe, pooled, int(t), denoising_from, use_ddim_inversion,
-                                    posterior_noise, noise, self.feature_dtype, control=control,
-                                    mask=mask)
+            feats = self._multistep(img, cond, int(t), denoising_from, use_ddim_inversion,
+                                    posterior_noise, noise, self.feature_dtype, control=control)
         self._keep_background(feats)
         return feats
 
@@ -501,56 +498,18 @@ class FeatureExtractor:
         return {layer: torch.cat([per[k][layer] for k in keys], dim=1) for layer in per[keys[0]]}
 
     def _step_conditioning(self, prompts, batch_size: int):
-        """(pe, pooled, mask) of ``encode_prompt``'s output on the device,
-        broadcast to ``batch_size`` and checked against the denoiser: the
-        U-Net's context and SDXL's pooled embedding; PixArt's T5 context and
-        its mask; HunyuanDiT's BERT context, its T5 stream in the pooled
-        slot and the pair of their masks."""
-        def bcast(x, dtype=None):
-            return self._batch(x, batch_size, dtype)
+        """The denoiser's conditioning object (``conditioning.py``) of
+        ``encode_prompt``'s output (HunyuanDiT's also of a raw string), on
+        the device, broadcast to ``batch_size`` and checked against the
+        denoiser before any compute."""
+        return CONDITIONING[self.spec.family].from_prompts(self, prompts, batch_size)
 
-        mask = None
-        if self.spec.family == 'hunyuan':
-            (pe, bmask), (pooled, tmask) = prompts
-            mask = (bcast(bmask), bcast(tmask))
-        else:
-            pe = prompts[0]
-            pooled = prompts[2] if self.spec.clip_layer == 'penultimate' else None
-            if self.spec.family == 'pixart':
-                mask = bcast(prompts[1])
-        pe, pooled = bcast(pe, self.dtype), bcast(pooled, self.dtype)
-        self._check_conditioning(pe, pooled)
-        return pe, pooled, mask
-
-    def _check_conditioning(self, pe, pooled):
-        """Refuse, before any compute, prompts the denoiser cannot take: a
-        context of another width, or no pooled embedding for SDXL's
-        micro-conditioning (long prompts are encoded by the first encoder
-        alone and carry none).  The JAX facade fails on them inside its
-        step."""
-        if self.spec.family == 'hunyuan':
-            cfg = self.spec.dit
-            for name, x, width in (('BERT', pe, cfg.cross_attention_dim),
-                                   ('T5', pooled, cfg.cross_attention_dim_t5)):
-                if x is None or x.shape[-1] != width:
-                    raise ValueError(f'the {self.version!r} DiT takes {width}-wide {name} '
-                                     f'embeddings, got {None if x is None else x.shape[-1]}')
-            return
-        if self.spec.family == 'pixart':
-            width = self.spec.dit.caption_channels
-            if pe.shape[-1] != width:
-                raise ValueError(f'prompt embeddings are {pe.shape[-1]} wide, the '
-                                 f'{self.version!r} DiT takes {width}-wide T5 embeddings')
-            return
-        cfg = self.spec.unet
-        if pe.shape[-1] != cfg.cross_attention_dim:
-            raise ValueError(
-                f'prompt embeddings are {pe.shape[-1]} wide, the {self.version!r} U-Net '
-                f'attends to {cfg.cross_attention_dim}-wide context; a prompt of more than 70 '
-                'words is encoded by the first text encoder alone')
-        if cfg.addition_embed_type == 'text_time' and pooled is None:
-            raise ValueError(f'the {self.version!r} U-Net needs the pooled prompt embedding '
-                             '(text_time micro-conditioning), and these prompts carry none')
+    def _sample_conditioning(self, prompts, batch_size: int, guidance_scale: float):
+        """(positive, negative or None) conditioning objects of ``sample``'s
+        ``prompts``, broadcast to ``batch_size``; the negative only where
+        the family runs classifier-free guidance at ``guidance_scale``."""
+        return CONDITIONING[self.spec.family].for_sample(self, prompts, batch_size,
+                                                         guidance_scale)
 
     def _img2img_kit(self, t: int) -> Dict[str, float]:
         """The Euler, DPM-Solver and PNDM branches of the JAX facade's
@@ -636,47 +595,17 @@ class FeatureExtractor:
             return {**self._hunyuan_kit(t), 'S': 1.0}
         return self._img2img_kit(t)
 
-    def _added_cond(self, pooled, bsz: int):
-        """SDXL text_time micro-conditioning: time ids [h, w, 0, 0, h, w]
-        (reference diffusion_feature.py:534); HunyuanDiT's T5 embeddings
-        (the pooled slot carries them); None for a denoiser without
-        either."""
-        if self.spec.family == 'hunyuan':
-            return pooled
-        if self.spec.family != 'unet' or self.spec.unet.addition_embed_type != 'text_time':
-            return None
-        s = float(self.img_size)
-        time_ids = torch.tensor([[s, s, 0.0, 0.0, s, s]], dtype=self.dtype,
-                                device=self.device).repeat(bsz, 1)
-        return {'text_embeds': pooled, 'time_ids': time_ids}
-
-    def _denoise(self, model_in, timestep, pe, added, mask, feats=None, down=None, mid=None):
-        """One denoiser forward: the U-Net (with SDXL's ``added`` and a
-        ControlNet's residuals ``down``/``mid``), or a DiT whose
-        learned-sigma half is dropped, as the JAX facade drops it before the
-        scheduler (diffusers' contract): PixArt's with the T5 ``mask``,
-        HunyuanDiT's with the BERT ``pe``, the T5 ``added`` and ``mask`` the
-        pair of their masks."""
-        if self.spec.family == 'hunyuan':
-            bmask, tmask = mask
-            return self.unet(model_in, timestep, pe, bmask, added, tmask,
-                             feats=feats)[:, :model_in.shape[1]]
-        if self.spec.family == 'pixart':
-            return self.unet(model_in, timestep, pe, mask, feats=feats)[:, :model_in.shape[1]]
-        return self.unet(model_in, timestep, pe, added, feats=feats,
-                         down_block_additional_residuals=down, mid_block_additional_residual=mid)
-
-    def _forward(self, lat_in, timestep, pe, pooled, out_dtype, control=None, mask=None):
-        """The denoiser forward with taps and store, then the store
-        post-processing (the JAX ``_collect_feats``): returns (model output,
-        features).  ``control`` (one condition image batch per ControlNet)
-        runs the ControlNets on the same input and adds their residuals."""
+    def _forward(self, lat_in, timestep, cond, out_dtype, control=None):
+        """The denoiser forward on ``cond`` (a conditioning object) with
+        taps and store, then the store post-processing (the JAX
+        ``_collect_feats``): returns (model output, features).  ``control``
+        (one condition image batch per ControlNet) runs the ControlNets on
+        the same input and adds their residuals."""
         feats = {}
-        added = self._added_cond(pooled, lat_in.shape[0])
         down = mid = None
         if control is not None:
-            down, mid = self.control_pipe.encode_all(lat_in, timestep, pe, control, added)
-        out = self._denoise(lat_in, timestep, pe, added, mask, feats, down, mid)
+            down, mid = cond.control_residuals(self.control_pipe, lat_in, timestep, control)
+        out = cond.forward(self.unet, lat_in, timestep, feats, down, mid)
         store = feats.pop(ATTN_STORE, {})
         feats = postprocess_taps(feats, resize_ratio=self.feature_resize, out_dtype=out_dtype)
         if self.attention:
@@ -694,22 +623,20 @@ class FeatureExtractor:
         return img.to(out_dtype or img.dtype)
 
     @torch.inference_mode()
-    def _step(self, img, pe, pooled, kit, posterior_noise, noise, out_dtype, control=None,
-              mask=None):
+    def _step(self, img, cond, kit, posterior_noise, noise, out_dtype, control=None):
         """The single step (the JAX ``_get_step_fn_generic`` program): VAE
         encode + posterior sample -> latents*A + noise*B -> /S -> denoiser
-        with taps -> store post-processing to ``out_dtype`` (None keeps the
-        compute dtype), and 'vae-out' from the kit's fresh-state step.
-        Noise tensors are standard-normal draws of the latent shape, cast
-        here to the model dtype; ``control`` goes to ``_forward``, PixArt's
-        T5 ``mask`` (B, L) to the DiT, HunyuanDiT's pair of BERT and T5
-        masks with its T5 stream in ``pooled`` (its kit's S is 1: the
-        JAX facade's ``_get_hunyuan_step_fn`` program)."""
+        on the conditioning object ``cond`` with taps -> store
+        post-processing to ``out_dtype`` (None keeps the compute dtype),
+        and 'vae-out' from the kit's fresh-state step.  Noise tensors are
+        standard-normal draws of the latent shape, cast here to the model
+        dtype; ``control`` goes to ``_forward``.  HunyuanDiT's kit has S =
+        1 (the JAX facade's ``_get_hunyuan_step_fn`` program)."""
         latents = self.vae(img, posterior_noise)
         latents = (scalar_like(kit['A'], latents) * latents
                    + scalar_like(kit['B'], latents) * noise.to(latents.dtype))
-        out, feats = self._forward(latents / scalar_like(kit['S'], latents), kit['T'], pe, pooled,
-                                   out_dtype, control, mask)
+        out, feats = self._forward(latents / scalar_like(kit['S'], latents), kit['T'], cond,
+                                   out_dtype, control)
         if self.store_vae_output:
             x0 = scalar_like(kit['X1'], latents) * latents + scalar_like(kit['X2'], latents) * out
             lat2 = (scalar_like(kit['C1'], latents) * x0
@@ -719,9 +646,8 @@ class FeatureExtractor:
         return feats
 
     @torch.inference_mode()
-    def _multistep(self, img, pe, pooled, t: int, denoising_from: Optional[int],
-                   use_ddim_inversion: bool, posterior_noise, noise, out_dtype, control=None,
-                   mask=None):
+    def _multistep(self, img, cond, t: int, denoising_from: Optional[int],
+                   use_ddim_inversion: bool, posterior_noise, noise, out_dtype, control=None):
         """The multi-step paths (the JAX ``_get_step_fn``).  Timesteps: with
         ``denoising_from`` within 50 of ``t`` the 1000-step schedule from
         ``denoising_from``, else the 100-step one at strength
@@ -745,19 +671,17 @@ class FeatureExtractor:
             timesteps = timesteps[:sum(1 for ts in timesteps if ts >= t)]
         latent_t, walk, t = timesteps[0], timesteps[:-1], timesteps[-1]
         if use_ddim_inversion:
-            latents = ddim_invert(self, img, pe, posterior_noise, stop_at_t=t)
+            latents = ddim_invert(self, img, cond, posterior_noise, stop_at_t=t)
         else:
             latents = self.vae(img, posterior_noise)
             latents = sched.add_noise(state, latents, noise.to(latents.dtype), latent_t)
-        added = self._added_cond(pooled, latents.shape[0])
         walk_state = state
         for ts in walk:
             # the same routing as the last forward; taps and maps are dropped
-            out = self._denoise(sched.scale_model_input(state, latents, ts), float(ts), pe, added,
-                                mask)
+            out = cond.forward(self.unet, sched.scale_model_input(state, latents, ts), float(ts))
             latents, walk_state = sched.step(walk_state, out, ts, latents)
-        out, feats = self._forward(sched.scale_model_input(state, latents, t), float(t), pe,
-                                   pooled, out_dtype, control, mask)
+        out, feats = self._forward(sched.scale_model_input(state, latents, t), float(t), cond,
+                                   out_dtype, control)
         if self.store_vae_output:
             lat2, _ = sched.step(state, out, t, latents)
             feats['vae-out'] = self._decode(lat2, out_dtype)
@@ -792,99 +716,40 @@ class FeatureExtractor:
         accepted for the JAX signature: this loop is the JAX facade's
         unrolled one, which its scanned loop equals."""
         del unrolled
-        spec = self.spec
-
-        def bcast(x, dtype=None):
-            return self._batch(x, batch_size, dtype or self.dtype)
-
-        mask = step_noise = None
-        if spec.family == 'hunyuan':
-            pos, neg = self._hunyuan_sample_prompts(prompts, guidance_scale)
-            (pe, bmask), (pooled, tmask) = pos
-            pe, pooled = bcast(pe), bcast(pooled)
-            mask = (bcast(bmask, torch.int32), bcast(tmask, torch.int32))
-            ne = neg_pooled = None
-            if neg is not None:
-                (ne, nbmask), (neg_pooled, ntmask) = neg
-                ne, neg_pooled = bcast(ne), bcast(neg_pooled)
-                mask = (torch.cat([bcast(nbmask, torch.int32), mask[0]]),
-                        torch.cat([bcast(ntmask, torch.int32), mask[1]]))
-        elif spec.family == 'pixart':
-            pe, pmask, ne, nmask = prompts
-            pooled = neg_pooled = None
-            pmask, nmask = bcast(pmask, torch.int32), bcast(nmask, torch.int32)
-            mask = torch.cat([nmask, pmask]) if guidance_scale > 1.0 else pmask
-            pe, ne = bcast(pe), bcast(ne)
-        else:
-            pe, ne, pooled, neg_pooled = (bcast(x) for x in prompts)
-            if spec.clip_layer != 'penultimate':
-                pooled = neg_pooled = None
-        self._check_conditioning(pe, pooled)
+        cond, neg = self._sample_conditioning(prompts, batch_size, guidance_scale)
         lat = self.img_size // self.vae_scale
-        channels = spec.unet.in_channels if spec.family == 'unet' else spec.dit.in_channels
-        shape = (batch_size, channels, lat, lat)
+        shape = (batch_size, self.spec.vae.latent_channels, lat, lat)
         noise = torch.randn(shape, generator=self._noise_gen, device=self.device)
+        step_noise = None
         if isinstance(self.scheduler, DDPMScheduler):
             step_noise = [torch.randn(shape, generator=self._noise_gen, device=self.device)
                           for _ in range(int(num_inference_steps))]
-        images, feats, _ = self._sample(pe, ne, pooled, neg_pooled, noise,
-                                        int(num_inference_steps), float(guidance_scale), mask,
-                                        step_noise)
+        images, feats, _ = self._sample(cond, neg, noise, int(num_inference_steps),
+                                        float(guidance_scale), step_noise)
         self._keep_background(feats)
         return images, (feats if return_features else None)
 
-    def _batch(self, x, batch_size: int, dtype=None):
-        """``x`` (1, ...) on the device, in ``dtype`` (None keeps its own),
-        expanded to ``batch_size``; None stays None."""
-        if x is None:
-            return None
-        x = torch.as_tensor(x).to(self.device, dtype)
-        return x.expand(batch_size, *x.shape[1:])
-
-    def _hunyuan_sample_prompts(self, prompts, guidance_scale: float):
-        """(positive, negative or None) ``encode_prompt`` pairs of a
-        HunyuanDiT ``sample``'s ``prompts``, as the JAX facade resolves
-        them: the negative is '' encoded here unless a pair was given, and
-        None without CFG."""
-        do_cfg = guidance_scale > 1.0
-        if isinstance(prompts, str):
-            return (self._encode_hunyuan(prompts),
-                    self._encode_hunyuan('') if do_cfg else None)
-        if isinstance(prompts[0][0], (tuple, list)):
-            pos, neg = prompts
-            return pos, (neg if do_cfg else None)
-        if not do_cfg:
-            return prompts, None
-        if not self.text_encoders:
-            raise ValueError('hunyuan sample() with guidance_scale > 1 needs a negative '
-                             'encoding: pass a raw prompt string, a (positive, negative) pair '
-                             'of encode_prompt() results, or keep the text encoders loaded so '
-                             'the empty negative prompt can be encoded here')
-        return prompts, self._encode_hunyuan('')
-
     @torch.inference_mode()
-    def _sample(self, pe, ne, pooled, neg_pooled, noise, num_inference_steps: int,
-                guidance_scale: float, mask=None, step_noise=None):
+    def _sample(self, cond, neg, noise, num_inference_steps: int, guidance_scale: float,
+                step_noise=None):
         """The generation loop (the JAX ``_get_sample_fn``'s unrolled
         ``run``) from ``noise``, a standard-normal draw of the latent shape:
         the latents are the noise in the model dtype times
         ``init_noise_sigma``; per timestep scale_model_input, one denoiser
-        forward on the (CFG-doubled) batch with the taps (PixArt's with the
-        T5 ``mask``, HunyuanDiT's with the T5 embeddings as ``pooled`` and
-        the pair of masks, already CFG-doubled), the guidance combine and
-        the scheduler's ``step`` (DDPM's with ``step_noise[i]``, a
-        standard-normal draw of the latent shape per step); then the VAE
-        decode mapped to [0, 1].
+        forward on the conditioning object ``cond`` (with the negative
+        ``neg`` before it, classifier-free guidance, unless ``neg`` is
+        None) with the taps, the guidance combine and the scheduler's
+        ``step`` (DDPM's with ``step_noise[i]``, a standard-normal draw of
+        the latent shape per step); then the VAE decode mapped to [0, 1].
         Returns (images, {layer: tuple of per-call raw taps}, the final
         latents)."""
         sched = self.scheduler
         state = sched.set_timesteps(num_inference_steps)
-        do_cfg = guidance_scale > 1.0
+        do_cfg = neg is not None
         latents = noise.to(self.dtype)
         latents = latents * scalar_like(state.init_noise_sigma, latents)
-        ctx = torch.cat([ne, pe]) if do_cfg else pe
-        pp = torch.cat([neg_pooled, pooled]) if do_cfg and pooled is not None else pooled
-        added = self._added_cond(pp, ctx.shape[0])
+        if do_cfg:
+            cond = cond.cat_negative(neg)
         merged: Dict[str, tuple] = {}
         step_state = state
         ddpm = isinstance(sched, DDPMScheduler)
@@ -895,14 +760,14 @@ class FeatureExtractor:
             model_in = torch.cat([latents] * 2) if do_cfg else latents
             model_in = sched.scale_model_input(step_state, model_in, t)
             taps = {}
-            out = self._denoise(model_in, float(t), ctx, added, mask, taps)
+            out = cond.forward(self.unet, model_in, float(t), taps)
             taps.pop(ATTN_STORE, None)   # sample() runs no attention store
             for key, val in taps.items():
                 merged[key] = merged.get(key, ()) + (val,)
             out = out[:, :latents.shape[1]]
             if do_cfg:
-                uncond, cond = out.chunk(2)
-                out = uncond + guidance_scale * (cond - uncond)
+                uncond, text = out.chunk(2)
+                out = uncond + guidance_scale * (text - uncond)
             if ddpm:
                 latents, step_state = sched.step(step_state, out, t, latents, step_noise[i])
             else:

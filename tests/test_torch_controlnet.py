@@ -87,11 +87,11 @@ def _jax_and_port(jfe, port, image, image_type, use_control=True, **kwargs):
     posterior, noise = jax_noise(SEED, (BATCH, 4, SIZE // 2, SIZE // 2))
     fa.launches = 0
     if kwargs:
-        ours = port._multistep(img, pe, pooled, 50, kwargs['denoising_from'], False, posterior,
-                               noise, None, control)
+        ours = port._multistep(img, port._step_conditioning((pe, None, pooled, None), BATCH), 50,
+                               kwargs['denoising_from'], False, posterior, noise, None, control)
     else:
-        ours = port._step(img, pe, pooled, port._img2img_kit(50), posterior, noise, None,
-                          control)
+        ours = port._step(img, port._step_conditioning((pe, None, pooled, None), BATCH),
+                          port._img2img_kit(50), posterior, noise, None, control)
     assert fa.launches == 0
     assert sorted(ours) == sorted(ref)
     return ours, ref

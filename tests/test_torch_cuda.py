@@ -573,11 +573,13 @@ def test_sample_on_card_matches_twins(cuda):
     noise = torch.randn((1, 4, 32, 32), generator=torch.Generator(device=cuda).manual_seed(1),
                         device=cuda)
     fa.launches = 0
-    images, feats, _ = fe._sample(pe, ne, None, None, noise, 2, 7.5)
+    images, feats, _ = fe._sample(*fe._sample_conditioning((pe, ne, None, None), 1, 7.5),
+                                  noise, 2, 7.5)
     torch.cuda.synchronize()
     assert fa.launches == 3 * 5
     with _on_twins():
-        ref_images, ref, _ = fe._sample(pe, ne, None, None, noise, 2, 7.5)
+        ref_images, ref, _ = fe._sample(*fe._sample_conditioning((pe, ne, None, None), 1, 7.5),
+                                        noise, 2, 7.5)
     assert images.shape == (1, 3, 256, 256) and torch.isfinite(images.float()).all()
     assert _rel_l2(images, ref_images) <= 5e-2
     for key, encounters in ref.items():
@@ -606,15 +608,16 @@ def test_control_extract_on_card_matches_twins(cuda):
     posterior, noise = (torch.randn((1, 4, 32, 32), generator=gen, device=cuda) for _ in range(2))
 
     def step():
-        return fe._step(img, pe, None, fe._img2img_kit(50), posterior, noise, torch.bfloat16,
-                        control)
+        return fe._step(img, fe._step_conditioning((pe, None, None, None), 1),
+                        fe._img2img_kit(50), posterior, noise, torch.bfloat16, control)
     fa.launches = 0
     feats = step()
     torch.cuda.synchronize()
     assert fa.launches == 5 + 2
     with _on_twins():
         ref = step()
-    plain = fe._step(img, pe, None, fe._img2img_kit(50), posterior, noise, torch.bfloat16)
+    plain = fe._step(img, fe._step_conditioning((pe, None, None, None), 1), fe._img2img_kit(50),
+                     posterior, noise, torch.bfloat16)
     for key in layer:
         assert torch.isfinite(feats[key].float()).all()
         assert _rel_l2(feats[key], ref[key]) <= 2e-2, key

@@ -152,7 +152,8 @@ def test_depth_control_extract_matches_jax(hf_dir):
     # features by more than the tolerance
     posterior, noise = jax_noise(0, (1, 4, 16, 16))
     ours = port._step(torch.from_numpy(port.preprocess_image(images[0])),
-                      torch.from_numpy(np.array(prompts[0])), None, port._img2img_kit(50),
+                      port._step_conditioning((torch.from_numpy(np.array(prompts[0])), None,
+                                               None, None), 1), port._img2img_kit(50),
                       posterior, noise, None,
                       tuple(torch.from_numpy(np.array(c)) for c in ref_control))
     for key, val in ref.items():

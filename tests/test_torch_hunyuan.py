@@ -97,9 +97,9 @@ def _jax_and_port(pair, image, t, port=None):
     (pe, bmask), (t5, tmask) = _torch(prompts)
     posterior, noise = jax_noise(SEED, (BATCH, 4, LAT, LAT))
     fa.launches = fa.lse_launches = fa.headmean_launches = 0
-    ours = port._step(torch.from_numpy(image), pe.expand(BATCH, -1, -1),
-                      t5.expand(BATCH, -1, -1), port._step_kit(t), posterior, noise, None,
-                      mask=(bmask.expand(BATCH, -1), tmask.expand(BATCH, -1)))
+    ours = port._step(torch.from_numpy(image),
+                      port._step_conditioning(((pe, bmask), (t5, tmask)), BATCH),
+                      port._step_kit(t), posterior, noise, None)
     assert (fa.launches, fa.lse_launches, fa.headmean_launches) == (0, 0, 0)
     return ours, ref
 
@@ -203,9 +203,9 @@ def test_sample_matches_jax(pair):
     (pe, bmask), (t5, tmask) = _torch(prompts)
     (ne, nbmask), (nt5, ntmask) = _torch(jfe.encode_prompt(''))
     init, steps = jax_ddpm_sample_noise(SEED, (1, 4, LAT, LAT), 3)
-    images, feats, _ = port._sample(pe, ne, t5, nt5, init, 3, 4.5,
-                                    (torch.cat([nbmask, bmask]), torch.cat([ntmask, tmask])),
-                                    steps)
+    images, feats, _ = port._sample(
+        *port._sample_conditioning((((pe, bmask), (t5, tmask)), ((ne, nbmask), (nt5, ntmask))),
+                                   1, 4.5), init, 3, 4.5, steps)
     _close(images, ref_images)
     assert sorted(feats) == sorted(ref) == sorted(LAYERS)
     for key, encounters in ref.items():

@@ -69,12 +69,14 @@ def _jax_and_port(pairs, version, image, prompt=PROMPT, **kwargs):
     pe, pooled = _inputs(jfe, prompts)
     fa.launches = fa.lse_launches = fa.headmean_launches = 0
     if kwargs:
-        ours = port._multistep(torch.from_numpy(image), pe, pooled, 50,
+        ours = port._multistep(torch.from_numpy(image),
+                               port._step_conditioning((pe, None, pooled, None), BATCH), 50,
                                kwargs.get('denoising_from'),
                                kwargs.get('use_ddim_inversion', False), posterior, noise, None)
     else:
-        ours = port._step(torch.from_numpy(image), pe, pooled, port._img2img_kit(50),
-                          posterior, noise, None)
+        ours = port._step(torch.from_numpy(image),
+                          port._step_conditioning((pe, None, pooled, None), BATCH),
+                          port._img2img_kit(50), posterior, noise, None)
     assert (fa.launches, fa.lse_launches, fa.headmean_launches) == (0, 0, 0)
     assert sorted(ours) == sorted(ref)
     return ours, ref
@@ -272,10 +274,10 @@ def test_extract_ensemble_matches_jax(pairs, image, monkeypatch, concat):
                                prompt_list=sets, concat=concat)
     step, calls = port._step, []
 
-    def jax_noise_step(img, pe, pooled, kit, posterior, noise, out_dtype, **kwargs):
+    def jax_noise_step(img, cond, kit, posterior, noise, out_dtype, **kwargs):
         posterior, noise = jax_noise(SEED, posterior.shape, len(calls))
         calls.append(kit['T'])
-        return step(img, pe, pooled, kit, posterior, noise, out_dtype, **kwargs)
+        return step(img, cond, kit, posterior, noise, out_dtype, **kwargs)
 
     monkeypatch.setattr(port, '_step', jax_noise_step)
     monkeypatch.setattr(port, 'feature_dtype', None)

@@ -88,10 +88,11 @@ def _jax_and_port(pair, image, t, **kwargs):
     fa.launches = fa.lse_launches = fa.headmean_launches = 0
     img = torch.from_numpy(image)
     if kwargs:
-        ours = port._multistep(img, pe, None, t, kwargs['denoising_from'], False, posterior,
-                               noise, None, mask=mask)
+        ours = port._multistep(img, port._step_conditioning((pe, mask), BATCH), t,
+                               kwargs['denoising_from'], False, posterior, noise, None)
     else:
-        ours = port._step(img, pe, None, port._img2img_kit(t), posterior, noise, None, mask=mask)
+        ours = port._step(img, port._step_conditioning((pe, mask), BATCH), port._img2img_kit(t),
+                          posterior, noise, None)
     assert (fa.launches, fa.lse_launches, fa.headmean_launches) == (0, 0, 0)
     return ours, ref
 
@@ -255,8 +256,8 @@ def test_sample_matches_jax(pair):
                                  guidance_scale=4.5, unrolled=True)
     pe, mask, ne, nmask = (torch.from_numpy(np.array(x)) for x in prompts)
     lat = SIZE // port.vae_scale
-    images, feats, _ = port._sample(pe, ne, None, None, jax_sample_noise(SEED, (1, 4, lat, lat)),
-                                    3, 4.5, torch.cat([nmask, mask]))
+    images, feats, _ = port._sample(*port._sample_conditioning((pe, mask, ne, nmask), 1, 4.5),
+                                    jax_sample_noise(SEED, (1, 4, lat, lat)), 3, 4.5)
     np.testing.assert_allclose(images.numpy(), np.asarray(ref_images), atol=ATOL, rtol=RTOL)
     assert sorted(feats) == sorted(ref) == sorted(LAYERS)
     for key, encounters in ref.items():
@@ -356,8 +357,8 @@ def test_save_weights_round_trip(pair, tmp_path, image):
     kit = port._img2img_kit(50)
     noise = jax_noise(SEED, (BATCH, 4, SIZE // port.vae_scale, SIZE // port.vae_scale))
     img, pe, mask = torch.from_numpy(image), prompts[0].expand(BATCH, -1, -1), prompts[1]
-    a = port._step(img, pe, None, kit, *noise, None, mask=mask.expand(BATCH, -1))
-    b = loaded._step(img, pe, None, kit, *noise, None, mask=mask.expand(BATCH, -1))
+    a = port._step(img, port._step_conditioning((pe, mask), BATCH), kit, *noise, None)
+    b = loaded._step(img, loaded._step_conditioning((pe, mask), BATCH), kit, *noise, None)
     assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
 
 

@@ -72,7 +72,8 @@ def _run_both(pairs, version, batch, steps, guidance):
     lat = SIZE // port.vae_scale
     noise = jax_sample_noise(SEED, (batch, 4, lat, lat))
     fa.launches = 0
-    images, feats, _ = port._sample(*port_prompts, noise, steps, guidance)
+    images, feats, _ = port._sample(*port._sample_conditioning(port_prompts, batch, guidance),
+                                    noise, steps, guidance)
     assert fa.launches == 0
     return (images, feats), (ref_images, ref)
 
@@ -134,8 +135,9 @@ def test_background_after_extract_matches_jax(pairs):
         jfe.extract(prompts, 2, image, image_type='tensor', t=50)
         _, (pe, _, pooled, _) = _prompts(jfe, 2)
         posterior, noise = jax_noise(SEED, (2, 4, SIZE // 2, SIZE // 2))
-        feats = port._step(torch.from_numpy(image), pe, pooled, port._img2img_kit(50),
-                           posterior, noise, None)
+        feats = port._step(torch.from_numpy(image),
+                           port._step_conditioning((pe, None, pooled, None), 2),
+                           port._img2img_kit(50), posterior, noise, None)
         port._keep_background(feats)
         ours, ref = port.get_background_extraction(), jfe.get_background_extraction()
         assert sorted(ours) == sorted(ref) == sorted(LAYERS)

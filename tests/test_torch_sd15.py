@@ -70,8 +70,9 @@ def test_extract_step_matches_jax(pair):
     posterior, noise = jax_noise(SEED, (BATCH, 4, SIZE // port.vae_scale, SIZE // port.vae_scale))
     pe = torch.from_numpy(np.array(prompts[0])).expand(BATCH, -1, -1)
     fa.launches = fa.lse_launches = fa.headmean_launches = 0
-    ours = port._step(torch.from_numpy(image), pe, None, port._img2img_kit(50), posterior,
-                      noise, None)
+    ours = port._step(torch.from_numpy(image), port._step_conditioning((pe, None, None, None),
+                                                                       BATCH),
+                      port._img2img_kit(50), posterior, noise, None)
     assert (fa.launches, fa.lse_launches, fa.headmean_launches) == (0, 0, 0)
     assert sorted(ours) == sorted(ref) == sorted([*LAYERS, 'attn'])
     # the 256-token up level's cross maps (77 keys), then its self maps

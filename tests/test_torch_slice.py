@@ -65,8 +65,9 @@ def test_extract_step_matches_jax(pair, image):
     pe = torch.from_numpy(np.array(prompts[0])).expand(BATCH, -1, -1)
     pooled = torch.from_numpy(np.array(prompts[2])).expand(BATCH, -1)
     fa.launches = 0
-    ours = port._step(torch.from_numpy(image), pe, pooled, port._img2img_kit(50),
-                      posterior, noise, None)
+    ours = port._step(torch.from_numpy(image),
+                      port._step_conditioning((pe, None, pooled, None), BATCH),
+                      port._img2img_kit(50), posterior, noise, None)
     assert fa.launches == 0
     kit, ref_kit = port._img2img_kit(50), jfe._img2img_kit(50)
     assert kit == {k: ref_kit[k] for k in kit}
@@ -105,8 +106,9 @@ def test_attention_store_step_matches_jax(pair):
     pe = torch.from_numpy(np.array(prompts[0])).expand(BATCH, -1, -1)
     pooled = torch.from_numpy(np.array(prompts[2])).expand(BATCH, -1)
     fa.launches = fa.lse_launches = fa.headmean_launches = 0
-    ours = ours_fe._step(torch.from_numpy(image * 2 - 1), pe, pooled, ours_fe._img2img_kit(50),
-                         posterior, noise, None)
+    ours = ours_fe._step(torch.from_numpy(image * 2 - 1),
+                         ours_fe._step_conditioning((pe, None, pooled, None), BATCH),
+                         ours_fe._img2img_kit(50), posterior, noise, None)
     assert (fa.launches, fa.lse_launches, fa.headmean_launches) == (0, 0, 0)
     assert sorted(ours) == sorted(ref)
     # two 1024-token levels' cross maps (77 keys) then self maps (1024 keys)

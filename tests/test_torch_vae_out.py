@@ -81,8 +81,9 @@ def test_vae_out_matches_jax(pairs, version):
     pooled = None if prompts[2] is None else torch.from_numpy(np.array(prompts[2])).expand(
         BATCH, -1)
     fa.launches = 0
-    ours = port._step(torch.from_numpy(image), pe, pooled, port._img2img_kit(50), posterior,
-                      noise, None)
+    ours = port._step(torch.from_numpy(image), port._step_conditioning((pe, None, pooled, None),
+                                                                       BATCH),
+                      port._img2img_kit(50), posterior, noise, None)
     assert fa.launches == 0
     assert sorted(ours) == sorted(ref) == sorted(LAYERS)
     assert ours['vae-out'].shape == (BATCH, 3, SIZE, SIZE)

@@ -127,8 +127,9 @@ def test_upcast_checkpoint_with_store_matches_jax(upcast_checkpoint):
     posterior, noise = jax_noise(SEED, (BATCH, 4, lat, lat))
     pe = torch.from_numpy(np.array(prompts[0])).expand(BATCH, -1, -1)
     fa.launches = fa.lse_launches = fa.headmean_launches = 0
-    ours = port._step(torch.from_numpy(image), pe, None, port._img2img_kit(50), posterior,
-                      noise, None)
+    ours = port._step(torch.from_numpy(image), port._step_conditioning((pe, None, None, None),
+                                                                       BATCH),
+                      port._img2img_kit(50), posterior, noise, None)
     assert (fa.launches, fa.lse_launches, fa.headmean_launches) == (0, 0, 0)
     assert sorted(ours) == sorted(ref) == sorted([*LAYERS, 'attn'])
     assert ours['attn'].shape == (BATCH, 77 + 1024, SIZE // 8, SIZE // 8)

@@ -313,8 +313,9 @@ def _assert_step_matches_jax(jfe, port, seed_image=3):
     pooled = None if prompts[2] is None else torch.from_numpy(np.array(prompts[2])).expand(
         BATCH, -1)
     fa.launches = 0
-    ours = port._step(torch.from_numpy(image * 2 - 1), pe, pooled, port._img2img_kit(50),
-                      posterior, noise, None)
+    ours = port._step(torch.from_numpy(image * 2 - 1),
+                      port._step_conditioning((pe, None, pooled, None), BATCH),
+                      port._img2img_kit(50), posterior, noise, None)
     assert fa.launches == 0
     assert sorted(ours) == sorted(ref) == sorted(LAYERS)
     for key, val in ref.items():

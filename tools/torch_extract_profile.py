@@ -94,8 +94,10 @@ def open_other(torch, name, tmp):
     noise = torch.randn((1, 4, lat, lat), generator=torch.Generator(device='cuda').manual_seed(7),
                         device='cuda')
 
+    conds = fe._sample_conditioning(prompts, 1, guidance)
+
     def run():
-        return fe._sample(*prompts, noise, steps, guidance)
+        return fe._sample(*conds, noise, steps, guidance)
     run()
     host, device = [], []
     for _ in range(3):
