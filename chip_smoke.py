@@ -134,6 +134,26 @@ Phases (each prints its numbers on lines of its own):
      the taps (50 DDPM steps, guidance 7.5): 2000 B1, the sample timed,
      then a 4-step sample on the kernels and on the twins (the same DDPM
      step noise) within MULTISTEP_REL_TOL.  Counts from dit_launches.
+ 16. Flux.1-dev (after 15), random weights from seed 0, bf16, t=50, the
+     JAX benchmark's taps (vit-block18-out, vit-block18-q, vit-block37-out,
+     vit-block56-out): (a) 'flux' at 1024^2, batch 2 (19 dual and 38
+     single blocks of 24 heads x 128 over 512 T5 + 4096 image tokens,
+     CLIP-L and T5-XXL): 58 B1 launches (the 57 joint attentions and the
+     Flux VAE's d=512 head); (d) its extractor written by save_weights
+     (~34 GB: the transformer in FLUX_TRANSFORMER_SHARDS files, T5-XXL in
+     FLUX_TEXT_SHARDS), its parameters' fingerprints and first features
+     kept and the source freed (two do not fit the card together), loaded
+     back: fingerprints, prompts and the first public extract equal, load
+     GB/s, load peak within LOAD_PEAK_RATIO, then the CLI on the tree over
+     3 images (116 B1); (b) (a) with attention=['up_cross', 'up_self']:
+     every block explicit, as in JAX, so 1/0/0 and 'attn'
+     (2, 512 + 4096, 128, 128); (c) 'flux' at 512^2 (1536 joint tokens):
+     57 B1 (the 512^2 VAE head stays explicit); each with the same step on
+     the twins within TAP_REL_TOL and its timing; (e) generate_with_extraction
+     on 'flux' at 512^2 with the taps, 28 steps and guidance 3.5 (no CFG
+     batch: the guidance embedding takes it): 28 x 57 B1, the sample timed,
+     then a 4-step sample on the kernels and on the twins within
+     MULTISTEP_REL_TOL.  Counts from dit_launches.
 Phase 2 also holds B2 and B3 in fp32 at phase 11's store shape (the fp32
 kernels, timed against the fp32 non-tensor peak), and B4 (short
 attention), which no path routes to, as in the JAX package: against its
@@ -147,7 +167,9 @@ tokens for B1, B2 and B3 (and B4 at 256 tokens, with d=72 in its width
 tuple), with ragged head-split d=72 shapes (a 144-byte head stride), and
 HunyuanDiT's d=88 at the same shapes (a 176-byte head stride; B2 and B3
 have no caller at d=88, their numbers are the kernels line's
-'no_caller_shapes'), each in bf16, fp32 and fp16.
+'no_caller_shapes'), each in bf16, fp32 and fp16.  B1 is held in bf16 at
+Flux's four joint-attention shapes (FLUX_B1_SHAPES) on contiguous q/k/v,
+the layout the concatenation and RoPE hand it.
 Every path runs with all four counts set to 0 and expects 0 B4 launches.
 Launches are recorded with their dtype, and the kernels line sums each
 (shape, dtype)'s numbers.
@@ -194,6 +216,11 @@ STORE_SHAPES = [                # B2 and B3: the attention store's self-attentio
     (2, 16, 4096, 4096, 88),
 ]
 D88_STORE_SHAPES = STORE_SHAPES[-2:]
+# B1 at Flux's joint attention, bf16, contiguous (the path's layout): 512
+# T5 + 4096 image tokens at 1024^2 and 512 + 1024 at 512^2, 24 heads x 128,
+# batch 2 and the CLI's trailing batch of 1
+FLUX_B1_SHAPES = [(2, 24, 4608, 4608, 128), (1, 24, 4608, 4608, 128),
+                  (2, 24, 1536, 1536, 128), (1, 24, 1536, 1536, 128)]
 # phase 11: SD-2.1's upcast store hands B2 and B3 fp32 q, k and v
 FP32_STORE_SHAPES = [(2, 10, 1024, 1024, 64)]   # SD-2.1 up-level2 @512^2
 RAGGED = (1, 2, 1000, 333, 64)
@@ -255,6 +282,9 @@ DIT_TAPS = dict.fromkeys(('vit-block13-out', 'vit-block20-out', 'vit-block20-cro
 # phase 15: the JAX benchmark's HunyuanDiT taps (bench.py:353-358)
 HUNYUAN_TAPS = dict.fromkeys(('vit-block13-self-q', 'vit-block20-self-q', 'vit-block27-self-q',
                               'vit-block39-self-q'), True)
+# phase 16: the JAX benchmark's Flux taps (bench.py:268-273)
+FLUX_TAPS = dict.fromkeys(('vit-block18-out', 'vit-block18-q', 'vit-block37-out',
+                           'vit-block56-out'), True)
 # the paths phases 3 to 6 and 9 to 11 drive, at random weights from seed 0,
 # bf16, batch 2, t=50: FeatureExtractor's arguments, extract's arguments
 # beyond t (none: the single step), the B1/B2/B3 launches of one extract,
@@ -304,6 +334,18 @@ PATHS = {
                                 'attn': (2, 77 + 256 + 4096, 128, 128)}},
     'hunyuan_512': {'args': dict(layer=HUNYUAN_TAPS, version='hunyuan', img_size=512),
                     'launches': None, 'feats': dict.fromkeys(HUNYUAN_TAPS, (2, 1408, 32, 32))},
+    # phase 16, Flux.1-dev: the JAX benchmark's taps; launches through the
+    # gate (dit_launches).  The store makes every block explicit (~6 s an
+    # extract with TF32 off), hence fewer timed calls
+    'flux': {'args': dict(layer=FLUX_TAPS, version='flux', img_size=1024),
+             'launches': None, 'feats': dict.fromkeys(FLUX_TAPS, (2, 3072, 64, 64))},
+    'flux_store': {'args': dict(layer=FLUX_TAPS, version='flux', img_size=1024,
+                                attention=['up_cross', 'up_self']),
+                   'launches': None, 'calls': 2,
+                   'feats': {**dict.fromkeys(FLUX_TAPS, (2, 3072, 64, 64)),
+                             'attn': (2, 512 + 4096, 128, 128)}},
+    'flux_512': {'args': dict(layer=FLUX_TAPS, version='flux', img_size=512),
+                 'launches': None, 'feats': dict.fromkeys(FLUX_TAPS, (2, 3072, 32, 32))},
 }
 # phase 11's DDIM inversion extract: 5 inverted steps (timesteps 11 to 51,
 # the first >= 49) through the plain U-Net, 10 B1 each, then the last forward
@@ -372,6 +414,15 @@ PIXART_GEN_ARGS = ['--version', 'pixart-alpha', '--img_size', '512', '--layer',
 HUNYUAN_TREE_PATH, HUNYUAN_TEXT_SHARDS = 'hunyuan', 2
 HUNYUAN_GEN_ARGS = ['--version', 'hunyuan', '--img_size', '512', '--layer',
                     json.dumps(HUNYUAN_TAPS)]
+# phase 16: Flux.  (d) (a)'s random tree (~34 GB in bf16: the transformer
+# in FLUX_TRANSFORMER_SHARDS files, the VAE, CLIP-L, T5-XXL in
+# FLUX_TEXT_SHARDS) and the CLI on it; (e) the generation CLI at 512^2 with
+# the benchmark's taps, 28 steps and guidance 3.5 (the pipeline's), the
+# calls kept within the 28, then a TWIN_SAMPLE_STEPS sample on the twins
+FLUX_TREE_PATH, FLUX_TRANSFORMER_SHARDS, FLUX_TEXT_SHARDS = 'flux', 4, 2
+FLUX_GEN_ARGS = ['--version', 'flux', '--img_size', '512', '--layer', json.dumps(FLUX_TAPS),
+                 '--steps', '28', '--guidance_scale', '3.5', '--store_steps', '1', '10', '20',
+                 '28']
 
 
 def card_line() -> str:
@@ -691,8 +742,8 @@ def injected_step(torch, fe, prompts, images, denoising_from=None, use_ddim_inve
     lat = fe.img_size // fe.vae_scale
     gen = torch.Generator(device='cuda').manual_seed(2)
     cond = fe._step_conditioning(prompts, bsz)
-    posterior, noise = (torch.randn((bsz, 4, lat, lat), generator=gen, device='cuda')
-                        for _ in range(2))
+    shape = (bsz, fe.spec.vae.latent_channels, lat, lat)
+    posterior, noise = (torch.randn(shape, generator=gen, device='cuda') for _ in range(2))
     if denoising_from is None and not use_ddim_inversion:
         return fe._step(images.to(fe.dtype), cond, fe._step_kit(50), posterior, noise,
                         torch.bfloat16)
@@ -1029,9 +1080,24 @@ def dit_launches(fa, fe) -> dict:
     T5 mask: explicit).  HunyuanDiT: each block's self-attention on B1,
     except where a '-self-map' tap or the store's 'up_self' in its band
     wants the probabilities: the explicit path then, as in JAX (no B2/B3);
-    cross-attention (333 keys) and the T5 pool are explicit."""
+    cross-attention (333 keys) and the T5 pool are explicit.  Flux: each
+    dual and single block's joint attention (text + image tokens) on B1,
+    except where a '-cross-map' or '-self-map' tap or the store in its band
+    wants the probabilities: the explicit path then, as in JAX (no
+    B2/B3)."""
     cfg = fe.spec.dit
     latent = fe.img_size // fe.vae_scale
+    if fe.spec.family == 'flux':
+        image = (latent // 2) ** 2
+        shape = (1, cfg.num_attention_heads, fe.spec.prompt_max_length + image,
+                 cfg.attention_head_dim)
+        store = (bool({'up_cross', 'up_self'} & set(fe.attention or ()))
+                 and fe._attn_sizes[0] ** 2 <= image <= fe._attn_sizes[1] ** 2)
+        fused = 0 if store else sum(
+            not any(fe.taps.wants(f'vit-block{i}-{m}') for m in ('cross-map', 'self-map'))
+            for i in range(cfg.num_layers + cfg.num_single_layers))
+        return only_b1(fused * fa.is_flash_compatible(shape, shape, head_dims=None)
+                       + vae_b1(fa, fe.spec.vae, latent))
     tokens = (latent // cfg.patch_size) ** 2
     hunyuan = fe.spec.family == 'hunyuan'
     head_dim = cfg.head_dim if hunyuan else cfg.attention_head_dim
@@ -1385,19 +1451,36 @@ def check_control(torch, fa, attn_ops, card, fe15, shapes, runs):
 
 def describe_prompts(prompts) -> str:
     """A DiT's encode_prompt result in a few words: PixArt's embeddings and
-    mask, or HunyuanDiT's BERT and T5 pairs."""
+    mask, HunyuanDiT's BERT and T5 pairs, or Flux's T5 embeddings and CLIP
+    pooled vector."""
     if isinstance(prompts[0], tuple):
         return '; '.join(f'{name} embeds {tuple(e.shape)}, mask with {int(m.sum())} tokens'
                          for name, (e, m) in zip(('BERT', 'T5'), prompts))
+    if prompts[1] is None:
+        return f'T5 embeds {tuple(prompts[0].shape)}, CLIP pooled {tuple(prompts[2].shape)}'
     return (f'prompt_embeds {tuple(prompts[0].shape)}, mask {tuple(prompts[1].shape)} '
             f'{prompts[1].dtype} with {int(prompts[1].sum())} tokens')
 
 
 def flat_prompts(prompts):
-    """The tensors of an encode_prompt result, nested pairs flattened."""
+    """The tensors of an encode_prompt result, nested pairs flattened (its
+    None slots left out)."""
     out = []
     for x in prompts:
-        out.extend(flat_prompts(x) if isinstance(x, tuple) else [x])
+        out.extend(flat_prompts(x) if isinstance(x, tuple) else [] if x is None else [x])
+    return out
+
+
+def fingerprints(torch, fe) -> dict:
+    """{module/parameter: an exact integer fingerprint}: each parameter's
+    bytes dotted in int64 with fixed weights from 1 to 99991, so a loaded
+    copy can be held to a source that no longer sits on the card."""
+    out = {}
+    for mod, module, _ in module_pairs(fe, fe):
+        for key, t in module.state_dict().items():
+            bits = t.detach().reshape(-1).view(torch.uint8).long()
+            weights = torch.arange(bits.numel(), device=bits.device) * 2654435761 % 99991 + 1
+            out[f'{mod}/{key}'] = int((bits * weights).sum())
     return out
 
 
@@ -1432,26 +1515,42 @@ def check_dit_path(torch, fa, attn_ops, card, name, shapes, runs, label):
         print(f'  {label} head-mean maps from B3 kept by the store: {gib_maps:.3f} GiB (bf16)')
     check_twin_step(torch, fe, attn_ops, fa, prompts, images, path['feats'], label)
     size = path['args']['img_size']
-    time_extract(torch, fe, prompts, images, f'{label} {name} extract {size}^2 batch 2', card)
+    time_extract(torch, fe, prompts, images, f'{label} {name} extract {size}^2 batch 2', card,
+                 path.get('calls', TIMED_CALLS))
     return fe, prompts, images, feats, gib
 
 
 def check_dit_tree(torch, fa, attn_ops, card, fe, prompts, images, first_feats, build_gib,
-                   tree, shapes, runs, name, text_shards, phase):
-    """Phase 14 (d) and (e), 15 (d): ``fe`` (path ``name`` at random) written
-    by ``save_weights`` (the text encoders in ``text_shards`` files) and
-    loaded back, parameters, prompts and the first extract ``torch.equal``,
-    then the CLI over three images on the tree."""
+                   tree, shapes, runs, name, text_shards, phase, unet_shards=1):
+    """Phase 14 (d) and (e), 15 (d), 16 (d): ``fe`` (path ``name`` at random)
+    written by ``save_weights`` (the denoiser in ``unet_shards`` files, the
+    text encoders in ``text_shards``) and loaded back, parameters (their
+    fingerprints, and their tensors where the source is kept), prompts and
+    the first extract ``torch.equal``, then the CLI over three images on
+    the tree.  ``fe`` given as a one-element list is taken out of it and
+    freed once written (two Flux extractors do not fit the card)."""
     import numpy as np
     from diffusion_feature_tpu_torch import FeatureExtractor
     from diffusion_feature_tpu_torch.enumerate_layers import enumerate_layers
     args = PATHS[name]['args']
     tag, cli_tag = (f'{phase}d', f'{phase}{"e" if phase == 14 else "d"}')
-    written = fe.save_weights(tree, text_shards=text_shards)
+    free = isinstance(fe, list)
+    if free:
+        fe = fe.pop()
+    t0 = time.perf_counter()
+    source_prints = fingerprints(torch, fe)
+    print(f'phase {tag} fingerprints of {len(source_prints)} source parameters: '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    written = fe.save_weights(tree, unet_shards=unet_shards, text_shards=text_shards)
     files = sorted(os.path.relpath(os.path.join(d, f), tree)
                    for d, _, names in os.walk(tree) for f in names)
     print(f'phase {tag} tree of {sum(n for n, _ in written.values())} bytes: {files}')
     rates(written, 'write', card, tag)
+    if free:
+        del fe
+        torch.cuda.empty_cache()
+        print(f'phase {tag} source freed: {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB '
+              'still allocated', flush=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -1468,7 +1567,13 @@ def check_dit_tree(torch, fa, attn_ops, card, fe, prompts, images, first_feats, 
     if peak > LOAD_PEAK_RATIO * build_gib:
         raise RuntimeError(f'phase {tag}: load peak {peak:.3f} GiB over {LOAD_PEAK_RATIO} x '
                            f'{build_gib:.3f} GiB')
-    for mod, a, b in module_pairs(fe, loaded):
+    loaded_prints = fingerprints(torch, loaded)
+    bad = [k for k in source_prints if loaded_prints.get(k) != source_prints[k]]
+    if bad or loaded_prints.keys() != source_prints.keys():
+        raise RuntimeError(f'phase {tag}: parameter fingerprints differ from the source: '
+                           f'{bad[:5]}')
+    print(f'  {len(loaded_prints)} parameter fingerprints equal to the source\'s')
+    for mod, a, b in ([] if free else module_pairs(fe, loaded)):
         sa, sb = a.state_dict(), b.state_dict()
         bad = [k for k in sa if k not in sb or not torch.equal(sa[k], sb[k])]
         if bad or sa.keys() != sb.keys():
@@ -1560,6 +1665,9 @@ def check_dit_generation(torch, fa, attn_ops, card, shapes, runs, gen_args, name
     latent = fe.img_size // fe.vae_scale
     per_call = dit_launches(fa, fe)['flash_attention'] - vae_b1(fa, fe.spec.vae, latent)
     want = only_b1(calls * per_call + vae_b1(fa, fe.spec.vae, latent))
+    # Flux is guidance-distilled: no CFG batch, the guidance embedding takes it
+    batch, batch_note = (1, 'batch 1, no CFG') if fe.spec.family == 'flux' else (
+        2, 'CFG batch 2')
     print(f'phase {phase} generate_with_extraction {" ".join(gen_args[:4])} (steps '
           f'{args.steps}, guidance {args.guidance_scale}, store_steps {args.store_steps}): '
           f'{seconds:.1f} s for main() (model build included), image {size}; {calls} DiT calls '
@@ -1570,7 +1678,7 @@ def check_dit_generation(torch, fa, attn_ops, card, shapes, runs, gen_args, name
     kept = fe.get_background_extraction()
     for layer, by_step in sorted(kept.items()):
         bad = [i for i, v in by_step.items()
-               if v.shape[0] != 2 or not bool(torch.isfinite(v.float()).all())]
+               if v.shape[0] != batch or not bool(torch.isfinite(v.float()).all())]
         print(f'  {layer}: kept {sorted(by_step)} of {fe._background_feats[layer]["count"]}, '
               f'{tuple(by_step[1].shape)} {by_step[1].dtype}')
         if sorted(by_step) != sorted(args.store_steps) or bad:
@@ -1578,12 +1686,12 @@ def check_dit_generation(torch, fa, attn_ops, card, shapes, runs, gen_args, name
     if set(kept) != set(taps):
         raise RuntimeError(f'phase {phase}: kept layers {sorted(kept)}')
     prompts, step_noise = sample_inputs(torch, fe, args.prompt, args.steps)
-    noise = torch.randn((1, 4, latent, latent),
+    noise = torch.randn((1, fe.spec.vae.latent_channels, latent, latent),
                         generator=torch.Generator(device='cuda').manual_seed(7), device='cuda')
     *_, ms, gib, base = timed_sample(torch, fe, prompts, noise, args.steps, args.guidance_scale,
                                      step_noise)
     print(f'phase {phase} {args.version} sample timed: {ms:.2f} ms per sample, {ms / calls:.2f} '
-          f'ms per step ({calls} DiT calls at CFG batch 2 and the decode); peak memory '
+          f'ms per step ({calls} DiT calls at {batch_note} and the decode); peak memory '
           f'{gib:.2f} GiB above the {base:.2f} GiB held before it ({card})', flush=True)
     run = (*fe._sample_conditioning(prompts, 1, args.guidance_scale), noise, TWIN_SAMPLE_STEPS,
            args.guidance_scale, None if step_noise is None else step_noise[:TWIN_SAMPLE_STEPS])
@@ -1643,6 +1751,30 @@ def check_hunyuan(torch, fa, attn_ops, card, shapes, runs):
                          'hunyuan_gen', '15e')
 
 
+def check_flux(torch, fa, attn_ops, card, shapes, runs):
+    """Phase 16: Flux.1-dev 1024^2 (a), its tree written, the source freed,
+    the tree loaded and the CLI on it (d), with the store (b), at 512^2 (c),
+    the generation CLI and a kernel-vs-twin sample at 512^2 (e).  Each
+    extractor (~34 GB: the 11.9 B-parameter transformer and T5-XXL in bf16)
+    is freed before the next is built."""
+    fe, prompts, images, first, gib = check_dit_path(
+        torch, fa, attn_ops, card, 'flux', shapes, runs, 'phase 16a')
+    source = [fe]
+    del fe
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_flux_') as tree:
+        check_dit_tree(torch, fa, attn_ops, card, source, prompts, images, first, gib, tree,
+                       shapes, runs, FLUX_TREE_PATH, FLUX_TEXT_SHARDS, 16,
+                       FLUX_TRANSFORMER_SHARDS)
+    del first
+    torch.cuda.empty_cache()
+    for name, label in (('flux_store', 'phase 16b'), ('flux_512', 'phase 16c')):
+        fe, *_ = check_dit_path(torch, fa, attn_ops, card, name, shapes, runs, label)
+        del fe, _
+        torch.cuda.empty_cache()
+    check_dit_generation(torch, fa, attn_ops, card, shapes, runs, FLUX_GEN_ARGS, 'flux_gen',
+                         '16e')
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1698,6 +1830,10 @@ def main() -> int:
             compare(torch, fa, 'short_attention', shape, dtype_name, gen, split=True)
     for kernel, shape in FP16_SHAPES:
         compare(torch, fa, kernel, shape, 'float16', gen, split=True)
+    # Flux hands B1 contiguous q/k/v (joined and rotated): its shapes so
+    for shape in FLUX_B1_SHAPES:
+        numbers['flash_attention', shape, 'bfloat16'] = compare(
+            torch, fa, 'flash_attention', shape, 'bfloat16', gen)
     # the fp32 store kernels at the shape SD-2.1's upcast hands them (phase 11)
     for kernel in ('flash_attention_with_lse', 'headmean_probs'):
         for shape in FP32_STORE_SHAPES:
@@ -1776,9 +1912,10 @@ def main() -> int:
     del fe15
     torch.cuda.empty_cache()
 
-    # 14. PixArt; 15. HunyuanDiT
+    # 14. PixArt; 15. HunyuanDiT; 16. Flux
     check_pixart(torch, fa, attn_ops, card, shapes, runs)
     check_hunyuan(torch, fa, attn_ops, card, shapes, runs)
+    check_flux(torch, fa, attn_ops, card, shapes, runs)
 
     # the kernels line: per kernel, the launches of every path and the sum
     # over those launches of each (shape, dtype)'s numbers from phase 2 (one

@@ -15,6 +15,9 @@ and sampling loop pass it through without looking inside.
   learned-sigma half is dropped.
 - ``HunyuanConditioning``: BERT's and mT5's contexts with their masks;
   the learned sigma is dropped.
+- ``FluxConditioning``: T5's sequence, CLIP-L's pooled vector and the
+  guidance scale; the latents are 2x2-packed around the transformer, and
+  generation has no CFG batch.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from .models.flux import pack_latents, unpack_latents
 
 
 def _batch(fe, x, batch_size: int, dtype=None):
@@ -212,6 +217,48 @@ class HunyuanConditioning(_Conditioning):
                         feats=feats)[:, :model_in.shape[1]]
 
 
+@dataclasses.dataclass
+class FluxConditioning(_Conditioning):
+    """Flux's T5 sequence (B, L, 4096), CLIP-L pooled vector (B, 768) and
+    the guidance embedding's value (None: 1000, as in the JAX package)."""
+    context: torch.Tensor
+    pooled: torch.Tensor
+    guidance: Optional[float] = None
+
+    @classmethod
+    def from_prompts(cls, fe, prompts, batch_size: int, sample: bool = False):
+        """``encode_prompt``'s (T5 embeddings, None, CLIP pooled, None), or
+        a raw string, encoded here."""
+        if isinstance(prompts, str):
+            prompts = fe.encode_prompt(prompts)
+        cond = cls(_batch(fe, prompts[0], batch_size, fe.dtype),
+                   _batch(fe, prompts[2], batch_size, fe.dtype))
+        cfg = fe.spec.dit
+        for name, x, width in (('T5', cond.context, cfg.joint_attention_dim),
+                               ('pooled CLIP', cond.pooled, cfg.pooled_projection_dim)):
+            if x is None or x.shape[-1] != width:
+                raise ValueError(f'the {fe.version!r} transformer takes {width}-wide {name} '
+                                 f'embeddings, got {None if x is None else x.shape[-1]}')
+        return cond
+
+    @classmethod
+    def for_sample(cls, fe, prompts, batch_size: int, guidance_scale: float):
+        """Flux.1-dev is guidance-distilled: no negative and no CFG batch;
+        ``guidance_scale`` * 1000 feeds the guidance embedding (the stock
+        FluxPipeline)."""
+        cond = cls.from_prompts(fe, prompts, batch_size, sample=True)
+        return dataclasses.replace(cond, guidance=guidance_scale * 1000.0), None
+
+    def forward(self, denoiser, model_in, timestep, feats=None, down=None, mid=None):
+        """The transformer on the 2x2-packed latents NCHW; the prediction
+        unpacked to NCHW (the flow step is elementwise, so it commutes
+        with the packing)."""
+        _, _, h, w = model_in.shape
+        out = denoiser(pack_latents(model_in), timestep, self.context, self.pooled,
+                       self.guidance, (h // 2, w // 2), feats=feats)
+        return unpack_latents(out, h, w)
+
+
 #: The conditioning class of each model family.
 BY_FAMILY = {'unet': UNetConditioning, 'pixart': PixArtConditioning,
-             'hunyuan': HunyuanConditioning}
+             'hunyuan': HunyuanConditioning, 'flux': FluxConditioning}

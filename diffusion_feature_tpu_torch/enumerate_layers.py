@@ -2,7 +2,7 @@
 ``diffusion_feature_tpu/enumerate_layers.py``).
 
 ``enumerate_layers(version, img_size)`` builds the version's U-Net (or
-PixArt or HunyuanDiT DiT) with every tap requested on PyTorch's meta device and runs one
+PixArt, HunyuanDiT or Flux DiT) with every tap requested on PyTorch's meta device and runs one
 forward on meta tensors, which carry shapes and no data: the counterpart of
 the JAX package's ``jax.eval_shape``.  The full-size architectures are
 enumerated in seconds on any host, with no memory for weights or
@@ -18,6 +18,7 @@ from typing import Dict, Tuple
 import torch
 
 from .models.dit_pixart import PixArtTransformer2D
+from .models.flux import FluxTransformer2D
 from .models.hunyuan import HunyuanDiT2D
 from .models.registry import get_model_spec
 from .models.unet2d import UNet2DConditionModel
@@ -38,6 +39,13 @@ def enumerate_layers(version: str, img_size: int = None,
             dit = PixArtTransformer2D(spec.dit, TapSpec.all())
             dit(torch.empty(batch_size, spec.dit.in_channels, lat, lat), 50.0,
                 torch.empty(batch_size, spec.prompt_max_length, spec.t5.d_model), feats=feats)
+        elif spec.family == 'flux':
+            cfg, grid = spec.dit, lat // 2
+            dit = FluxTransformer2D(cfg, TapSpec.all())
+            dit(torch.empty(batch_size, grid * grid, cfg.in_channels), 50.0,
+                torch.empty(batch_size, spec.prompt_max_length, spec.t5.d_model),
+                torch.empty(batch_size, cfg.pooled_projection_dim), grid_hw=(grid, grid),
+                feats=feats)
         elif spec.family == 'hunyuan':
             cfg = spec.dit
             dit = HunyuanDiT2D(cfg, TapSpec.all())

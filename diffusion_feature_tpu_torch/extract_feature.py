@@ -124,7 +124,8 @@ def main(argv=None):
         raise not_ported('--dp/--tp/--sp above 1 (extraction over several devices)',
                          'Multi-GPU')
     if args.transformer_8bit:
-        raise not_ported('--transformer_8bit true (the int8 Flux transformer)', 'DiT families')
+        raise not_ported('--transformer_8bit true (the int8 Flux transformer)',
+                         'Int8 weight-only dense', 'B')
 
     df = FeatureExtractor(
         resolve_layer_config(args.layer),

@@ -1,7 +1,8 @@
 """FeatureExtractor in PyTorch (port of ``diffusion_feature_tpu/facade.py``),
 mirroring the reference's ``diffusion_feature.FeatureExtractor``
 (feature/diffusion_feature.py:26-517).  It dispatches on the model's
-family (``spec.family``): the U-Nets, the PixArt DiTs, or HunyuanDiT.
+family (``spec.family``): the U-Nets, the PixArt DiTs, HunyuanDiT or Flux;
+each family's conditioning is one object of ``conditioning.py``.
 
 Ported: extraction for SD-1.5 (``'1-5'``, ``'test-sd'``), SD-2.1 (``'2-1'``),
 SDXL (``'xl'``, ``'test-xl'``) and Playground v2 (``'pgv2'``): CLIP tokenize
@@ -21,6 +22,11 @@ BERT and mT5 encode the prompt (``((bert embeds, mask), (t5 embeds,
 mask))``), the latents are noised at the DDPM img2img timestep of ``t``,
 and one DiT forward gives the taps (no ``vae-out``, no ``denoising_from``);
 ``sample`` follows the stock HunyuanDiT pipeline (DDPM, v-prediction).
+Flux (``'flux'``, ``'test-flux'``) likewise: CLIP-L's pooled vector and
+T5's sequence (``(t5 embeds, None, clip pooled, None)`` or a raw string),
+flow-match noising at sigma(t) of the resolution-shifted 28-step schedule,
+the latents 2x2-packed into one transformer forward; ``sample`` has no CFG
+batch (the guidance scale feeds the guidance embedding).
 The attention store (``attention=``) gives
 the aggregated ``'attn'`` feature, the ``'vae-out'`` layer the decoded image
 of one scheduler step; ``extract_ensemble`` crosses timesteps with prompts.
@@ -54,6 +60,7 @@ from .models.convert import (load_component_config, load_component_state, load_s
                              random_module, save_component)
 from .models.controlnet import ControlNetPipeline
 from .models.dit_pixart import PixArtConfig, PixArtTransformer2D
+from .models.flux import FluxConfig, FluxTransformer2D
 from .models.hunyuan import HunyuanConfig, HunyuanDiT2D
 from .models.layers import ATTN_STORE
 from .models.lora import apply_lora_to_module
@@ -64,6 +71,7 @@ from .models.vae import AutoencoderKL, VAEConfig
 from .roadmap import not_ported
 from .schedulers.diffusion import (DDPMScheduler, DPMSolverMultistepScheduler,
                                    EulerDiscreteScheduler, make_scheduler, scalar_like)
+from .schedulers.flow_match import FlowMatchEulerDiscreteScheduler, calculate_shift
 from .store import aggregate_attention, postprocess_taps, select_background_encounters
 from .taps import TapSpec, declared_ids, is_filtered_id
 from .tokenizers.clip_bpe import load_clip_tokenizer
@@ -73,6 +81,10 @@ from .utils.prompt import encode_long_prompt
 
 _DTYPES = {'bfloat16': torch.bfloat16, 'float16': torch.float16, 'float32': torch.float32}
 TEXT_DIRS = ('text_encoder', 'text_encoder_2')
+_DIT_CONFIGS = {'pixart': PixArtConfig, 'hunyuan': HunyuanConfig, 'flux': FluxConfig}
+#: the families whose single step is the pipeline's one forward: no
+#: 'vae-out', no ``denoising_from``
+_PIPELINE_DRIVEN = ('hunyuan', 'flux')
 
 
 def _adapt_spec_to_checkpoint(spec: ModelSpec, weights: str) -> ModelSpec:
@@ -87,12 +99,11 @@ def _adapt_spec_to_checkpoint(spec: ModelSpec, weights: str) -> ModelSpec:
         return os.path.exists(os.path.join(weights, component, 'config.json'))
 
     try:
-        if spec.family in ('pixart', 'hunyuan'):
-            dit = PixArtConfig if spec.family == 'pixart' else HunyuanConfig
+        if spec.family in _DIT_CONFIGS:
             if has('transformer'):
-                updates['dit'] = dit.from_diffusers_config(
+                updates['dit'] = _DIT_CONFIGS[spec.family].from_diffusers_config(
                     load_component_config(weights, 'transformer'))
-            # T5 sits in text_encoder_2 where BERT comes first (HunyuanDiT)
+            # T5 sits in text_encoder_2 where BERT or CLIP comes first
             t5_dir = 'text_encoder' if spec.family == 'pixart' else 'text_encoder_2'
             if has(t5_dir):
                 updates['t5'] = T5Config.from_diffusers_config(
@@ -129,7 +140,9 @@ class FeatureExtractor:
     its config.json files, and each module is filled straight from the
     files, with no random init (HunyuanDiT: ``transformer``, ``vae``,
     ``text_encoder`` (BERT), ``text_encoder_2`` (mT5), ``tokenizer/vocab.txt``
-    and ``tokenizer_2/spiece.model``).  weights_variant: the weight set to load
+    and ``tokenizer_2/spiece.model``; Flux: ``transformer``, ``vae``,
+    ``text_encoder`` (CLIP-L), ``text_encoder_2`` (T5), ``tokenizer`` and
+    ``tokenizer_2/spiece.model``).  weights_variant: the weight set to load
     ('fp16', 'bf16', ..., 'main'), falling back per component to the
     un-suffixed set.  Without weights, models initialise at random from
     ``seed``.  offline_lora (with offline_lora_filename): a LoRA merged
@@ -217,7 +230,7 @@ class FeatureExtractor:
         pixart = spec.family == 'pixart'
         # the DiT keeps the facade's attribute name of the denoiser
         denoiser = {'pixart': PixArtTransformer2D, 'hunyuan': HunyuanDiT2D,
-                    'unet': UNet2DConditionModel}[spec.family]
+                    'flux': FluxTransformer2D, 'unet': UNet2DConditionModel}[spec.family]
         self.unet = build(lambda: denoiser(spec.unet if denoiser is UNet2DConditionModel
                                            else spec.dit, self.taps, self._attn_sizes,
                                            categories),
@@ -247,6 +260,13 @@ class FeatureExtractor:
                 load_clip_tokenizer(d if d and os.path.isdir(d) else None,
                                     vocab_size=c.vocab_size, pad_with_eos=(i == 0))
                 for i, (d, c) in enumerate(zip(tok_dirs, spec.text_encoders)))
+            if spec.family == 'flux':
+                # T5 after CLIP-L, over prompt_max_length tokens
+                self.text_encoders += (build(lambda: T5EncoderModel(spec.t5), 'text_encoder_2',
+                                             t5_checkpoint_state),)
+                self.tokenizers += (load_t5_tokenizer(tok_dirs[1],
+                                                      model_max_length=spec.prompt_max_length,
+                                                      vocab_size=spec.t5.vocab_size),)
         if offline_lora:
             apply_lora_to_module(self.unet, offline_lora, offline_lora_filename)
         if validate_layers and not self.taps.accept_all:
@@ -290,6 +310,9 @@ class FeatureExtractor:
         elif spec.family == 'hunyuan':
             comps = [('transformer', self.unet, spec.dit), ('vae', self.vae, spec.vae),
                      *zip(TEXT_DIRS, self.text_encoders, (spec.bert, spec.t5))]
+        elif spec.family == 'flux':
+            comps = [('transformer', self.unet, spec.dit), ('vae', self.vae, spec.vae),
+                     *zip(TEXT_DIRS, self.text_encoders, (spec.text_encoders[0], spec.t5))]
         else:
             comps = [('unet', self.unet, spec.unet), ('vae', self.vae, spec.vae),
                      *zip(TEXT_DIRS, self.text_encoders, spec.text_encoders)]
@@ -307,9 +330,9 @@ class FeatureExtractor:
         suggestions (the reference silently drops unknown ids)."""
         known = declared_ids(self.unet)
         # 'attn' is assembled only when attention categories were requested;
-        # the pipeline-driven HunyuanDiT path decodes no 'vae-out'
+        # the pipeline-driven HunyuanDiT and Flux paths decode no 'vae-out'
         pseudo = ({'attn'} if self.attention else set()) | (
-            set() if self.spec.family == 'hunyuan' else {'vae-out'})
+            set() if self.spec.family in _PIPELINE_DRIVEN else {'vae-out'})
         unknown = [i for i in sorted(self.taps.ids)
                    if i not in known and i not in pseudo and not is_filtered_id(i)]
         if not unknown:
@@ -351,7 +374,9 @@ class FeatureExtractor:
         (1, L) attention masks (diffusion_feature.py:195-202).  HunyuanDiT:
         ((BERT embeddings, mask), (T5 embeddings, mask)) of the prompt alone,
         as the JAX facade's ``_encode_hunyuan`` (its two streams travel
-        together; ``sample`` encodes the empty negative itself)."""
+        together; ``sample`` encodes the empty negative itself).  Flux:
+        (T5 embeddings, None, CLIP pooled, None), the JAX facade's
+        ``_encode_flux`` (no negative: Flux runs no CFG)."""
         if (prompt_str is None) == (prompt_file is None):
             raise ValueError('pass exactly one of prompt_str and prompt_file')
         if prompt_file:
@@ -361,6 +386,8 @@ class FeatureExtractor:
             return (*self._encode_masked(prompt_str), *self._encode_masked(''))
         if self.spec.family == 'hunyuan':
             return self._encode_hunyuan(prompt_str)
+        if self.spec.family == 'flux':
+            return self._encode_flux(prompt_str)
         if len(prompt_str.split(' ')) > 70:
             # the first tokenizer and encoder alone, in chunks: no pooled embedding
             self._require_text_encoders()
@@ -407,6 +434,20 @@ class FeatureExtractor:
         """((BERT embeddings, mask), (T5 embeddings, mask)) of ``text``."""
         return self._encode_masked(text, 0), self._encode_masked(text, 1)
 
+    @torch.inference_mode()
+    def _encode_flux(self, text: str):
+        """(T5 embeddings (1, L, 4096), None, CLIP-L pooled (1, 768), None)
+        of ``text``: the T5 sees its ids without a mask, as in the JAX
+        facade."""
+        self._require_text_encoders()
+        (clip_tok, t5_tok), (clip, t5) = self.tokenizers, self.text_encoders
+        ids = torch.tensor(clip_tok([text]), dtype=torch.long,
+                           device=next(clip.parameters()).device)
+        _, pooled, _ = clip(ids)
+        t5_ids, _ = t5_tok([text])
+        pe = t5(torch.tensor(t5_ids, dtype=torch.long, device=next(t5.parameters()).device))
+        return pe.to(self.device), None, pooled.to(self.device), None
+
     def offload_prompt_encoder(self, persistent: bool = False):
         """Free the text encoders' device memory (reference
         diffusion_feature.py:209-219): moved to the CPU, or with
@@ -443,7 +484,9 @@ class FeatureExtractor:
         ``prompts`` carry the T5 mask second, broadcast to the batch;
         HunyuanDiT's are ``encode_prompt``'s pairs or a raw string, and its
         one forward at the DDPM timestep of ``t`` takes no
-        ``denoising_from`` and no DDIM inversion."""
+        ``denoising_from`` and no DDIM inversion; so do Flux's
+        (``encode_prompt``'s 4-tuple or a raw string, one forward at the
+        flow-match sigma of ``t``)."""
         spec = self.spec
         if use_ddim_inversion and (spec.family != 'unet'
                                    or spec.unet.addition_embed_type is not None
@@ -452,9 +495,10 @@ class FeatureExtractor:
             raise NotImplementedError(
                 'use_ddim_inversion supports the epsilon-prediction SD '
                 "U-Net families ('1-5'/'2-1'), as in the reference")
-        if spec.family == 'hunyuan' and denoising_from is not None:
-            raise ValueError('denoising_from is unavailable for the pipeline-driven hunyuan '
-                             'path (one denoiser forward at t), as in the JAX package')
+        if spec.family in _PIPELINE_DRIVEN and denoising_from is not None:
+            raise ValueError(f'denoising_from is unavailable for the pipeline-driven '
+                             f'{spec.family} path (one denoiser forward at t), as in the JAX '
+                             'package')
 
         cond = self._step_conditioning(prompts, batch_size)
         if image_type == 'image':
@@ -499,7 +543,8 @@ class FeatureExtractor:
 
     def _step_conditioning(self, prompts, batch_size: int):
         """The denoiser's conditioning object (``conditioning.py``) of
-        ``encode_prompt``'s output (HunyuanDiT's also of a raw string), on
+        ``encode_prompt``'s output (HunyuanDiT's and Flux's also of a raw
+        string), on
         the device, broadcast to ``batch_size`` and checked against the
         denoiser before any compute."""
         return CONDITIONING[self.spec.family].from_prompts(self, prompts, batch_size)
@@ -588,11 +633,38 @@ class FeatureExtractor:
         a = float(sched.alphas_cumprod[latent_t])
         return {'T': float(latent_t), 'A': float(np.sqrt(a)), 'B': float(np.sqrt(1 - a))}
 
+    def _flux_kit(self, t: int, num_inference_steps: int = 28) -> Dict[str, float]:
+        """The JAX facade's ``_flux_kit``: the first timestep T >= ``t`` of
+        the resolution-shifted ``num_inference_steps`` flow-match ladder
+        and the noising latents <- A*latents + B*noise, A = 1 - sigma(T),
+        B = sigma(T)."""
+        sched = self.scheduler
+        state = self._set_timesteps(num_inference_steps)
+        timesteps, _ = sched.get_timesteps(state, num_inference_steps, t / 1000)
+        latent_t = float(timesteps[0])
+        sigma = float(state.sigmas[sched._index(state, latent_t)])
+        return {'T': latent_t, 'A': 1.0 - sigma, 'B': sigma}
+
+    def _set_timesteps(self, num_inference_steps: int):
+        """The scheduler's state for ``num_inference_steps``; flow match's
+        ladder is shifted by the packed token count (``calculate_shift``
+        of (lat/2)^2, the stock FluxPipeline's linspace sigmas)."""
+        sched = self.scheduler
+        if not isinstance(sched, FlowMatchEulerDiscreteScheduler):
+            return sched.set_timesteps(num_inference_steps)
+        lat = self.img_size // self.vae_scale
+        return sched.set_timesteps(
+            num_inference_steps, mu=calculate_shift((lat // 2) ** 2, sched.config),
+            sigmas=np.linspace(1.0, 1.0 / num_inference_steps, num_inference_steps))
+
     def _step_kit(self, t: int) -> Dict[str, float]:
-        """The single step's kit at ``t``: HunyuanDiT's pipeline kit, whose
-        latents enter the DiT unscaled (S = 1), or the img2img kit."""
+        """The single step's kit at ``t``: HunyuanDiT's or Flux's pipeline
+        kit, whose latents enter the denoiser unscaled (S = 1), or the
+        img2img kit."""
         if self.spec.family == 'hunyuan':
             return {**self._hunyuan_kit(t), 'S': 1.0}
+        if self.spec.family == 'flux':
+            return {**self._flux_kit(t), 'S': 1.0}
         return self._img2img_kit(t)
 
     def _forward(self, lat_in, timestep, cond, out_dtype, control=None):
@@ -705,7 +777,9 @@ class FeatureExtractor:
         and follows the stock HunyuanDiT pipeline: both streams and both
         masks in [negative; positive] order, the learned sigma dropped
         before each DDPM step, whose noise comes from the noise generator
-        too.
+        too.  Flux takes a raw string or its ``encode_prompt`` result and
+        runs no CFG batch: ``guidance_scale`` * 1000 feeds the guidance
+        embedding, over the resolution-shifted flow-match schedule.
         Returns (images (B, 3, H, W) in [0, 1], features), the features
         {layer: tuple of the raw tap of every denoiser call, step-major,
         over the CFG-doubled batch} as the JAX facade returns them (no
@@ -744,7 +818,7 @@ class FeatureExtractor:
         Returns (images, {layer: tuple of per-call raw taps}, the final
         latents)."""
         sched = self.scheduler
-        state = sched.set_timesteps(num_inference_steps)
+        state = self._set_timesteps(num_inference_steps)
         do_cfg = neg is not None
         latents = noise.to(self.dtype)
         latents = latents * scalar_like(state.init_noise_sigma, latents)

@@ -2,7 +2,8 @@
 ``diffusion_feature_tpu/models/registry.py``: the U-Nets ``1-5``, ``2-1``,
 ``xl``, ``pgv2``, ``test-sd`` and ``test-xl``, the PixArt DiTs
 ``pixart-alpha``, ``pixart-sigma``, ``pixart-sigma-512`` and
-``test-pixart``, and HunyuanDiT, ``hunyuan`` and ``test-hunyuan``).
+``test-pixart``, HunyuanDiT, ``hunyuan`` and ``test-hunyuan``, and Flux,
+``flux`` and ``test-flux``).
 
 Without a weights path models initialise deterministically at random, which
 exercises every shape and the data flow at full width.  The JAX package's
@@ -17,15 +18,17 @@ from typing import Optional, Tuple, Union
 
 from ..roadmap import not_ported
 from ..schedulers.diffusion import SchedulerConfig
+from ..schedulers.flow_match import FlowMatchConfig
 from .bert_text import HUNYUAN_BERT, BertConfig, tiny_bert_config
 from .clip_text import (CLIP_VIT_L, OPENCLIP_BIGG, OPENCLIP_VIT_H, CLIPTextConfig,
                         tiny_clip_config)
 from .dit_pixart import (PIXART_ALPHA_512, PIXART_SIGMA_512, PIXART_SIGMA_1024, PixArtConfig,
                          tiny_pixart_config)
+from .flux import FLUX_DEV, FluxConfig, tiny_flux_config
 from .hunyuan import HUNYUAN_DIT, HunyuanConfig, tiny_hunyuan_config
 from .t5 import T5_XXL, T5Config, tiny_t5_config
 from .unet2d import SD15_UNET, SD21_UNET, SDXL_UNET, UNetConfig, tiny_unet_config
-from .vae import SD_VAE, SDXL_VAE, VAEConfig, tiny_vae_config
+from .vae import FLUX_VAE, SD_VAE, SDXL_VAE, VAEConfig, tiny_vae_config
 
 SD_SCHED = SchedulerConfig(beta_start=0.00085, beta_end=0.012, steps_offset=1)
 XL_SCHED = SchedulerConfig(beta_start=0.00085, beta_end=0.012, steps_offset=1,
@@ -42,27 +45,29 @@ HUNYUAN_MT5 = T5Config(vocab_size=250112, d_model=2048, d_ff=5120, num_layers=24
 
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
-    """A model: its family ('unet' | 'pixart' | 'hunyuan'), scheduler
-    ('euler' | 'pndm' | 'dpmsolver' | 'ddpm') and VAE, and the family's
-    denoiser and text encoders.
+    """A model: its family ('unet' | 'pixart' | 'hunyuan' | 'flux'),
+    scheduler ('euler' | 'pndm' | 'dpmsolver' | 'ddpm' | 'flowmatch') and
+    VAE, and the family's denoiser and text encoders.
     U-Nets: ``unet`` and CLIP encoders whose chosen hidden states are
     concatenated: 'final' (the final-layernormed output, no pooled
     embedding; SD-1.5, SD-2.1) or 'penultimate' (hidden_states[-2], with
     the last encoder's pooled output; SDXL, Playground v2).  PixArt: the
     DiT ``dit`` and the T5 encoder ``t5`` over ``prompt_max_length``
     tokens.  HunyuanDiT: the DiT ``dit``, BERT ``bert`` over the DiT's
-    ``text_len`` tokens and the mT5 ``t5`` over its ``text_len_t5``."""
+    ``text_len`` tokens and the mT5 ``t5`` over its ``text_len_t5``.  Flux:
+    the transformer ``dit``, CLIP-L (its pooled output) and the T5 ``t5``
+    over ``prompt_max_length`` tokens."""
     version: str
     family: str
     hf_id: str                         # provenance only; nothing is downloaded
     scheduler: str
-    scheduler_config: SchedulerConfig
+    scheduler_config: Union[SchedulerConfig, FlowMatchConfig]
     default_img_size: int
     vae: VAEConfig
     unet: Optional[UNetConfig] = None
     text_encoders: Tuple[CLIPTextConfig, ...] = ()
     clip_layer: str = 'final'
-    dit: Optional[Union[PixArtConfig, HunyuanConfig]] = None
+    dit: Optional[Union[PixArtConfig, HunyuanConfig, FluxConfig]] = None
     t5: Optional[T5Config] = None
     bert: Optional[BertConfig] = None
     prompt_max_length: int = 77
@@ -81,6 +86,12 @@ def _pixart(version, hf_id, dit, vae, size, prompt_max_length, t5=T5_XXL):
 def _hunyuan(version, hf_id, dit, vae, bert, t5, size, prompt_max_length):
     return ModelSpec(version, 'hunyuan', hf_id, 'ddpm', HUNYUAN_SCHED, size, vae, dit=dit,
                      t5=t5, bert=bert, prompt_max_length=prompt_max_length)
+
+
+def _flux(version, hf_id, dit, vae, clip, t5, size, prompt_max_length):
+    return ModelSpec(version, 'flux', hf_id, 'flowmatch', FlowMatchConfig(), size, vae,
+                     text_encoders=(clip,), dit=dit, t5=t5,
+                     prompt_max_length=prompt_max_length)
 
 
 _REGISTRY = {spec.version: spec for spec in (
@@ -110,10 +121,14 @@ _REGISTRY = {spec.version: spec for spec in (
              HUNYUAN_BERT, HUNYUAN_MT5, 1024, 77),
     _hunyuan('test-hunyuan', '(random-init test model)', tiny_hunyuan_config(),
              tiny_vae_config(), tiny_bert_config(), tiny_t5_config(), 64, 8),
+    _flux('flux', 'black-forest-labs/FLUX.1-dev', FLUX_DEV, FLUX_VAE, CLIP_VIT_L, T5_XXL, 1024,
+          512),
+    _flux('test-flux', '(random-init test model)', tiny_flux_config(),
+          tiny_vae_config(latent_channels=4), tiny_clip_config(32), tiny_t5_config(), 64, 16),
 )}
 
 
-_UNPORTED = dict.fromkeys(('flux', 'if', 'test-flux', 'test-if'), 'DiT families')
+_UNPORTED = dict.fromkeys(('if', 'test-if'), 'DiT families')
 
 
 def get_model_spec(version: str) -> ModelSpec:

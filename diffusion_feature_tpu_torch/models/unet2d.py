@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..roadmap import not_ported
 from ..taps import EMPTY, TapSite, TapSpec, child_id
 from .layers import (
     Attention, AttnStoreCfg, Downsample2D, ResnetBlock2D, TimestepEmbedding, Transformer2DModel,
@@ -56,8 +57,15 @@ class UNetConfig:
         """Adapt a diffusers unet/config.json, as the JAX package does
         (fine-tunes may deviate from the presets).  diffusers names the
         head count ``attention_head_dim`` and leaves ``num_attention_heads``
-        null; either is read.  A null ``upcast_attention`` reads as false."""
+        null; either is read.  A null ``upcast_attention`` reads as false.
+        Block types other than the SD U-Nets' (DeepFloyd-IF's ResNet and
+        SimpleCrossAttn blocks) raise NotImplementedError naming the
+        ROADMAP.md item that ports them."""
         n_blocks = len(d.get('block_out_channels', SD15_UNET.block_out_channels))
+        for btype in (*d.get('down_block_types', ()), *d.get('up_block_types', ())):
+            if btype not in ('CrossAttnDownBlock2D', 'DownBlock2D', 'CrossAttnUpBlock2D',
+                             'UpBlock2D'):
+                raise not_ported(f'a U-Net with {btype} blocks (DeepFloyd-IF)', 'DiT families')
 
         def per_block(v, default):
             if v is None:

@@ -1,6 +1,8 @@
 """AutoencoderKL (port of ``diffusion_feature_tpu/models/vae.py``), NCHW,
 diffusers key names: the encoder with the posterior sample, and the decoder
 behind ``post_quant_conv`` that the facade's 'vae-out' pseudo-layer runs.
+Flux's VAE (``FLUX_VAE``: 16 latent channels, a shift factor) has no
+quant convs (``use_quant_conv=False``).
 """
 
 from __future__ import annotations
@@ -14,7 +16,6 @@ from torch import nn
 
 from ..ops.attention import attention_fused
 from ..ops.resize import interpolate_nearest_nchw
-from ..roadmap import not_ported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,13 +28,13 @@ class VAEConfig:
     norm_eps: float = 1e-6
     scaling_factor: float = 0.18215
     shift_factor: float = 0.0
+    # the 1x1 quant_conv and post_quant_conv around the latent bottleneck
+    # (diffusers' default); Flux's VAE has neither
+    use_quant_conv: bool = True
 
     @staticmethod
     def from_diffusers_config(d: dict) -> 'VAEConfig':
-        """Adapt a diffusers vae/config.json, as the JAX package does.  A VAE
-        without the quant convs (Flux's) is not ported."""
-        if not d.get('use_quant_conv', True):
-            raise not_ported('a VAE without quant_conv (use_quant_conv: false)', 'DiT families')
+        """Adapt a diffusers vae/config.json, as the JAX package does."""
         return VAEConfig(
             in_channels=d.get('in_channels', 3),
             out_channels=d.get('out_channels', 3),
@@ -42,6 +43,7 @@ class VAEConfig:
             layers_per_block=d.get('layers_per_block', 2),
             scaling_factor=d.get('scaling_factor', 0.18215),
             shift_factor=d.get('shift_factor') or 0.0,
+            use_quant_conv=d.get('use_quant_conv', True),
         )
 
     def to_diffusers_config(self) -> dict:
@@ -52,6 +54,8 @@ class VAEConfig:
 
 SD_VAE = VAEConfig()
 SDXL_VAE = VAEConfig(scaling_factor=0.13025)
+FLUX_VAE = VAEConfig(latent_channels=16, scaling_factor=0.3611, shift_factor=0.1159,
+                     use_quant_conv=False)
 
 
 def tiny_vae_config(latent_channels: int = 4) -> VAEConfig:
@@ -204,7 +208,8 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """Encoder + quant_conv and post_quant_conv + decoder;
+    """Encoder + quant_conv and post_quant_conv (where the config has
+    them) + decoder;
     ``forward(images, posterior_noise)`` samples the diagonal Gaussian
     posterior and returns scaled latents (the pipelines'
     ``prepare_latents``), ``decode`` maps latents back to images."""
@@ -213,17 +218,20 @@ class AutoencoderKL(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.encoder = Encoder(cfg)
-        self.quant_conv = nn.Conv2d(cfg.latent_channels * 2, cfg.latent_channels * 2, 1)
         self.decoder = Decoder(cfg)
-        self.post_quant_conv = nn.Conv2d(cfg.latent_channels, cfg.latent_channels, 1)
+        if cfg.use_quant_conv:
+            self.quant_conv = nn.Conv2d(cfg.latent_channels * 2, cfg.latent_channels * 2, 1)
+            self.post_quant_conv = nn.Conv2d(cfg.latent_channels, cfg.latent_channels, 1)
 
     def decode(self, latents):
         """Unscaled latents NCHW -> images NCHW (JAX ``AutoencoderKL.decode``)."""
-        return self.decoder(self.post_quant_conv(latents.to(self.post_quant_conv.weight.dtype)))
+        z = latents.to(self.decoder.conv_in.weight.dtype)
+        return self.decoder(self.post_quant_conv(z) if self.cfg.use_quant_conv else z)
 
     def encode_moments(self, images):
         """images NCHW in [-1, 1] -> (mean, logvar) stacked on channels."""
-        return self.quant_conv(self.encoder(images.to(self.quant_conv.weight.dtype)))
+        moments = self.encoder(images.to(self.encoder.conv_in.weight.dtype))
+        return self.quant_conv(moments) if self.cfg.use_quant_conv else moments
 
     def forward(self, images, posterior_noise):
         """``posterior_noise`` is a standard normal draw of the latent shape,

@@ -15,7 +15,7 @@ QUEUE_B = {
 }
 #: What an item still lacks, where part of it is ported.
 REMAINING = {
-    'DiT families': 'Flux and DeepFloyd-IF (PixArt and HunyuanDiT are ported)',
+    'DiT families': 'DeepFloyd-IF (PixArt, HunyuanDiT and Flux are ported)',
 }
 
 

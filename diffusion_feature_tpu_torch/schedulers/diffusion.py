@@ -326,11 +326,14 @@ class DPMSolverMultistepScheduler(_Scheduler):
         return prev, dataclasses.replace(state, ets=ets, counter=state.counter + 1)
 
 
-def make_scheduler(kind: str, config: SchedulerConfig):
-    """'euler', 'pndm', 'ddim', 'ddpm' or 'dpmsolver'
+def make_scheduler(kind: str, config):
+    """'euler', 'pndm', 'ddim', 'ddpm', 'dpmsolver' (``config`` a
+    ``SchedulerConfig``) or 'flowmatch' (a ``flow_match.FlowMatchConfig``)
     (``models.registry.ModelSpec.scheduler``)."""
+    from .flow_match import FlowMatchEulerDiscreteScheduler   # it imports this module
     return {'euler': EulerDiscreteScheduler, 'pndm': PNDMScheduler, 'ddim': DDIMScheduler,
-            'ddpm': DDPMScheduler, 'dpmsolver': DPMSolverMultistepScheduler}[kind](config)
+            'ddpm': DDPMScheduler, 'dpmsolver': DPMSolverMultistepScheduler,
+            'flowmatch': FlowMatchEulerDiscreteScheduler}[kind](config)
 
 
 def scalar_like(value: float, like: torch.Tensor) -> torch.Tensor:

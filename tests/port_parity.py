@@ -32,6 +32,7 @@ from diffusion_feature_tpu.models.bert_text import BertTextModel
 from diffusion_feature_tpu.models.clip_text import CLIPTextModel
 from diffusion_feature_tpu.models.convert import convert_torch_state
 from diffusion_feature_tpu.models.dit_pixart import PixArtTransformer2D
+from diffusion_feature_tpu.models.flux import FluxTransformer2D
 from diffusion_feature_tpu.models.hunyuan import HunyuanDiT2D
 from diffusion_feature_tpu.models.registry import get_model_spec
 from diffusion_feature_tpu.models.t5 import T5EncoderModel
@@ -60,6 +61,18 @@ def _param_shapes(spec, unet, vae, text_encoders):
             t5_ids = jnp.zeros((1, cfg.text_len_t5), jnp.int32)
             text = [text_encoders[0].init(rng, ids)['params'],
                     text_encoders[1].init(rng, t5_ids)['params']]
+            return {'unet': denoiser, 'text': text,
+                    'vae': vae.init(rng, jnp.zeros((1, 3, 16, 16)),
+                                    method=AutoencoderKL.full_pass)['params']}
+        if spec.family == 'flux':
+            # the token count must match the transformer's RoPE grid
+            gh, gw = unet.grid_hw
+            denoiser = unet.init(rng, jnp.zeros((1, gh * gw, spec.dit.in_channels)), 50.0,
+                                 jnp.zeros((1, spec.prompt_max_length, spec.t5.d_model)),
+                                 jnp.zeros((1, spec.dit.pooled_projection_dim)))['params']
+            text = [text_encoders[0].init(rng, jnp.zeros((1, 77), jnp.int32))['params'],
+                    text_encoders[1].init(
+                        rng, jnp.zeros((1, spec.prompt_max_length), jnp.int32))['params']]
             return {'unet': denoiser, 'text': text,
                     'vae': vae.init(rng, jnp.zeros((1, 3, 16, 16)),
                                     method=AutoencoderKL.full_pass)['params']}
@@ -116,7 +129,7 @@ def _draw(shapes, seed):
 
 
 def jax_facade(layer, version: str, img_size: int, seed: int = 0, **kwargs):
-    """The JAX facade of a U-Net, PixArt or HunyuanDiT ``version`` at fp32
+    """The JAX facade of a U-Net, PixArt, HunyuanDiT or Flux ``version`` at fp32
     with fp32 features (``train_unet=True`` only drops its bf16 feature cast), random
     parameters drawn from ``seed``.  ``kwargs`` go to the facade (e.g.
     ``attention=``, ``attn_store_sizes=``, ``validate_layers=``)."""
@@ -129,6 +142,16 @@ def jax_facade(layer, version: str, img_size: int, seed: int = 0, **kwargs):
         tokenizers = (load_bert_tokenizer(None, model_max_length=spec.dit.text_len,
                                           vocab_size=spec.bert.vocab_size),
                       load_t5_tokenizer(None, model_max_length=spec.dit.text_len_t5,
+                                        vocab_size=spec.t5.vocab_size))
+    elif spec.family == 'flux':
+        # the facade's build (facade.py:351-372): the packed grid of img_size
+        grid = img_size // 2 ** (len(spec.vae.block_out_channels) - 1) // 2
+        unet = FluxTransformer2D(cfg=spec.dit, grid_hw=(grid, grid),
+                                 text_len=spec.prompt_max_length, dtype=jnp.float32)
+        text_encoders = (CLIPTextModel(cfg=spec.text_encoders[0], dtype=jnp.float32),
+                         T5EncoderModel(cfg=spec.t5, dtype=jnp.float32))
+        tokenizers = (load_clip_tokenizer(None, vocab_size=spec.text_encoders[0].vocab_size),
+                      load_t5_tokenizer(None, model_max_length=spec.prompt_max_length,
                                         vocab_size=spec.t5.vocab_size))
     elif spec.family == 'pixart':
         unet = PixArtTransformer2D(cfg=spec.dit, dtype=jnp.float32)

@@ -77,9 +77,15 @@ def _attention_shapes(spec, img):
     VAE at ``img``^2, batch 2: the U-Net's self- and cross-attention per
     level or the DiT's over its patch tokens (cross over the T5 tokens;
     HunyuanDiT's over BERT's and T5's, and its T5 pool's one query over
-    the mean and T5 tokens), and the VAE's mid-block head."""
+    the mean and T5 tokens; Flux's joint attention over the T5 and packed
+    image tokens), and the VAE's mid-block head."""
     lat = img // 2 ** (len(spec.vae.block_out_channels) - 1)
-    if spec.family == 'hunyuan':
+    if spec.family == 'flux':
+        cfg = spec.dit
+        joint = (2, cfg.num_attention_heads, spec.prompt_max_length + (lat // 2) ** 2,
+                 cfg.attention_head_dim)
+        yield joint, joint
+    elif spec.family == 'hunyuan':
         cfg = spec.dit
         h, d, s = cfg.num_attention_heads, cfg.head_dim, (lat // cfg.patch_size) ** 2
         yield (2, h, s, d), (2, h, s, d)

@@ -48,8 +48,6 @@ def test_show_all_layers_matches_enumeration():
 
 def test_enumeration_of_unported_version_names_its_item():
     with pytest.raises(NotImplementedError, match="Queue A item 9: 'DiT families'"):
-        enumerate_layers('flux', 1024)
-    with pytest.raises(NotImplementedError, match="Queue A item 9: 'DiT families'"):
         enumerate_layers('if', 64)
 
 
@@ -337,14 +335,15 @@ def test_weight_flags_match_jax_cli(monkeypatch, tmp_path, images, checkpoint, f
 
 @pytest.mark.parametrize('flags,item', [
     # ControlNet is ported; on an unported DiT family the version raises
-    (['--control', 'canny', '--version', 'test-flux'], 9), (['--dp', '2'], 11),
-    (['--tp', '2'], 11), (['--sp', '2'], 11), (['--transformer_8bit', 'true'], 9),
+    (['--control', 'canny', '--version', 'test-if'], 'A item 9'), (['--dp', '2'], 'A item 11'),
+    (['--tp', '2'], 'A item 11'), (['--sp', '2'], 'A item 11'),
+    (['--transformer_8bit', 'true'], 'B item 3'),
 ], ids=['control', 'dp', 'tp', 'sp', 'transformer_8bit'])
 def test_unported_flags_raise(tmp_path, images, flags, item):
     args = ['--version', 'test-sd', '--img_size', '64', '--device', 'cpu', '--prompt', 'a',
             '--input_dir', str(images / 'imgA.png'), '--output_dir', str(tmp_path), '--layer',
             '{"mid-vit-out": true}', *flags]
-    with pytest.raises(NotImplementedError, match=f'ROADMAP.md, Queue A item {item}:'):
+    with pytest.raises(NotImplementedError, match=f'ROADMAP.md, Queue {item}:'):
         port_cli.main(args)
     assert os.listdir(tmp_path) == []
 

@@ -687,3 +687,58 @@ def test_hunyuan_step_routes_self_attention_to_b1(cuda, taps, launches):
             ref = dit(x, 500.0, bert, bmask, t5, tmask)
     assert out.shape == (2, 8, 64, 64) and torch.isfinite(out.float()).all()
     assert _rel_l2(out, ref) <= _TOL[torch.bfloat16]
+
+
+_FLUX_B1 = [(2, 24, 4608, 4608, 128), (1, 24, 4608, 4608, 128), (2, 24, 1536, 1536, 128),
+            (1, 24, 1536, 1536, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', _FLUX_B1, ids=['1024-b2', '1024-b1', '512-b2', '512-b1'])
+def test_kernel_matches_twin_at_flux_shapes(cuda, shape):
+    """B1 at Flux's joint attention in bf16: 512 T5 + 4096 image tokens at
+    1024^2 (18 x 256, 36 query and 72 key tiles) and 512 + 1024 at 512^2,
+    24 heads x 128, on the contiguous q/k/v that the concatenation and
+    RoPE leave; elementwise and in relative L2."""
+    d = shape[-1]
+    q, k, v = _qkv(cuda, torch.bfloat16, *shape, seed=16)
+    fa.launches = 0
+    out = fa.flash_attention(q, k, v, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.launches == 1
+    _assert_matches(out, fa.flash_attention_reference(q, k, v, d ** -0.5), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('taps,launches', [({}, 2), ({'vit-block1-self-map': True}, 1)],
+                         ids=['fused', 'self-map'])
+def test_flux_step_routes_joint_attention_to_b1(cuda, taps, launches):
+    """Flux.1-dev's transformer at full width (24 heads x 128, the T5 and
+    CLIP widths) cut to one dual and one single block, on a 512^2 image's
+    packed 32^2 grid, batch 2: each block's joint attention over 512 + 1024
+    tokens launches B1 (a '-map' tap keeps its block explicit, as in JAX),
+    and the prediction is within the bf16 tolerance, in relative L2, of the
+    same forward on B1's twin."""
+    import dataclasses
+    from diffusion_feature_tpu_torch.models.convert import random_module
+    from diffusion_feature_tpu_torch.models.flux import FLUX_DEV, FluxTransformer2D
+    from diffusion_feature_tpu_torch.taps import TapSpec
+    cfg = dataclasses.replace(FLUX_DEV, num_layers=1, num_single_layers=1)
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    dit = random_module(lambda: FluxTransformer2D(cfg, TapSpec.from_config(taps) if taps
+                                                  else TapSpec()), cuda, torch.bfloat16, gen)
+    x = torch.randn(2, 1024, 64, generator=gen, device=cuda)
+    t5 = torch.randn(2, 512, 4096, generator=gen, device=cuda).bfloat16()
+    pooled = torch.randn(2, 768, generator=gen, device=cuda).bfloat16()
+    with torch.inference_mode():
+        fa.launches = fa.lse_launches = fa.headmean_launches = fa.short_launches = 0
+        feats = {}
+        out = dit(x, 500.0, t5, pooled, 3500.0, (32, 32), feats=feats)
+        torch.cuda.synchronize()
+        assert (fa.launches, fa.lse_launches, fa.headmean_launches,
+                fa.short_launches) == (launches, 0, 0, 0)
+        assert sorted(feats) == sorted(taps)
+        with _on_twins():
+            ref = dit(x, 500.0, t5, pooled, 3500.0, (32, 32))
+    assert out.shape == (2, 1024, 64) and torch.isfinite(out.float()).all()
+    assert _rel_l2(out, ref) <= _TOL[torch.bfloat16]

@@ -364,13 +364,14 @@ def test_save_weights_round_trip(pair, tmp_path, image):
 
 def test_unported_parts_name_their_items():
     """The int8 T5 is Queue B's; the DiT families' message names what of
-    item 9 remains (Flux and DeepFloyd-IF, HunyuanDiT being ported)."""
+    item 9 remains (DeepFloyd-IF, HunyuanDiT and Flux being ported)."""
     from diffusion_feature_tpu_torch.models.t5 import T5EncoderModel, tiny_t5_config
     cfg = dataclasses.replace(tiny_t5_config(), quantize_int8=True)
     with pytest.raises(NotImplementedError, match="Queue B item 3: 'Int8 weight-only dense'"):
         T5EncoderModel(cfg)
-    with pytest.raises(NotImplementedError, match='Flux and DeepFloyd-IF'):
-        get_model_spec('flux')
+    with pytest.raises(NotImplementedError,
+                       match=r'DeepFloyd-IF \(PixArt, HunyuanDiT and Flux are ported\)'):
+        get_model_spec('if')
 
 
 def test_generation_cli_on_test_pixart(tmp_path):

@@ -158,11 +158,11 @@ def test_layer_validation_suggests_near_miss():
 
 
 @pytest.mark.parametrize('kwargs,item', [
-    # ControlNet, PixArt and HunyuanDiT are ported; on an unported DiT family
-    # the version raises
-    ({'weights': 'use_quant_conv'}, 'A item 9'),
-    ({'control': ['canny'], 'version': 'test-flux'}, 'A item 9'),
-    ({'attention': ['up_cross'], 'version': 'flux'}, 'A item 9'), ({'version': 'if'}, 'A item 9'),
+    # ControlNet, PixArt, HunyuanDiT and Flux are ported; on an unported DiT
+    # family (DeepFloyd-IF) the version raises
+    ({'weights': 'SimpleCrossAttnDownBlock2D'}, 'A item 9'),
+    ({'control': ['canny'], 'version': 'test-if'}, 'A item 9'),
+    ({'attention': ['up_cross'], 'version': 'if'}, 'A item 9'), ({'version': 'if'}, 'A item 9'),
     # the JAX facade's keywords at other values than their defaults
     ({'train_unet': True}, 'A item 10'), ({'external_model': object()}, 'A item 15'),
     ({'mesh': object()}, 'A item 11'), ({'t5_8bit': True}, 'B item 3'),
@@ -173,9 +173,10 @@ def test_unported_options_raise(tmp_path, kwargs, item):
     args = dict(layer={'mid-vit-out': True}, version='test-xl', device='cpu', img_size=SIZE)
     args.update(kwargs)
     if 'weights' in kwargs:
-        # a checkpoint whose VAE has no quant convs, as Flux's (Queue A item 9)
-        (tmp_path / 'vae').mkdir()
-        (tmp_path / 'vae' / 'config.json').write_text('{"use_quant_conv": false}')
+        # a checkpoint whose U-Net has DeepFloyd-IF's blocks (Queue A item 9)
+        (tmp_path / 'unet').mkdir()
+        (tmp_path / 'unet' / 'config.json').write_text(
+            '{"down_block_types": ["ResnetDownsampleBlock2D", "SimpleCrossAttnDownBlock2D"]}')
         args['weights'] = str(tmp_path)
     with pytest.raises(NotImplementedError, match=f'ROADMAP.md, Queue {item}:'):
         FeatureExtractor(**args)

@@ -251,8 +251,10 @@ def test_vae_config_adapter_equals_jax(cfg, preset):
     ours = vae.VAEConfig.from_diffusers_config(cfg)
     _same_fields(ours, jvae.VAEConfig.from_diffusers_config(cfg))
     assert ours == preset
-    with pytest.raises(NotImplementedError, match='Queue A item 9'):
-        vae.VAEConfig.from_diffusers_config({**cfg, 'use_quant_conv': False})
+    # a VAE without quant convs (Flux's) adapts as in JAX
+    no_quant = vae.VAEConfig.from_diffusers_config({**cfg, 'use_quant_conv': False})
+    _same_fields(no_quant, jvae.VAEConfig.from_diffusers_config({**cfg, 'use_quant_conv': False}))
+    assert no_quant == dataclasses.replace(preset, use_quant_conv=False)
 
 
 VIT_L_JSON = {'architectures': ['CLIPTextModel'], 'hidden_act': 'quick_gelu',

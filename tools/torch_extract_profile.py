@@ -158,7 +158,7 @@ def main() -> int:
             'top_other_ms': {k: round(v, 3) for k, v in
                              sorted(other.items(), key=lambda kv: -kv[1])[:8]},
         }), flush=True)
-        del fe
+        del fe, run   # the call holds the extractor too (Flux's is ~34 GB)
         torch.cuda.empty_cache()
     return 0
 
