@@ -154,6 +154,30 @@ Phases (each prints its numbers on lines of its own):
      batch: the guidance embedding takes it): 28 x 57 B1, the sample timed,
      then a 4-step sample on the kernels and on the twins within
      MULTISTEP_REL_TOL.  Counts from dit_launches.
+ 17. DeepFloyd IF (after 16), random weights from seed 0, the JAX
+     benchmark's taps (up-level{1,2}-repeat0-res-out, unet-out): (a) 'if'
+     at its native 64^2, batch 2, t=50 (the IF-I-L preset in pixel space,
+     T5-XXL over 77 tokens): 0/0/0/0 launches (every added-KV attention
+     has 77 + S keys, which the gate refuses: if_launches derives the
+     counts through it), the enumerated shapes, its timing (ms, host
+     enqueue, peak GiB); (b) the same step in fp32 with the same weights
+     and draws: relative L2 and cosine per tap (no kernel, so no twin
+     check), then a 4-step sample with CFG in bf16 against fp32 within
+     MULTISTEP_REL_TOL; (c) denoising_from=60 (10 thresholded walk steps,
+     then the tapped forward): 0/0/0/0, shapes, timing; (d) its tree
+     written by save_weights (unet, T5-XXL in IF_TEXT_SHARDS files, no
+     VAE) and loaded back: parameters, prompts and the first public
+     extract torch.equal, load peak within LOAD_PEAK_RATIO, then the CLI
+     on the tree over 3 images; (e) generate_with_extraction on 'if' at
+     64^2 with the taps, 50 DDPM steps, guidance 7.0 (CFG batch 2): the
+     kept calls, 0 launches, the sample timed.
+ 18. external_model (after phase 8, on phase 3's SDXL extractor): a
+     second extractor with phase 6's request ('xl-practical',
+     attention=['up_self']) over phase 3's tensors: under 1% added to
+     torch.cuda.memory_allocated, every parameter's data_ptr the
+     source's, phase 6's launch counts (35/36/36/0), the source's next
+     extract still its own taps only; in phase 6, its first extract
+     torch.equal to phase 6's fresh extractor's (same request and seed).
 Phase 2 also holds B2 and B3 in fp32 at phase 11's store shape (the fp32
 kernels, timed against the fp32 non-tensor peak), and B4 (short
 attention), which no path routes to, as in the JAX package: against its
@@ -285,6 +309,10 @@ HUNYUAN_TAPS = dict.fromkeys(('vit-block13-self-q', 'vit-block20-self-q', 'vit-b
 # phase 16: the JAX benchmark's Flux taps (bench.py:268-273)
 FLUX_TAPS = dict.fromkeys(('vit-block18-out', 'vit-block18-q', 'vit-block37-out',
                            'vit-block56-out'), True)
+# phase 17: the JAX benchmark's IF taps (bench.py:413-417) at 64^2, batch 2
+IF_FEATS = {'up-level1-repeat0-res-out': (2, 512, 16, 16),
+            'up-level2-repeat0-res-out': (2, 256, 32, 32), 'unet-out': (2, 6, 64, 64)}
+IF_TAPS = dict.fromkeys(IF_FEATS, True)
 # the paths phases 3 to 6 and 9 to 11 drive, at random weights from seed 0,
 # bf16, batch 2, t=50: FeatureExtractor's arguments, extract's arguments
 # beyond t (none: the single step), the B1/B2/B3 launches of one extract,
@@ -346,6 +374,12 @@ PATHS = {
                              'attn': (2, 512 + 4096, 128, 128)}},
     'flux_512': {'args': dict(layer=FLUX_TAPS, version='flux', img_size=512),
                  'launches': None, 'feats': dict.fromkeys(FLUX_TAPS, (2, 3072, 32, 32))},
+    # phase 17, DeepFloyd IF: the JAX benchmark's taps; no kernel (if_launches)
+    'if': {'args': dict(layer=IF_TAPS, version='if', img_size=64), 'launches': None,
+           'feats': IF_FEATS},
+    'if_ms': {'args': dict(layer=IF_TAPS, version='if', img_size=64),
+              'extract': dict(denoising_from=60), 'launches': None, 'feats': IF_FEATS,
+              'calls': 5},
 }
 # phase 11's DDIM inversion extract: 5 inverted steps (timesteps 11 to 51,
 # the first >= 49) through the plain U-Net, 10 B1 each, then the last forward
@@ -423,6 +457,16 @@ FLUX_TREE_PATH, FLUX_TRANSFORMER_SHARDS, FLUX_TEXT_SHARDS = 'flux', 4, 2
 FLUX_GEN_ARGS = ['--version', 'flux', '--img_size', '512', '--layer', json.dumps(FLUX_TAPS),
                  '--steps', '28', '--guidance_scale', '3.5', '--store_steps', '1', '10', '20',
                  '28']
+# phase 17: IF.  (d) the tree (~10 GB in bf16: the U-Net, T5-XXL in
+# IF_TEXT_SHARDS files) and the CLI on it; (e) the generation CLI at 64^2
+# with the benchmark's taps, 50 DDPM steps and guidance 7.0 (the IF
+# pipeline's), the other flags at their defaults
+IF_TREE_PATH, IF_TEXT_SHARDS = 'if', 2
+IF_GEN_ARGS = ['--version', 'if', '--img_size', '64', '--layer', json.dumps(IF_TAPS),
+               '--guidance_scale', '7.0']
+# phase 18: external_model on phase 3's extractor with phase 6's request
+EXTERNAL_SOURCE, EXTERNAL_PATH = 'xl', 'xl_store'
+EXTERNAL_MEMORY_RATIO = 0.01   # what the second extractor may add to the allocated bytes
 
 
 def card_line() -> str:
@@ -739,10 +783,9 @@ def injected_step(torch, fe, prompts, images, denoising_from=None, use_ddim_inve
     ``fe._multistep``) at t=50 on standard-normal noise drawn from seed 2,
     with ``prompts`` unpacked as ``extract`` unpacks them."""
     bsz = images.shape[0]
-    lat = fe.img_size // fe.vae_scale
     gen = torch.Generator(device='cuda').manual_seed(2)
     cond = fe._step_conditioning(prompts, bsz)
-    shape = (bsz, fe.spec.vae.latent_channels, lat, lat)
+    shape = fe.latent_shape(bsz)
     posterior, noise = (torch.randn(shape, generator=gen, device='cuda') for _ in range(2))
     if denoising_from is None and not use_ddim_inversion:
         return fe._step(images.to(fe.dtype), cond, fe._step_kit(50), posterior, noise,
@@ -912,8 +955,9 @@ def check_cli(torch, fa, attn_ops, card, shapes, tree):
 
 
 def module_pairs(a, b):
-    """(name, module of a, module of b) over two extractors' models."""
-    return [('unet', a.unet, b.unet), ('vae', a.vae, b.vae),
+    """(name, module of a, module of b) over two extractors' models (no VAE
+    in pixel space)."""
+    return [('unet', a.unet, b.unet), *([('vae', a.vae, b.vae)] if a.vae is not None else []),
             *((f'text_encoder{i}', x, y)
               for i, (x, y) in enumerate(zip(a.text_encoders, b.text_encoders)))]
 
@@ -1114,6 +1158,36 @@ def dit_launches(fa, fe) -> dict:
     return {'flash_attention': (0 if store else flash) + vae_b1(fa, fe.spec.vae, latent),
             'flash_attention_with_lse': lse if store else 0,
             'headmean_probs': lse if store else 0, 'short_attention': 0}
+
+
+def if_launches(fa, fe) -> dict:
+    """The four launch counts of one DeepFloyd IF forward, derived from the
+    config through the JAX package's gate (no head-width condition): each
+    added-KV attention of a SimpleCrossAttn level (and the mid block's)
+    has the level's S image tokens as queries and the prompt's tokens and
+    the image's as keys, so 77 + S keys, never a multiple of 256.  The
+    text-time pooling head is explicit, outside the gate, in both
+    packages."""
+    cfg, text = fe.spec.unet, fe.spec.prompt_max_length
+    levels = len(cfg.block_out_channels)
+    attns = [(lv, cfg.layers_per_block) for lv, kind in enumerate(cfg.down_block_types)
+             if kind == 'SimpleCrossAttnDownBlock2D']
+    attns.append((levels - 1, 1))
+    attns += [(levels - 1 - u, cfg.layers_per_block + 1) for u, kind
+              in enumerate(cfg.up_block_types) if kind == 'SimpleCrossAttnUpBlock2D']
+    n = 0
+    for level, count in attns:
+        tokens, d = (fe.img_size >> level) ** 2, cfg.attention_head_dim
+        heads = cfg.block_out_channels[level] // d
+        n += count * fa.is_flash_compatible((1, heads, tokens, d), (1, heads, text + tokens, d),
+                                            head_dims=None)
+    return only_b1(n)
+
+
+def path_launches(fa, fe) -> dict:
+    """A DiT's or IF's launch counts of one extract (dit_launches,
+    if_launches)."""
+    return if_launches(fa, fe) if fe.spec.family == 'if' else dit_launches(fa, fe)
 
 
 def only_b1(b1):
@@ -1456,6 +1530,8 @@ def describe_prompts(prompts) -> str:
     if isinstance(prompts[0], tuple):
         return '; '.join(f'{name} embeds {tuple(e.shape)}, mask with {int(m.sum())} tokens'
                          for name, (e, m) in zip(('BERT', 'T5'), prompts))
+    if prompts[2] is None and prompts[1] is not None and prompts[1].dim() == 3:
+        return f'T5 embeds {tuple(prompts[0].shape)}, negative {tuple(prompts[1].shape)}'
     if prompts[1] is None:
         return f'T5 embeds {tuple(prompts[0].shape)}, CLIP pooled {tuple(prompts[2].shape)}'
     return (f'prompt_embeds {tuple(prompts[0].shape)}, mask {tuple(prompts[1].shape)} '
@@ -1583,7 +1659,7 @@ def check_dit_tree(torch, fa, attn_ops, card, fe, prompts, images, first_feats, 
                for a, b in zip(flat_prompts(prompts), flat_prompts(loaded_prompts))):
         raise RuntimeError(f'phase {tag}: encode_prompt differs from the source')
     print(f'  encode_prompt: {len(flat_prompts(prompts))} tensors torch.equal to the source')
-    want = dit_launches(fa, loaded)
+    want = path_launches(fa, loaded)
     feats, runs[f'{name}_loaded'], shapes[f'{name}_loaded'] = drive_path(
         torch, fa, attn_ops, loaded, loaded_prompts, images, want, f'phase {tag} loaded')
     assert_equal_feats(torch, feats, first_feats,
@@ -1775,6 +1851,157 @@ def check_flux(torch, fa, attn_ops, card, shapes, runs):
                          '16e')
 
 
+def if_step_drift(torch, fe, prompts, images, card):
+    """Phase 17b: the single step in bf16 against the same step in fp32
+    (an fp32 copy of the U-Net's weights, the same T5 embeddings and the
+    same draws), relative L2 and cosine per tap, gated on finiteness; then
+    a TWIN_SAMPLE_STEPS sample with CFG in both, the images within
+    MULTISTEP_REL_TOL.  IF runs no kernel, so there is no twin to hold it
+    to."""
+    from diffusion_feature_tpu_torch import FeatureExtractor
+    t0 = time.perf_counter()
+    fe32 = FeatureExtractor(**PATHS['if']['args'], dtype='float32', device='cuda', seed=0)
+    fe32.unet.load_state_dict(fe.unet.state_dict())
+    print(f'phase 17b fp32 copy of the U-Net: {time.perf_counter() - t0:.1f} s', flush=True)
+    ours, ref = (injected_step(torch, f, prompts, images) for f in (fe, fe32))
+    for key in sorted(ref):
+        rel, cos = rel_cos(ours[key], ref[key])
+        finite = bool(torch.isfinite(ours[key].float()).all())
+        print(f'  phase 17b step bf16 vs fp32, {key}: rel_l2={rel:.4e} cosine={cos:.6f} '
+              f'finite={finite}')
+        if not finite:
+            raise RuntimeError(f'phase 17b {key}: not finite')
+    gen = torch.Generator(device='cuda').manual_seed(7)
+    shape = fe.latent_shape(1)
+    noise, *step_noise = (torch.randn(shape, generator=gen, device='cuda')
+                          for _ in range(TWIN_SAMPLE_STEPS + 1))
+    guidance = float(IF_GEN_ARGS[IF_GEN_ARGS.index('--guidance_scale') + 1])
+    pairs = [f._sample(*f._sample_conditioning(prompts, 1, guidance), noise, TWIN_SAMPLE_STEPS,
+                       guidance, step_noise) for f in (fe, fe32)]
+    rel, cos = rel_cos(pairs[0][0], pairs[1][0])
+    print(f'phase 17b {TWIN_SAMPLE_STEPS}-step sample with CFG, bf16 vs fp32: images '
+          f'rel_l2={rel:.4e} cosine={cos:.6f} (allowed {MULTISTEP_REL_TOL:g}) ({card})',
+          flush=True)
+    if not rel <= MULTISTEP_REL_TOL:
+        raise RuntimeError(f'phase 17b: bf16 sample {rel} from fp32')
+    del fe32, pairs
+    torch.cuda.empty_cache()
+
+
+def check_if(torch, fa, attn_ops, card, shapes, runs):
+    """Phase 17: DeepFloyd IF at 64^2 (a), bf16 against fp32 (b), with
+    denoising_from (c), its tree and the CLI on it (d), the generation CLI
+    and a timed 50-step sample (e)."""
+    from PIL import Image
+    from diffusion_feature_tpu_torch import generate_with_extraction
+    fe, prompts, images, gib = open_dit(torch, 'if', 17)
+    want = if_launches(fa, fe)
+    first, runs['if'], shapes['if'] = drive_path(torch, fa, attn_ops, fe, prompts, images, want,
+                                                 'phase 17a')
+    check_feats(torch, first, IF_FEATS, 'phase 17a')
+    time_extract(torch, fe, prompts, images, 'phase 17a if extract 64^2 batch 2', card)
+    if_step_drift(torch, fe, prompts, images, card)
+    kwargs = PATHS['if_ms']['extract']
+    feats, runs['if_ms'], shapes['if_ms'] = drive_path(torch, fa, attn_ops, fe, prompts, images,
+                                                       want, 'phase 17c', **kwargs)
+    check_feats(torch, feats, IF_FEATS, 'phase 17c')
+    time_extract(torch, fe, prompts, images, 'phase 17c if extract 64^2 batch 2, '
+                 'denoising_from=60', card, PATHS['if_ms']['calls'], **kwargs)
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_if_') as tree:
+        check_dit_tree(torch, fa, attn_ops, card, fe, prompts, images, first, gib, tree, shapes,
+                       runs, IF_TREE_PATH, IF_TEXT_SHARDS, 17)
+    del fe, first, feats
+    torch.cuda.empty_cache()
+
+    # (e) the generation CLI, then its extractor's sample timed
+    args = generate_with_extraction.build_parser().parse_args(IF_GEN_ARGS)
+    shapes['if_gen'] = []
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        out = io.StringIO()
+        with patched_wrappers(attn_ops, recording(shapes['if_gen'])):
+            reset_counts(fa)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                fe = generate_with_extraction.main(IF_GEN_ARGS)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            runs['if_gen'] = read_counts(fa)
+        size = Image.open(args.output).size
+    calls = len(fe.scheduler.set_timesteps(args.steps).timesteps)
+    want = only_b1(calls * if_launches(fa, fe)['flash_attention'])
+    print(f'phase 17e generate_with_extraction {" ".join(IF_GEN_ARGS[:4])} (steps {args.steps}, '
+          f'guidance {args.guidance_scale}, store_steps {args.store_steps}): {seconds:.1f} s for '
+          f'main() (model build included), image {size}; {calls} U-Net calls at CFG batch 2; '
+          f'kernel launches {runs["if_gen"]} (expected {want}) ({card})', flush=True)
+    if runs['if_gen'] != want or size != (args.img_size, args.img_size):
+        raise RuntimeError(f'phase 17e: launches {runs["if_gen"]} or image {size}')
+    kept = fe.get_background_extraction()
+    for layer, by_step in sorted(kept.items()):
+        bad = [i for i, v in by_step.items()
+               if v.shape[0] != 2 or not bool(torch.isfinite(v.float()).all())]
+        print(f'  {layer}: kept {sorted(by_step)} of {fe._background_feats[layer]["count"]}, '
+              f'{tuple(by_step[1].shape)} {by_step[1].dtype}')
+        if sorted(by_step) != sorted(args.store_steps) or bad:
+            raise RuntimeError(f'phase 17e {layer}: kept {sorted(by_step)}, bad {bad}')
+    if set(kept) != set(IF_TAPS):
+        raise RuntimeError(f'phase 17e: kept layers {sorted(kept)}')
+    gen = torch.Generator(device='cuda').manual_seed(8)
+    noise, *step_noise = (torch.randn(fe.latent_shape(1), generator=gen, device='cuda')
+                          for _ in range(args.steps + 1))
+    images, _, _, ms, gib, base = timed_sample(torch, fe, fe.encode_prompt(args.prompt), noise,
+                                               args.steps, args.guidance_scale, step_noise)
+    finite = bool(torch.isfinite(images).all())
+    print(f'phase 17e if sample timed: {ms:.2f} ms per sample, {ms / calls:.2f} ms per step '
+          f'({calls} U-Net calls at CFG batch 2, no decode: pixel space); images '
+          f'{tuple(images.shape)} in [{images.min().item():.3f}, {images.max().item():.3f}] '
+          f'finite={finite}; peak memory {gib:.2f} GiB above the {base:.2f} GiB held before it '
+          f'({card})', flush=True)
+    if not finite or images.min() < 0 or images.max() > 1:
+        raise RuntimeError('phase 17e: sample not finite or out of [0, 1]')
+    del fe, images
+    torch.cuda.empty_cache()
+
+
+def check_external(torch, fa, attn_ops, card, fe, prompts, images, shapes, runs):
+    """Phase 18: a second extractor with EXTERNAL_PATH's request over
+    ``fe``'s tensors (phase 3's, EXTERNAL_SOURCE's): the memory it adds,
+    the parameters it shares, its launch counts and features, then the
+    source's own taps.  Returns its first features, on the host, for
+    phase 6 to hold against a fresh extractor's with the same request and
+    seed (so no phase between holds them on the card)."""
+    from diffusion_feature_tpu_torch import FeatureExtractor
+    path = PATHS[EXTERNAL_PATH]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    second = FeatureExtractor(**path['args'], dtype='bfloat16', device='cuda', seed=0,
+                              external_model=fe)
+    torch.cuda.synchronize()
+    seconds, added = time.perf_counter() - t0, torch.cuda.memory_allocated() - before
+    states = [(a.state_dict(), b.state_dict()) for _, a, b in module_pairs(fe, second)]
+    total = sum(len(sa) for sa, _ in states)
+    shared = sum(sb[k].data_ptr() == t.data_ptr() for sa, sb in states for k, t in sa.items())
+    print(f'phase 18 external_model: {EXTERNAL_PATH} request over the {EXTERNAL_SOURCE} '
+          f'extractor built in {seconds:.3f} s, {added / 2 ** 20:.3f} MiB added to '
+          f'{before / 2 ** 30:.3f} GiB allocated (allowed {EXTERNAL_MEMORY_RATIO:.0%}); '
+          f'{shared} of {total} parameters share the source\'s data_ptr ({card})', flush=True)
+    if added > EXTERNAL_MEMORY_RATIO * before or shared != total:
+        raise RuntimeError(f'phase 18: {added} bytes added, {shared}/{total} shared')
+    want = {**dict(zip(WRAPPERS, path['launches'])), 'short_attention': 0}
+    feats, runs['external'], shapes['external'] = drive_path(
+        torch, fa, attn_ops, second, second.encode_prompt('a photo of a cat'), images, want,
+        'phase 18')
+    check_feats(torch, feats, path['feats'], 'phase 18')
+    own = extract(fe, prompts, images)
+    if set(own) != set(PATHS[EXTERNAL_SOURCE]['feats']):
+        raise RuntimeError(f'phase 18: the source now returns {sorted(own)}')
+    print(f'  phase 18 the source\'s next extract: {sorted(own)}', flush=True)
+    feats = {k: v.cpu() for k, v in feats.items()}
+    del second, own, states
+    torch.cuda.empty_cache()
+    return feats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1888,6 +2115,10 @@ def main() -> int:
             runs['checkpoint'] = check_checkpoint(torch, fa, attn_ops, fe, prompts, images,
                                                   feats, build_gib, tree, card,
                                                   shapes['checkpoint'])
+        if name == EXTERNAL_PATH:
+            assert_equal_feats(torch, {k: v.cpu() for k, v in feats.items()}, external_feats,
+                               f'phase 18 first extract vs phase {phase}\'s fresh {name} '
+                               'extractor\'s')
         if name == INVERSION_PATH:
             label = f'phase {phase} use_ddim_inversion'
             inv, runs['sd21_inversion'], shapes['sd21_inversion'] = drive_path(
@@ -1895,6 +2126,9 @@ def main() -> int:
                 {**dict(zip(WRAPPERS, INVERSION_LAUNCHES)), 'short_attention': 0}, label,
                 use_ddim_inversion=True)
             check_feats(torch, inv, path['feats'], label)
+        if name == EXTERNAL_SOURCE:
+            external_feats = check_external(torch, fa, attn_ops, card, fe, prompts, images,
+                                            shapes, runs)
         del fe, feats
         torch.cuda.empty_cache()
 
@@ -1912,10 +2146,11 @@ def main() -> int:
     del fe15
     torch.cuda.empty_cache()
 
-    # 14. PixArt; 15. HunyuanDiT; 16. Flux
+    # 14. PixArt; 15. HunyuanDiT; 16. Flux; 17. DeepFloyd IF
     check_pixart(torch, fa, attn_ops, card, shapes, runs)
     check_hunyuan(torch, fa, attn_ops, card, shapes, runs)
     check_flux(torch, fa, attn_ops, card, shapes, runs)
+    check_if(torch, fa, attn_ops, card, shapes, runs)
 
     # the kernels line: per kernel, the launches of every path and the sum
     # over those launches of each (shape, dtype)'s numbers from phase 2 (one

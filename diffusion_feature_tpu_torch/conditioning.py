@@ -18,6 +18,9 @@ and sampling loop pass it through without looking inside.
 - ``FluxConditioning``: T5's sequence, CLIP-L's pooled vector and the
   guidance scale; the latents are 2x2-packed around the transformer, and
   generation has no CFG batch.
+- ``IFConditioning``: DeepFloyd IF's T5 context, no pooled vector and no
+  mask into the U-Net; the learned variance half of the output is kept for
+  the scheduler.
 """
 
 from __future__ import annotations
@@ -259,6 +262,34 @@ class FluxConditioning(_Conditioning):
         return unpack_latents(out, h, w)
 
 
+@dataclasses.dataclass
+class IFConditioning(_Conditioning):
+    """DeepFloyd IF's T5 context (B, L, 4096).  The T5 mask stays with the
+    encoder: the U-Net takes none (the JAX facade's IF path)."""
+    context: torch.Tensor
+
+    @classmethod
+    def from_prompts(cls, fe, prompts, batch_size: int, sample: bool = False):
+        """``encode_prompt``'s (pe, ne, None, None): the positive T5
+        embeddings."""
+        cond = cls(_batch(fe, prompts[0], batch_size, fe.dtype))
+        width = fe.spec.unet.encoder_hid_dim
+        if cond.context.shape[-1] != width:
+            raise ValueError(f'prompt embeddings are {cond.context.shape[-1]} wide, the '
+                             f'{fe.version!r} U-Net takes {width}-wide T5 embeddings')
+        return cond
+
+    @staticmethod
+    def negative(prompts):
+        """The negative's slot first, as ``from_prompts`` reads it."""
+        return prompts[1], None, None, None
+
+    def forward(self, denoiser, model_in, timestep, feats=None, down=None, mid=None):
+        """The U-Net on the pixels: the noise prediction and the learned
+        variance (6 channels), both of which DDPM's step takes."""
+        return denoiser(model_in, timestep, self.context, feats=feats)
+
+
 #: The conditioning class of each model family.
 BY_FAMILY = {'unet': UNetConditioning, 'pixart': PixArtConditioning,
-             'hunyuan': HunyuanConditioning, 'flux': FluxConditioning}
+             'hunyuan': HunyuanConditioning, 'flux': FluxConditioning, 'if': IFConditioning}

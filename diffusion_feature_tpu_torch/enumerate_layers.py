@@ -1,8 +1,9 @@
 """Layer enumeration without weights or compute (port of
 ``diffusion_feature_tpu/enumerate_layers.py``).
 
-``enumerate_layers(version, img_size)`` builds the version's U-Net (or
-PixArt, HunyuanDiT or Flux DiT) with every tap requested on PyTorch's meta device and runs one
+``enumerate_layers(version, img_size)`` builds the version's U-Net (SD's or
+DeepFloyd IF's, at pixel resolution) or DiT (PixArt, HunyuanDiT or Flux)
+with every tap requested on PyTorch's meta device and runs one
 forward on meta tensors, which carry shapes and no data: the counterpart of
 the JAX package's ``jax.eval_shape``.  The full-size architectures are
 enumerated in seconds on any host, with no memory for weights or
@@ -22,6 +23,7 @@ from .models.flux import FluxTransformer2D
 from .models.hunyuan import HunyuanDiT2D
 from .models.registry import get_model_spec
 from .models.unet2d import UNet2DConditionModel
+from .models.unet_if import IFUNet
 from .taps import TapSpec
 
 
@@ -32,10 +34,15 @@ def enumerate_layers(version: str, img_size: int = None,
     tapped (NCHW maps, (B, H, Sq, Sk) attention maps)."""
     spec = get_model_spec(version)
     img_size = img_size or spec.default_img_size
-    lat = img_size // 2 ** (len(spec.vae.block_out_channels) - 1)
+    lat = (img_size if spec.is_pixel_space
+           else img_size // 2 ** (len(spec.vae.block_out_channels) - 1))
     feats = {}
     with torch.device('meta'), torch.no_grad():
-        if spec.family == 'pixart':
+        if spec.family == 'if':
+            unet = IFUNet(spec.unet, TapSpec.all())
+            unet(torch.empty(batch_size, spec.unet.in_channels, lat, lat), 50.0,
+                 torch.empty(batch_size, spec.prompt_max_length, spec.t5.d_model), feats=feats)
+        elif spec.family == 'pixart':
             dit = PixArtTransformer2D(spec.dit, TapSpec.all())
             dit(torch.empty(batch_size, spec.dit.in_channels, lat, lat), 50.0,
                 torch.empty(batch_size, spec.prompt_max_length, spec.t5.d_model), feats=feats)

@@ -1,8 +1,9 @@
 """FeatureExtractor in PyTorch (port of ``diffusion_feature_tpu/facade.py``),
 mirroring the reference's ``diffusion_feature.FeatureExtractor``
 (feature/diffusion_feature.py:26-517).  It dispatches on the model's
-family (``spec.family``): the U-Nets, the PixArt DiTs, HunyuanDiT or Flux;
-each family's conditioning is one object of ``conditioning.py``.
+family (``spec.family``): the U-Nets, the PixArt DiTs, HunyuanDiT, Flux or
+DeepFloyd IF; each family's conditioning is one object of
+``conditioning.py``.
 
 Ported: extraction for SD-1.5 (``'1-5'``, ``'test-sd'``), SD-2.1 (``'2-1'``),
 SDXL (``'xl'``, ``'test-xl'``) and Playground v2 (``'pgv2'``): CLIP tokenize
@@ -26,7 +27,11 @@ Flux (``'flux'``, ``'test-flux'``) likewise: CLIP-L's pooled vector and
 T5's sequence (``(t5 embeds, None, clip pooled, None)`` or a raw string),
 flow-match noising at sigma(t) of the resolution-shifted 28-step schedule,
 the latents 2x2-packed into one transformer forward; ``sample`` has no CFG
-batch (the guidance scale feeds the guidance embedding).
+batch (the guidance scale feeds the guidance embedding).  DeepFloyd IF
+(``'if'``, ``'test-if'``) works in pixel space: no VAE, the image itself
+is noised (DDPM at the img2img timestep of ``t``) and denoised by the IF
+U-Net on T5's context, whose learned variance half DDPM's step takes;
+``sample`` thresholds each x0 prediction and returns the pixels.
 The attention store (``attention=``) gives
 the aggregated ``'attn'`` feature, the ``'vae-out'`` layer the decoded image
 of one scheduler step; ``extract_ensemble`` crosses timesteps with prompts.
@@ -34,15 +39,15 @@ of one scheduler step; ``extract_ensemble`` crosses timesteps with prompts.
 ``sample`` generates images with the taps of every step, and
 ``set_background_extraction`` keeps chosen encounters of them.
 Weights come from a local diffusers checkpoint (``weights=``,
-``weights_variant=``) or at random from ``seed``, with offline LoRA merging.
-The JAX package's other model versions raise ``NotImplementedError`` naming
-their ROADMAP.md item.
+``weights_variant=``) or at random from ``seed``, with offline LoRA merging,
+or are shared with another extractor (``external_model=``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import shutil
 import time
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -67,6 +72,7 @@ from .models.lora import apply_lora_to_module
 from .models.registry import ModelSpec, get_model_spec
 from .models.t5 import T5Config, T5EncoderModel, t5_checkpoint_state
 from .models.unet2d import UNet2DConditionModel, UNetConfig
+from .models.unet_if import IFUNet, IFUNetConfig
 from .models.vae import AutoencoderKL, VAEConfig
 from .roadmap import not_ported
 from .schedulers.diffusion import (DDPMScheduler, DPMSolverMultistepScheduler,
@@ -82,6 +88,8 @@ from .utils.prompt import encode_long_prompt
 _DTYPES = {'bfloat16': torch.bfloat16, 'float16': torch.float16, 'float32': torch.float32}
 TEXT_DIRS = ('text_encoder', 'text_encoder_2')
 _DIT_CONFIGS = {'pixart': PixArtConfig, 'hunyuan': HunyuanConfig, 'flux': FluxConfig}
+#: the families whose denoiser is a U-Net (keyed 'unet' in a checkpoint)
+_UNET_FAMILIES = ('unet', 'if')
 #: the families whose single step is the pipeline's one forward: no
 #: 'vae-out', no ``denoising_from``
 _PIPELINE_DRIVEN = ('hunyuan', 'flux')
@@ -103,18 +111,18 @@ def _adapt_spec_to_checkpoint(spec: ModelSpec, weights: str) -> ModelSpec:
             if has('transformer'):
                 updates['dit'] = _DIT_CONFIGS[spec.family].from_diffusers_config(
                     load_component_config(weights, 'transformer'))
-            # T5 sits in text_encoder_2 where BERT or CLIP comes first
-            t5_dir = 'text_encoder' if spec.family == 'pixart' else 'text_encoder_2'
-            if has(t5_dir):
-                updates['t5'] = T5Config.from_diffusers_config(
-                    load_component_config(weights, t5_dir), spec.t5)
             if spec.bert is not None and has('text_encoder'):
                 updates['bert'] = BertConfig.from_hf_config(
                     load_component_config(weights, 'text_encoder'), spec.bert)
         elif has('unet'):
-            updates['unet'] = UNetConfig.from_diffusers_config(
-                load_component_config(weights, 'unet'))
-        if has('vae'):
+            updates['unet'] = (IFUNetConfig if spec.family == 'if' else UNetConfig
+                               ).from_diffusers_config(load_component_config(weights, 'unet'))
+        # T5 sits in text_encoder_2 where BERT or CLIP comes first
+        t5_dir = 'text_encoder' if spec.family in ('pixart', 'if') else 'text_encoder_2'
+        if spec.t5 is not None and has(t5_dir):
+            updates['t5'] = T5Config.from_diffusers_config(
+                load_component_config(weights, t5_dir), spec.t5)
+        if spec.vae is not None and has('vae'):
             updates['vae'] = VAEConfig.from_diffusers_config(
                 load_component_config(weights, 'vae'))
         adapted = tuple(
@@ -142,7 +150,8 @@ class FeatureExtractor:
     ``text_encoder`` (BERT), ``text_encoder_2`` (mT5), ``tokenizer/vocab.txt``
     and ``tokenizer_2/spiece.model``; Flux: ``transformer``, ``vae``,
     ``text_encoder`` (CLIP-L), ``text_encoder_2`` (T5), ``tokenizer`` and
-    ``tokenizer_2/spiece.model``).  weights_variant: the weight set to load
+    ``tokenizer_2/spiece.model``; DeepFloyd IF: ``unet``, ``text_encoder``
+    (T5) and ``tokenizer/spiece.model``, no VAE).  weights_variant: the weight set to load
     ('fp16', 'bf16', ..., 'main'), falling back per component to the
     un-suffixed set.  Without weights, models initialise at random from
     ``seed``.  offline_lora (with offline_lora_filename): a LoRA merged
@@ -158,10 +167,16 @@ class FeatureExtractor:
     ``attn_store_sizes`` (tokens per side, default (img_size/32,
     img_size/16), the DiTs' (img_size/32, img_size/8)) come back as
     ``feats['attn']``.
-    train_unet, external_model, mesh, t5_8bit, transformer_8bit: the JAX
-    facade's keywords; False or None (their defaults) pass, and any other
-    value raises ``NotImplementedError`` naming the ROADMAP.md item that
-    ports it.
+    external_model: another extractor of the same version, device and
+    dtype (else ``ValueError``) whose modules this one shares: its VAE,
+    text encoders and tokenizers as they are, and its denoiser's tensors
+    under a denoiser built anew with this extractor's taps and attention
+    store (the JAX facade re-instruments the shared denoiser the same way),
+    so no parameter memory is allocated.  It takes no ``weights=`` and no
+    ``offline_lora`` (a merge would change the source's tensors).
+    train_unet, mesh, t5_8bit, transformer_8bit: the JAX facade's keywords;
+    False or None (their defaults) pass, and any other value raises
+    ``NotImplementedError`` naming the ROADMAP.md item that ports it.
     """
 
     def __init__(self, layer, version: str, device='cuda', dtype: str = 'bfloat16',
@@ -175,7 +190,6 @@ class FeatureExtractor:
                  external_model=None, mesh=None, t5_8bit=None, transformer_8bit=None):
         for name, value, item, queue in (
                 ('train_unet', train_unet, 'Training and tasks', 'A'),
-                ('external_model', external_model, 'external_model', 'A'),
                 ('mesh', mesh, 'Multi-GPU', 'A'),
                 ('t5_8bit', t5_8bit, 'Int8 weight-only dense', 'B'),
                 ('transformer_8bit', transformer_8bit, 'Int8 weight-only dense', 'B')):
@@ -188,85 +202,68 @@ class FeatureExtractor:
         if control and self.spec.family != 'unet':
             # the JAX ControlNetPipeline builds its nets from spec.unet
             raise ValueError(f'control= needs a U-Net version: {version!r} is a '
-                             f'{self.spec.family} DiT, and the ControlNets copy a U-Net '
-                             'encoder (models/controlnet.py)')
-        if weights:
-            self.spec = _adapt_spec_to_checkpoint(self.spec, weights)
+                             f'{self.spec.family!r} model, and the ControlNets copy an SD '
+                             'U-Net encoder (models/controlnet.py)')
         self.version = version
-        self.img_size = img_size
-        self.feature_resize = feature_resize
         self.device = torch.device(device)
         self.dtype = _DTYPES[dtype]
+        if external_model is not None:
+            self._check_external(external_model, weights, offline_lora)
+            self.spec = external_model.spec
+        elif weights:
+            self.spec = _adapt_spec_to_checkpoint(self.spec, weights)
+            if self.spec.family == 'unet' and isinstance(self.spec.unet, IFUNetConfig):
+                raise ValueError(f'{weights} holds a DeepFloyd IF U-Net; load it with '
+                                 "version='if' (or 'test-if')")
+        self.img_size = img_size
+        self.feature_resize = feature_resize
         self.feature_dtype = torch.bfloat16
         self.taps = TapSpec.from_config(resolve_layer_config(layer))
         # the 'vae-out' pseudo-layer: one scheduler step decoded to an image
-        self.store_vae_output = not self.taps.accept_all and 'vae-out' in self.taps.ids
+        self.store_vae_output = (not self.taps.accept_all and 'vae-out' in self.taps.ids
+                                 and self.spec.vae is not None)
         self.attention = list(attention) if attention else None
         # the store's size band (reference components/attention.py:542, :569)
         self._attn_sizes = None
         if self.attention:
-            top = img_size // (16 if self.spec.family == 'unet' else 8)
+            top = img_size // (16 if self.spec.family in _UNET_FAMILIES else 8)
             self._attn_sizes = (tuple(attn_store_sizes) if attn_store_sizes is not None
                                 else (img_size // 32, top))
         self.scheduler = make_scheduler(self.spec.scheduler, self.spec.scheduler_config)
-        self.vae_scale = 2 ** (len(self.spec.vae.block_out_channels) - 1)
+        # pixel space (IF) has no VAE: its latents are the image
+        self.vae_scale = (1 if self.spec.vae is None
+                          else 2 ** (len(self.spec.vae.block_out_channels) - 1))
         # the extract's noise and the random init draw from generators of
         # their own (the JAX facade's _rng and init key)
         self._noise_gen = torch.Generator(device=self.device).manual_seed(seed)
         init_gen = torch.Generator(device=self.device).manual_seed(seed)
         #: {component: (bytes, seconds)} of the checkpoint load
         self.load_stats: Dict[str, Tuple[int, float]] = {}
+        self._weights_root = weights
 
         spec = self.spec
+        categories = tuple(self.attention or ())
+        # the DiT keeps the facade's attribute name of the denoiser
+        denoiser = {'pixart': PixArtTransformer2D, 'hunyuan': HunyuanDiT2D,
+                    'flux': FluxTransformer2D, 'unet': UNet2DConditionModel,
+                    'if': IFUNet}[spec.family]
+
+        def make_denoiser():
+            return denoiser(spec.unet if spec.family in _UNET_FAMILIES else spec.dit, self.taps,
+                            self._attn_sizes, categories)
 
         def build(make, component, adapt=None):
             if weights:
                 return self._load_component(make, weights, weights_variant, component, adapt)
             return random_module(make, self.device, self.dtype, init_gen)
 
-        categories = tuple(self.attention or ())
-        tok_dirs = [os.path.join(weights, d) if weights else None
-                    for d in ('tokenizer', 'tokenizer_2')]
-        pixart = spec.family == 'pixart'
-        # the DiT keeps the facade's attribute name of the denoiser
-        denoiser = {'pixart': PixArtTransformer2D, 'hunyuan': HunyuanDiT2D,
-                    'flux': FluxTransformer2D, 'unet': UNet2DConditionModel}[spec.family]
-        self.unet = build(lambda: denoiser(spec.unet if denoiser is UNet2DConditionModel
-                                           else spec.dit, self.taps, self._attn_sizes,
-                                           categories),
-                          'unet' if spec.family == 'unet' else 'transformer')
-        self.vae = build(lambda: AutoencoderKL(spec.vae), 'vae')
-        if spec.family == 'hunyuan':
-            # BERT WordPiece from tokenizer/vocab.txt, the hash tokenizer offline
-            self.text_encoders = (
-                build(lambda: BertTextModel(spec.bert), 'text_encoder', bert_checkpoint_state),
-                build(lambda: T5EncoderModel(spec.t5), 'text_encoder_2', t5_checkpoint_state))
-            self.tokenizers = (
-                load_bert_tokenizer(tok_dirs[0], model_max_length=spec.dit.text_len,
-                                    vocab_size=spec.bert.vocab_size),
-                load_t5_tokenizer(tok_dirs[1], model_max_length=spec.dit.text_len_t5,
-                                  vocab_size=spec.t5.vocab_size))
-        elif pixart:
-            self.text_encoders = (build(lambda: T5EncoderModel(spec.t5), 'text_encoder',
-                                        t5_checkpoint_state),)
-            self.tokenizers = (load_t5_tokenizer(tok_dirs[0],
-                                                 model_max_length=spec.prompt_max_length,
-                                                 vocab_size=spec.t5.vocab_size),)
+        if external_model is not None:
+            self._share_models(external_model, make_denoiser)
         else:
-            self.text_encoders = tuple(build(lambda c=c: CLIPTextModel(c), d)
-                                       for c, d in zip(spec.text_encoders, TEXT_DIRS))
-            # tokenizer_2 (OpenCLIP) pads with id 0; the first pads with EOS
-            self.tokenizers = tuple(
-                load_clip_tokenizer(d if d and os.path.isdir(d) else None,
-                                    vocab_size=c.vocab_size, pad_with_eos=(i == 0))
-                for i, (d, c) in enumerate(zip(tok_dirs, spec.text_encoders)))
-            if spec.family == 'flux':
-                # T5 after CLIP-L, over prompt_max_length tokens
-                self.text_encoders += (build(lambda: T5EncoderModel(spec.t5), 'text_encoder_2',
-                                             t5_checkpoint_state),)
-                self.tokenizers += (load_t5_tokenizer(tok_dirs[1],
-                                                      model_max_length=spec.prompt_max_length,
-                                                      vocab_size=spec.t5.vocab_size),)
+            self.unet = build(make_denoiser,
+                              'unet' if spec.family in _UNET_FAMILIES else 'transformer')
+            self.vae = None if spec.vae is None else build(lambda: AutoencoderKL(spec.vae), 'vae')
+            self.text_encoders, self.tokenizers = self._build_text_encoders(build, weights)
         if offline_lora:
             apply_lora_to_module(self.unet, offline_lora, offline_lora_filename)
         if validate_layers and not self.taps.accept_all:
@@ -275,6 +272,78 @@ class FeatureExtractor:
         self.store_idx: Optional[list] = None
         self._background_feats: Dict[str, dict] = {}
         self.control_pipe = ControlNetPipeline(self, control, weights) if control else None
+
+    def _build_text_encoders(self, build, weights: Optional[str]):
+        """(text encoders, tokenizers) of the family, each encoder through
+        ``build`` (random or from the checkpoint dir ``weights``)."""
+        spec = self.spec
+        tok_dirs = [os.path.join(weights, d) if weights else None
+                    for d in ('tokenizer', 'tokenizer_2')]
+        if spec.family == 'hunyuan':
+            # BERT WordPiece from tokenizer/vocab.txt, the hash tokenizer offline
+            encoders = (
+                build(lambda: BertTextModel(spec.bert), 'text_encoder', bert_checkpoint_state),
+                build(lambda: T5EncoderModel(spec.t5), 'text_encoder_2', t5_checkpoint_state))
+            tokenizers = (
+                load_bert_tokenizer(tok_dirs[0], model_max_length=spec.dit.text_len,
+                                    vocab_size=spec.bert.vocab_size),
+                load_t5_tokenizer(tok_dirs[1], model_max_length=spec.dit.text_len_t5,
+                                  vocab_size=spec.t5.vocab_size))
+        elif spec.family in ('pixart', 'if'):
+            encoders = (build(lambda: T5EncoderModel(spec.t5), 'text_encoder',
+                              t5_checkpoint_state),)
+            tokenizers = (load_t5_tokenizer(tok_dirs[0], model_max_length=spec.prompt_max_length,
+                                            vocab_size=spec.t5.vocab_size),)
+        else:
+            encoders = tuple(build(lambda c=c: CLIPTextModel(c), d)
+                             for c, d in zip(spec.text_encoders, TEXT_DIRS))
+            # tokenizer_2 (OpenCLIP) pads with id 0; the first pads with EOS
+            tokenizers = tuple(
+                load_clip_tokenizer(d if d and os.path.isdir(d) else None,
+                                    vocab_size=c.vocab_size, pad_with_eos=(i == 0))
+                for i, (d, c) in enumerate(zip(tok_dirs, spec.text_encoders)))
+            if spec.family == 'flux':
+                # T5 after CLIP-L, over prompt_max_length tokens
+                encoders += (build(lambda: T5EncoderModel(spec.t5), 'text_encoder_2',
+                                   t5_checkpoint_state),)
+                tokenizers += (load_t5_tokenizer(tok_dirs[1],
+                                                 model_max_length=spec.prompt_max_length,
+                                                 vocab_size=spec.t5.vocab_size),)
+        return encoders, tokenizers
+
+    def _check_external(self, source, weights, offline_lora):
+        """Refuse an ``external_model`` whose modules this extractor could
+        not run as they are: another version, device or dtype, or with
+        ``weights=`` or ``offline_lora``."""
+        if not isinstance(source, FeatureExtractor):
+            raise ValueError(f'external_model must be a FeatureExtractor, got {type(source)}')
+
+        def resolved(device):
+            if device.type == 'cuda' and device.index is None:
+                return torch.device('cuda', torch.cuda.current_device())
+            return device
+        for name, ours, theirs in (('version', self.version, source.version),
+                                   ('device', resolved(self.device), resolved(source.device)),
+                                   ('dtype', self.dtype, source.dtype)):
+            if ours != theirs:
+                raise ValueError(f"external_model's {name} is {theirs}, this extractor's "
+                                 f'{ours}: its modules cannot be shared')
+        if weights or offline_lora:
+            raise ValueError('external_model shares the source\'s parameters: pass no weights= '
+                             'or offline_lora with it (a LoRA merge would change the source)')
+
+    def _share_models(self, source, make_denoiser):
+        """This extractor's modules over ``source``'s tensors: the denoiser
+        built on the meta device with this request's taps and store, then
+        given the source's parameters (``assign``: the same storage); the
+        VAE, text encoders and tokenizers as they are."""
+        with torch.device('meta'):
+            self.unet = make_denoiser()
+        self.unet.load_state_dict(source.unet.state_dict(), assign=True)
+        self.unet.eval().requires_grad_(False)
+        self.vae = source.vae
+        self.text_encoders = source.text_encoders
+        self.tokenizers = source.tokenizers
 
     def _load_component(self, make, root: str, variant: Optional[str], component: str,
                         adapt=None):
@@ -297,25 +366,23 @@ class FeatureExtractor:
 
     def save_weights(self, root: str, variant: Optional[str] = None, unet_shards: int = 1,
                      text_shards: int = 1) -> Dict[str, Tuple[int, float]]:
-        """Write the denoiser (U-Net, or the DiT's transformer), the VAE and
-        the text encoders as a diffusers checkpoint dir that ``weights=``
-        loads: a config.json and safetensors files per component, named
-        with ``variant``, the denoiser in ``unet_shards`` files and each
-        text encoder in ``text_shards``.  Returns {component: (bytes
-        written, seconds)}, as ``load_stats``."""
+        """Write the denoiser (U-Net, or the DiT's transformer), the VAE (none
+        in pixel space) and the text encoders as a diffusers checkpoint dir
+        that ``weights=`` loads: a config.json and safetensors files per
+        component, named with ``variant``, the denoiser in ``unet_shards``
+        files and each text encoder in ``text_shards``; the tokenizer dirs
+        of the checkpoint this extractor was loaded from, where it has
+        them, are copied.  Returns {component: (bytes written, seconds)},
+        as ``load_stats``."""
         spec = self.spec
-        if spec.family == 'pixart':
-            comps = [('transformer', self.unet, spec.dit), ('vae', self.vae, spec.vae),
-                     ('text_encoder', self.text_encoders[0], spec.t5)]
-        elif spec.family == 'hunyuan':
-            comps = [('transformer', self.unet, spec.dit), ('vae', self.vae, spec.vae),
-                     *zip(TEXT_DIRS, self.text_encoders, (spec.bert, spec.t5))]
-        elif spec.family == 'flux':
-            comps = [('transformer', self.unet, spec.dit), ('vae', self.vae, spec.vae),
-                     *zip(TEXT_DIRS, self.text_encoders, (spec.text_encoders[0], spec.t5))]
-        else:
-            comps = [('unet', self.unet, spec.unet), ('vae', self.vae, spec.vae),
-                     *zip(TEXT_DIRS, self.text_encoders, spec.text_encoders)]
+        comps = [('unet', self.unet, spec.unet) if spec.family in _UNET_FAMILIES
+                 else ('transformer', self.unet, spec.dit)]
+        if self.vae is not None:
+            comps.append(('vae', self.vae, spec.vae))
+        text_cfgs = {'pixart': (spec.t5,), 'if': (spec.t5,), 'hunyuan': (spec.bert, spec.t5),
+                     'flux': (*spec.text_encoders, spec.t5)}.get(spec.family,
+                                                                 spec.text_encoders)
+        comps += zip(TEXT_DIRS, self.text_encoders, text_cfgs)
         stats = {}
         for i, (comp, module, cfg) in enumerate(comps):
             t0 = time.perf_counter()
@@ -323,6 +390,10 @@ class FeatureExtractor:
             files = save_component(root, comp, module.state_dict(), cfg.to_diffusers_config(),
                                    variant, shards)
             stats[comp] = (sum(files.values()), time.perf_counter() - t0)
+        for d in ('tokenizer', 'tokenizer_2') if self._weights_root else ():
+            src = os.path.join(self._weights_root, d)
+            if os.path.isdir(src):
+                shutil.copytree(src, os.path.join(root, d), dirs_exist_ok=True)
         return stats
 
     def _validate_layer_ids(self):
@@ -332,7 +403,7 @@ class FeatureExtractor:
         # 'attn' is assembled only when attention categories were requested;
         # the pipeline-driven HunyuanDiT and Flux paths decode no 'vae-out'
         pseudo = ({'attn'} if self.attention else set()) | (
-            set() if self.spec.family in _PIPELINE_DRIVEN else {'vae-out'})
+            set() if self.spec.family in _PIPELINE_DRIVEN or self.vae is None else {'vae-out'})
         unknown = [i for i in sorted(self.taps.ids)
                    if i not in known and i not in pseudo and not is_filtered_id(i)]
         if not unknown:
@@ -344,7 +415,7 @@ class FeatureExtractor:
                 lines.append("  'attn' needs the attention= argument (e.g. "
                              "attention=['up_cross']) so there are aggregated maps to assemble")
                 continue
-            if i == 'vae-out':
+            if i == 'vae-out' and self.spec.family in _PIPELINE_DRIVEN:
                 lines.append("  'vae-out' is unavailable for the pipeline-driven "
                              f'{self.spec.family} path (one denoiser forward, no decode step)')
                 continue
@@ -376,7 +447,9 @@ class FeatureExtractor:
         as the JAX facade's ``_encode_hunyuan`` (its two streams travel
         together; ``sample`` encodes the empty negative itself).  Flux:
         (T5 embeddings, None, CLIP pooled, None), the JAX facade's
-        ``_encode_flux`` (no negative: Flux runs no CFG)."""
+        ``_encode_flux`` (no negative: Flux runs no CFG).  DeepFloyd IF:
+        (T5 embeddings, negative T5 embeddings, None, None), the masks used
+        by the encoder and dropped (the U-Net takes none), as in JAX."""
         if (prompt_str is None) == (prompt_file is None):
             raise ValueError('pass exactly one of prompt_str and prompt_file')
         if prompt_file:
@@ -388,6 +461,8 @@ class FeatureExtractor:
             return self._encode_hunyuan(prompt_str)
         if self.spec.family == 'flux':
             return self._encode_flux(prompt_str)
+        if self.spec.family == 'if':
+            return self._encode_masked(prompt_str)[0], self._encode_masked('')[0], None, None
         if len(prompt_str.split(' ')) > 70:
             # the first tokenizer and encoder alone, in chunks: no pooled embedding
             self._require_text_encoders()
@@ -486,7 +561,10 @@ class FeatureExtractor:
         one forward at the DDPM timestep of ``t`` takes no
         ``denoising_from`` and no DDIM inversion; so do Flux's
         (``encode_prompt``'s 4-tuple or a raw string, one forward at the
-        flow-match sigma of ``t``)."""
+        flow-match sigma of ``t``).  IF noises the pixels themselves, and
+        its ``denoising_from`` walk thresholds each step's x0; it has no
+        'vae-out', no DDIM inversion and no attention maps (its
+        ``attention=`` yields no 'attn')."""
         spec = self.spec
         if use_ddim_inversion and (spec.family != 'unet'
                                    or spec.unet.addition_embed_type is not None
@@ -511,8 +589,7 @@ class FeatureExtractor:
             raw = image if image_type == 'image' else self.control_pipe.tensors_to_pil(img)
             control = self.control_pipe.prepare_control_images(raw, batch_size)
 
-        lat = self.img_size // self.vae_scale
-        shape = (img.shape[0], self.spec.vae.latent_channels, lat, lat)
+        shape = self.latent_shape(img.shape[0])
         # drawn in fp32 and cast inside the step (JAX utils.normal_like)
         posterior_noise = torch.randn(shape, generator=self._noise_gen, device=self.device)
         noise = torch.randn(shape, generator=self._noise_gen, device=self.device)
@@ -524,6 +601,14 @@ class FeatureExtractor:
                                     posterior_noise, noise, self.feature_dtype, control=control)
         self._keep_background(feats)
         return feats
+
+    def latent_shape(self, batch_size: int) -> Tuple[int, int, int, int]:
+        """(B, C, h, w) of what the denoiser walks: the VAE's latents, or in
+        pixel space (IF) the image itself."""
+        lat = self.img_size // self.vae_scale
+        channels = (self.spec.unet.in_channels if self.spec.is_pixel_space
+                    else self.spec.vae.latent_channels)
+        return batch_size, channels, lat, lat
 
     def extract_ensemble(self, prompts, batch_size: int, image, image_type: str = 'image',
                          ts: Sequence[int] = (50,), prompt_list: Optional[Sequence] = None,
@@ -557,7 +642,7 @@ class FeatureExtractor:
                                                          guidance_scale)
 
     def _img2img_kit(self, t: int) -> Dict[str, float]:
-        """The Euler, DPM-Solver and PNDM branches of the JAX facade's
+        """The Euler, DPM-Solver, DDPM and PNDM branches of the JAX facade's
         ``_img2img_kit``:
         model timestep T (SDXL's leading schedule maps t=50 to 50), noise
         injection latents <- A*latents + B*noise, the scale_model_input
@@ -593,6 +678,23 @@ class FeatureExtractor:
             h = sched.lambda_t[prev_t] - sched.lambda_t[ti]
             C1 = float(-sched.alpha_t[prev_t] * np.expm1(-h))
             C2, C3 = float(sched.sigma_t[prev_t] / sched.sigma_t[ti]), 0.0
+            if pred == 'sample':
+                X1, X2 = 0.0, 1.0
+            elif pred == 'v_prediction':
+                X1, X2 = A, -B
+            else:
+                X1, X2 = 1.0 / A, -B / A
+        elif isinstance(sched, DDPMScheduler):
+            # DDPM-family noising; the posterior mean of x0 and the latents
+            # (IF's, the learned variance and the noise not entering it)
+            ti = int(lt)
+            prev_t = ti - sched.step_size(state)
+            a_t = float(sched.alphas_cumprod[ti])
+            a_prev = float(sched.alphas_cumprod[prev_t]) if prev_t >= 0 else 1.0
+            A, B, S = float(np.sqrt(a_t)), float(np.sqrt(1 - a_t)), 1.0
+            current_beta = 1 - a_t / a_prev
+            C1 = float(np.sqrt(a_prev) * current_beta / (1 - a_t))
+            C2, C3 = float(np.sqrt(a_t / a_prev) * (1 - a_prev) / (1 - a_t)), 0.0
             if pred == 'sample':
                 X1, X2 = 0.0, 1.0
             elif pred == 'v_prediction':
@@ -703,8 +805,10 @@ class FeatureExtractor:
         and 'vae-out' from the kit's fresh-state step.  Noise tensors are
         standard-normal draws of the latent shape, cast here to the model
         dtype; ``control`` goes to ``_forward``.  HunyuanDiT's kit has S =
-        1 (the JAX facade's ``_get_hunyuan_step_fn`` program)."""
-        latents = self.vae(img, posterior_noise)
+        1 (the JAX facade's ``_get_hunyuan_step_fn`` program).  In pixel
+        space (IF) the latents are the image and ``posterior_noise`` is
+        unused."""
+        latents = img if self.vae is None else self.vae(img, posterior_noise)
         latents = (scalar_like(kit['A'], latents) * latents
                    + scalar_like(kit['B'], latents) * noise.to(latents.dtype))
         out, feats = self._forward(latents / scalar_like(kit['S'], latents), kit['T'], cond,
@@ -745,7 +849,7 @@ class FeatureExtractor:
         if use_ddim_inversion:
             latents = ddim_invert(self, img, cond, posterior_noise, stop_at_t=t)
         else:
-            latents = self.vae(img, posterior_noise)
+            latents = img if self.vae is None else self.vae(img, posterior_noise)
             latents = sched.add_noise(state, latents, noise.to(latents.dtype), latent_t)
         walk_state = state
         for ts in walk:
@@ -780,6 +884,10 @@ class FeatureExtractor:
         too.  Flux takes a raw string or its ``encode_prompt`` result and
         runs no CFG batch: ``guidance_scale`` * 1000 feeds the guidance
         embedding, over the resolution-shifted flow-match schedule.
+        DeepFloyd IF follows the stock IF pipeline in pixel space: CFG on
+        the noise prediction, the positive's learned variance, each x0
+        dynamically thresholded by the DDPM step, the final pixels mapped
+        to [0, 1].
         Returns (images (B, 3, H, W) in [0, 1], features), the features
         {layer: tuple of the raw tap of every denoiser call, step-major,
         over the CFG-doubled batch} as the JAX facade returns them (no
@@ -791,8 +899,7 @@ class FeatureExtractor:
         unrolled one, which its scanned loop equals."""
         del unrolled
         cond, neg = self._sample_conditioning(prompts, batch_size, guidance_scale)
-        lat = self.img_size // self.vae_scale
-        shape = (batch_size, self.spec.vae.latent_channels, lat, lat)
+        shape = self.latent_shape(batch_size)
         noise = torch.randn(shape, generator=self._noise_gen, device=self.device)
         step_noise = None
         if isinstance(self.scheduler, DDPMScheduler):
@@ -812,9 +919,10 @@ class FeatureExtractor:
         ``init_noise_sigma``; per timestep scale_model_input, one denoiser
         forward on the conditioning object ``cond`` (with the negative
         ``neg`` before it, classifier-free guidance, unless ``neg`` is
-        None) with the taps, the guidance combine and the scheduler's
-        ``step`` (DDPM's with ``step_noise[i]``, a standard-normal draw of
-        the latent shape per step); then the VAE decode mapped to [0, 1].
+        None) with the taps, the guidance combine (``_combine``) and the
+        scheduler's ``step`` (DDPM's with ``step_noise[i]``, a
+        standard-normal draw of the latent shape per step); then the VAE
+        decode (none in pixel space) mapped to [0, 1].
         Returns (images, {layer: tuple of per-call raw taps}, the final
         latents)."""
         sched = self.scheduler
@@ -838,16 +946,34 @@ class FeatureExtractor:
             taps.pop(ATTN_STORE, None)   # sample() runs no attention store
             for key, val in taps.items():
                 merged[key] = merged.get(key, ()) + (val,)
-            out = out[:, :latents.shape[1]]
-            if do_cfg:
-                uncond, text = out.chunk(2)
-                out = uncond + guidance_scale * (text - uncond)
+            out = self._combine(out, latents, guidance_scale if do_cfg else None)
             if ddpm:
                 latents, step_state = sched.step(step_state, out, t, latents, step_noise[i])
             else:
                 latents, step_state = sched.step(step_state, out, t, latents)
-        images = (self._decode(latents, None) / 2 + 0.5).clamp(0.0, 1.0)
-        return images, merged, latents
+        images = latents if self.vae is None else self._decode(latents, None)
+        return (images / 2 + 0.5).clamp(0.0, 1.0), merged, latents
+
+    def _combine(self, out, latents, guidance_scale: Optional[float]):
+        """The denoiser's output for the scheduler (the JAX ``combine``):
+        classifier-free guidance over the [negative; positive] batch unless
+        ``guidance_scale`` is None.  A DDPM learned-range output (IF's) keeps
+        its variance half, the positive's; any other is cut to the
+        latents' channels."""
+        sched = self.scheduler
+        channels = latents.shape[1]
+        if (isinstance(sched, DDPMScheduler) and sched.config.variance_type == 'learned_range'
+                and out.shape[1] == 2 * channels):
+            pred, var = out.chunk(2, dim=1)
+            if guidance_scale is not None:
+                uncond, text = pred.chunk(2)
+                pred, var = uncond + guidance_scale * (text - uncond), var.chunk(2)[1]
+            return torch.cat([pred, var], dim=1)
+        out = out[:, :channels]
+        if guidance_scale is not None:
+            uncond, text = out.chunk(2)
+            out = uncond + guidance_scale * (text - uncond)
+        return out
 
     # ------------------------------------------------------------- background
     def set_background_extraction(self, idxs):

@@ -2,13 +2,12 @@
 ``diffusion_feature_tpu/models/registry.py``: the U-Nets ``1-5``, ``2-1``,
 ``xl``, ``pgv2``, ``test-sd`` and ``test-xl``, the PixArt DiTs
 ``pixart-alpha``, ``pixart-sigma``, ``pixart-sigma-512`` and
-``test-pixart``, HunyuanDiT, ``hunyuan`` and ``test-hunyuan``, and Flux,
-``flux`` and ``test-flux``).
+``test-pixart``, HunyuanDiT, ``hunyuan`` and ``test-hunyuan``, Flux,
+``flux`` and ``test-flux``, and DeepFloyd IF, ``if`` and ``test-if``: every
+version of the JAX registry).
 
 Without a weights path models initialise deterministically at random, which
-exercises every shape and the data flow at full width.  The JAX package's
-other versions raise ``NotImplementedError`` naming the ROADMAP.md item
-that ports them.
+exercises every shape and the data flow at full width.
 """
 
 from __future__ import annotations
@@ -16,7 +15,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple, Union
 
-from ..roadmap import not_ported
 from ..schedulers.diffusion import SchedulerConfig
 from ..schedulers.flow_match import FlowMatchConfig
 from .bert_text import HUNYUAN_BERT, BertConfig, tiny_bert_config
@@ -28,6 +26,7 @@ from .flux import FLUX_DEV, FluxConfig, tiny_flux_config
 from .hunyuan import HUNYUAN_DIT, HunyuanConfig, tiny_hunyuan_config
 from .t5 import T5_XXL, T5Config, tiny_t5_config
 from .unet2d import SD15_UNET, SD21_UNET, SDXL_UNET, UNetConfig, tiny_unet_config
+from .unet_if import IF_I_L, IFUNetConfig, tiny_if_config
 from .vae import FLUX_VAE, SD_VAE, SDXL_VAE, VAEConfig, tiny_vae_config
 
 SD_SCHED = SchedulerConfig(beta_start=0.00085, beta_end=0.012, steps_offset=1)
@@ -41,13 +40,19 @@ HUNYUAN_SCHED = SchedulerConfig(beta_start=0.00085, beta_end=0.03,
 # HunyuanDiT's mT5 (text_encoder_2)
 HUNYUAN_MT5 = T5Config(vocab_size=250112, d_model=2048, d_ff=5120, num_layers=24, num_heads=32,
                        d_kv=64)
+# DeepFloyd IF-I-L's scheduler_config.json: the capped cosine betas, the
+# learned-range variance and dynamic thresholding at ratio 0.95 and max 1.5
+# (not diffusers' defaults 0.995 and 1.0)
+IF_SCHED = SchedulerConfig(beta_start=0.0001, beta_end=0.02, beta_schedule='squaredcos_cap_v2',
+                           variance_type='learned_range', thresholding=True,
+                           dynamic_thresholding_ratio=0.95, sample_max_value=1.5)
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
-    """A model: its family ('unet' | 'pixart' | 'hunyuan' | 'flux'),
+    """A model: its family ('unet' | 'pixart' | 'hunyuan' | 'flux' | 'if'),
     scheduler ('euler' | 'pndm' | 'dpmsolver' | 'ddpm' | 'flowmatch') and
-    VAE, and the family's denoiser and text encoders.
+    VAE (None in pixel space), and the family's denoiser and text encoders.
     U-Nets: ``unet`` and CLIP encoders whose chosen hidden states are
     concatenated: 'final' (the final-layernormed output, no pooled
     embedding; SD-1.5, SD-2.1) or 'penultimate' (hidden_states[-2], with
@@ -56,6 +61,8 @@ class ModelSpec:
     tokens.  HunyuanDiT: the DiT ``dit``, BERT ``bert`` over the DiT's
     ``text_len`` tokens and the mT5 ``t5`` over its ``text_len_t5``.  Flux:
     the transformer ``dit``, CLIP-L (its pooled output) and the T5 ``t5``
+    over ``prompt_max_length`` tokens.  DeepFloyd IF: the pixel-space
+    U-Net ``unet`` (an ``IFUNetConfig``), no VAE, and the T5 encoder ``t5``
     over ``prompt_max_length`` tokens."""
     version: str
     family: str
@@ -63,14 +70,15 @@ class ModelSpec:
     scheduler: str
     scheduler_config: Union[SchedulerConfig, FlowMatchConfig]
     default_img_size: int
-    vae: VAEConfig
-    unet: Optional[UNetConfig] = None
+    vae: Optional[VAEConfig]
+    unet: Optional[Union[UNetConfig, IFUNetConfig]] = None
     text_encoders: Tuple[CLIPTextConfig, ...] = ()
     clip_layer: str = 'final'
     dit: Optional[Union[PixArtConfig, HunyuanConfig, FluxConfig]] = None
     t5: Optional[T5Config] = None
     bert: Optional[BertConfig] = None
     prompt_max_length: int = 77
+    is_pixel_space: bool = False       # DeepFloyd IF: the denoiser sees the image
 
 
 def _unet(version, hf_id, scheduler, sched_cfg, unet, vae, text_encoders, size, **kw):
@@ -92,6 +100,11 @@ def _flux(version, hf_id, dit, vae, clip, t5, size, prompt_max_length):
     return ModelSpec(version, 'flux', hf_id, 'flowmatch', FlowMatchConfig(), size, vae,
                      text_encoders=(clip,), dit=dit, t5=t5,
                      prompt_max_length=prompt_max_length)
+
+
+def _if(version, hf_id, unet, t5, size, prompt_max_length):
+    return ModelSpec(version, 'if', hf_id, 'ddpm', IF_SCHED, size, None, unet=unet, t5=t5,
+                     prompt_max_length=prompt_max_length, is_pixel_space=True)
 
 
 _REGISTRY = {spec.version: spec for spec in (
@@ -125,17 +138,12 @@ _REGISTRY = {spec.version: spec for spec in (
           512),
     _flux('test-flux', '(random-init test model)', tiny_flux_config(),
           tiny_vae_config(latent_channels=4), tiny_clip_config(32), tiny_t5_config(), 64, 16),
+    _if('if', 'DeepFloyd/IF-I-L-v1.0', IF_I_L, T5_XXL, 64, 77),
+    _if('test-if', '(random-init test model)', tiny_if_config(), tiny_t5_config(), 32, 8),
 )}
 
 
-_UNPORTED = dict.fromkeys(('if', 'test-if'), 'DiT families')
-
-
 def get_model_spec(version: str) -> ModelSpec:
-    if version in _UNPORTED:
-        raise not_ported(f'model version {version!r} (ported: {sorted(_REGISTRY)})',
-                         _UNPORTED[version])
     if version not in _REGISTRY:
-        raise KeyError(f'unknown model version {version!r}; known: '
-                       f'{sorted([*_REGISTRY, *_UNPORTED])}')
+        raise KeyError(f'unknown model version {version!r}; known: {sorted(_REGISTRY)}')
     return _REGISTRY[version]

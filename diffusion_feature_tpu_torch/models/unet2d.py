@@ -16,12 +16,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..roadmap import not_ported
 from ..taps import EMPTY, TapSite, TapSpec, child_id
 from .layers import (
     Attention, AttnStoreCfg, Downsample2D, ResnetBlock2D, TimestepEmbedding, Transformer2DModel,
     Upsample2D, timestep_embedding,
 )
+from .unet_if import IFUNetConfig
+
+#: DeepFloyd IF's block types, which make a config IF's U-Net
+_IF_BLOCKS = ('ResnetDownsampleBlock2D', 'SimpleCrossAttnDownBlock2D', 'SimpleCrossAttnUpBlock2D',
+              'ResnetUpsampleBlock2D')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,14 +62,17 @@ class UNetConfig:
         (fine-tunes may deviate from the presets).  diffusers names the
         head count ``attention_head_dim`` and leaves ``num_attention_heads``
         null; either is read.  A null ``upcast_attention`` reads as false.
-        Block types other than the SD U-Nets' (DeepFloyd-IF's ResNet and
-        SimpleCrossAttn blocks) raise NotImplementedError naming the
-        ROADMAP.md item that ports them."""
-        n_blocks = len(d.get('block_out_channels', SD15_UNET.block_out_channels))
-        for btype in (*d.get('down_block_types', ()), *d.get('up_block_types', ())):
+        A config with DeepFloyd IF's blocks (ResNet and SimpleCrossAttn) is
+        IF's U-Net: it returns ``IFUNetConfig.from_diffusers_config``'s
+        config; any other block type raises NotImplementedError."""
+        blocks = (*d.get('down_block_types', ()), *d.get('up_block_types', ()))
+        if any(b in _IF_BLOCKS for b in blocks):
+            return IFUNetConfig.from_diffusers_config(d)
+        for btype in blocks:
             if btype not in ('CrossAttnDownBlock2D', 'DownBlock2D', 'CrossAttnUpBlock2D',
                              'UpBlock2D'):
-                raise not_ported(f'a U-Net with {btype} blocks (DeepFloyd-IF)', 'DiT families')
+                raise NotImplementedError(f'a U-Net with {btype} blocks')
+        n_blocks = len(d.get('block_out_channels', SD15_UNET.block_out_channels))
 
         def per_block(v, default):
             if v is None:

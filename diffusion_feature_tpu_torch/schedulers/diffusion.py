@@ -6,14 +6,14 @@ them, which reproduces diffusers' arrays: with linspace spacing Euler maps
 t=50 to timestep 49 (``timesteps[1000 - t] == t - 1``); SDXL's leading
 spacing with steps_offset 1 maps it to 50; PNDM's table carries diffusers'
 duplicated entry; DPM-Solver's rounded linspace maps t=50 to 50.  The beta
-schedules are scaled-linear (SD, SD-2.1, SDXL) and linear (PixArt).
+schedules are scaled-linear (SD, SD-2.1, SDXL), linear (PixArt) and the
+capped cosine ``squaredcos_cap_v2`` (DeepFloyd IF).
 ``step`` works on a state of any step count (the facade's
 ``denoising_from`` walk switches to a 100-step state); PLMS history and
 DPM-Solver's last two x0 predictions ride the state (``ets``, ``counter``,
 ``cur_sample``), which ``step`` returns updated and never mutates.  DDPM
-(HunyuanDiT's) takes the fixed-small variance; DeepFloyd-IF's learned
-variance and dynamic thresholding come with IF (ROADMAP.md, Queue A
-item 9).
+takes HunyuanDiT's fixed-small variance or DeepFloyd IF's learned range,
+with IF's dynamic thresholding of the x0 prediction.
 """
 
 from __future__ import annotations
@@ -24,15 +24,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..roadmap import not_ported
-
 
 @dataclasses.dataclass(frozen=True)
 class SchedulerConfig:
     num_train_timesteps: int = 1000
     beta_start: float = 0.00085
     beta_end: float = 0.012
-    beta_schedule: str = 'scaled_linear'   # or 'linear'
+    beta_schedule: str = 'scaled_linear'   # or 'linear', 'squaredcos_cap_v2'
     prediction_type: str = 'epsilon'   # or 'v_prediction' / 'sample'
     timestep_spacing: str = 'linspace'
     steps_offset: int = 0
@@ -40,7 +38,7 @@ class SchedulerConfig:
     thresholding: bool = False
     dynamic_thresholding_ratio: float = 0.995
     sample_max_value: float = 1.0
-    variance_type: str = 'fixed_small'     # DDPM
+    variance_type: str = 'fixed_small'     # DDPM: or 'learned_range'
 
 
 @dataclasses.dataclass
@@ -62,7 +60,12 @@ def make_betas(schedule: str, beta_start: float, beta_end: float, n: int) -> np.
         return np.linspace(beta_start, beta_end, n, dtype=np.float64)
     if schedule == 'scaled_linear':
         return np.linspace(beta_start ** 0.5, beta_end ** 0.5, n, dtype=np.float64) ** 2
-    raise NotImplementedError(f'beta schedule {schedule!r} is not ported yet')
+    if schedule == 'squaredcos_cap_v2':
+        def alpha_bar(t):
+            return np.cos((t + 0.008) / 1.008 * np.pi / 2) ** 2
+        ts = np.arange(n, dtype=np.float64)
+        return np.minimum(1 - alpha_bar((ts + 1) / n) / alpha_bar(ts / n), 0.999)
+    raise ValueError(f'unknown beta schedule {schedule!r}')
 
 
 class _Scheduler:
@@ -248,18 +251,27 @@ class DDIMScheduler(_Scheduler):
 
 
 class DDPMScheduler(_Scheduler):
-    """Ancestral DDPM (HunyuanDiT's pipeline scheduler): the leading-spacing
-    ladder, DDPM-family noising, and a step that takes the posterior mean
-    from the x0 prediction (clamped to [-1, 1] with ``clip_sample``) and
-    adds the fixed-small variance's share of ``noise``, a standard-normal
-    draw of the sample's shape, at every timestep above 0."""
+    """Ancestral DDPM (HunyuanDiT's and DeepFloyd IF's pipeline scheduler):
+    the leading-spacing ladder, DDPM-family noising, and a step that takes
+    the posterior mean from the x0 prediction and adds the variance's share
+    of ``noise``, a standard-normal draw of the sample's shape, at every
+    timestep above 0.  The x0 prediction is dynamically thresholded
+    (``thresholding``, IF's) or clamped to [-1, 1] (``clip_sample``).  The
+    variance is fixed-small, or with ``variance_type='learned_range'`` (IF)
+    a model output of twice the sample's channels carries it in its second
+    half, interpolating between the fixed-small and the current-beta log
+    variances."""
 
-    def __init__(self, config: SchedulerConfig = SchedulerConfig()):
-        if config.variance_type != 'fixed_small' or config.thresholding:
-            raise not_ported(f"DDPM with variance_type={config.variance_type!r} and "
-                             f'thresholding={config.thresholding} (DeepFloyd-IF\'s scheduler)',
-                             'DiT families')
-        super().__init__(config)
+    def _threshold(self, x0: torch.Tensor) -> torch.Tensor:
+        """Imagen's dynamic thresholding in fp32 (the JAX ``_threshold``):
+        s = clip(quantile(|x0|, ratio), 1, sample_max_value) per sample,
+        x0 clamped to [-s, s] and divided by s.  ``torch.quantile``
+        interpolates linearly, as ``jnp.quantile`` does."""
+        b = x0.shape[0]
+        flat = x0.float().abs().reshape(b, -1)
+        s = torch.quantile(flat, self.config.dynamic_thresholding_ratio, dim=1)
+        s = s.clamp(1.0, self.config.sample_max_value).reshape((b,) + (1,) * (x0.dim() - 1))
+        return (x0.float().clamp(-s, s) / s).to(x0.dtype)
 
     def step(self, state: SchedulerState, model_output: torch.Tensor, timestep,
              sample: torch.Tensor, noise: Optional[torch.Tensor] = None):
@@ -269,14 +281,27 @@ class DDPMScheduler(_Scheduler):
         a_prev = float(self.alphas_cumprod[prev_t]) if prev_t >= 0 else 1.0
         current_alpha = a_t / a_prev
         current_beta = 1 - current_alpha
+        predicted_variance = None
+        if (self.config.variance_type == 'learned_range'
+                and model_output.shape[1] == sample.shape[1] * 2):
+            model_output, predicted_variance = model_output.chunk(2, dim=1)
         x0, _ = self._predict_x0_eps(model_output, sample, a_t)
-        if self.config.clip_sample:
+        if self.config.thresholding:
+            x0 = self._threshold(x0)
+        elif self.config.clip_sample:
             x0 = x0.clamp(-1.0, 1.0)
         prev = (scalar_like(np.sqrt(a_prev) * current_beta / (1 - a_t), sample) * x0
                 + scalar_like(np.sqrt(current_alpha) * (1 - a_prev) / (1 - a_t), sample) * sample)
         if t > 0 and noise is not None:
             var = max((1 - a_prev) / (1 - a_t) * current_beta, 1e-20)
-            prev = prev + scalar_like(np.sqrt(var), sample) * noise.to(sample.dtype)
+            if predicted_variance is not None:
+                # in fp32, the product cast to the sample's dtype
+                min_log, max_log = float(np.log(var)), float(np.log(max(current_beta, 1e-20)))
+                frac = (predicted_variance.float() + 1) / 2
+                log_var = frac * max_log + (1 - frac) * min_log
+                prev = prev + (torch.exp(0.5 * log_var) * noise.float()).to(sample.dtype)
+            else:
+                prev = prev + scalar_like(np.sqrt(var), sample) * noise.to(sample.dtype)
         return prev, state
 
 

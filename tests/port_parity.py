@@ -37,6 +37,7 @@ from diffusion_feature_tpu.models.hunyuan import HunyuanDiT2D
 from diffusion_feature_tpu.models.registry import get_model_spec
 from diffusion_feature_tpu.models.t5 import T5EncoderModel
 from diffusion_feature_tpu.models.unet2d import UNet2DConditionModel
+from diffusion_feature_tpu.models.unet_if import IFUNet
 from diffusion_feature_tpu.models.vae import AutoencoderKL
 from diffusion_feature_tpu.tokenizers.clip_bpe import load_clip_tokenizer
 from diffusion_feature_tpu.tokenizers.t5_tok import load_t5_tokenizer
@@ -51,6 +52,13 @@ torch.set_num_threads(1)
 def _param_shapes(spec, unet, vae, text_encoders):
     def init():
         rng = jax.random.PRNGKey(0)
+        if spec.family == 'if':
+            # pixel space: no VAE
+            ctx = jnp.zeros((1, spec.prompt_max_length, spec.t5.d_model))
+            ids = jnp.zeros((1, spec.prompt_max_length), jnp.int32)
+            return {'unet': unet.init(rng, jnp.zeros((1, spec.unet.in_channels, 8, 8)), 50,
+                                      ctx)['params'],
+                    'text': [text_encoders[0].init(rng, ids)['params']]}
         if spec.family == 'hunyuan':
             cfg = spec.dit
             ids = jnp.zeros((1, cfg.text_len), jnp.int32)
@@ -117,7 +125,8 @@ def _draw(shapes, seed):
             return jnp.zeros(s.shape, s.dtype)
         elif name in ('cls_token', 'position_embeddings'):   # the DPT's, ViT-sized
             fan_in = 2500
-        elif name == 'positional_embedding':          # HunyuanDiT's T5 pool: N(0, 1/dim)
+        elif name in ('positional_embedding',         # HunyuanDiT's T5 pool: N(0, 1/dim)
+                      'pool_positional_embedding'):   # IF's text pool, the same
             fan_in = s.shape[-1]
         elif name == 'text_embedding_padding':        # HunyuanDiT's: N(0, 0.02^2)
             fan_in = 2500
@@ -129,13 +138,18 @@ def _draw(shapes, seed):
 
 
 def jax_facade(layer, version: str, img_size: int, seed: int = 0, **kwargs):
-    """The JAX facade of a U-Net, PixArt, HunyuanDiT or Flux ``version`` at fp32
+    """The JAX facade of a U-Net, PixArt, HunyuanDiT, Flux or IF ``version`` at fp32
     with fp32 features (``train_unet=True`` only drops its bf16 feature cast), random
     parameters drawn from ``seed``.  ``kwargs`` go to the facade (e.g.
     ``attention=``, ``attn_store_sizes=``, ``validate_layers=``)."""
     spec = get_model_spec(version)
-    vae = AutoencoderKL(cfg=spec.vae, dtype=jnp.float32)
-    if spec.family == 'hunyuan':
+    vae = None if spec.vae is None else AutoencoderKL(cfg=spec.vae, dtype=jnp.float32)
+    if spec.family == 'if':
+        unet = IFUNet(cfg=spec.unet, dtype=jnp.float32)
+        text_encoders = (T5EncoderModel(cfg=spec.t5, dtype=jnp.float32),)
+        tokenizers = (load_t5_tokenizer(None, model_max_length=spec.prompt_max_length,
+                                        vocab_size=spec.t5.vocab_size),)
+    elif spec.family == 'hunyuan':
         unet = HunyuanDiT2D(cfg=spec.dit, dtype=jnp.float32)
         text_encoders = (BertTextModel(cfg=spec.bert, dtype=jnp.float32),
                          T5EncoderModel(cfg=spec.t5, dtype=jnp.float32))
@@ -176,7 +190,8 @@ def jax_facade(layer, version: str, img_size: int, seed: int = 0, **kwargs):
 def load_jax_params(jfe, port):
     """Load the JAX facade's parameters into the port facade's modules."""
     port.unet.load_state_dict(params_from_jax(jfe.params['unet'], port.unet))
-    port.vae.load_state_dict(params_from_jax(jfe.params['vae'], port.vae))
+    if port.vae is not None:
+        port.vae.load_state_dict(params_from_jax(jfe.params['vae'], port.vae))
     for te, tree in zip(port.text_encoders, jfe.params['text']):
         te.load_state_dict(params_from_jax(tree, te, text_jax_name(te)))
 

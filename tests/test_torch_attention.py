@@ -78,7 +78,20 @@ def _attention_shapes(spec, img):
     level or the DiT's over its patch tokens (cross over the T5 tokens;
     HunyuanDiT's over BERT's and T5's, and its T5 pool's one query over
     the mean and T5 tokens; Flux's joint attention over the T5 and packed
-    image tokens), and the VAE's mid-block head."""
+    image tokens), and the VAE's mid-block head.  DeepFloyd IF, in pixel
+    space with no VAE: each level's added-KV attention over the T5 and
+    image tokens, and the text pool's one query over the class and T5
+    tokens."""
+    if spec.family == 'if':
+        cfg, text = spec.unet, spec.prompt_max_length
+        d = cfg.attention_head_dim
+        for level, ch in enumerate(cfg.block_out_channels):
+            s = (img >> level) ** 2
+            yield (2, ch // d, s, d), (2, ch // d, text + s, d)
+        heads = cfg.addition_embed_type_num_heads
+        pool = (2, heads, 1, cfg.encoder_hid_dim // heads)
+        yield pool, (2, heads, text + 1, cfg.encoder_hid_dim // heads)
+        return
     lat = img // 2 ** (len(spec.vae.block_out_channels) - 1)
     if spec.family == 'flux':
         cfg = spec.dit

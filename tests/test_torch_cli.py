@@ -47,8 +47,11 @@ def test_show_all_layers_matches_enumeration():
 
 
 def test_enumeration_of_unported_version_names_its_item():
-    with pytest.raises(NotImplementedError, match="Queue A item 9: 'DiT families'"):
-        enumerate_layers('if', 64)
+    """DeepFloyd IF, the last version to be ported: its enumeration at the
+    native 64^2 equals JAX's (pixel space, no attention id)."""
+    ours = enumerate_layers('if', 64)
+    assert ours == jax_enumerate_layers('if', 64) and len(ours) == 75
+    assert not any('-vit-' in k for k in ours)
 
 
 # ------------------------------------------------------------------- dumps
@@ -333,17 +336,19 @@ def test_weight_flags_match_jax_cli(monkeypatch, tmp_path, images, checkpoint, f
     _assert_trees_match(ref_root, ours_root, 6)
 
 
-@pytest.mark.parametrize('flags,item', [
-    # ControlNet is ported; on an unported DiT family the version raises
-    (['--control', 'canny', '--version', 'test-if'], 'A item 9'), (['--dp', '2'], 'A item 11'),
-    (['--tp', '2'], 'A item 11'), (['--sp', '2'], 'A item 11'),
-    (['--transformer_8bit', 'true'], 'B item 3'),
+@pytest.mark.parametrize('flags,error,match', [
+    # ControlNet on DeepFloyd IF (no SD U-Net encoder to copy) is refused
+    (['--control', 'canny', '--version', 'test-if'], ValueError, 'control= needs a U-Net'),
+    (['--dp', '2'], NotImplementedError, 'ROADMAP.md, Queue A item 11:'),
+    (['--tp', '2'], NotImplementedError, 'ROADMAP.md, Queue A item 11:'),
+    (['--sp', '2'], NotImplementedError, 'ROADMAP.md, Queue A item 11:'),
+    (['--transformer_8bit', 'true'], NotImplementedError, 'ROADMAP.md, Queue B item 3:'),
 ], ids=['control', 'dp', 'tp', 'sp', 'transformer_8bit'])
-def test_unported_flags_raise(tmp_path, images, flags, item):
+def test_unported_flags_raise(tmp_path, images, flags, error, match):
     args = ['--version', 'test-sd', '--img_size', '64', '--device', 'cpu', '--prompt', 'a',
             '--input_dir', str(images / 'imgA.png'), '--output_dir', str(tmp_path), '--layer',
             '{"mid-vit-out": true}', *flags]
-    with pytest.raises(NotImplementedError, match=f'ROADMAP.md, Queue {item}:'):
+    with pytest.raises(error, match=match):
         port_cli.main(args)
     assert os.listdir(tmp_path) == []
 

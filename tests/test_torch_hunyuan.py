@@ -182,10 +182,24 @@ def test_ddpm_ladder_and_step_equal_jax():
 
 @pytest.mark.parametrize('field', ['variance_type', 'thresholding'])
 def test_ddpm_of_deepfloyd_if_names_its_item(field):
-    cfg = dataclasses.replace(get_model_spec(VERSION).scheduler_config,
-                              **{field: 'learned_range' if field == 'variance_type' else True})
-    with pytest.raises(NotImplementedError, match="Queue A item 9: 'DiT families'"):
-        DDPMScheduler(cfg)
+    """HunyuanDiT's DDPM with one of DeepFloyd IF's two features turned on
+    (the learned-range variance of an 8-channel output, or thresholding
+    at diffusers' default 0.995 and 1.0 of a 4-channel one): a 3-step walk
+    with noise equals JAX's."""
+    change = {field: 'learned_range' if field == 'variance_type' else True}
+    ours = DDPMScheduler(dataclasses.replace(get_model_spec(VERSION).scheduler_config, **change))
+    ref = jax_make_scheduler('ddpm', dataclasses.replace(
+        jax_model_spec(VERSION).scheduler_config, **change))
+    rs = np.random.RandomState(5)
+    x = rs.randn(2, 4, 8, 8).astype(np.float32)
+    x_ours, x_ref = torch.from_numpy(x), x
+    s_ours, s_ref = ours.set_timesteps(3), ref.set_timesteps(3)
+    for t in s_ref.timesteps:
+        out = rs.randn(2, 8 if field == 'variance_type' else 4, 8, 8).astype(np.float32) * 2
+        noise = rs.randn(2, 4, 8, 8).astype(np.float32)
+        x_ours, _ = ours.step(s_ours, torch.from_numpy(out), t, x_ours, torch.from_numpy(noise))
+        x_ref, _ = ref.step(s_ref, out, t, x_ref, noise)
+        np.testing.assert_allclose(x_ours.numpy(), np.asarray(x_ref), atol=1e-5, rtol=1e-5)
 
 
 # ---------------------------------------------------------------- sample

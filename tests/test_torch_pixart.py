@@ -363,15 +363,11 @@ def test_save_weights_round_trip(pair, tmp_path, image):
 
 
 def test_unported_parts_name_their_items():
-    """The int8 T5 is Queue B's; the DiT families' message names what of
-    item 9 remains (DeepFloyd-IF, HunyuanDiT and Flux being ported)."""
+    """The int8 T5 is Queue B's."""
     from diffusion_feature_tpu_torch.models.t5 import T5EncoderModel, tiny_t5_config
     cfg = dataclasses.replace(tiny_t5_config(), quantize_int8=True)
     with pytest.raises(NotImplementedError, match="Queue B item 3: 'Int8 weight-only dense'"):
         T5EncoderModel(cfg)
-    with pytest.raises(NotImplementedError,
-                       match=r'DeepFloyd-IF \(PixArt, HunyuanDiT and Flux are ported\)'):
-        get_model_spec('if')
 
 
 def test_generation_cli_on_test_pixart(tmp_path):

@@ -157,29 +157,41 @@ def test_layer_validation_suggests_near_miss():
                          device='cpu', img_size=SIZE)
 
 
-@pytest.mark.parametrize('kwargs,item', [
-    # ControlNet, PixArt, HunyuanDiT and Flux are ported; on an unported DiT
-    # family (DeepFloyd-IF) the version raises
-    ({'weights': 'SimpleCrossAttnDownBlock2D'}, 'A item 9'),
-    ({'control': ['canny'], 'version': 'test-if'}, 'A item 9'),
-    ({'attention': ['up_cross'], 'version': 'if'}, 'A item 9'), ({'version': 'if'}, 'A item 9'),
+@pytest.mark.parametrize('kwargs,error,match', [
+    # DeepFloyd IF and external_model are ported: an IF tree under an SD
+    # U-Net version, a ControlNet on IF and a source that is no extractor
+    # are refused; IF builds, and with attention= it keeps no maps
+    ({'weights': 'SimpleCrossAttnDownBlock2D'}, ValueError, "load it with version='if'"),
+    ({'control': ['canny'], 'version': 'test-if'}, ValueError, 'control= needs a U-Net'),
+    ({'attention': ['up_cross'], 'version': 'test-if'}, None, None),
+    ({'version': 'test-if'}, None, None),
     # the JAX facade's keywords at other values than their defaults
-    ({'train_unet': True}, 'A item 10'), ({'external_model': object()}, 'A item 15'),
-    ({'mesh': object()}, 'A item 11'), ({'t5_8bit': True}, 'B item 3'),
-    ({'transformer_8bit': True}, 'B item 3'),
+    ({'train_unet': True}, NotImplementedError, 'ROADMAP.md, Queue A item 10:'),
+    ({'external_model': object()}, ValueError, 'external_model must be a FeatureExtractor'),
+    ({'mesh': object()}, NotImplementedError, 'ROADMAP.md, Queue A item 11:'),
+    ({'t5_8bit': True}, NotImplementedError, 'ROADMAP.md, Queue B item 3:'),
+    ({'transformer_8bit': True}, NotImplementedError, 'ROADMAP.md, Queue B item 3:'),
 ], ids=['weights', 'control', 'attention', 'version', 'train_unet', 'external_model', 'mesh',
         't5_8bit', 'transformer_8bit'])
-def test_unported_options_raise(tmp_path, kwargs, item):
+def test_unported_options_raise(tmp_path, kwargs, error, match):
     args = dict(layer={'mid-vit-out': True}, version='test-xl', device='cpu', img_size=SIZE)
     args.update(kwargs)
+    if args['version'] == 'test-if':
+        args['layer'] = {'unet-out': True}
     if 'weights' in kwargs:
-        # a checkpoint whose U-Net has DeepFloyd-IF's blocks (Queue A item 9)
+        # a checkpoint whose U-Net has DeepFloyd IF's blocks
         (tmp_path / 'unet').mkdir()
         (tmp_path / 'unet' / 'config.json').write_text(
             '{"down_block_types": ["ResnetDownsampleBlock2D", "SimpleCrossAttnDownBlock2D"]}')
         args['weights'] = str(tmp_path)
-    with pytest.raises(NotImplementedError, match=f'ROADMAP.md, Queue {item}:'):
-        FeatureExtractor(**args)
+    if error is not None:
+        with pytest.raises(error, match=match):
+            FeatureExtractor(**args)
+        return
+    fe = FeatureExtractor(**args)
+    image = torch.rand(1, 3, SIZE, SIZE) * 2 - 1
+    feats = fe.extract(fe.encode_prompt(PROMPT), 1, image, image_type='tensor')
+    assert list(feats) == ['unet-out'] and feats['unet-out'].shape == (1, 6, SIZE, SIZE)
 
 
 def test_jax_keywords_at_their_defaults_pass():

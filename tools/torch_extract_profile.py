@@ -5,7 +5,8 @@ the card.
     python3 tools/torch_extract_profile.py [NAME ...]
 
 For each of the paths ``chip_smoke.py`` drives (``chip_smoke.PATHS``: the
-U-Net paths of phases 3 to 11 and PixArt's of phase 14),
+U-Net paths of phases 3 to 11, the DiTs' of phases 14 to 16 and IF's of
+phase 17),
 after ``chip_smoke.extract_times``'s three warm-up calls: the median host
 time to enqueue one extract and the median time between CUDA events around
 it over ``chip_smoke.TIMED_CALLS`` calls, then one extract under
@@ -13,8 +14,9 @@ it over ``chip_smoke.TIMED_CALLS`` calls, then one extract under
 head-mean kernels, matrix products, convolutions and their layout
 transposes, normalisations, resizes, the rest, with the rest's largest
 kernels by name).  The same for chip_smoke's generation and ControlNet
-paths: ``sd15-gen`` (the generate_with_extraction defaults) and ``xl-gen``
-(phase 12b's sample) after one warm-up sample, over 3 samples;
+paths: ``sd15-gen`` (the generate_with_extraction defaults), ``xl-gen``
+(phase 12b's sample) and ``if-gen`` (phase 17e's: IF at 64^2, 50 DDPM
+steps, CFG) after one warm-up sample, over 3 samples;
 ``sd15-control`` (phase 13's extract, from a random tree written to a
 temporary dir).  NAMEs pick paths (default: all).  Prints one JSON line
 per path, with the profiled call's peak memory above what was allocated
@@ -52,7 +54,7 @@ def kind_of(name: str) -> str:
     return 'elementwise/other'
 
 
-OTHER_PATHS = ('sd15-gen', 'xl-gen', 'sd15-control')
+OTHER_PATHS = ('sd15-gen', 'xl-gen', 'if-gen', 'sd15-control')
 
 
 def open_extract(torch, name):
@@ -83,21 +85,28 @@ def open_other(torch, name, tmp):
                                                 use_control=True)
         return (fe, lambda: chip_smoke.extract(fe, prompts, images, use_control=True), host,
                 device)
+    step_noise = None
     if name == 'sd15-gen':
         fe = FeatureExtractor(args.layer, args.version, img_size=args.img_size, seed=0)
         steps, guidance = args.steps, args.guidance_scale
+    elif name == 'if-gen':
+        if_args = generate_with_extraction.build_parser().parse_args(chip_smoke.IF_GEN_ARGS)
+        fe = FeatureExtractor(**chip_smoke.PATHS['if']['args'], seed=0)
+        steps, guidance = if_args.steps, if_args.guidance_scale
     else:
         fe = FeatureExtractor(**chip_smoke.XL_SAMPLE, seed=0)
         steps, guidance = chip_smoke.XL_SAMPLE_STEPS, chip_smoke.XL_GUIDANCE
     prompts = fe.encode_prompt(args.prompt)
-    lat = fe.img_size // fe.vae_scale
-    noise = torch.randn((1, 4, lat, lat), generator=torch.Generator(device='cuda').manual_seed(7),
-                        device='cuda')
+    gen = torch.Generator(device='cuda').manual_seed(7)
+    noise = torch.randn(fe.latent_shape(1), generator=gen, device='cuda')
+    if name == 'if-gen':   # DDPM: one draw per step
+        step_noise = [torch.randn(fe.latent_shape(1), generator=gen, device='cuda')
+                      for _ in range(steps)]
 
     conds = fe._sample_conditioning(prompts, 1, guidance)
 
     def run():
-        return fe._sample(*conds, noise, steps, guidance)
+        return fe._sample(*conds, noise, steps, guidance, step_noise)
     run()
     host, device = [], []
     for _ in range(3):
