@@ -7,7 +7,7 @@ Phases (each prints its numbers on lines of its own):
   1. the card's name and power limit, then the kernels' build (one nvcc per
      source, started together), and the count of HGMMA (wgmma) and UTMALDG
      (TMA load) instructions in the SASS of every bf16/fp16 library (B1/B2,
-     B3, B4);
+     B3, B4), of HMMA (mma.sync) in the backward's;
   2. every kernel against its plain twin at every shape the paths launch
      it at (batch 2), plus a ragged shape, in bf16 and fp32 (each kernel
      also in fp16 at one shape): errors against the stated tolerances, and
@@ -178,6 +178,31 @@ Phases (each prints its numbers on lines of its own):
      source's, phase 6's launch counts (35/36/36/0), the source's next
      extract still its own taps only; in phase 6, its first extract
      torch.equal to phase 6's fresh extractor's (same request and seed).
+ 19. training (after phase 17): (a) the flash backward kernel against its
+     twin (JAX's VJP) on head-split views at BWD_SHAPES, the paths' fp32
+     and bf16 shapes and one shape at every other width: relative L2 and
+     the worst element of dq, dk, dv against TOL, the kernel's time as
+     CUDA graphs, the twin's, the bound (five products, 10 B H Sq Sk D
+     flops) and SDPA's backward for the same function (timed only);
+     (b) seg_configs/ade_sdxl.json through the port's
+     train_segmentation.main at full width (SDXL 1024^2 bf16 frozen, head
+     of 512 channels, 150 classes, crop 512, batch 2) on synthetic pairs
+     in a temporary dir: SEG_ITERS steps, a val pass with slide
+     inference, then --resume --eval_only reproducing the mIoU; 71 B1 and
+     0 backward launches per extract, finite losses, ms per step (median
+     after the first) and peak GiB; (c) seg_configs/ade_vpd.json (SD-1.5
+     512^2 fp32, prompt tuning over the 150-name prompt) for VPD_ITERS
+     steps: B1/B2/backward launches per step as prompt_tuning_launches
+     derives them from the config and taps, meta_prompt's gradient finite,
+     non-zero and within TAP_REL_TOL of the same step's on the twins (the
+     twins' extraction backward from the step's own cotangent at the
+     features; the twins' whole step is printed, not held: the head's ReLUs
+     and the Lovasz order amplify one fp32 rounding there), ms per step and
+     peak GiB; (d) train_unet=True on SD-1.5 512^2 fp32, one
+     backward of a loss on TRAIN_UNET_TAPS (unet-out included): 0/10/10
+     B1/B2/backward launches (grad_launches), every U-Net parameter a
+     finite gradient,
+     all of them within TAP_REL_TOL (relative L2) of the twins'.
 Phase 2 also holds B2 and B3 in fp32 at phase 11's store shape (the fp32
 kernels, timed against the fp32 non-tensor peak), and B4 (short
 attention), which no path routes to, as in the JAX package: against its
@@ -400,6 +425,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                        'diffusion_feature_tpu/ops/flash_attention.py:461'),
     'short_attention': ('diffusion_feature_tpu_torch/csrc/short_hopper.cuh',
                         'diffusion_feature_tpu/ops/flash_attention.py:375'),
+    # the JAX package's flash backward is a custom VJP (XLA), no Pallas kernel
+    'flash_attention_bwd': ('diffusion_feature_tpu_torch/csrc/flash_bwd.cuh',
+                            'diffusion_feature_tpu/ops/flash_attention.py:212'),
 }
 # phase 7: the CLI on the 'xl' path over 3 images, in batches of 2 and 1
 CLI_PATH, CLI_IMAGES = 'xl', 3
@@ -467,6 +495,25 @@ IF_GEN_ARGS = ['--version', 'if', '--img_size', '64', '--layer', json.dumps(IF_T
 # phase 18: external_model on phase 3's extractor with phase 6's request
 EXTERNAL_SOURCE, EXTERNAL_PATH = 'xl', 'xl_store'
 EXTERNAL_MEMORY_RATIO = 0.01   # what the second extractor may add to the allocated bytes
+# phase 19: (a) the backward kernel on head-split views: the training
+# paths' shapes (fp32: ade_vpd's SD-1.5 levels 0 and 1; bf16: SDXL's levels
+# 1 and 2) and one shape at each other width (bf16; d=80 also fp16)
+BWD_SHAPES = [((2, 8, 4096, 4096, 40), 'float32'), ((2, 8, 1024, 1024, 80), 'float32'),
+              ((2, 10, 4096, 4096, 64), 'bfloat16'), ((2, 20, 1024, 1024, 64), 'bfloat16'),
+              ((2, 8, 4096, 4096, 40), 'bfloat16'), ((2, 8, 1024, 1024, 80), 'bfloat16'),
+              ((2, 16, 1024, 1024, 72), 'bfloat16'), ((2, 16, 1024, 1024, 88), 'bfloat16'),
+              ((2, 24, 1536, 1536, 128), 'bfloat16'), ((2, 8, 1024, 1024, 160), 'bfloat16'),
+              ((2, 8, 1024, 1024, 80), 'float16')]
+# (b), (c): the shipped configs through the port's trainer; (d) train_unet
+SEG_CONFIG, VPD_CONFIG = 'seg_configs/ade_sdxl.json', 'seg_configs/ade_vpd.json'
+SEG_ITERS, VPD_ITERS = 4, 3
+SEG_TRAIN_SIZES = [(640, 768), (576, 704)]   # (h, w) of the synthetic training pairs
+SEG_VAL_SIZE = (512, 768)                    # one val pair: two 512^2 slide windows
+# the resumed evaluation restarts the extraction noise from the seed, as the
+# training run's did: the same mIoU up to argmax flips from summation order
+SEG_MIOU_TOL = 1e-4
+TRAIN_UNET_TAPS = {'down-level1-repeat0-vit-block0-out': True,
+                   'up-level2-repeat1-vit-out': True, 'unet-out': True}
 
 
 def card_line() -> str:
@@ -520,9 +567,10 @@ def graph_ms(torch, fn, per_graph=20) -> float:
     return time_ms(torch, graph.replay) / per_graph
 
 
-def sass_counts(path) -> dict:
-    """HGMMA (wgmma) and UTMALDG (TMA load) instructions in a library's
-    SASS, by cuobjdump from the CUDA toolkit or Triton's bundled copy."""
+def sass_counts(path, ops=('HGMMA', 'UTMALDG')) -> dict:
+    """Instructions ``ops`` in a library's SASS (HGMMA: wgmma, UTMALDG: a
+    TMA load, HMMA: mma.sync), by cuobjdump from the CUDA toolkit or
+    Triton's bundled copy."""
     import shutil
     cands = [os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'), 'bin', 'cuobjdump'),
              shutil.which('cuobjdump') or '']
@@ -537,7 +585,7 @@ def sass_counts(path) -> dict:
         raise RuntimeError('cuobjdump not found (CUDA toolkit or triton)')
     sass = subprocess.run([tool, '-sass', path], capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    return {op: sass.count(op) for op in ('HGMMA', 'UTMALDG')}
+    return {op: sass.count(op) for op in ops}
 
 
 def ptxas_summary(log) -> list:
@@ -759,6 +807,7 @@ def twin_of(fa):
 
 def reset_counts(fa):
     fa.launches = fa.lse_launches = fa.headmean_launches = fa.short_launches = 0
+    fa.bwd_launches = 0
 
 
 def read_counts(fa):
@@ -870,8 +919,9 @@ def drive_path(torch, fa, attn_ops, fe, prompts, images, expected_counts, label,
         torch.cuda.synchronize()
         counts = read_counts(fa)
     print(f'{label} extract: kernel launches {counts} (expected {expected_counts})', flush=True)
-    if counts != expected_counts:
-        raise RuntimeError(f'{label}: launches {counts} != {expected_counts}')
+    if counts != expected_counts or fa.bwd_launches:
+        raise RuntimeError(f'{label}: launches {counts} != {expected_counts} or '
+                           f'{fa.bwd_launches} backward launches')
     return feats, counts, shapes
 
 
@@ -1089,22 +1139,8 @@ def b1_per_forward(fa, cfg, latent: int, encoder_only: bool = False) -> int:
     ``encoder_only``, of one ControlNet: the down levels and the mid block),
     derived from the config: the self-attentions whose shape the gate admits
     on the card (cross-attention's 77 keys never pass)."""
-    levels = len(cfg.block_out_channels)
-
-    def passes(level):
-        tokens = (latent >> level) ** 2
-        d = cfg.block_out_channels[level] // cfg.num_attention_heads[level]
-        return fa.is_flash_compatible((1, 1, tokens, d), (1, 1, tokens, d))
-
-    depth = cfg.transformer_layers_per_block
-    n = sum(cfg.layers_per_block * depth[lv] for lv, kind in enumerate(cfg.down_block_types)
-            if kind == 'CrossAttnDownBlock2D' and passes(lv))
-    n += depth[-1] if passes(levels - 1) else 0
-    if not encoder_only:
-        n += sum((cfg.layers_per_block + 1) * depth[levels - 1 - u]
-                 for u, kind in enumerate(cfg.up_block_types)
-                 if kind == 'CrossAttnUpBlock2D' and passes(levels - 1 - u))
-    return n
+    return sum(passes for key, passes in unet_self_attentions(fa, cfg, latent)
+               if not encoder_only or key[0] < 2)
 
 
 def vae_b1(fa, cfg, latent: int) -> int:
@@ -2002,6 +2038,419 @@ def check_external(torch, fa, attn_ops, card, fe, prompts, images, shapes, runs)
     return feats
 
 
+# ------------------------------------------------------------- phase 19
+def bwd_bound(shape, dtype_name):
+    """(ms, 'bytes' or 'operations') of the flash backward: five products,
+    10 B H Sq Sk D flops; q, o, do, the logsumexp, k, v read once and dq,
+    dk, dv written once."""
+    b, h, sq, sk, d = shape
+    item = {'bfloat16': 2, 'float16': 2, 'float32': 4}[dtype_name]
+    flops = 10 * b * h * sq * sk * d
+    nbytes = 4 * b * h * (sq + sk) * d * item + b * h * sq * 4
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, 'operations' if t_ops >= t_bytes else 'bytes'
+
+
+def sdpa_backward_ms(torch, q, k, v, grad, scale):
+    """SDPA's backward for the same function (timed as a yardstick only):
+    autograd.grad through one SDPA forward, its graph kept."""
+    F = torch.nn.functional
+    try:
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, scale=scale)
+        return time_ms(torch, lambda: torch.autograd.grad(out, leaves, grad, retain_graph=True))
+    except RuntimeError as err:
+        print(f'  SDPA backward on {q.dtype} {tuple(q.shape)} unavailable: '
+              f'{str(err).splitlines()[0]}')
+        return None
+
+
+def compare_bwd(torch, fa, shape, dtype_name, gen):
+    """The backward kernel against its twin on head-split views of one
+    shape: dq, dk, dv by relative L2 and elementwise (atol TOL times the
+    gradient's largest entry), the kernel as CUDA graphs and in a loop of
+    calls, the twin, SDPA's backward, the bound; returns the numbers."""
+    b, h, sq, sk, d = shape
+    dtype = getattr(torch, dtype_name)
+    q, k, v, grad = (torch.randn(b, s, h * d, generator=gen, device='cuda').to(dtype)
+                     .reshape(b, s, h, d).transpose(1, 2) for s in (sq, sk, sk, sq))
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_with_lse(q, k, v, scale=scale)
+    run = lambda: fa.flash_attention_bwd(q, k, v, out, lse, grad, scale=scale)   # noqa: E731
+    plain = lambda: fa.flash_attention_bwd_reference(q, k, v, grad, scale)       # noqa: E731
+    got, ref = run(), plain()
+    torch.cuda.synchronize()
+    tol = TOL[dtype_name]
+    err, ratio, notes, finite = 0.0, 0.0, '', True
+    for name, a, r in zip(('dq', 'dk', 'dv'), got, ref):
+        e, worst = worst_ratio(torch, a, r, tol * r.float().abs().max().item(), tol)
+        ratio, note = rel_l2_ratio(torch, a, r, tol, max(ratio, worst))
+        err = max(err, e)
+        finite = finite and bool(torch.isfinite(a.float()).all())
+        notes += f' {name}:{note.strip()} worst/allowed={worst:.3f}'
+    del got, ref
+    ms = graph_ms(torch, run)
+    plain_ms = time_ms(torch, plain)
+    lib_ms = sdpa_backward_ms(torch, q, k, v, grad, scale)
+    bound_ms, bound_by = bwd_bound(shape, dtype_name)
+    loop_ms = time_ms(torch, run, runs=3)
+    ok = finite and ratio <= 1.0
+    lib = 'none' if lib_ms is None else f'{lib_ms:.4f}'
+    print(f'compare flash_attention_bwd {dtype_name} q{(b, h, sq, d)} k{(b, h, sk, d)} head-split:'
+          f' max_abs_err={err:.3e}{notes} kernel_ms={ms:.4f} call_loop_ms={loop_ms:.4f} '
+          f'plain_ms={plain_ms:.4f} library_ms={lib} bound_ms={bound_ms:.4f} ({bound_by}) '
+          f'share_of_bound={bound_ms / ms:.3f} {"ok" if ok else "FAIL"}', flush=True)
+    if not ok:
+        raise RuntimeError(f'flash_attention_bwd disagrees with its twin at {shape} {dtype_name}')
+    return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms, 'library_ms': lib_ms,
+            'bound_ms': bound_ms, 'bound_by': bound_by, 'call_loop_ms': loop_ms}
+
+
+@contextlib.contextmanager
+def recording_all(fa, attn_ops, log):
+    """``recording`` on the wrappers the attention ops call and on the two
+    the flash Function calls (B2 and the backward, through the kernel
+    module's names)."""
+    make = recording(log)
+    real = {n: getattr(fa, n) for n in ('flash_attention_with_lse', 'flash_attention_bwd')}
+    for n, f in real.items():
+        setattr(fa, n, make(n, f))
+    try:
+        with patched_wrappers(attn_ops, make):
+            yield
+    finally:
+        for n, f in real.items():
+            setattr(fa, n, f)
+
+
+@contextlib.contextmanager
+def grad_twins(attn_ops, fa):
+    """Every kernel call on its twin, the differentiable flash call too
+    (B1's twin, differentiated by autograd)."""
+    real = attn_ops.flash_attention_diff
+    attn_ops.flash_attention_diff = lambda q, k, v, *, scale: fa.flash_attention_reference(
+        q, k, v, scale)
+    try:
+        with patched_wrappers(attn_ops, twin_of(fa)):
+            yield
+    finally:
+        attn_ops.flash_attention_diff = real
+
+
+def all_counts(fa):
+    return {**read_counts(fa), 'flash_attention_bwd': fa.bwd_launches}
+
+
+def unet_self_attentions(fa, cfg, latent):
+    """(order key, gate passes) of each U-Net self-attention in forward
+    order: down blocks, mid, up blocks, one per transformer block, the key
+    (stage, level, repeat, 1) that tap_key gives a tap of that repeat's
+    transformer ('up' levels counted from the deepest, as the tap ids)."""
+    levels = len(cfg.block_out_channels)
+    depth = cfg.transformer_layers_per_block
+
+    def passes(level):
+        tokens = (latent >> level) ** 2
+        d = cfg.block_out_channels[level] // cfg.num_attention_heads[level]
+        return fa.is_flash_compatible((1, 1, tokens, d), (1, 1, tokens, d))
+
+    out = []
+    for lv, kind in enumerate(cfg.down_block_types):
+        if kind == 'CrossAttnDownBlock2D':
+            for r in range(cfg.layers_per_block):
+                out += [((0, lv, r, 1), passes(lv))] * depth[lv]
+    out += [((1, 0, 0, 1), passes(levels - 1))] * depth[-1]
+    for u, kind in enumerate(cfg.up_block_types):
+        if kind == 'CrossAttnUpBlock2D':
+            for r in range(cfg.layers_per_block + 1):
+                out += [((2, u, r, 1), passes(levels - 1 - u))] * depth[levels - 1 - u]
+    return out
+
+
+def tap_key(tap: str):
+    """The forward-order key of a tap id: (stage, level, repeat, 0 for a
+    resnet, 1 for the transformer, 2 for a sampler); 'unet-out' last."""
+    import re
+    if tap.startswith('unet-out'):
+        return (3, 0, 0, 0)
+    m = re.match(r'(down|mid|up)(?:-level(\d+))?(?:-repeat(\d+))?-(res|vit|\w*sampler)', tap)
+    if m is None:
+        raise ValueError(f'no forward position for tap {tap!r}')
+    stage = {'down': 0, 'mid': 1, 'up': 2}[m.group(1)]
+    sub = {'res': 0, 'vit': 1}.get(m.group(4), 2)
+    return (stage, int(m.group(2) or 0), int(m.group(3) or 0), sub)
+
+
+def grad_launches(fa, cfg, latent, taps, train_unet):
+    """B1/B2/backward launches of one training step (one forward with
+    gradients, one backward) of a U-Net with these taps, derived from the
+    config through the gate: with train_unet every self-attention's q, k
+    and v require grad, so each gate-passing one runs B2; with prompt
+    tuning only those after the first cross-attention do (the first
+    transformer block's self-attention sees the latents alone: B1).  A
+    B2 call gets a backward launch when its output reaches a tap of the
+    loss (its position at or before the last tap's; the U-Net always runs
+    to its end)."""
+    last = max(tap_key(t) for t in taps)
+    b1 = b2 = bwd = 0
+    for i, (key, passes) in enumerate(unet_self_attentions(fa, cfg, latent)):
+        if not passes:
+            continue
+        if i == 0 and not train_unet:
+            b1 += 1
+        else:
+            b2 += 1
+            bwd += key <= last
+    return b1, b2, bwd
+
+
+def write_seg_pairs(root):
+    """Synthetic ADE20K-style pairs under ``root``: random RGB images and
+    label maps of ids 0..150 (0 unlabelled, as --reduce_zero_label takes
+    them) at SEG_TRAIN_SIZES (train) and SEG_VAL_SIZE (val)."""
+    import numpy as np
+    from PIL import Image
+    rng = np.random.RandomState(19)
+    dirs = {}
+    for split, sizes in (('train', SEG_TRAIN_SIZES), ('val', [SEG_VAL_SIZE])):
+        for kind in ('img', 'lab'):
+            dirs[split, kind] = os.path.join(root, split, kind)
+            os.makedirs(dirs[split, kind])
+        for i, (h, w) in enumerate(sizes):
+            Image.fromarray(rng.randint(0, 256, (h, w, 3), np.uint8)).save(
+                os.path.join(dirs[split, 'img'], f'{i}.png'))
+            Image.fromarray(rng.randint(0, 151, (h, w)).astype(np.uint8)).save(
+                os.path.join(dirs[split, 'lab'], f'{i}.png'))
+    return dirs
+
+
+def seg_argv(config, dirs, work, iters, val=True):
+    argv = ['--config', config, '--train_img_dir', dirs['train', 'img'],
+            '--train_label_dir', dirs['train', 'lab'], '--work_dir', work,
+            '--max_iters', str(iters), '--val_every', str(iters), '--batch_size', '2',
+            '--reduce_zero_label', '--device', 'cuda']
+    if val:
+        argv += ['--val_img_dir', dirs['val', 'img'], '--val_label_dir', dirs['val', 'lab']]
+    return argv
+
+
+def run_trainer(torch, fa, attn_ops, argv):
+    """train_segmentation.main(argv) with every count set to 0 just before
+    and read just after, its output captured; returns (result, counts,
+    recorded calls, seconds, peak GiB)."""
+    from diffusion_feature_tpu_torch import train_segmentation
+    log = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    with recording_all(fa, attn_ops, log):
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = train_segmentation.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = all_counts(fa)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for line in out.getvalue().splitlines():
+        print(f'  | {line}')
+    return result, counts, log, seconds, peak
+
+
+def step_ms(result):
+    """The median step time after the first, in ms."""
+    later = sorted(result['step_seconds'][1:])
+    return later[len(later) // 2] * 1e3
+
+
+def check_training(torch, fa, attn_ops, card, shapes, runs, numbers, gen):
+    """Phase 19 (a) to (d)."""
+    import numpy as np
+    from diffusion_feature_tpu_torch import FeatureExtractor
+    from diffusion_feature_tpu_torch.models.registry import get_model_spec
+    # (a) the backward kernel against its twin
+    for shape, dt in BWD_SHAPES:
+        numbers['flash_attention_bwd', shape, dt] = compare_bwd(torch, fa, shape, dt, gen)
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_seg_') as root:
+        dirs = write_seg_pairs(root)
+        # (b) ade_sdxl: frozen bf16 SDXL, the head trained, val, resume
+        with open(SEG_CONFIG) as f:
+            cfg = json.load(f)
+        argv = seg_argv(SEG_CONFIG, dirs, os.path.join(root, 'sdxl'), SEG_ITERS)
+        result, runs['seg_sdxl'], shapes['seg_sdxl'], seconds, peak = run_trainer(
+            torch, fa, attn_ops, argv)
+        crop, stride = cfg['crop_size'][0], cfg['stride'][1]
+        windows = (max(SEG_VAL_SIZE[1] - crop + stride - 1, 0) // stride + 1) * (
+            max(SEG_VAL_SIZE[0] - crop + stride - 1, 0) // stride + 1)
+        extracts = SEG_ITERS + windows
+        want = {**only_b1(71 * extracts), 'flash_attention_bwd': 0}
+        losses = result['losses']
+        print(f'phase 19b ade_sdxl train_segmentation.main (xl 1024^2 bf16 frozen, head '
+              f'{cfg["head_channels"]} x {cfg["num_classes"]} classes, crop {crop}, batch 2), '
+              f'{SEG_ITERS} steps + val over {windows} slide windows: {seconds:.1f} s for main() '
+              f'(model build included); losses {[round(x, 4) for x in losses]}; '
+              f'{step_ms(result):.2f} ms per step (median after the first; all '
+              f'{[round(x * 1e3, 2) for x in result["step_seconds"]]}); peak {peak:.2f} GiB; '
+              f'val mIoU {result["miou"]}; launches {runs["seg_sdxl"]} (expected {want}: 71 B1 '
+              f'per extract, {extracts} extracts, no backward) ({card})', flush=True)
+        if runs['seg_sdxl'] != want or not all(np.isfinite(losses)) or len(losses) != SEG_ITERS:
+            raise RuntimeError(f'phase 19b: launches {runs["seg_sdxl"]}, losses {losses}')
+        train_miou = result['miou'][0][1]
+        del result
+        torch.cuda.empty_cache()
+        ckpt = os.path.join(root, 'sdxl', f'iter_{SEG_ITERS}.pt')
+        again, runs['seg_sdxl_eval'], shapes['seg_sdxl_eval'], seconds, _ = run_trainer(
+            torch, fa, attn_ops, argv + ['--resume', ckpt, '--eval_only'])
+        want_eval = {**only_b1(71 * windows), 'flash_attention_bwd': 0}
+        miou = again['miou'][0][1]
+        print(f'phase 19b --resume --eval_only: {seconds:.1f} s for main(), mIoU {miou} (the '
+              f'training run\'s {train_miou}, allowed difference {SEG_MIOU_TOL:g}), launches '
+              f'{runs["seg_sdxl_eval"]} (expected {want_eval})', flush=True)
+        del again
+        torch.cuda.empty_cache()
+        if runs['seg_sdxl_eval'] != want_eval or not abs(miou - train_miou) <= SEG_MIOU_TOL:
+            raise RuntimeError(f'phase 19b eval: launches {runs["seg_sdxl_eval"]}, mIoU {miou} '
+                               f'vs {train_miou}')
+
+        # (c) ade_vpd: SD-1.5 fp32, prompt tuning through the extraction step
+        with open(VPD_CONFIG) as f:
+            vcfg = json.load(f)
+        df = vcfg['diffusion_feature']
+        spec = get_model_spec(df['version'])
+        latent = df['img_size'] // 2 ** (len(spec.vae.block_out_channels) - 1)
+        # the VAE encoder's mid head runs B1 without gradients where the gate admits it
+        per_step = grad_launches(fa, spec.unet, latent, df['layer'], False)
+        per_step = (per_step[0] + vae_b1(fa, spec.vae, latent), *per_step[1:])
+        argv = seg_argv(VPD_CONFIG, dirs, os.path.join(root, 'vpd'), VPD_ITERS, val=False)
+        result, runs['seg_vpd'], shapes['seg_vpd'], seconds, peak = run_trainer(
+            torch, fa, attn_ops, argv)
+        want = {'flash_attention': VPD_ITERS * per_step[0],
+                'flash_attention_with_lse': VPD_ITERS * per_step[1], 'headmean_probs': 0,
+                'short_attention': 0, 'flash_attention_bwd': VPD_ITERS * per_step[2]}
+        seg, losses = result['seg'], result['losses']
+        print(f'phase 19c ade_vpd train_segmentation.main (1-5 512^2 fp32, prompt tuning over '
+              f'the {len(vcfg["prompt"].split(","))}-name prompt, batch 2), {VPD_ITERS} steps: '
+              f'{seconds:.1f} s for main(); losses {[round(x, 4) for x in losses]}; '
+              f'{step_ms(result):.2f} ms per step (median after the first; all '
+              f'{[round(x * 1e3, 2) for x in result["step_seconds"]]}); peak {peak:.2f} GiB; '
+              f'launches {runs["seg_vpd"]} (expected {want}: per step B1/B2/backward {per_step}, '
+              'the first self-attention sees no prompt, every later gate-passing one runs B2, '
+              'those at or before the last tap a backward) '
+              f'({card})', flush=True)
+        if runs['seg_vpd'] != want or not all(np.isfinite(losses)):
+            raise RuntimeError(f'phase 19c: launches {runs["seg_vpd"]}, losses {losses}')
+        # the same step on the kernels and on the twins: meta_prompt's gradient
+        from diffusion_feature_tpu_torch.train_segmentation import list_pairs, load_pair
+        import random
+        pairs = list_pairs(dirs['train', 'img'], dirs['train', 'lab'])
+        batch = [load_pair(*pairs[i], (512, 512), random.Random(i), True, True) for i in range(2)]
+        images = torch.from_numpy(np.stack([x[0] for x in batch])).cuda()
+        labels = torch.from_numpy(np.stack([x[1] for x in batch])).cuda()
+
+        def step_features():
+            """One training step's features (with their graph to
+            meta_prompt) and the loss on them; the same noise each time."""
+            seg.reseed_noise(0)
+            feats = seg.extract_features(images)
+            loss, _ = seg.head_loss(feats, labels)
+            # the taps the head reads ('attn', the store's maps, it does not)
+            return [feats[lid] for lvl in seg.head.model_feature_layers[0]
+                    for lid, _ in lvl], loss
+
+        # the step on the kernels: meta_prompt's gradient, and the loss's
+        # gradient at the features (the cotangent the extraction receives)
+        feats, loss = step_features()
+        cotangent = torch.autograd.grad(loss, feats, retain_graph=True)
+        (g_kernel,) = torch.autograd.grad(feats, seg.meta_prompt, cotangent)
+        l_kernel = float(loss.detach())
+        del feats, loss
+        # the same step on the twins: its extraction's backward from the same
+        # cotangent (the twin extraction's vector-Jacobian product), and, for
+        # the record, its whole gradient, which the head's ReLU kinks and the
+        # Lovasz sort order move by percents when the features move by one
+        # fp32 rounding (this small gradient is mostly cancellation)
+        with grad_twins(attn_ops, fa):
+            feats, loss = step_features()
+            (g_twin,) = torch.autograd.grad(feats, seg.meta_prompt, cotangent,
+                                            retain_graph=True)
+            (g_twin_step,) = torch.autograd.grad(loss, seg.meta_prompt)
+        l_twin = float(loss.detach())
+        del feats, loss
+        rel, cos = rel_cos(g_kernel, g_twin)
+        rel_step, _ = rel_cos(g_kernel, g_twin_step)
+        finite = bool(torch.isfinite(g_kernel).all())
+        print(f'  phase 19c meta_prompt gradient {tuple(g_kernel.shape)}: kernels vs twins from '
+              f'the same cotangent rel_l2={rel:.3e} cosine={cos:.6f} (allowed {TAP_REL_TOL:g}); '
+              f'against the twins\' whole step rel_l2={rel_step:.3e} (not held); |g| max '
+              f'{g_kernel.abs().max().item():.3e}, finite={finite}; loss {l_kernel:.6f} vs '
+              f'{l_twin:.6f}', flush=True)
+        if not (finite and g_kernel.abs().max() > 0 and rel <= TAP_REL_TOL):
+            raise RuntimeError(f'phase 19c: meta_prompt gradient rel {rel}, finite {finite}')
+        del seg, result, g_kernel, g_twin, g_twin_step, cotangent
+        torch.cuda.empty_cache()
+
+    # (d) train_unet on SD-1.5 512^2 fp32: one backward, kernels vs twins
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fe = FeatureExtractor(TRAIN_UNET_TAPS, '1-5', device='cuda', dtype='float32', img_size=512,
+                          train_unet=True, seed=0)
+    prompts = fe.encode_prompt('a photo of a cat')
+    build_s = time.perf_counter() - t0
+    images = torch.rand(2, 3, 512, 512, generator=torch.Generator(device='cuda').manual_seed(1),
+                        device='cuda') * 2 - 1
+    latent = fe.img_size // fe.vae_scale
+    per_step = grad_launches(fa, fe.spec.unet, latent, TRAIN_UNET_TAPS, True)
+    per_step = (per_step[0] + vae_b1(fa, fe.spec.vae, latent), *per_step[1:])
+
+    def unet_grads():
+        g = torch.Generator(device='cuda').manual_seed(2)
+        shape = fe.latent_shape(2)
+        posterior, noise = (torch.randn(shape, generator=g, device='cuda') for _ in range(2))
+        fe.unet.zero_grad(set_to_none=True)
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        feats = fe._step(images, fe._step_conditioning(prompts, 2), fe._step_kit(50), posterior,
+                         noise, fe.feature_dtype)
+        loss = sum((v.float() ** 2).mean() for v in feats.values())
+        loss.backward()
+        stop.record()
+        torch.cuda.synchronize()
+        return ({k: None if p.grad is None else p.grad.detach().clone()
+                 for k, p in fe.unet.named_parameters()}, float(loss.detach()),
+                start.elapsed_time(stop))
+
+    log = []
+    with recording_all(fa, attn_ops, log):
+        reset_counts(fa)
+        grads, loss, ms = unet_grads()
+        torch.cuda.synchronize()
+        runs['train_unet'], shapes['train_unet'] = all_counts(fa), log
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {'flash_attention': per_step[0], 'flash_attention_with_lse': per_step[1],
+            'headmean_probs': 0, 'short_attention': 0, 'flash_attention_bwd': per_step[2]}
+    _, _, ms_again = unet_grads()
+    with grad_twins(attn_ops, fa):
+        twin, twin_loss, twin_ms = unet_grads()
+    missing = [k for k, g in grads.items() if g is None or not bool(torch.isfinite(g).all())]
+    num = sum(((grads[k] - twin[k]).double() ** 2).sum().item() for k in grads if k not in missing)
+    den = sum((twin[k].double() ** 2).sum().item() for k in grads if k not in missing)
+    rel = (num / den) ** 0.5
+    zero = sum(1 for k, g in grads.items() if g is not None and not bool(g.abs().max() > 0))
+    print(f'phase 19d train_unet 1-5 512^2 fp32 batch 2, taps {sorted(TRAIN_UNET_TAPS)}: build '
+          f'{build_s:.1f} s; forward + backward {ms:.2f} ms ({ms_again:.2f} ms again; twins '
+          f'{twin_ms:.2f}); peak {peak:.2f} GiB; loss {loss:.6f} (twins {twin_loss:.6f}); '
+          f'{len(grads)} parameters, {len(missing)} without a finite gradient, {zero} all zero; '
+          f'gradients kernels vs twins rel_l2={rel:.3e} (allowed {TAP_REL_TOL:g}); launches '
+          f'{runs["train_unet"]} (expected {want}) ({card})', flush=True)
+    if missing or rel > TAP_REL_TOL or runs['train_unet'] != want:
+        raise RuntimeError(f'phase 19d: missing {missing[:5]}, rel {rel}, '
+                           f'launches {runs["train_unet"]}')
+    del fe, grads, twin
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2023,10 +2472,13 @@ def main() -> int:
         print(f'  ptxas: {line}')
     for path in info['paths']:
         if '_bf16_' in path or '_fp16_' in path:
-            counts = sass_counts(path)
+            # the backward is a first mma.sync kernel: the tensor cores through
+            # HMMA, no wgmma or TMA yet (PERF.md section 6)
+            ops = ('HMMA',) if 'flash_bwd' in path else ('HGMMA', 'UTMALDG')
+            counts = sass_counts(path, ops)
             print(f'phase 1 SASS of {os.path.basename(path)}: {counts}', flush=True)
             if not all(counts.values()):
-                raise RuntimeError(f'{path}: no wgmma or TMA load in the SASS: {counts}')
+                raise RuntimeError(f'{path}: no {" or ".join(ops)} in the SASS: {counts}')
     from diffusion_feature_tpu_torch.native import load_library
     writer_lib = load_library('dumpio')
     if writer_lib is None:
@@ -2152,6 +2604,10 @@ def main() -> int:
     check_flux(torch, fa, attn_ops, card, shapes, runs)
     check_if(torch, fa, attn_ops, card, shapes, runs)
 
+    # 19. training: the backward kernel, the segmentation trainer on
+    # ade_sdxl and ade_vpd (prompt tuning), train_unet
+    check_training(torch, fa, attn_ops, card, shapes, runs, numbers, gen)
+
     # the kernels line: per kernel, the launches of every path and the sum
     # over those launches of each (shape, dtype)'s numbers from phase 2 (one
     # phase 2 did not hold, such as the CLI's trailing batch of 1, is
@@ -2160,8 +2616,8 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         entry = {'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
-                 'launches': sum(r[name] for r in runs.values()),
-                 'launches_by_path': {p: r[name] for p, r in runs.items()},
+                 'launches': sum(r.get(name, 0) for r in runs.values()),
+                 'launches_by_path': {p: r.get(name, 0) for p, r in runs.items()},
                  'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0,
                  'library_ms': 0.0, 'call_loop_ms': 0.0, 'shapes': {}}
         calls = [(s, dt) for path in shapes.values() for n, s, dt in path if n == name]
@@ -2173,7 +2629,9 @@ def main() -> int:
             entry['b1_ms'] = entry['explicit_ms'] = 0.0
         for shape, dt in sorted(set(calls)):
             if (name, shape, dt) not in numbers:
-                numbers[name, shape, dt] = compare(torch, fa, name, shape, dt, gen, split=True)
+                numbers[name, shape, dt] = (
+                    compare_bwd(torch, fa, shape, dt, gen) if name == 'flash_attention_bwd'
+                    else compare(torch, fa, name, shape, dt, gen, split=True))
             res = numbers[name, shape, dt]
             count = calls.count((shape, dt))
             label = str(shape) if dt == 'bfloat16' else f'{shape} {dt}'

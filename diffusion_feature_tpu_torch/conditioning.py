@@ -56,6 +56,21 @@ class _Conditioning:
             f.name: cat(getattr(self, f.name), getattr(neg, f.name))
             for f in dataclasses.fields(self)})
 
+    def requires_grad(self) -> bool:
+        """Whether a tensor field requires grad (prompt tuning's trainable
+        embeddings)."""
+        return any(isinstance(v, torch.Tensor) and v.requires_grad
+                   for v in (getattr(self, f.name) for f in dataclasses.fields(self)))
+
+    def outside_inference_mode(self) -> '_Conditioning':
+        """This conditioning with every tensor that inference mode made
+        (``encode_prompt``'s) copied into an ordinary tensor, which autograd
+        may save; call it outside inference mode."""
+        def plain(x):
+            return x.clone() if isinstance(x, torch.Tensor) and x.is_inference() else x
+        return dataclasses.replace(self, **{
+            f.name: plain(getattr(self, f.name)) for f in dataclasses.fields(self)})
+
     @classmethod
     def for_sample(cls, fe, prompts, batch_size: int, guidance_scale: float):
         """(positive, negative or None) of ``encode_prompt``'s 4-tuple

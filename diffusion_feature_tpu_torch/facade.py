@@ -174,8 +174,17 @@ class FeatureExtractor:
     store (the JAX facade re-instruments the shared denoiser the same way),
     so no parameter memory is allocated.  It takes no ``weights=`` and no
     ``offline_lora`` (a merge would change the source's tensors).
-    train_unet, mesh, t5_8bit, transformer_8bit: the JAX facade's keywords;
-    False or None (their defaults) pass, and any other value raises
+    train_unet: as in the JAX facade, the denoiser is trained through the
+    features: its parameters require grad, ``extract`` runs with autograd
+    on and returns live features in the compute dtype (no bf16 cast, no
+    detach).  The VAE encode, the noise draws and 'vae-out''s decode stay
+    without gradients (the VAE is frozen), and so does a DDIM inversion.
+    Without it, a conditioning tensor that requires grad (prompt tuning:
+    ``encode_prompt``'s embeddings replaced by trainable tensors) also turns
+    autograd on for the step; otherwise the step runs under
+    ``torch.inference_mode``.
+    mesh, t5_8bit, transformer_8bit: the JAX facade's keywords; False or
+    None (their defaults) pass, and any other value raises
     ``NotImplementedError`` naming the ROADMAP.md item that ports it.
     """
 
@@ -189,7 +198,6 @@ class FeatureExtractor:
                  validate_layers: bool = True, train_unet: bool = False,
                  external_model=None, mesh=None, t5_8bit=None, transformer_8bit=None):
         for name, value, item, queue in (
-                ('train_unet', train_unet, 'Training and tasks', 'A'),
                 ('mesh', mesh, 'Multi-GPU', 'A'),
                 ('t5_8bit', t5_8bit, 'Int8 weight-only dense', 'B'),
                 ('transformer_8bit', transformer_8bit, 'Int8 weight-only dense', 'B')):
@@ -217,7 +225,10 @@ class FeatureExtractor:
                                  "version='if' (or 'test-if')")
         self.img_size = img_size
         self.feature_resize = feature_resize
-        self.feature_dtype = torch.bfloat16
+        self.train_unet = bool(train_unet)
+        # features keep the compute dtype when the denoiser is trained
+        # (JAX facade.py:88-90; the reference's store skips its fp16 cast)
+        self.feature_dtype = None if self.train_unet else torch.bfloat16
         self.taps = TapSpec.from_config(resolve_layer_config(layer))
         # the 'vae-out' pseudo-layer: one scheduler step decoded to an image
         self.store_vae_output = (not self.taps.accept_all and 'vae-out' in self.taps.ids
@@ -266,6 +277,10 @@ class FeatureExtractor:
             self.text_encoders, self.tokenizers = self._build_text_encoders(build, weights)
         if offline_lora:
             apply_lora_to_module(self.unet, offline_lora, offline_lora_filename)
+        if self.train_unet:
+            # the reference hands the U-Net to the optimizer
+            # (feature/diffusion_feature.py:87-89)
+            self.unet.requires_grad_(True)
         if validate_layers and not self.taps.accept_all:
             self._validate_layer_ids()
         # background extraction: the encounters to keep and what was kept
@@ -790,13 +805,24 @@ class FeatureExtractor:
 
     def _decode(self, latents, out_dtype):
         """'vae-out': scaled latents decoded to images, in ``out_dtype``
-        (None keeps the compute dtype), with no feature_resize."""
+        (None keeps the compute dtype), with no feature_resize; the frozen
+        VAE records no gradient."""
         cfg = self.spec.vae
-        img = self.vae.decode(latents / scalar_like(cfg.scaling_factor, latents)
-                              + scalar_like(cfg.shift_factor, latents))
+        with torch.no_grad():
+            img = self.vae.decode(latents / scalar_like(cfg.scaling_factor, latents)
+                                  + scalar_like(cfg.shift_factor, latents))
         return img.to(out_dtype or img.dtype)
 
-    @torch.inference_mode()
+    def _autograd(self, cond):
+        """(context, conditioning) for a step: autograd on, with the
+        conditioning's tensors made by ``encode_prompt`` under inference
+        mode copied into ordinary ones, when grad mode is on and the
+        denoiser is trained or a conditioning tensor requires grad (prompt
+        tuning); else inference mode, as extraction always ran."""
+        if torch.is_grad_enabled() and (self.train_unet or cond.requires_grad()):
+            return torch.enable_grad(), cond.outside_inference_mode()
+        return torch.inference_mode(), cond
+
     def _step(self, img, cond, kit, posterior_noise, noise, out_dtype, control=None):
         """The single step (the JAX ``_get_step_fn_generic`` program): VAE
         encode + posterior sample -> latents*A + noise*B -> /S -> denoiser
@@ -807,21 +833,24 @@ class FeatureExtractor:
         dtype; ``control`` goes to ``_forward``.  HunyuanDiT's kit has S =
         1 (the JAX facade's ``_get_hunyuan_step_fn`` program).  In pixel
         space (IF) the latents are the image and ``posterior_noise`` is
-        unused."""
-        latents = img if self.vae is None else self.vae(img, posterior_noise)
-        latents = (scalar_like(kit['A'], latents) * latents
-                   + scalar_like(kit['B'], latents) * noise.to(latents.dtype))
-        out, feats = self._forward(latents / scalar_like(kit['S'], latents), kit['T'], cond,
-                                   out_dtype, control)
-        if self.store_vae_output:
-            x0 = scalar_like(kit['X1'], latents) * latents + scalar_like(kit['X2'], latents) * out
-            lat2 = (scalar_like(kit['C1'], latents) * x0
-                    + scalar_like(kit['C2'], latents) * latents
-                    + scalar_like(kit['C3'], latents) * out)
-            feats['vae-out'] = self._decode(lat2, out_dtype)
+        unused.  Autograd as ``_autograd`` says; the VAE never records."""
+        mode, cond = self._autograd(cond)
+        with mode:
+            with torch.no_grad():
+                latents = img if self.vae is None else self.vae(img, posterior_noise)
+            latents = (scalar_like(kit['A'], latents) * latents
+                       + scalar_like(kit['B'], latents) * noise.to(latents.dtype))
+            out, feats = self._forward(latents / scalar_like(kit['S'], latents), kit['T'], cond,
+                                       out_dtype, control)
+            if self.store_vae_output:
+                x0 = (scalar_like(kit['X1'], latents) * latents
+                      + scalar_like(kit['X2'], latents) * out)
+                lat2 = (scalar_like(kit['C1'], latents) * x0
+                        + scalar_like(kit['C2'], latents) * latents
+                        + scalar_like(kit['C3'], latents) * out)
+                feats['vae-out'] = self._decode(lat2, out_dtype)
         return feats
 
-    @torch.inference_mode()
     def _multistep(self, img, cond, t: int, denoising_from: Optional[int],
                    use_ddim_inversion: bool, posterior_noise, noise, out_dtype, control=None):
         """The multi-step paths (the JAX ``_get_step_fn``).  Timesteps: with
@@ -833,7 +862,16 @@ class FeatureExtractor:
         ``sched.step`` over all but the last with forwards whose taps and
         store maps are discarded, then the last forward keeps them; the
         ControlNets (``control``) join that last forward only.  'vae-out'
-        decodes one step of the fresh schedule from there."""
+        decodes one step of the fresh schedule from there.  With autograd
+        (``_autograd``) the walk's forwards are recorded too, as JAX
+        differentiates them; the VAE and a DDIM inversion are not."""
+        mode, cond = self._autograd(cond)
+        with mode:
+            return self._multistep_walk(img, cond, t, denoising_from, use_ddim_inversion,
+                                        posterior_noise, noise, out_dtype, control)
+
+    def _multistep_walk(self, img, cond, t, denoising_from, use_ddim_inversion,
+                        posterior_noise, noise, out_dtype, control):
         sched = self.scheduler
         state = sched.set_timesteps(1000)
         if denoising_from is None:
@@ -848,8 +886,12 @@ class FeatureExtractor:
         latent_t, walk, t = timesteps[0], timesteps[:-1], timesteps[-1]
         if use_ddim_inversion:
             latents = ddim_invert(self, img, cond, posterior_noise, stop_at_t=t)
+            if torch.is_grad_enabled():
+                # an inference-mode result: copied to take part in autograd
+                latents = latents.clone()
         else:
-            latents = img if self.vae is None else self.vae(img, posterior_noise)
+            with torch.no_grad():
+                latents = img if self.vae is None else self.vae(img, posterior_noise)
             latents = sched.add_noise(state, latents, noise.to(latents.dtype), latent_t)
         walk_state = state
         for ts in walk:

@@ -9,6 +9,12 @@ since it needs the probabilities.  The attention store (the facade's
 with logsumexp, then the streaming head-mean kernel, so only the head-mean
 map reaches memory.
 
+Gradients: wherever q, k or v requires grad (``train_unet``, prompt
+tuning), a shape the gate sends to B1 takes ``flash_attention_diff``
+instead (B2 forward, the backward kernel), and the store's B2 + B3 pair a
+custom backward through the explicit path, as the JAX package's custom
+VJPs do; without grad the routing and the launches stay as they were.
+
 The kernels are built for some head widths only; that condition binds on
 the card.  A CPU (or meta) tensor runs the kernels' plain twins, which take
 any width, so there the routing is the JAX package's exactly.  B4
@@ -27,8 +33,8 @@ from typing import Optional, Tuple
 import torch
 
 from .flash_attention import (
-    HEADMEAN_HEAD_DIMS, SUPPORTED_HEAD_DIMS, flash_attention, flash_attention_with_lse,
-    headmean_probs, is_flash_compatible,
+    HEADMEAN_HEAD_DIMS, SUPPORTED_HEAD_DIMS, flash_attention, flash_attention_diff,
+    flash_attention_with_lse, headmean_probs, is_flash_compatible,
 )
 
 
@@ -36,6 +42,19 @@ def _use_flash(qh, kh, min_seq: int = 1024, head_dims=SUPPORTED_HEAD_DIMS) -> bo
     """The gate, with the kernels' head widths where they run (the card)."""
     return is_flash_compatible(qh.shape, kh.shape, min_seq,
                                head_dims if qh.device.type == 'cuda' else None)
+
+
+def _needs_grad(*tensors) -> bool:
+    """Whether autograd records this call: grad mode on and an input that
+    requires grad."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
+
+
+def _flash(qh, kh, vh, scale):
+    """B1, or with gradients ``flash_attention_diff``."""
+    if _needs_grad(qh, kh, vh):
+        return flash_attention_diff(qh, kh, vh, scale=scale)
+    return flash_attention(qh, kh, vh, scale=scale)
 
 
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -94,7 +113,7 @@ def attention_fused_heads(qh, kh, vh, *, scale: Optional[float] = None,
     kernel where the gate admits the shape, explicit softmax otherwise."""
     scale = qh.shape[-1] ** -0.5 if scale is None else scale
     if mask is None and _use_flash(qh, kh):
-        return flash_attention(qh, kh, vh, scale=scale)
+        return _flash(qh, kh, vh, scale)
     out, _ = _softmax_attention(qh, kh, vh, scale, mask)
     return out
 
@@ -106,7 +125,7 @@ def attention_fused(q, k, v, heads: int, *, scale: Optional[float] = None,
     scale = d ** -0.5 if scale is None else scale
     qh, kh, vh = split_heads(q, heads), split_heads(k, heads), split_heads(v, heads)
     if mask is None and _use_flash(qh, kh):
-        return merge_heads(flash_attention(qh, kh, vh, scale=scale))
+        return merge_heads(_flash(qh, kh, vh, scale))
     out, _ = _softmax_attention(qh, kh, vh, scale, mask)
     return merge_heads(out)
 
@@ -116,6 +135,32 @@ def _headmean_explicit(qh, kh, vh, scale):
     return out, probs.mean(dim=1)
 
 
+def _headmean_kernels(qh, kh, vh, scale):
+    """B2 then B3 over the same head-split views read in place."""
+    out, lse = flash_attention_with_lse(qh, kh, vh, scale=scale)
+    return out, headmean_probs(qh, kh, lse, scale=scale)
+
+
+class _HeadmeanKernelPath(torch.autograd.Function):
+    """The JAX package's ``_headmean_kernel_path`` custom VJP: the forward
+    is B2 + B3, the backward autograd through ``_headmean_explicit`` (JAX's
+    ``_headmean_bwd``), which materialises the per-head probabilities of
+    one layer while it runs."""
+
+    @staticmethod
+    def forward(ctx, qh, kh, vh, scale):
+        ctx.save_for_backward(qh, kh, vh)
+        ctx.scale = scale
+        return _headmean_kernels(qh, kh, vh, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out, grad_mean):
+        inputs = tuple(x.detach().requires_grad_() for x in ctx.saved_tensors)
+        with torch.enable_grad():
+            out, mean_p = _headmean_explicit(*inputs, ctx.scale)
+        return (*torch.autograd.grad((out, mean_p), inputs, (grad_out, grad_mean)), None)
+
+
 def attention_with_headmean_heads(qh, kh, vh, *, scale: Optional[float] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention plus HEAD-MEAN probabilities on pre-split heads (B,H,S,D):
@@ -123,11 +168,12 @@ def attention_with_headmean_heads(qh, kh, vh, *, scale: Optional[float] = None
     Where the gate admits the shape (``min_seq=512``, as in JAX) the flash
     kernel with logsumexp (B2) and the head-mean kernel (B3) stream the
     score tiles, so the per-head (B,H,Sq,Sk) tensor never exists; otherwise
-    the explicit softmax's probabilities are averaged over heads.
-    Inference only: no backward."""
+    the explicit softmax's probabilities are averaged over heads.  With
+    gradients the kernel pair's backward is the explicit path's
+    (``_HeadmeanKernelPath``, JAX's custom VJP)."""
     scale = qh.shape[-1] ** -0.5 if scale is None else scale
     if _use_flash(qh, kh, min_seq=512, head_dims=HEADMEAN_HEAD_DIMS):
-        # B2 and B3 read the same head-split views in place
-        out, lse = flash_attention_with_lse(qh, kh, vh, scale=scale)
-        return out, headmean_probs(qh, kh, lse, scale=scale)
+        if _needs_grad(qh, kh, vh):
+            return _HeadmeanKernelPath.apply(qh, kh, vh, scale)
+        return _headmean_kernels(qh, kh, vh, scale)
     return _headmean_explicit(qh, kh, vh, scale)

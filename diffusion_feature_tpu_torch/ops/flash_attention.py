@@ -10,6 +10,16 @@ Replaces the Pallas TPU kernels of ``diffusion_feature_tpu/ops/flash_attention.p
   B4 ``_short_attn_kernel`` -> ``short_attention``           (csrc/short_bf16.cu, short_fp16.cu,
                                                                short_f32.cu)
 
+and the JAX package's flash backward, the custom VJP ``_flash_diff_bwd``
+(an XLA VJP there, no Pallas kernel), by a kernel of its own:
+
+  ``_flash_diff_bwd``       -> ``flash_attention_bwd``       (csrc/flash_bwd_bf16.cu,
+                                                               flash_bwd_fp16.cu, flash_bwd_f32.cu)
+
+``flash_attention_diff`` is the differentiable B1: B2 forward (saving the
+logsumexp), this backward; the attention ops call it wherever q, k or v
+requires grad.
+
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (one ``nvcc`` per source, started
 together), cached by source hash in ``_build/`` beside this package, and
@@ -46,11 +56,18 @@ and B4 write their output in (B, S, H, D) memory and return the
 contiguous (B, Sq, Sk) map.  No wrapper copies an input it cannot take: it
 raises.
 
+The backward (``csrc/flash_bwd.cuh``) is a simple FA2-style kernel:
+mma.sync fragments through shared memory (the exact fp32 emulation of
+``tile_ops.cuh`` for float32), a pre-pass for rowsum(dO * O), one pass
+over key tiles for dK and dV and one over query tiles for dQ, so no
+(Sq, Sk) tensor reaches memory and no atomics run.  Its five products
+bound it by operations.
+
 Routing: CPU tensors go to the ``*_reference`` twins, and so do meta
 tensors, which carry shapes only (layer enumeration runs the U-Net on
 them); CUDA tensors launch the kernel or raise.  ``launches``,
-``lse_launches``, ``headmean_launches`` and ``short_launches`` count the
-launches of B1, B2, B3 and B4.
+``lse_launches``, ``headmean_launches``, ``short_launches`` and
+``bwd_launches`` count the launches of B1, B2, B3, B4 and the backward.
 """
 
 from __future__ import annotations
@@ -70,6 +87,9 @@ import torch
 SUPPORTED_HEAD_DIMS = (40, 64, 72, 80, 88, 128, 160, 512)
 #: Head widths B2, B3 and B4 are built for (the U-Nets' and the DiTs' heads).
 HEADMEAN_HEAD_DIMS = (40, 64, 72, 80, 88, 128, 160)
+#: Head widths the backward is built for: B2's, whose logsumexp it takes.
+#: The VAE's d=512 head never needs a gradient (the VAE runs without one).
+BWD_HEAD_DIMS = HEADMEAN_HEAD_DIMS
 #: B4 takes at most this many keys (its exact softmax walks every key tile
 #: twice, and the fp32 kernel keeps a 64 x Sk score tile in shared memory).
 SHORT_MAX_KEYS = 512
@@ -77,10 +97,11 @@ _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 #: one library per kernel and dtype: <kernel>_<bf16|fp16|f32>
 _SOURCES = {f'{kernel}_{tag}': _CSRC / f'{kernel}_{tag}.cu'
-            for kernel in ('flash', 'headmean', 'short') for tag in ('bf16', 'fp16', 'f32')}
+            for kernel in ('flash', 'headmean', 'short', 'flash_bwd')
+            for tag in ('bf16', 'fp16', 'f32')}
 _HEADERS = tuple(_CSRC / name for name in ('tile_ops.cuh', 'hopper_common.cuh', 'wgmma.cuh',
                                            'flash_hopper.cuh', 'headmean_hopper.cuh',
-                                           'short_hopper.cuh'))
+                                           'short_hopper.cuh', 'flash_bwd.cuh'))
 _DTYPE_TAGS = {torch.bfloat16: 'bf16', torch.float16: 'fp16', torch.float32: 'f32'}
 _BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
 _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
@@ -98,6 +119,10 @@ _ARGTYPES = {
     # q, k, v, o, b, h, sq, sk, d, dtype, scale, strides (as B1's), stream
     'dft_short_attention_forward': [_VP] * 4 + [_INT] * 6 + [
         _F32, ctypes.POINTER(ctypes.c_longlong), _VP],
+    # q, k, v, o, do, lse, delta (scratch), dq, dk, dv, b, h, sq, sk, d,
+    # dtype, scale, strides (sb, sh, ss of q, k, v, o, do, dq, dk, dv), stream
+    'dft_flash_attention_backward': [_VP] * 10 + [_INT] * 6 + [
+        _F32, ctypes.POINTER(ctypes.c_longlong), _VP],
 }
 
 #: Kernel launches since import (or since a caller reset them to 0).
@@ -105,6 +130,7 @@ launches = 0            # B1
 lse_launches = 0        # B2
 headmean_launches = 0   # B3
 short_launches = 0      # B4
+bwd_launches = 0        # the backward (one per call: its three kernels)
 
 _libs = {}
 
@@ -182,6 +208,58 @@ def headmean_probs_reference(q, k, lse, scale: float) -> torch.Tensor:
     return (acc / q.shape[1]).to(q.dtype)
 
 
+#: JAX's ``_CHUNKED_BWD_ELEMS``: at or above this Sq*Sk the backward's twin
+#: walks q in chunks (``_chunked_attention_bwd``) instead of the one-shot VJP,
+#: whose fp32 (B, H, Sq, Sk) temporaries stop fitting the device.
+CHUNKED_BWD_ELEMS = 8192 * 8192
+
+
+def attention_vjp_reference(q, k, v, scale: float) -> torch.Tensor:
+    """The JAX package's ``_reference_attention``, what its flash backward
+    differentiates below ``CHUNKED_BWD_ELEMS``: fp32 scores, softmax, the
+    probabilities cast to q's dtype, the PV product accumulated in fp32 and
+    cast back."""
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    probs = scores.softmax(dim=-1).to(q.dtype)
+    return torch.matmul(probs.float(), v.float()).to(q.dtype)
+
+
+def chunked_attention_bwd(q, k, v, scale: float, grad, chunk: int = 512):
+    """The JAX package's ``_chunked_attention_bwd``: (dq, dk, dv) with
+    O(Sk * chunk) memory, a walk over chunks of ``chunk`` query rows that
+    recomputes each chunk's scores and output in fp32 and uses
+    rowsum(dP * P) = rowsum(grad * O).  (JAX pads q to a multiple of
+    ``chunk`` with rows whose gradient is 0; they add nothing, so the last
+    chunk here is ragged instead.)"""
+    kf, vf = k.float(), v.float()
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    dqs = []
+    for start in range(0, q.shape[2], chunk):
+        qi = q[:, :, start:start + chunk].float()
+        gi = grad[:, :, start:start + chunk].float()
+        p = (torch.matmul(qi, kf.transpose(-1, -2)) * scale).softmax(dim=-1)
+        d_row = (gi * torch.matmul(p, vf)).sum(dim=-1, keepdim=True)
+        dv += torch.matmul(p.transpose(-1, -2), gi)
+        ds = p * (torch.matmul(gi, vf.transpose(-1, -2)) - d_row) * scale
+        dqs.append(torch.matmul(ds, kf))
+        dk += torch.matmul(ds.transpose(-1, -2), qi)
+    return torch.cat(dqs, dim=2).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_reference(q, k, v, grad, scale: float):
+    """Plain twin of the backward, JAX's ``_flash_diff_bwd`` exactly: the
+    VJP of ``attention_vjp_reference`` below ``CHUNKED_BWD_ELEMS`` query-key
+    pairs, ``chunked_attention_bwd`` at or above.  Returns (dq, dk, dv) in
+    the inputs' dtypes."""
+    if q.shape[2] * k.shape[2] >= CHUNKED_BWD_ELEMS:
+        return chunked_attention_bwd(q, k, v, scale, grad)
+    inputs = tuple(x.detach().requires_grad_() for x in (q, k, v))
+    with torch.enable_grad():
+        out = attention_vjp_reference(*inputs, scale)
+    return torch.autograd.grad(out, inputs, grad.to(out.dtype))
+
+
 # ------------------------------------------------------------------- build
 def _nvcc() -> str:
     cuda_home = os.environ.get('CUDA_HOME') or os.environ.get('CUDA_PATH') or '/usr/local/cuda'
@@ -240,7 +318,8 @@ def build() -> dict:
 
 
 def _lib(kernel: str, dtype: torch.dtype):
-    """The library of ``kernel`` ('flash', 'headmean' or 'short') for
+    """The library of ``kernel`` ('flash', 'headmean', 'short' or
+    'flash_bwd') for
     ``dtype``, built at first use."""
     name = f'{kernel}_{_DTYPE_TAGS[dtype]}'
     if name not in _libs:
@@ -454,3 +533,86 @@ def short_attention_diff(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          scale: float) -> torch.Tensor:
     """``short_attention`` with gradients for q, k and v."""
     return _ShortAttentionDiff.apply(q, k, v, scale)
+
+
+def _kernel_ready(x: torch.Tensor) -> bool:
+    """Whether the kernels take ``x`` in place: 16-byte aligned, with the
+    strides ``tma_strides`` accepts."""
+    if x.data_ptr() % 16:
+        return False
+    try:
+        tma_strides(x)
+    except ValueError:
+        return False
+    return True
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                        lse: torch.Tensor, grad: torch.Tensor, *, scale: float):
+    """The backward of B1/B2: (dq, dk, dv) of softmax(q k^T * scale) v for
+    the output gradient ``grad``, from B2's ``out`` and fp32 ``lse``
+    (B, H, Sq).  On the card q, k, v and out are taken as B2 took them
+    (strided views that ``tma_strides`` accepts); ``grad``, which autograd
+    may hand over expanded or unaligned, is copied to a contiguous tensor
+    first where the kernel cannot read it in place.  dq, dk and dv are the
+    (B, H, S, D) views of (B, S, H, D) memory, as B1's output, in the
+    inputs' dtype.  Widths are ``BWD_HEAD_DIMS``; any other (the VAE's
+    d=512) raises ValueError.  On the host: ``flash_attention_bwd_reference``."""
+    global bwd_launches
+    if _on_host(q, k, v, grad):
+        return flash_attention_bwd_reference(q, k, v, grad, scale)
+    op = 'flash_attention_bwd'
+    grad = grad.to(q.dtype)
+    if not _kernel_ready(grad):
+        grad = grad.contiguous()
+    _check_cuda_inputs(op, (('q', q), ('k', k), ('v', v), ('out', out), ('grad', grad)),
+                       BWD_HEAD_DIMS)
+    if k.shape != v.shape or out.shape != q.shape or grad.shape != q.shape:
+        raise ValueError(f'{op}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, '
+                         f'out {tuple(out.shape)} and grad {tuple(grad.shape)} do not match')
+    b, h, sq, d = q.shape
+    if (lse.device != q.device or lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, sq)
+            or not lse.is_contiguous()):
+        raise ValueError(f'{op}: lse must be a contiguous float32 {(b, h, sq)} tensor on '
+                         f'{q.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}')
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    dq, dk, dv = flash_output(q), flash_output(k), flash_output(v)
+    strides = _tma_stride_array(op, (('q', q), ('k', k), ('v', v), ('out', out),
+                                     ('grad', grad), ('dq', dq), ('dk', dk), ('dv', dv)))
+    err = _lib('flash_bwd', q.dtype).dft_flash_attention_backward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), grad.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, h, sq, k.shape[2], d, _DTYPE_CODES[q.dtype], float(scale), strides, _stream(q))
+    if err != 0:
+        raise RuntimeError(f'{op} kernel launch failed: cudaError {err} '
+                           f'for q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}')
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """B1 with gradients, the counterpart of the JAX package's ``_flash_diff``
+    custom VJP: the forward is B2 (``flash_attention_with_lse``), which
+    saves each row's logsumexp; the backward is ``flash_attention_bwd``.
+    On the host both run their twins."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = flash_attention_with_lse(q, k, v, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, out, lse, grad, scale=ctx.scale), None)
+
+
+def flash_attention_diff(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         scale: float) -> torch.Tensor:
+    """``flash_attention`` with gradients for q, k and v (B2 forward, the
+    backward kernel), for the attention ops to call wherever an input
+    requires grad.  Takes and returns the layouts B1 does; on the card the
+    width must be one of ``BWD_HEAD_DIMS`` (else ValueError, from B2)."""
+    return _FlashAttention.apply(q, k, v, scale)

@@ -16,6 +16,13 @@ from .ops.resize import interpolate_bilinear_nchw
 from .taps import is_filtered_id
 
 
+def adaptive_avg_pool2d(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """The JAX package's ``store.adaptive_avg_pool2d``: torch's adaptive
+    average pooling of an NCHW tensor to ``out_hw`` (bin i covers
+    [floor(i*H/oh), ceil((i+1)*H/oh))), which is what JAX reproduces."""
+    return F.adaptive_avg_pool2d(x, tuple(out_hw))
+
+
 def tokens_to_map(feat: torch.Tensor) -> torch.Tensor:
     """(B, S, C) -> (B, C, sqrt(S), sqrt(S)); square token maps assumed, as
     in the reference (feature_extractor.py:46-48)."""

@@ -742,3 +742,88 @@ def test_flux_step_routes_joint_attention_to_b1(cuda, taps, launches):
             ref = dit(x, 500.0, t5, pooled, 3500.0, (32, 32))
     assert out.shape == (2, 1024, 64) and torch.isfinite(out.float()).all()
     assert _rel_l2(out, ref) <= _TOL[torch.bfloat16]
+
+
+# ------------------------------------------------------------ the backward
+_BWD_TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 1e-4}
+
+
+def _bwd_inputs(cuda, dtype, b, h, sq, sk, d, split, seed=0):
+    """q, k, v and an output gradient: (B, H, S, D) tensors, or with
+    ``split`` the head-split views of (B, S, H*D) projections."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if split:
+        return tuple(torch.randn(b, s, h * d, generator=g, device=cuda).to(dtype)
+                     .reshape(b, s, h, d).transpose(1, 2) for s in (sq, sk, sk, sq))
+    return tuple(torch.randn(b, h, s, d, generator=g, device=cuda).to(dtype)
+                 for s in (sq, sk, sk, sq))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', list(_BWD_TOL), ids=str)
+@pytest.mark.parametrize('split', [False, True], ids=['contiguous', 'head-split'])
+@pytest.mark.parametrize('d', fa.BWD_HEAD_DIMS, ids=[f'd{d}' for d in fa.BWD_HEAD_DIMS])
+def test_backward_kernel_matches_twin(cuda, dtype, split, d):
+    """dq, dk and dv of the backward kernel against the twin (JAX's VJP),
+    ragged lengths, at every built width and type: relative L2 and the
+    elementwise rule scaled by each gradient's largest entry."""
+    q, k, v, grad = _bwd_inputs(cuda, dtype, 1, 2, 1000, 333, d, split)
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_with_lse(q, k, v, scale=scale)
+    fa.bwd_launches = 0
+    got = fa.flash_attention_bwd(q, k, v, out, lse, grad, scale=scale)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == 1
+    ref = fa.flash_attention_bwd_reference(q, k, v, grad, scale)
+    tol = _BWD_TOL[dtype]
+    for name, a, r in zip(('dq', 'dk', 'dv'), got, ref):
+        assert a.shape == r.shape and a.dtype == dtype, name
+        a, r = a.float(), r.float()
+        rel = ((a - r).norm() / r.norm()).item()
+        worst = ((a - r).abs().max() / r.abs().max()).item()
+        assert rel <= tol and worst <= 5 * tol, f'{name}: rel_l2 {rel:.3e}, worst {worst:.3e}'
+
+
+@pytest.mark.cuda
+def test_backward_raises_at_unbuilt_widths(cuda):
+    """d=512 (the VAE's head) and any width outside BWD_HEAD_DIMS raise
+    ValueError, in the backward and in the differentiable forward; no twin
+    runs in their place."""
+    for d in (512, 96):
+        q = torch.randn(1, 1, 256, d, device=cuda)
+        lse = torch.zeros(1, 1, 256, device=cuda)
+        with pytest.raises(ValueError, match='head dim'):
+            fa.flash_attention_bwd(q, q, q, q, lse, q, scale=0.1)
+        with pytest.raises(ValueError, match='head dim'):
+            fa.flash_attention_diff(q.requires_grad_(), q, q, scale=0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32], ids=str)
+def test_grad_paths_carry_graphs_on_card(cuda, dtype):
+    """With an input that requires grad, the gate-passing attention runs
+    B2 and the backward kernel, and its gradients match the explicit
+    path's; the store's B2 + B3 pair has a backward too.  B1 and B2
+    outputs made without grad carry no graph."""
+    b, s, heads, d = 1, 1024, 2, 64
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, w = (torch.randn(b, s, heads * d, generator=gen, device=cuda).to(dtype)
+                  for _ in range(4))
+    fa.launches = fa.lse_launches = fa.bwd_launches = fa.headmean_launches = 0
+    assert attn.attention_fused(q, k, v, heads).grad_fn is None
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = attn.attention_fused(*leaves, heads)
+    assert out.grad_fn is not None and (fa.launches, fa.lse_launches) == (1, 1)
+    (out.float() * w.float()).sum().backward()
+    assert fa.bwd_launches == 1
+    twin = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref, _ = attn.attention_with_probs(*twin, heads)
+    (ref.float() * w.float()).sum().backward()
+    for a, r in zip(leaves, twin):
+        assert a.grad.abs().max() > 0
+        _assert_matches(a.grad, r.grad, dtype)
+    heads_in = [attn.split_heads(x.clone().requires_grad_(), heads) for x in (q, k, v)]
+    out, mean_p = attn.attention_with_headmean_heads(*heads_in)
+    assert out.grad_fn is not None and mean_p.grad_fn is not None
+    assert fa.headmean_launches == 1
+    (out.float().sum() + mean_p.float().sum() * 10).backward()

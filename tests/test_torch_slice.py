@@ -166,12 +166,12 @@ def test_layer_validation_suggests_near_miss():
     ({'attention': ['up_cross'], 'version': 'test-if'}, None, None),
     ({'version': 'test-if'}, None, None),
     # the JAX facade's keywords at other values than their defaults
-    ({'train_unet': True}, NotImplementedError, 'ROADMAP.md, Queue A item 10:'),
+    # (train_unet is ported: test_train_unet_returns_live_features)
     ({'external_model': object()}, ValueError, 'external_model must be a FeatureExtractor'),
     ({'mesh': object()}, NotImplementedError, 'ROADMAP.md, Queue A item 11:'),
     ({'t5_8bit': True}, NotImplementedError, 'ROADMAP.md, Queue B item 3:'),
     ({'transformer_8bit': True}, NotImplementedError, 'ROADMAP.md, Queue B item 3:'),
-], ids=['weights', 'control', 'attention', 'version', 'train_unet', 'external_model', 'mesh',
+], ids=['weights', 'control', 'attention', 'version', 'external_model', 'mesh',
         't5_8bit', 'transformer_8bit'])
 def test_unported_options_raise(tmp_path, kwargs, error, match):
     args = dict(layer={'mid-vit-out': True}, version='test-xl', device='cpu', img_size=SIZE)
@@ -192,6 +192,26 @@ def test_unported_options_raise(tmp_path, kwargs, error, match):
     image = torch.rand(1, 3, SIZE, SIZE) * 2 - 1
     feats = fe.extract(fe.encode_prompt(PROMPT), 1, image, image_type='tensor')
     assert list(feats) == ['unet-out'] and feats['unet-out'].shape == (1, 6, SIZE, SIZE)
+
+
+def test_train_unet_returns_live_features():
+    """train_unet=True (ported with training): the features keep the fp32
+    compute dtype and the graph, a loss on them reaches the U-Net's
+    parameters, and an extractor without it still returns bf16 inference
+    tensors."""
+    layer = {'mid-vit-out': True, 'unet-out': True}
+    fe = FeatureExtractor(layer, 'test-xl', device='cpu', img_size=SIZE, dtype='float32',
+                          train_unet=True)
+    image = torch.rand(1, 3, SIZE, SIZE) * 2 - 1
+    feats = fe.extract(fe.encode_prompt(PROMPT), 1, image, image_type='tensor')
+    assert all(v.dtype == torch.float32 and v.requires_grad for v in feats.values())
+    sum((v ** 2).mean() for v in feats.values()).backward()
+    grads = [p.grad for p in fe.unet.parameters()]
+    assert all(g is not None and torch.isfinite(g).all() for g in grads)
+    assert sum(bool(g.abs().max() > 0) for g in grads) > 0.9 * len(grads)
+    frozen = FeatureExtractor(layer, 'test-xl', device='cpu', img_size=SIZE, dtype='float32')
+    out = frozen.extract(frozen.encode_prompt(PROMPT), 1, image, image_type='tensor')
+    assert all(v.dtype == torch.bfloat16 and v.is_inference() for v in out.values())
 
 
 def test_jax_keywords_at_their_defaults_pass():

@@ -18,7 +18,14 @@ paths: ``sd15-gen`` (the generate_with_extraction defaults), ``xl-gen``
 (phase 12b's sample) and ``if-gen`` (phase 17e's: IF at 64^2, 50 DDPM
 steps, CFG) after one warm-up sample, over 3 samples;
 ``sd15-control`` (phase 13's extract, from a random tree written to a
-temporary dir).  NAMEs pick paths (default: all).  Prints one JSON line
+temporary dir); and one training step of phase 19's paths, after two
+warm-up steps, over 5 steps: ``seg-sdxl`` (seg_configs/ade_sdxl.json) and
+``seg-vpd`` (ade_vpd.json, prompt tuning) through
+``train_segmentation.train_step`` on a batch of 2 random 512^2 crops and
+labels made on the device (the trainer's host decoding and augmentation
+are not in it), ``train-unet`` (phase 19d's forward and backward); these
+run with TF32 off, as chip_smoke.py, and ``seg-sdxl-tf32`` is
+``seg-sdxl`` with cuDNN's default TF32 convolutions.  NAMEs pick paths (default: all).  Prints one JSON line
 per path, with the profiled call's peak memory above what was allocated
 before it.  Convolutions run as PyTorch sets them by default (cuDNN may
 use TF32), unlike chip_smoke.py, which turns TF32 off.
@@ -35,6 +42,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 
 KINDS = [  # first match wins
+    ('flash backward', r'dkdv_kernel|dq_kernel|delta_kernel'),
     ('flash (B1/B2)', r'flash_fwd'),
     ('head-mean (B3)', r'headmean'),
     ('groupnorm', r'RowwiseMoments|group_norm|GroupNorm'),
@@ -44,6 +52,8 @@ KINDS = [  # first match wins
     ('matmul', r'gemm|cutlass|xmma|cublas|nvjet|Kernel2'),
     ('softmax', r'softmax'),
     ('resize', r'upsample|interpolate|bilinear'),
+    ('sort', r'sort'),
+    ('optimizer', r'multi_tensor|adam'),
 ]
 
 
@@ -55,6 +65,57 @@ def kind_of(name: str) -> str:
 
 
 OTHER_PATHS = ('sd15-gen', 'xl-gen', 'if-gen', 'sd15-control')
+TRAIN_PATHS = {'seg-sdxl': chip_smoke.SEG_CONFIG, 'seg-vpd': chip_smoke.VPD_CONFIG,
+               'train-unet': None, 'seg-sdxl-tf32': chip_smoke.SEG_CONFIG}
+
+
+def timed_runs(torch, run, warm, calls):
+    """``warm`` untimed calls of ``run``, then ``calls`` timed: sorted host
+    enqueue ms and sorted ms between CUDA events."""
+    for _ in range(warm):
+        run()
+    torch.cuda.synchronize()
+    host, device = [], []
+    for _ in range(calls):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        run()
+        stop.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        device.append(start.elapsed_time(stop))
+    return sorted(host), sorted(device)
+
+
+def open_training(torch, name):
+    """(model, one training step, host ms, device ms) of phase 19's paths."""
+    from diffusion_feature_tpu_torch import FeatureExtractor, train_segmentation
+    gen = torch.Generator(device='cuda').manual_seed(4)
+    if name == 'train-unet':
+        fe = FeatureExtractor(chip_smoke.TRAIN_UNET_TAPS, '1-5', device='cuda', dtype='float32',
+                              img_size=512, train_unet=True, seed=0)
+        prompts = fe.encode_prompt('a photo of a cat')
+        images = torch.rand(2, 3, 512, 512, generator=gen, device='cuda') * 2 - 1
+
+        def run():
+            fe.unet.zero_grad(set_to_none=True)
+            feats = fe.extract(prompts, 2, images, image_type='tensor', t=50)
+            sum((v.float() ** 2).mean() for v in feats.values()).backward()
+        return (fe, run, *timed_runs(torch, run, 2, 5))
+    with open(TRAIN_PATHS[name]) as f:
+        cfg = json.load(f)
+    seg = train_segmentation.segmentor_from_config(cfg, device='cuda')
+    opt, sched = train_segmentation.make_optimizer(seg.init_state().values(), 1.6e-4, 1e-3,
+                                                   80000)
+    crop = cfg['crop_size'][0]
+    images = torch.rand(2, 3, crop, crop, generator=gen, device='cuda') * 2 - 1
+    labels = torch.randint(0, cfg['num_classes'], (2, crop, crop), generator=gen,
+                           device='cuda')
+
+    def run():
+        train_segmentation.train_step(seg, opt, sched, images, labels, gen)
+    return (seg, run, *timed_runs(torch, run, 2, 5))
 
 
 def open_extract(torch, name):
@@ -130,11 +191,14 @@ def main() -> int:
 
     fa.build()
     card = chip_smoke.card_line()
-    names = sys.argv[1:] or [*chip_smoke.PATHS, *OTHER_PATHS]
+    names = sys.argv[1:] or [*chip_smoke.PATHS, *OTHER_PATHS, *TRAIN_PATHS]
     for name in names:
+        # phase 19's fp32 training paths as chip_smoke.py runs them
+        torch.backends.cudnn.allow_tf32 = name not in TRAIN_PATHS or name.endswith('-tf32')
         with tempfile.TemporaryDirectory() as tmp:
-            fe, run, host, device = open_other(torch, name, tmp) if name in OTHER_PATHS \
-                else open_extract(torch, name)
+            fe, run, host, device = (open_other(torch, name, tmp) if name in OTHER_PATHS
+                                     else open_training(torch, name) if name in TRAIN_PATHS
+                                     else open_extract(torch, name))
             acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
