@@ -7,7 +7,7 @@ Phases (each prints its numbers on lines of its own):
   1. the card's name and power limit, then the kernels' build (one nvcc per
      source, started together), and the count of HGMMA (wgmma) and UTMALDG
      (TMA load) instructions in the SASS of every bf16/fp16 library (B1/B2,
-     B3, B4), of HMMA (mma.sync) in the backward's;
+     B3, B4, the backward), and of FFMA and SHFL in every fp32 library's;
   2. every kernel against its plain twin at every shape the paths launch
      it at (batch 2), plus a ragged shape, in bf16 and fp32 (each kernel
      also in fp16 at one shape): errors against the stated tolerances, and
@@ -180,7 +180,8 @@ Phases (each prints its numbers on lines of its own):
      torch.equal to phase 6's fresh extractor's (same request and seed).
  19. training (after phase 17): (a) the flash backward kernel against its
      twin (JAX's VJP) on head-split views at BWD_SHAPES, the paths' fp32
-     and bf16 shapes and one shape at every other width: relative L2 and
+     and bf16 shapes and one shape at every other width, and at the ragged
+     (1000, 333) pair in every type (BWD_RAGGED): relative L2 and
      the worst element of dq, dk, dv against TOL, the kernel's time as
      CUDA graphs, the twin's, the bound (five products, 10 B H Sq Sk D
      flops) and SDPA's backward for the same function (timed only);
@@ -426,7 +427,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     'short_attention': ('diffusion_feature_tpu_torch/csrc/short_hopper.cuh',
                         'diffusion_feature_tpu/ops/flash_attention.py:375'),
     # the JAX package's flash backward is a custom VJP (XLA), no Pallas kernel
-    'flash_attention_bwd': ('diffusion_feature_tpu_torch/csrc/flash_bwd.cuh',
+    'flash_attention_bwd': ('diffusion_feature_tpu_torch/csrc/flash_bwd_hopper.cuh',
                             'diffusion_feature_tpu/ops/flash_attention.py:212'),
 }
 # phase 7: the CLI on the 'xl' path over 3 images, in batches of 2 and 1
@@ -504,6 +505,11 @@ BWD_SHAPES = [((2, 8, 4096, 4096, 40), 'float32'), ((2, 8, 1024, 1024, 80), 'flo
               ((2, 16, 1024, 1024, 72), 'bfloat16'), ((2, 16, 1024, 1024, 88), 'bfloat16'),
               ((2, 24, 1536, 1536, 128), 'bfloat16'), ((2, 8, 1024, 1024, 160), 'bfloat16'),
               ((2, 8, 1024, 1024, 80), 'float16')]
+# the ragged pair in every type: the tiles' edges in keys and queries, and
+# the dq accumulator's and its conversion's ragged rows (fp32 at the widths
+# of both of its thread layouts, 8 and 16 lanes a row)
+BWD_RAGGED = [((1, 2, 1000, 333, 64), dt) for dt in ('bfloat16', 'float16', 'float32')] + [
+    ((1, 2, 1000, 333, 40), 'float32'), ((1, 2, 1000, 333, 80), 'float32')]
 # (b), (c): the shipped configs through the port's trainer; (d) train_unet
 SEG_CONFIG, VPD_CONFIG = 'seg_configs/ade_sdxl.json', 'seg_configs/ade_vpd.json'
 SEG_ITERS, VPD_ITERS = 4, 3
@@ -2271,6 +2277,8 @@ def check_training(torch, fa, attn_ops, card, shapes, runs, numbers, gen):
     # (a) the backward kernel against its twin
     for shape, dt in BWD_SHAPES:
         numbers['flash_attention_bwd', shape, dt] = compare_bwd(torch, fa, shape, dt, gen)
+    for shape, dt in BWD_RAGGED:
+        compare_bwd(torch, fa, shape, dt, gen)
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix='chip_smoke_seg_') as root:
@@ -2472,13 +2480,16 @@ def main() -> int:
         print(f'  ptxas: {line}')
     for path in info['paths']:
         if '_bf16_' in path or '_fp16_' in path:
-            # the backward is a first mma.sync kernel: the tensor cores through
-            # HMMA, no wgmma or TMA yet (PERF.md section 6)
-            ops = ('HMMA',) if 'flash_bwd' in path else ('HGMMA', 'UTMALDG')
+            ops = ('HGMMA', 'UTMALDG')
             counts = sass_counts(path, ops)
             print(f'phase 1 SASS of {os.path.basename(path)}: {counts}', flush=True)
             if not all(counts.values()):
                 raise RuntimeError(f'{path}: no {" or ".join(ops)} in the SASS: {counts}')
+        else:
+            # fp32: FMA products; flash and flash_bwd keep their shuffles to the
+            # softmax's row reductions and the delta pre-pass (simt_f32.cuh)
+            print(f'phase 1 SASS of {os.path.basename(path)}: '
+                  f'{sass_counts(path, ("FFMA", "SHFL"))}', flush=True)
     from diffusion_feature_tpu_torch.native import load_library
     writer_lib = load_library('dumpio')
     if writer_lib is None:

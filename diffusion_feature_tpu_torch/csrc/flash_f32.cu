@@ -1,43 +1,68 @@
 // B1 and B2 for float32 inputs: flash-attention forward with exact fp32
 // products, softmax(q k^T * scale) v over (b, h, s, d) tensors with an fp32
 // running max, denominator and accumulator; with kLse each row's
-// logsumexp.  float32 is a test dtype, on no path: bf16 and fp16 take the
-// Hopper kernel of flash_hopper.cuh, and wgmma has no exact fp32 product
-// (TF32 would round the inputs to 10 mantissa bits).
+// logsumexp, which the backward reads.
 //
 // Replaces diffusion_feature_tpu/ops/flash_attention.py::_flash_kernel (B1)
-// and ::_flash_lse_kernel (B2) for float32.  One thread block owns 64 query
-// rows of one (b, h) and walks every key tile itself.  The products run as
-// an exact fp32 FMA emulation of mma.sync m16n8k16's fragment layout
-// (tile_ops.cuh); scores stay in registers, the softmax uses exp2 with the
-// scale folded in.  Loads are synchronous 16-byte vectors through
-// registers, two block-wide barriers per key tile.
+// and ::_flash_lse_kernel (B2) for float32.  float32 runs on training
+// paths: the shipped ade_vpd config and train_unet run SD-1.5 in fp32 (the
+// JAX reference trains in fp32), whose self-attentions are B2 forwards
+// under the backward, and SD-2.1's upcast attention store runs B2 in fp32.
 //
-// Layout: each of the 4 warps owns 16 query rows.  A fragment element
-// (row, col) of an m16n8k16 operand lives in lane 4*(row%8) + (col%8)/2, so
-// the score accumulator of two adjacent 8-key tiles is already the A operand
-// of the PV product.  Head widths: 40, 64, 72, 80, 88, 128, 160 and 512.  d=40,
-// 72 and 88 are zero-padded to the depths 48, 80 and 96 in shared memory for QK^T.  Widths up to 160
-// keep the whole 16 x d accumulator of a warp in registers; d=512 does not
-// fit, so blockIdx.z splits its output columns into 128-wide slices and
-// each slice recomputes the scores.
+// What bounds it: every score costs 2 d FMAs (q k^T and p v) on the FMA
+// pipes, 67 TFLOP/s on an H100 (wgmma has no exact fp32 product: TF32
+// would round the inputs to 10 mantissa bits), so at the paths' lengths
+// the FMA issue rate is the limit, not memory; what stands between a
+// product and that rate is the shared-memory bandwidth its operands take
+// (see simt_f32.cuh).  The design: simt_f32.cuh's register-tiled products
+// with no shuffle in a product loop, each thread owning a 4 x 8 block of
+// scores (12 float4 loads for 128 FMAs) and a 4 x d/8 block of the output
+// (4 float4 and d/2 scalar loads for 2 d FMAs per 4 keys), and cp.async
+// staging that overlaps each tile's load with the other product (the next
+// K tile loads during P V, the next V tile during Q K^T).  A block is 128
+// threads, small enough that three fit an SM at d=64 and a 1024-token call
+// fills the card in one wave.
+//
+// A block of 16 x 8 threads owns kBQ query rows of one (b, h) and walks
+// every key tile itself.  Thread (ty, tx) owns rows ty + 16 i and keys
+// tx + 8 j of each score tile: the softmax's row maxima reduce over the 8
+// lanes that share ty (three xor shuffles per row and tile, outside the
+// products); P goes through shared memory to the P V product, in which the
+// thread owns the same rows (so the running max and its rescale stay in
+// registers) and the output columns tx + 8 e.  Keys past Sk get -inf, rows
+// past Sq are zero-filled on load and never stored.  Head widths 40, 64,
+// 72, 80, 88, 128 and 160 take one pass (kDC = d).  d=512 (the VAE's single
+// head) does not fit a block's registers or shared memory in one pass:
+// blockIdx.z splits its output columns into 128-wide slices, each of which
+// recomputes the scores (64-row x 32-key tiles, 4 x 4 a thread).
 
+#include "simt_f32.cuh"
 #include "tile_ops.cuh"
 
 namespace {
 
 using namespace dft;
+using namespace dft::simt;
 
-template <typename T, int D>
+template <int D>
 struct Cfg {
-  static constexpr int kDP = padded_depth(D);          // QK^T depth
-  static constexpr int kDC = D <= 160 ? D : 128;        // output columns per block
-  static constexpr int kBlockN = D <= 128 ? 64 : 32;    // keys per tile
-  static constexpr int kLdQK = kDP + kPad;
-  static constexpr int kLdV = kDC + kPad;
-  static_assert(D % kDC == 0 && kDC % 8 == 0, "output slices must tile the head width");
+  static constexpr bool kWide = D > 160;
+  static constexpr int kTX = 8, kThreads = 16 * kTX;   // ty = tid / 8, tx = tid % 8
+  static constexpr int kDC = kWide ? 128 : D;          // output columns per block
+  static constexpr int kBQ = 64;                       // query rows per block: ty + 16 i
+  static constexpr int kBK = kWide ? 32 : 64;          // keys per tile: tx + 8 j
+  static constexpr int kTM = kBQ / 16, kTN = kBK / kTX;
+  // three blocks an SM up to d=64 (168 registers a thread), so that a
+  // 1024-token call at d=64 (320 blocks) runs in one wave
+  static constexpr int kMinBlocks = D <= 64 ? 3 : 1;
+  static constexpr int kC = kDC / kTX;                 // output columns tx + 8 e a thread owns
+  // K's rows are picked by tx (ld / 4 odd); P's stores hit rows ty.. of 8
+  // consecutive keys (ld = 8 mod 32 puts a warp's four rows on distinct banks)
+  static constexpr int kLdQK = D + 4, kLdV = kDC + 4, kLdP = kBK + 8;
+  static_assert(D % 8 == 0 && D % kDC == 0, "output slices must tile the head width");
   static constexpr size_t kSmem =
-      (size_t(kBlockM) * kLdQK + size_t(kBlockN) * kLdQK + size_t(kBlockN) * kLdV) * sizeof(T);
+      (size_t(kBQ) * kLdQK + size_t(kBK) * kLdQK + size_t(kBK) * kLdV + size_t(kBQ) * kLdP) *
+      sizeof(float);
 };
 
 // Element strides (sb, sh, ss) of q, k, v and o; d has unit stride.
@@ -45,130 +70,124 @@ struct Strides {
   long long v[12];
 };
 
-template <typename T, int D, bool kLse>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int heads, int sq, int sk,
-                 float scale_log2, Strides st) {
-  using C = Cfg<T, D>;
-  using Op = Ops<T>;
-  using Reg = typename Op::Reg;
-  constexpr int kDP = C::kDP, kDC = C::kDC, kBN = C::kBlockN;
-  constexpr int kLdQK = C::kLdQK, kLdV = C::kLdV;
+template <int D, bool kLse>
+__global__ void __launch_bounds__(Cfg<D>::kThreads, Cfg<D>::kMinBlocks)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+              int heads, int sq, int sk, float scale_log2, Strides st) {
+  using C = Cfg<D>;
+  constexpr int kBQ = C::kBQ, kBK = C::kBK, kTM = C::kTM, kTN = C::kTN, kC = C::kC;
+  constexpr int kDC = C::kDC, kLdQK = C::kLdQK, kLdV = C::kLdV, kLdP = C::kLdP;
+  constexpr int kTX = C::kTX, kThreads = C::kThreads;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* qs = reinterpret_cast<T*>(smem_raw);
-  T* ks = qs + kBlockM * kLdQK;
-  T* vs = ks + kBN * kLdQK;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;
+  float* ks = qs + kBQ * kLdQK;
+  float* vs = ks + kBK * kLdQK;
+  float* ps = vs + kBK * kLdV;
 
-  const int q0 = blockIdx.x * kBlockM;
+  const int q0 = blockIdx.x * kBQ;
   const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
   const int dc0 = blockIdx.z * kDC;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = warp * 16;
+  const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
 
-  const T* kg = k + b * st.v[3] + h * st.v[4];
-  const T* vg = v + b * st.v[6] + h * st.v[7] + dc0;
-  const int kss = int(st.v[5]), vss = int(st.v[8]);
-  load_tile<T, D, kDP>(qs, kLdQK, q + b * st.v[0] + h * st.v[1] + q0 * st.v[2], int(st.v[2]),
-                       min(kBlockM, sq - q0), kBlockM);
+  const float* kg = k + b * st.v[3] + h * st.v[4];
+  const float* vg = v + b * st.v[6] + h * st.v[7] + dc0;
+  const long long kss = st.v[5], vss = st.v[8];
+  const int n_tiles = (sk + kBK - 1) / kBK;
 
-  float acc[kDC / 8][4];
-#pragma unroll
-  for (int n = 0; n < kDC / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // running max of rows g and g+8 (log2 units)
-  float l[2] = {0.f, 0.f};              // this lane's share of the running denominator
+  // prologue: Q and the first K tile (group 0), the first V tile (group 1)
+  load_tile_async<kThreads, D>(qs, kLdQK, q + b * st.v[0] + h * st.v[1] + q0 * st.v[2], st.v[2],
+                               min(kBQ, sq - q0), kBQ);
+  load_tile_async<kThreads, D>(ks, kLdQK, kg, kss, min(kBK, sk), kBK);
+  cp_async_commit();
+  load_tile_async<kThreads, kDC>(vs, kLdV, vg, vss, min(kBK, sk), kBK);
+  cp_async_commit();
 
-  for (int k0 = 0; k0 < sk; k0 += kBN) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    const int kv_valid = min(kBN, sk - k0);
-    load_tile<T, D, kDP>(ks, kLdQK, kg + size_t(k0) * kss, kss, kv_valid, kBN);
-    load_tile<T, kDC>(vs, kLdV, vg + size_t(k0) * vss, vss, kv_valid, kBN);
-    __syncthreads();
-
-    // scores of this warp's 16 rows against the kBN keys of the tile
-    float s[kBN / 8][4];
+  float acc[kTM][kC];
 #pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll 2
-    for (int kk = 0; kk < kDP / 16; ++kk) {
-      Reg a[4];
-      load_a<T>(a, qs, kLdQK, row0, kk);
-      mma_qk<T, kBN / 8>(s, a, ks, kLdQK, kk);
-    }
-
-    // online softmax; keys past the end get -inf and so weight 0
+  for (int i = 0; i < kTM; ++i)
 #pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
+    for (int e = 0; e < kC; ++e) acc[i][e] = 0.f;
+  float m[kTM], l[kTM];   // running max (scaled, log2 units) and this lane's share of the sum
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + 2 * t + (e & 1);
-        s[j][e] = key < sk ? s[j][e] * scale_log2 : -INFINITY;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      // every tile holds at least one valid key, so m_new is finite
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = exp2f(m[r] - m_new);
-      m[r] = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
-        s[j][2 * r] = exp2f(s[j][2 * r] - m_new);
-        s[j][2 * r + 1] = exp2f(s[j][2 * r + 1] - m_new);
-        sum += s[j][2 * r] + s[j][2 * r + 1];
-      }
-      l[r] = l[r] * alpha + sum;
-#pragma unroll
-      for (int n = 0; n < kDC / 8; ++n) {
-        acc[n][2 * r] *= alpha;
-        acc[n][2 * r + 1] *= alpha;
-      }
-    }
-
-    // acc += P V: two adjacent 8-key score tiles form one A operand
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      Reg a[4];
-      a[0] = Op::pack(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = Op::pack(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = Op::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = Op::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < kDC / 8; ++n) {
-        const T* vb = vs + (kk * 16 + 2 * t) * kLdV + n * 8 + g;
-        Reg b[2];
-        b[0] = Op::pair(vb[0], vb[kLdV]);
-        b[1] = Op::pair(vb[8 * kLdV], vb[9 * kLdV]);
-        Op::mma(acc[n], a, b);
-      }
-    }
+  for (int i = 0; i < kTM; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
   }
 
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * kBK;
+    cp_async_wait<1>();   // K_j (and Q) landed; V_j may be in flight
+    __syncthreads();
+
+    float s[kTM][kTN];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float tot = l[r];
-    tot += __shfl_xor_sync(0xffffffffu, tot, 1);
-    tot += __shfl_xor_sync(0xffffffffu, tot, 2);
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int n = 0; n < kTN; ++n) s[i][n] = 0.f;
+    nt<kTM, kTN, 16, kTX, D, C::kMinBlocks == 3 ? 1 : 2>(s, qs + ty * kLdQK, kLdQK,
+                                                         ks + tx * kLdQK, kLdQK);
+
+    // online softmax of rows ty + 16 i; keys past the end get -inf
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < kTN; ++n) {
+        s[i][n] = k0 + tx + kTX * n < sk ? s[i][n] * scale_log2 : -INFINITY;
+        mx = fmaxf(mx, s[i][n]);
+      }
+#pragma unroll
+      for (int off = 1; off < kTX; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      // every tile holds at least one valid key, so m_new is finite
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = exp2_sfu(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < kTN; ++n) {
+        const float p = exp2_sfu(s[i][n] - m_new);
+        sum += p;
+        ps[(ty + 16 * i) * kLdP + tx + kTX * n] = p;
+      }
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int e = 0; e < kC; ++e) acc[i][e] *= alpha;
+    }
+    __syncthreads();   // P written; every warp is done with K_j
+    if (j + 1 < n_tiles)
+      load_tile_async<kThreads, D>(ks, kLdQK, kg + size_t(k0 + kBK) * kss, kss,
+                                   min(kBK, sk - k0 - kBK), kBK);
+    cp_async_commit();
+    cp_async_wait<1>();   // V_j landed; K_{j+1} may be in flight
+    __syncthreads();
+
+    nnc<kTM, kC, kTX, kBK>(acc, ps + ty * kLdP, kLdP, vs + tx, kLdV);
+    __syncthreads();   // every warp is done with V_j and P
+    if (j + 1 < n_tiles)
+      load_tile_async<kThreads, kDC>(vs, kLdV, vg + size_t(k0 + kBK) * vss, vss,
+                                     min(kBK, sk - k0 - kBK), kBK);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    float tot = l[i];
+#pragma unroll
+    for (int off = 1; off < kTX; off <<= 1) tot += __shfl_xor_sync(0xffffffffu, tot, off);
     const float inv = 1.f / tot;
-    const int row = q0 + row0 + g + 8 * r;
+    const int row = q0 + ty + 16 * i;
     if (row < sq) {
-      T* orow = o + b * st.v[9] + h * st.v[10] + row * st.v[11] + dc0;
+      float* orow = o + b * st.v[9] + h * st.v[10] + row * st.v[11] + dc0 + tx;
 #pragma unroll
-      for (int n = 0; n < kDC / 8; ++n)
-        *reinterpret_cast<Reg*>(orow + n * 8 + 2 * t) =
-            Op::pack(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+      for (int e = 0; e < kC; ++e) orow[kTX * e] = acc[i][e] * inv;
       // natural-log logsumexp of the scaled scores: ln 2 * (m + log2 l)
       if constexpr (kLse) {
-        if (t == 0 && blockIdx.z == 0)
-          lse[size_t(bh) * sq + row] = (m[r] + log2f(tot)) * 0.6931471805599453f;
+        if (tx == 0 && blockIdx.z == 0)
+          lse[size_t(bh) * sq + row] = (m[i] + log2f(tot)) * 0.6931471805599453f;
       }
     }
   }
@@ -177,11 +196,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 template <int D, bool kLse>
 int launch(const float* q, const float* k, const float* v, float* o, float* lse, int b, int h,
            int sq, int sk, float scale, const Strides& st, cudaStream_t stream) {
-  using C = Cfg<float, D>;
-  constexpr auto kernel = flash_fwd_kernel<float, D, kLse>;
+  using C = Cfg<D>;
+  constexpr auto kernel = flash_fwd_f32<D, kLse>;
   if (int err = allow_smem<kernel>(C::kSmem)) return err;
-  const dim3 grid((sq + kBlockM - 1) / kBlockM, b * h, D / C::kDC);
-  kernel<<<grid, kThreads, C::kSmem, stream>>>(q, k, v, o, lse, h, sq, sk,
+  const dim3 grid((sq + C::kBQ - 1) / C::kBQ, b * h, D / C::kDC);
+  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(q, k, v, o, lse, h, sq, sk,
                                                 scale * 1.4426950408889634f, st);
   return int(cudaGetLastError());
 }

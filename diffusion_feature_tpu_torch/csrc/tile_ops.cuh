@@ -1,7 +1,8 @@
-// Pieces shared by the attention kernels: for the exact float32 kernels
-// (flash_f32.cu, headmean_f32.cu, short_f32.cu) the m16n8k16 product in
-// mma.sync's fragment layout as fp32 FMAs, and the tile loader; for every
-// kernel (the Hopper ones through hopper_common.cuh) the shared-memory limit.
+// Pieces shared by the attention kernels: for the exact float32 B3 and B4
+// (headmean_f32.cu, short_f32.cu) the m16n8k16 product in mma.sync's
+// fragment layout as fp32 FMAs, and the tile loader (fp32 B1/B2 and the
+// backward use simt_f32.cuh's products instead); for every kernel (the
+// Hopper ones through hopper_common.cuh) the shared-memory limit.
 //
 // Fragment layout of mma.sync m16n8k16: A(row, k) sits in lane
 // 4*(row%8) + (k%8)/2, register 2*(k/8) + row/8; B(k, n) in lane

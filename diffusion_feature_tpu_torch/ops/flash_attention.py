@@ -38,9 +38,15 @@ registers (B1/B2 ``flash_hopper.cuh``: online softmax, d=512 computes each
 score once; B3 ``headmean_hopper.cuh``: a ring over heads, the mean kept
 in registers, a persistent grid; B4 ``short_hopper.cuh``: two passes, the
 row maxima first).  ``hopper_common.cuh`` holds what they share.  float32
-keeps exact ``mma.sync``-layout FMA kernels (``flash_f32.cu``,
-``headmean_f32.cu``, ``short_f32.cu``); besides the tests, SD-2.1's
-upcast attention store runs B2 and B3 in fp32.  See the sources.
+runs on training paths (ade_vpd's prompt tuning and train_unet
+differentiate SD-1.5 in fp32, whose self-attentions are B2 forwards under
+the backward) and in SD-2.1's upcast attention store (B2 and B3).  wgmma
+has no exact fp32 product, so fp32 B1/B2 (``flash_f32.cu``) run
+``simt_f32.cuh``'s register-tiled FMA products (float4 operands from
+shared memory, no shuffles, cp.async staging), bound by the FMA issue
+rate; fp32 B3 and B4 (``headmean_f32.cu``, ``short_f32.cu``) keep
+``tile_ops.cuh``'s emulation of mma.sync fragments, whose shuffles limit
+it.  See the sources.
 
 Head widths: each kernel is instantiated per width (``SUPPORTED_HEAD_DIMS``,
 ``HEADMEAN_HEAD_DIMS``).  A width that is no multiple of the 64-column
@@ -56,12 +62,17 @@ and B4 write their output in (B, S, H, D) memory and return the
 contiguous (B, Sq, Sk) map.  No wrapper copies an input it cannot take: it
 raises.
 
-The backward (``csrc/flash_bwd.cuh``) is a simple FA2-style kernel:
-mma.sync fragments through shared memory (the exact fp32 emulation of
-``tile_ops.cuh`` for float32), a pre-pass for rowsum(dO * O), one pass
-over key tiles for dK and dV and one over query tiles for dQ, so no
-(Sq, Sk) tensor reaches memory and no atomics run.  Its five products
-bound it by operations.
+The backward (``csrc/flash_bwd.cuh``) computes every score once: after a
+pre-pass for rowsum(dO * O), one block per key tile keeps that tile's dK
+and dV in registers, walks every query tile, and adds its share of dQ into
+an fp32 sum, so no (Sq, Sk) tensor reaches memory.  Its five products bound
+it by operations.  bf16/fp16 (``flash_bwd_hopper.cuh``) run them on
+``wgmma`` in two consumer warpgroups fed by a TMA ring of Q/dO tiles, and
+add each dQ piece with one bulk reduce-add into an fp32 accumulator that a
+last pass converts; float32 (``flash_bwd_f32.cu``) runs
+them as ``simt_f32.cuh``'s products with fp32 atomics into dQ.  dQ is
+therefore summed in no fixed order: not bitwise repeatable between calls,
+as SDPA's backward is not.
 
 Routing: CPU tensors go to the ``*_reference`` twins, and so do meta
 tensors, which carry shapes only (layer enumeration runs the U-Net on
@@ -99,9 +110,10 @@ _CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 _SOURCES = {f'{kernel}_{tag}': _CSRC / f'{kernel}_{tag}.cu'
             for kernel in ('flash', 'headmean', 'short', 'flash_bwd')
             for tag in ('bf16', 'fp16', 'f32')}
-_HEADERS = tuple(_CSRC / name for name in ('tile_ops.cuh', 'hopper_common.cuh', 'wgmma.cuh',
-                                           'flash_hopper.cuh', 'headmean_hopper.cuh',
-                                           'short_hopper.cuh', 'flash_bwd.cuh'))
+_HEADERS = tuple(_CSRC / name for name in ('tile_ops.cuh', 'simt_f32.cuh', 'hopper_common.cuh',
+                                           'wgmma.cuh', 'flash_hopper.cuh', 'headmean_hopper.cuh',
+                                           'short_hopper.cuh', 'flash_bwd.cuh',
+                                           'flash_bwd_hopper.cuh'))
 _DTYPE_TAGS = {torch.bfloat16: 'bf16', torch.float16: 'fp16', torch.float32: 'f32'}
 _BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
 _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
@@ -119,9 +131,10 @@ _ARGTYPES = {
     # q, k, v, o, b, h, sq, sk, d, dtype, scale, strides (as B1's), stream
     'dft_short_attention_forward': [_VP] * 4 + [_INT] * 6 + [
         _F32, ctypes.POINTER(ctypes.c_longlong), _VP],
-    # q, k, v, o, do, lse, delta (scratch), dq, dk, dv, b, h, sq, sk, d,
-    # dtype, scale, strides (sb, sh, ss of q, k, v, o, do, dq, dk, dv), stream
-    'dft_flash_attention_backward': [_VP] * 10 + [_INT] * 6 + [
+    # q, k, v, o, do, lse, delta (scratch), dq_acc (scratch), dq, dk, dv, b, h,
+    # sq, sk, d, dtype, scale, strides (sb, sh, ss of q, k, v, o, do, dq, dk,
+    # dv), stream
+    'dft_flash_attention_backward': [_VP] * 11 + [_INT] * 6 + [
         _F32, ctypes.POINTER(ctypes.c_longlong), _VP],
 }
 
@@ -130,7 +143,7 @@ launches = 0            # B1
 lse_launches = 0        # B2
 headmean_launches = 0   # B3
 short_launches = 0      # B4
-bwd_launches = 0        # the backward (one per call: its three kernels)
+bwd_launches = 0        # the backward (one per call of its wrapper)
 
 _libs = {}
 
@@ -556,8 +569,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     may hand over expanded or unaligned, is copied to a contiguous tensor
     first where the kernel cannot read it in place.  dq, dk and dv are the
     (B, H, S, D) views of (B, S, H, D) memory, as B1's output, in the
-    inputs' dtype.  Widths are ``BWD_HEAD_DIMS``; any other (the VAE's
-    d=512) raises ValueError.  On the host: ``flash_attention_bwd_reference``."""
+    inputs' dtype; dq is summed across key blocks in no fixed order, so it
+    is not bitwise repeatable between calls (dk and dv are).  Widths are
+    ``BWD_HEAD_DIMS``; any other (the VAE's d=512) raises ValueError.  On
+    the host: ``flash_attention_bwd_reference``."""
     global bwd_launches
     if _on_host(q, k, v, grad):
         return flash_attention_bwd_reference(q, k, v, grad, scale)
@@ -577,12 +592,20 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
                          f'{q.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}')
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = flash_output(q), flash_output(k), flash_output(v)
+    if q.dtype == torch.float32:
+        # the key blocks add their dq into dq itself
+        dq.zero_()
+        dq_acc = None
+    else:
+        # they add it into an fp32 accumulator, which the kernel converts
+        dq_acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
     strides = _tma_stride_array(op, (('q', q), ('k', k), ('v', v), ('out', out),
                                      ('grad', grad), ('dq', dq), ('dk', dk), ('dv', dv)))
     err = _lib('flash_bwd', q.dtype).dft_flash_attention_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), grad.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, h, sq, k.shape[2], d, _DTYPE_CODES[q.dtype], float(scale), strides, _stream(q))
+        lse.data_ptr(), delta.data_ptr(), None if dq_acc is None else dq_acc.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq, k.shape[2], d,
+        _DTYPE_CODES[q.dtype], float(scale), strides, _stream(q))
     if err != 0:
         raise RuntimeError(f'{op} kernel launch failed: cudaError {err} '
                            f'for q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}')

@@ -827,3 +827,72 @@ def test_grad_paths_carry_graphs_on_card(cuda, dtype):
     assert out.grad_fn is not None and mean_p.grad_fn is not None
     assert fa.headmean_launches == 1
     (out.float().sum() + mean_p.float().sum() * 10).backward()
+
+
+def _assert_bwd_matches(got, ref, dtype):
+    """dq, dk, dv against the twin's: relative L2 within the tolerance and
+    the worst element within five times it of each gradient's largest."""
+    tol = _BWD_TOL[dtype]
+    for name, a, r in zip(('dq', 'dk', 'dv'), got, ref):
+        assert a.shape == r.shape and a.dtype == dtype, name
+        a, r = a.float(), r.float()
+        rel = ((a - r).norm() / r.norm()).item()
+        worst = ((a - r).abs().max() / r.abs().max()).item()
+        assert rel <= tol and worst <= 5 * tol, f'{name}: rel_l2 {rel:.3e}, worst {worst:.3e}'
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', list(_BWD_TOL), ids=str)
+@pytest.mark.parametrize('sq,sk', [(1025, 1023), (193, 383), (127, 65)],
+                         ids=['1025x1023', '193x383', '127x65'])
+@pytest.mark.parametrize('d', [64, 80], ids=['d64', 'd80'])
+def test_backward_unequal_lengths_match_twin(cuda, dtype, sq, sk, d):
+    """Sq != Sk at 64 n +- 1 in every type: the ragged edges of the key
+    blocks, of the query tiles and of the dq accumulator's rows (d=64 and
+    d=80: both bf16/fp16 dq layouts, both fp32 thread layouts)."""
+    q, k, v, grad = _bwd_inputs(cuda, dtype, 1, 2, sq, sk, d, True, seed=1)
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_with_lse(q, k, v, scale=scale)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, grad, scale=scale)
+    torch.cuda.synchronize()
+    _assert_bwd_matches(got, fa.flash_attention_bwd_reference(q, k, v, grad, scale), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', list(_BWD_TOL), ids=str)
+def test_backward_calls_agree(cuda, dtype):
+    """Two calls on the same inputs: dk and dv bitwise (each is one block's
+    registers), dq within the type's tolerance (the key blocks add into it
+    in no fixed order)."""
+    q, k, v, grad = _bwd_inputs(cuda, dtype, 2, 3, 1000, 1000, 64, True, seed=2)
+    scale = 0.125
+    out, lse = fa.flash_attention_with_lse(q, k, v, scale=scale)
+    first = fa.flash_attention_bwd(q, k, v, out, lse, grad, scale=scale)
+    second = fa.flash_attention_bwd(q, k, v, out, lse, grad, scale=scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+    _assert_matches(second[0], first[0], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,with_lse', [
+    ((1, 1, 1000, 777, 512), False), ((2, 1, 1025, 1023, 512), False),
+    ((1, 2, 1025, 1023, 40), True), ((1, 2, 193, 383, 64), True), ((2, 3, 1023, 65, 80), True),
+    ((1, 2, 1025, 129, 128), True), ((1, 2, 127, 1025, 160), True)],
+    ids=['d512', 'd512-b2', 'd40', 'd64', 'd80', 'd128', 'd160'])
+def test_fp32_forward_matches_twin(cuda, shape, with_lse):
+    """fp32 B1 (d=512: four 128-column slices) and B2 at ragged lengths
+    against their twins, and B2's logsumexp."""
+    b, h, sq, sk, d = shape
+    q, k, v = _qkv(cuda, torch.float32, b, h, sq, sk, d, seed=4)
+    scale = d ** -0.5
+    if with_lse:
+        out, lse = fa.flash_attention_with_lse(q, k, v, scale=scale)
+        ref, ref_lse = fa.flash_attention_with_lse_reference(q, k, v, scale)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    else:
+        out = fa.flash_attention(q, k, v, scale=scale)
+        ref = fa.flash_attention_reference(q, k, v, scale)
+        torch.cuda.synchronize()
+    _assert_matches(out, ref, torch.float32)

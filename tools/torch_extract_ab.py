@@ -26,6 +26,12 @@ graphs of 20 calls (``graph_ms``: ``chip_smoke.graph_ms``, device time).
 ``--width D`` keeps the shapes of head width D only.  The JSON line also
 carries ROOT's ``ptxas`` report (registers and spills) of every kernel
 instance at those widths, from the build, when this call compiled it.
+
+``--kernels`` also times what the training paths run: the backward
+(``flash_attention_bwd``, on B2's output and logsumexp) at ``BWD_SHAPES``
+in each shape's dtype, and fp32 B1 and B2 at the shapes ``ade_vpd`` and
+``train_unet`` hand them and SD-2.1's fp32 store shape (``FP32_SHAPES``),
+all on head-split views as the paths give them.
 """
 
 import argparse
@@ -37,6 +43,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 
 CALLS = 15
+#: fp32 B1/B2 (wrapper, shape): ade_vpd's and train_unet's SD-1.5 levels 0
+#: and 1 at 512^2, SD-2.1's upcast store at 512^2
+FP32_SHAPES = [('flash_attention', (2, 8, 4096, 4096, 40)),
+               ('flash_attention_with_lse', (2, 8, 4096, 4096, 40)),
+               ('flash_attention_with_lse', (2, 8, 1024, 1024, 80)),
+               ('flash_attention_with_lse', (2, 10, 1024, 1024, 64))]
 
 
 def kernel_times(torch, fa, width=None) -> tuple:
@@ -66,6 +78,43 @@ def kernel_times(torch, fa, width=None) -> tuple:
     return loop, graph
 
 
+def split_inputs(torch, gen, shape, dtype, n):
+    """n head-split (B, H, S, D) views of (B, S, H*D) tensors: the first
+    with Sq rows (q, or with n = 1 an output gradient), the others with Sk."""
+    b, h, sq, sk, d = shape
+    lens = [sq] + [sk] * (n - 1)
+    return [torch.randn(b, s, h * d, generator=gen, device='cuda').to(dtype)
+            .reshape(b, s, h, d).transpose(1, 2) for s in lens]
+
+
+def train_times(torch, fa, width=None) -> tuple:
+    """({'<wrapper> <dtype> (B,H,Sq,Sk,D)': ms per call in a loop of calls},
+    {the same in CUDA graphs}) for the backward at ``BWD_SHAPES`` and fp32
+    B1/B2 at ``FP32_SHAPES``."""
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    loop, graph = {}, {}
+    cases = [('flash_attention_bwd', s, dt) for s, dt in chip_smoke.BWD_SHAPES]
+    cases += [(name, s, 'float32') for name, s in FP32_SHAPES]
+    for name, shape, dt in cases:
+        if width is not None and shape[-1] != width:
+            continue
+        dtype = getattr(torch, dt)
+        scale = shape[-1] ** -0.5
+        q, k, v = split_inputs(torch, gen, shape, dtype, 3)
+        if name == 'flash_attention_bwd':
+            grad = split_inputs(torch, gen, shape, dtype, 1)[0]
+            out, lse = fa.flash_attention_with_lse(q, k, v, scale=scale)
+            call = lambda: fa.flash_attention_bwd(q, k, v, out, lse, grad,  # noqa: E731
+                                                  scale=scale)
+        else:
+            wrapper = getattr(fa, name)
+            call = lambda: wrapper(q, k, v, scale=scale)                  # noqa: E731
+        key = f'{name} {dt} {shape}'
+        loop[key] = chip_smoke.time_ms(torch, call, runs=3)
+        graph[key] = chip_smoke.graph_ms(torch, call)
+    return loop, graph
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument('root')
@@ -83,6 +132,9 @@ def main() -> int:
     log = fa.build()['log']
     if args.kernels:
         loop, graph = kernel_times(torch, fa, args.width)
+        train_loop, train_graph = train_times(torch, fa, args.width)
+        loop.update(train_loop)
+        graph.update(train_graph)
         tag = None if args.width is None else f'Li{args.width}E'
         ptxas = [line for line in chip_smoke.ptxas_summary(log) if tag is None or tag in line]
         print(json.dumps({'root': args.root, 'loop_ms': loop, 'graph_ms': graph, 'ptxas': ptxas,

@@ -42,7 +42,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 
 KINDS = [  # first match wins
-    ('flash backward', r'dkdv_kernel|dq_kernel|delta_kernel'),
+    ('flash backward', r'flash_bwd|bwd_f32|dq_convert|delta_kernel'),
     ('flash (B1/B2)', r'flash_fwd'),
     ('head-mean (B3)', r'headmean'),
     ('groupnorm', r'RowwiseMoments|group_norm|GroupNorm'),
