@@ -7,7 +7,10 @@ Phases (each prints its numbers on lines of its own):
   1. the card's name and power limit, then the kernels' build (one nvcc per
      source, started together), and the count of HGMMA (wgmma) and UTMALDG
      (TMA load) instructions in the SASS of every bf16/fp16 library (B1/B2,
-     B3, B4, the backward), and of FFMA and SHFL in every fp32 library's;
+     B3, B4, the backward), and of FFMA and SHFL in every fp32 library's
+     (every fp32 kernel runs simt_f32.cuh's shuffle-free products: B3 has
+     no SHFL at all, the others keep them to their softmax row reductions
+     and the backward's delta pre-pass);
   2. every kernel against its plain twin at every shape the paths launch
      it at (batch 2), plus a ragged shape, in bf16 and fp32 (each kernel
      also in fp16 at one shape): errors against the stated tolerances, and
@@ -205,7 +208,10 @@ Phases (each prints its numbers on lines of its own):
      finite gradient,
      all of them within TAP_REL_TOL (relative L2) of the twins'.
 Phase 2 also holds B2 and B3 in fp32 at phase 11's store shape (the fp32
-kernels, timed against the fp32 non-tensor peak), and B4 (short
+kernels, timed against the fp32 non-tensor peak), B3 in fp32 on head-split
+views at every STORE_SHAPES entry and B4 in fp32 at every SHORT_SHAPES
+entry (the kernels line's 'float32_shapes', SDPA in fp32 as B4's library
+call), and B4 (short
 attention), which no path routes to, as in the JAX package: against its
 twin, with its gradients through short_attention_diff, at the 256-token
 bands of SD-1.5 and SDXL at 512^2, the JAX docstring's measured (16, 20,
@@ -309,6 +315,11 @@ SHORT_RAGGED = (1, 2, 200, 333, 64)
 TOL = {'bfloat16': 2e-2, 'float32': 1e-4, 'float16': 5e-3}
 # the logsumexp: both sides take fp32 scores from the same inputs
 LSE_TOL = 1e-3
+# SHFL in the SASS of the fp32 B3 and B4 libraries built from their sources
+# on an emulation of mma.sync fragments (four shuffles for four FFMA), as
+# phase 1 counted them on an NVIDIA H100 80GB HBM3: the yardstick phase 1
+# prints beside today's count
+EMULATION_SHFL = {'headmean_f32': 9248, 'short_f32': 14630}
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): tensor-core bf16 and
 # fp16, fp32 outside the tensor cores (the kernels' exact fp32 path), HBM
 PEAK_FLOPS = {'bfloat16': 989e12, 'float16': 989e12, 'float32': 67e12}
@@ -2486,10 +2497,16 @@ def main() -> int:
             if not all(counts.values()):
                 raise RuntimeError(f'{path}: no {" or ".join(ops)} in the SASS: {counts}')
         else:
-            # fp32: FMA products; flash and flash_bwd keep their shuffles to the
-            # softmax's row reductions and the delta pre-pass (simt_f32.cuh)
-            print(f'phase 1 SASS of {os.path.basename(path)}: '
-                  f'{sass_counts(path, ("FFMA", "SHFL"))}', flush=True)
+            # fp32: simt_f32.cuh's FMA products, no shuffle in a product; B1/B2,
+            # B4 and the backward keep shuffles to the softmax's row reductions
+            # and the delta pre-pass, B3 reduces nothing across lanes
+            counts = sass_counts(path, ('FFMA', 'SHFL'))
+            lib = next((n for n in EMULATION_SHFL if f'_{n}_' in path), None)
+            before = '' if lib is None else f' (SHFL on the emulation: {EMULATION_SHFL[lib]})'
+            print(f'phase 1 SASS of {os.path.basename(path)}: {counts}{before}', flush=True)
+            if lib == 'headmean_f32' and counts['SHFL']:
+                raise RuntimeError(f'{path}: {counts["SHFL"]} SHFL in the SASS; fp32 B3 '
+                                   'needs no cross-lane exchange')
     from diffusion_feature_tpu_torch.native import load_library
     writer_lib = load_library('dumpio')
     if writer_lib is None:
@@ -2505,16 +2522,18 @@ def main() -> int:
                                ('headmean_probs', STORE_SHAPES)):
             for shape in shapes + [RAGGED]:
                 compare(torch, fa, kernel, shape, dtype_name, gen)
-            # the layout the paths hand B1, B2 and B3; fp32 at the ragged shapes
-            for shape in (shapes if dtype_name == 'bfloat16' else []) + SPLIT_RAGGED[kernel]:
+            # the layout the paths hand B1, B2 and B3; fp32 at the ragged
+            # shapes, and B3's at every store shape too
+            every = dtype_name == 'bfloat16' or kernel == 'headmean_probs'
+            for shape in (shapes if every else []) + SPLIT_RAGGED[kernel]:
                 res = compare(torch, fa, kernel, shape, dtype_name, gen, split=True)
-                if dtype_name == 'bfloat16':
+                if dtype_name == 'bfloat16' or shape in shapes:
                     numbers[kernel, shape, dtype_name] = res
         # B4 on no path: contiguous inputs (the kernels line's), then
         # head-split views
         for shape in SHORT_SHAPES + [SHORT_RAGGED]:
             res = compare(torch, fa, 'short_attention', shape, dtype_name, gen)
-            if dtype_name == 'bfloat16' and shape in SHORT_SHAPES:
+            if shape in SHORT_SHAPES:
                 numbers['short_attention', shape, dtype_name] = res
         for shape in (SHORT_SHAPES if dtype_name == 'bfloat16' else []) + [SHORT_RAGGED]:
             compare(torch, fa, 'short_attention', shape, dtype_name, gen, split=True)
@@ -2657,6 +2676,13 @@ def main() -> int:
         entry['bound_by'] = max(entry['shapes'].values(),
                                 key=lambda v: v['calls'] * v['bound_ms'],
                                 default={'bound_by': None})['bound_by']
+        if name in ('headmean_probs', 'short_attention'):
+            # the fp32 kernels at every phase-2 shape: B3 on head-split views
+            # at the store's shapes, B4 on contiguous inputs
+            entry['float32_shapes'] = {
+                str(s): numbers[name, s, 'float32']
+                for s in (STORE_SHAPES + FP32_STORE_SHAPES if name == 'headmean_probs'
+                          else SHORT_SHAPES)}
         if name in ('flash_attention_with_lse', 'headmean_probs'):
             # built for HunyuanDiT's heads, which no path hands them (its store
             # is explicit, as in JAX): phase 2's bf16 numbers on head-split views

@@ -10,7 +10,8 @@
 //     (no -lcuda), and the 4-d (d, s, h, b) tensor map over a (B, H, S, D)
 //     tensor with the caller's strides, read in 64-column boxes (one
 //     128-byte swizzle atom) and zero-filled out of bounds.
-// The shared-memory limit helper (allow_smem) is tile_ops.cuh's.
+// The shared-memory limit and SM count helpers (allow_smem, sm_count) are
+// tile_ops.cuh's.
 
 #pragma once
 
@@ -243,18 +244,6 @@ inline int make_map(CUtensorMap* map, const void* ptr, int b, int h, int s, int 
                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
-}
-
-// The card's SM count, read once per device (a persistent grid's size).
-inline int sm_count() {
-  static int counts[64] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (dev < 64 && counts[dev]) return counts[dev];
-  int n = 0;
-  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
-  if (dev < 64) counts[dev] = n;
-  return n;
 }
 
 }  // namespace hopper

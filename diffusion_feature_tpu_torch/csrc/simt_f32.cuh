@@ -1,14 +1,15 @@
 // Exact fp32 products for the float32 attention kernels (flash_f32.cu, B1
-// and B2, and flash_bwd_f32.cu, the backward): register-tiled SIMT
-// products read from shared memory, and cp.async staging of the tiles.
+// and B2; headmean_f32.cu, B3; short_f32.cu, B4; flash_bwd_f32.cu, the
+// backward): register-tiled SIMT products read from shared memory, and
+// cp.async staging of the tiles.
 //
 // Why: wgmma has no exact fp32 product (TF32 rounds the inputs to 10
 // mantissa bits, and the JAX reference trains in fp32), so these kernels
-// run on the FMA pipes, whose H100 peak is 67 TFLOP/s.  The emulation of
-// mma.sync fragments in tile_ops.cuh moves every operand between lanes
-// with __shfl_sync, four shuffles for every four FFMA, and shuffles issue
-// at a quarter of the FFMA rate.  Here each thread owns a micro-tile of
-// the output and reads its operands from shared memory: no shuffle in a
+// run on the FMA pipes, whose H100 peak is 67 TFLOP/s.  An emulation of
+// mma.sync's fragment layout in FMAs would move every operand between
+// lanes with __shfl_sync, four shuffles for every four FFMA, and shuffles
+// issue at a quarter of the FFMA rate.  Here each thread owns a micro-tile
+// of the output and reads its operands from shared memory: no shuffle in a
 // product, and the micro-tiles are large enough that the bytes read per
 // FFMA stay near what shared memory delivers (128 bytes a clock an SM,
 // against 128 FFMA): a 16-byte load by a quarter-warp costs a shared-memory

@@ -41,12 +41,11 @@ row maxima first).  ``hopper_common.cuh`` holds what they share.  float32
 runs on training paths (ade_vpd's prompt tuning and train_unet
 differentiate SD-1.5 in fp32, whose self-attentions are B2 forwards under
 the backward) and in SD-2.1's upcast attention store (B2 and B3).  wgmma
-has no exact fp32 product, so fp32 B1/B2 (``flash_f32.cu``) run
-``simt_f32.cuh``'s register-tiled FMA products (float4 operands from
-shared memory, no shuffles, cp.async staging), bound by the FMA issue
-rate; fp32 B3 and B4 (``headmean_f32.cu``, ``short_f32.cu``) keep
-``tile_ops.cuh``'s emulation of mma.sync fragments, whose shuffles limit
-it.  See the sources.
+has no exact fp32 product, so every fp32 kernel (B1/B2 ``flash_f32.cu``,
+B3 ``headmean_f32.cu``, B4 ``short_f32.cu``, the backward
+``flash_bwd_f32.cu``) runs ``simt_f32.cuh``'s register-tiled FMA products
+(float4 operands from shared memory, no shuffle in a product, cp.async
+staging), bound by the FMA issue rate.  See the sources.
 
 Head widths: each kernel is instantiated per width (``SUPPORTED_HEAD_DIMS``,
 ``HEADMEAN_HEAD_DIMS``).  A width that is no multiple of the 64-column

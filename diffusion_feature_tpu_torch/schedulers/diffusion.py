@@ -5,7 +5,9 @@ The schedule tables are built in numpy exactly as the JAX package builds
 them, which reproduces diffusers' arrays: with linspace spacing Euler maps
 t=50 to timestep 49 (``timesteps[1000 - t] == t - 1``); SDXL's leading
 spacing with steps_offset 1 maps it to 50; PNDM's table carries diffusers'
-duplicated entry; DPM-Solver's rounded linspace maps t=50 to 50.  The beta
+duplicated entry; DPM-Solver's rounded linspace maps t=50 to 50; Euler's
+trailing spacing ends its ladder at timestep 999 and, like linspace, scales
+the initial noise by the plain largest sigma.  The beta
 schedules are scaled-linear (SD, SD-2.1, SDXL), linear (PixArt) and the
 capped cosine ``squaredcos_cap_v2`` (DeepFloyd IF).
 ``step`` works on a state of any step count (the facade's
@@ -34,11 +36,20 @@ class SchedulerConfig:
     prediction_type: str = 'epsilon'   # or 'v_prediction' / 'sample'
     timestep_spacing: str = 'linspace'
     steps_offset: int = 0
+    skip_prk_steps: bool = True            # PNDM: PLMS only (False raises)
     clip_sample: bool = False
     thresholding: bool = False
     dynamic_thresholding_ratio: float = 0.995
     sample_max_value: float = 1.0
     variance_type: str = 'fixed_small'     # DDPM: or 'learned_range'
+    solver_order: int = 2                  # DPM-Solver
+
+    @staticmethod
+    def from_dict(d: dict) -> 'SchedulerConfig':
+        """The config from a diffusers-style dict; keys that are no field
+        (``_class_name``, ``set_alpha_to_one``, ...) are dropped."""
+        names = {f.name for f in dataclasses.fields(SchedulerConfig)}
+        return SchedulerConfig(**{k: v for k, v in d.items() if k in names})
 
 
 @dataclasses.dataclass
@@ -141,14 +152,18 @@ class EulerDiscreteScheduler(_Scheduler):
             timesteps = (np.arange(0, num_inference_steps) * step_ratio).round()[::-1].astype(
                 np.float32)
             timesteps += self.config.steps_offset
+        elif spacing == 'trailing':
+            step_ratio = n / num_inference_steps
+            timesteps = np.arange(n, 0, -step_ratio).round().astype(np.float32) - 1
         else:
-            raise NotImplementedError(f'timestep spacing {spacing!r} is not ported yet')
+            raise ValueError(f'unknown timestep spacing {spacing!r}')
         sigmas = np.concatenate([np.interp(timesteps, np.arange(n), self._train_sigmas),
                                  [0.0]]).astype(np.float32)
         # diffusers scales the initial latents by the inference schedule's
-        # largest sigma: plain for linspace spacing, sqrt(max^2 + 1) otherwise
+        # largest sigma: plain for linspace and trailing spacing,
+        # sqrt(max^2 + 1) for leading
         smax = float(sigmas.max())
-        init = smax if spacing == 'linspace' else float(np.sqrt(smax ** 2 + 1))
+        init = smax if spacing in ('linspace', 'trailing') else float(np.sqrt(smax ** 2 + 1))
         return SchedulerState(num_inference_steps, timesteps, sigmas, init_noise_sigma=init)
 
     def sigma_index(self, state: SchedulerState, timestep) -> int:
@@ -190,6 +205,9 @@ class PNDMScheduler(_Scheduler):
     sqrt(abar) x0 + sqrt(1-abar) eps and leaves the model input unscaled."""
 
     def set_timesteps(self, num_inference_steps: int) -> SchedulerState:
+        if not self.config.skip_prk_steps:
+            raise NotImplementedError('PRK warm-up steps: no supported model uses them '
+                                      '(skip_prk_steps=False)')
         step_ratio = self.config.num_train_timesteps // num_inference_steps
         base = (np.arange(0, num_inference_steps) * step_ratio).round() + self.config.steps_offset
         plms = np.concatenate([base[:-1], base[-2:-1], base[-1:]])[::-1]

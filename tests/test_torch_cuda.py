@@ -375,6 +375,58 @@ def test_short_kernel_layouts_and_widths(cuda, dtype, layout, shape):
     _assert_matches(out, fa.short_attention_reference(q, k, v, d ** -0.5), dtype)
 
 
+# fp32 B3's edges: one head (the staging's prologue alone) and 20 heads
+# (more heads than stages), at each staging choice (two stages up to d=88,
+# one at d=128 and 160), ragged Sq and Sk, odd Sk among them
+_F32_HEADMEAN_EDGES = [(1, 1, 1000, 333, 64), (2, 20, 130, 77, 64), (1, 20, 257, 333, 88),
+                       (1, 1, 65, 1001, 128), (2, 20, 127, 129, 160), (1, 20, 1000, 7, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', _F32_HEADMEAN_EDGES,
+                         ids=[f'h{s[1]}-sk{s[3]}-d{s[4]}' for s in _F32_HEADMEAN_EDGES])
+def test_fp32_headmean_kernel_edges(cuda, shape):
+    """fp32 B3 on head-split views against its twin at H=1 and H=20, ragged
+    lengths and odd Sk (element stores)."""
+    b, h, sq, sk, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    q, k = (_split(cuda, torch.float32, b, h, s, d, gen) for s in (sq, sk))
+    _, lse = fa.flash_attention_with_lse(q, k, k, scale=d ** -0.5)
+    fa.headmean_launches = 0
+    mean_p = fa.headmean_probs(q, k, lse, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.headmean_launches == 1
+    assert mean_p.shape == (b, sq, sk) and mean_p.is_contiguous()
+    _assert_map_matches(mean_p, fa.headmean_probs_reference(q, k, lse, d ** -0.5),
+                        torch.float32, sk)
+
+
+# fp32 B4's edges: Sk = 1, 77 and 512 at d=160 (two K slots, then at 512
+# keys one, V's second slot in Q's space: 217 KB of shared memory), and 512
+# keys at d=128 (one slot) and d=88 (two slots, 204 KB); 65 keys (a last
+# tile of one key; one slot, three blocks an SM)
+_F32_SHORT_EDGES = [(2, 3, 130, 1, 160), (1, 4, 200, 77, 160), (2, 3, 256, 512, 160),
+                    (1, 2, 65, 512, 128), (1, 2, 64, 512, 88), (2, 5, 129, 65, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', _F32_SHORT_EDGES,
+                         ids=[f'sk{s[3]}-d{s[4]}' for s in _F32_SHORT_EDGES])
+def test_fp32_short_kernel_edges(cuda, shape):
+    """fp32 B4 on head-split views against its twin at the shared-memory
+    limit and the shortest key sequences; the output is (B, S, H, D)
+    memory."""
+    b, h, sq, sk, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v = (_split(cuda, torch.float32, b, h, s, d, gen) for s in (sq, sk, sk))
+    fa.short_launches = 0
+    out = fa.short_attention(q, k, v, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.short_launches == 1
+    assert out.stride() == (sq * h * d, d, h * d, 1)
+    _assert_matches(out, fa.short_attention_reference(q, k, v, d ** -0.5), torch.float32)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('op', ['headmean_probs', 'short_attention'])
 def test_headmean_and_short_raise_on_strides_tma_cannot_take(cuda, op):
