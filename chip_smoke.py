@@ -207,6 +207,36 @@ Phases (each prints its numbers on lines of its own):
      B1/B2/backward launches (grad_launches), every U-Net parameter a
      finite gradient,
      all of them within TAP_REL_TOL (relative L2) of the twins'.
+ 20. correspondence (after phase 19), SPair-style synthetic pairs in a
+     temporary dir (images of unequal sizes, ~10 annotated points, a
+     category and the target's bounding box): (a) the port's
+     task_corres.main on corres_configs/config_sdxl.json (SDXL 1024^2,
+     'xl-practical', 3840 channels, bf16 frozen, the fp32 3x3 conv) for
+     CORRES_STEPS steps, a validation over CORRES_VAL_PAIRS pairs at the
+     last and its checkpoint, then one step more resumed from it
+     (--load_weight): finite losses, both PCKs in [0, 1], 71 B1 launches
+     per image (b1_per_forward + vae_b1) and no backward, one pair's
+     features (both images, each member) on the kernel path within
+     TAP_REL_TOL (relative L2) of the twin path's (the same noise), and
+     the clip_loss on them within CORRES_LOSS_TOL (at random weights it is
+     near ln(128^2) whatever the features: the features' check is the one
+     that holds the path); ms per step (median
+     after the first), ms per validation pair, peak GiB; (b) one step of
+     the three-extractor corres_configs/config_xl_t.json (xl 1024^2, SD-1.5
+     512^2 with 'up_cross' maps, pgv2 1024^2; 8154 -> 4077 channels): the
+     B1 launches of each member, measured around its extracts, against the
+     config's, the step's ms and the peak GiB.
+ 21. label-scarce (after phase 20): the port's extraction CLI with
+     --aggregate_output on PIXEL_IMAGES synthetic images (the 'xl' path in
+     batches of 2, 71 B1 per batch), then task_pixel.main (horse_21, 2 training images,
+     2 members, 1 epoch) on those dumps and synthetic 256^2 label PNGs:
+     the native .npy reader active, 2 member checkpoints, then a second
+     main that loads them and trains none, the predictions and
+     visualisations written, a finite mIoU and uncertainty; one member
+     more with no room on the card (the matrix on the host, each batch
+     copied over) equal to the first run's member 0; ms per member,
+     training rows per second, predict ms per image, the reader's GB/s
+     over the dumps (just written: a warm read).
 Phase 2 also holds B2 and B3 in fp32 at phase 11's store shape (the fp32
 kernels, timed against the fp32 non-tensor peak), B3 in fp32 on head-split
 views at every STORE_SHAPES entry and B4 in fp32 at every SHORT_SHAPES
@@ -531,6 +561,20 @@ SEG_VAL_SIZE = (512, 768)                    # one val pair: two 512^2 slide win
 SEG_MIOU_TOL = 1e-4
 TRAIN_UNET_TAPS = {'down-level1-repeat0-vit-block0-out': True,
                    'up-level2-repeat1-vit-out': True, 'unet-out': True}
+# phase 20: the shipped correspondence configs through task_corres.main on
+# synthetic pairs; 4 training pairs of these (w, h), 2 validation pairs
+CORRES_CONFIG = 'corres_configs/config_sdxl.json'
+CORRES_ENSEMBLE = 'corres_configs/config_xl_t.json'
+CORRES_STEPS, CORRES_VAL_PAIRS, CORRES_POINTS = 4, 2, 10
+CORRES_SIZES = [((500, 375), (375, 500)), ((500, 333), (400, 500)), ((480, 360), (500, 375)),
+                ((375, 500), (500, 281)), ((500, 400), (333, 500)), ((500, 375), (500, 375))]
+# kernel-path features against twin-path ones, through the fp32 conv and
+# the loss: relative difference of one pair's clip_loss
+CORRES_LOSS_TOL = 2e-2
+# phase 21: the CLI's aggregated dumps of the 'xl' path feed task_pixel
+PIXEL_IMAGES = 3
+PIXEL_ARGV = ['--category', 'horse_21', '--train_num', '2', '--model_num', '2',
+              '--max_epochs', '1', '--device', 'cuda']
 
 
 def card_line() -> str:
@@ -2470,6 +2514,300 @@ def check_training(torch, fa, attn_ops, card, shapes, runs, numbers, gen):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phases 20, 21
+def write_corres_pairs(root):
+    """SPair-style pairs under ``root`` (random RGB JPEGs of CORRES_SIZES,
+    CORRES_POINTS (x, y) points each, a category, the target's bounding
+    box); returns the paths of the training and validation annotation
+    files (the last CORRES_VAL_PAIRS pairs validate)."""
+    import numpy as np
+    from PIL import Image
+    rng = np.random.RandomState(20)
+    anns = []
+    for i, sizes in enumerate(CORRES_SIZES):
+        names = []
+        for j, (w, h) in enumerate(sizes):
+            names.append(f'pair{i}_{j}.jpg')
+            Image.fromarray(rng.randint(0, 256, (h, w, 3), np.uint8)).save(
+                os.path.join(root, names[-1]))
+        (sw, sh), (tw, th) = sizes
+        anns.append({'source_path': names[0], 'target_path': names[1], 'category': 'cat',
+                     'source_points': (rng.rand(CORRES_POINTS, 2) * [sw, sh]).tolist(),
+                     'target_points': (rng.rand(CORRES_POINTS, 2) * [tw, th]).tolist(),
+                     'target_bounding_box': [20, 10, tw - 40, th - 30]})
+    paths = []
+    for name, part in (('train', anns[:-CORRES_VAL_PAIRS]), ('val', anns[-CORRES_VAL_PAIRS:])):
+        paths.append(os.path.join(root, f'{name}.json'))
+        with open(paths[-1], 'w') as f:
+            json.dump(part, f)
+    return paths
+
+
+def extract_b1(fa, fe) -> int:
+    """B1 launches of one single-step extract of a U-Net extractor: its
+    self-attentions through the gate and the VAE encoder's mid head (the
+    store's 'up_cross' maps are cross-attention: explicit)."""
+    latent = fe.img_size // fe.vae_scale
+    return b1_per_forward(fa, fe.spec.unet, latent) + vae_b1(fa, fe.spec.vae, latent)
+
+
+@contextlib.contextmanager
+def member_launches(fa, per_member):
+    """Add each FeatureExtractor.extract call's B1 launches to
+    ``per_member[version]`` for the duration of the block."""
+    from diffusion_feature_tpu_torch.facade import FeatureExtractor
+    real = FeatureExtractor.extract
+
+    def counted(self, *args, **kwargs):
+        before = fa.launches
+        out = real(self, *args, **kwargs)
+        per_member[self.version] = per_member.get(self.version, 0) + fa.launches - before
+        return out
+
+    FeatureExtractor.extract = counted
+    try:
+        yield
+    finally:
+        FeatureExtractor.extract = real
+
+
+def run_main(torch, fa, attn_ops, main, argv):
+    """``main(argv)`` with every count set to 0 just before and read just
+    after, its output captured; returns (result, counts, recorded calls,
+    {version: B1 launches of its extracts}, seconds, peak GiB)."""
+    log, per_member = [], {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    with recording_all(fa, attn_ops, log), member_launches(fa, per_member):
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = all_counts(fa)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for line in out.getvalue().splitlines():
+        print(f'  | {line}')
+    return result, counts, log, per_member, seconds, peak
+
+
+def corres_argv(config, root, anns, work, steps, *more):
+    return ['--config', config, '--train_anns', anns[0], '--val_anns', anns[1],
+            '--dataset_path', root, '--task_path', work, '--max_steps', str(steps),
+            '--val_every', str(CORRES_STEPS), '--device', 'cuda', *more]
+
+
+def check_correspondence(torch, fa, attn_ops, card, shapes, runs):
+    """Phase 20 (a) and (b)."""
+    import numpy as np
+    from diffusion_feature_tpu_torch import task_corres
+    from diffusion_feature_tpu_torch.tasks.correspondence import load_annotation, points_to_idxs
+    from diffusion_feature_tpu_torch.tasks.correspondence import rescale_points
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_corres_') as root:
+        anns = write_corres_pairs(root)
+        # (a) config_sdxl: 4 steps, the validation, its checkpoint
+        work = os.path.join(root, 'sdxl')
+        result, runs['corres_sdxl'], shapes['corres_sdxl'], members, seconds, peak = run_main(
+            torch, fa, attn_ops, task_corres.main,
+            corres_argv(CORRES_CONFIG, root, anns, work, CORRES_STEPS))
+        net, losses = result['net'], result['losses']
+        per_image = {ex['model'].version: extract_b1(fa, ex['model']) for ex in net.extractors}
+        extracts = 2 * CORRES_STEPS + 2 * CORRES_VAL_PAIRS
+        want = {**only_b1(sum(per_image.values()) * extracts), 'flash_attention_bwd': 0}
+        (step, pck_img, pck_bbox), = result['pck']
+        val_ms = result['val_seconds'][0] * 1e3 / CORRES_VAL_PAIRS
+        print(f'phase 20a config_sdxl task_corres.main (xl 1024^2 xl-practical bf16 frozen, '
+              f'{net.feature_dim} -> {net.out_dim} channels fp32 conv, TF32 off), {CORRES_STEPS} '
+              f'steps + val over {CORRES_VAL_PAIRS} pairs: {seconds:.1f} s for main() (model build '
+              f'included); losses {[round(x, 4) for x in losses]}; {step_ms(result):.2f} ms per '
+              f'step (median after the first; all '
+              f'{[round(x * 1e3, 2) for x in result["step_seconds"]]}); {val_ms:.2f} ms per val '
+              f'pair; val at step {step}: pck_img {pck_img:.4f} pck_bbox {pck_bbox:.4f}; peak '
+              f'{peak:.2f} GiB; launches {runs["corres_sdxl"]} (expected {want}: B1 per image '
+              f'{per_image}, {extracts} extracts, no backward; measured per member {members}) '
+              f'({card})', flush=True)
+        if (runs['corres_sdxl'] != want or len(losses) != CORRES_STEPS
+                or not all(np.isfinite(losses)) or not 0 <= pck_img <= 1
+                or not 0 <= pck_bbox <= 1):
+            raise RuntimeError(f'phase 20a: launches {runs["corres_sdxl"]}, losses {losses}, '
+                               f'pck {result["pck"]}')
+        # one pair's loss on kernel-path and on twin-path features, the same noise
+        with open(anns[0]) as f:
+            ann = json.load(f)[0]
+        sp, tp, src, tgt, _ = load_annotation(ann, task_corres.LOAD_SIZE, root)
+        idx = [torch.as_tensor(points_to_idxs(rescale_points(p, task_corres.LOAD_SIZE,
+                                                             task_corres.OUTPUT_SIZE),
+                                              task_corres.OUTPUT_SIZE),
+                               dtype=torch.long, device='cuda') for p in (sp, tp)]
+
+        with open(CORRES_CONFIG) as f:
+            widths = [c['feature_len'] for c in json.load(f)]
+
+        def pair_features():
+            for ex in net.extractors:
+                ex['model']._noise_gen.manual_seed(0)
+            return [net.extract(os.path.join(root, p)) for p in (src, tgt)]
+
+        f_kernel = pair_features()
+        with patched_wrappers(attn_ops, twin_of(fa)):
+            f_twin = pair_features()
+        # each image's features, member by member, within TAP_REL_TOL
+        errs = [((a - b).norm() / b.norm()).item() for fk, ft in zip(f_kernel, f_twin)
+                for a, b in zip(fk.split(widths, dim=1), ft.split(widths, dim=1))]
+        with torch.no_grad():
+            l_kernel, l_twin = (float(task_corres.clip_loss(net, *f, *idx))
+                                for f in (f_kernel, f_twin))
+        print(f'  phase 20a pair 0 features (source, target x {len(widths)} member(s)) on the '
+              f'kernel path against the twin path: relative L2 {[f"{e:.3e}" for e in errs]} '
+              f'(allowed {TAP_REL_TOL:g}); clip_loss {l_kernel:.6f} vs {l_twin:.6f} (relative '
+              f'{abs(l_kernel - l_twin) / abs(l_twin):.3e}, allowed {CORRES_LOSS_TOL:g}: near '
+              f'ln(128^2) at random weights, whatever the features)', flush=True)
+        if not (max(errs) <= TAP_REL_TOL
+                and abs(l_kernel - l_twin) <= CORRES_LOSS_TOL * abs(l_twin)):
+            raise RuntimeError(f'phase 20a: features kernel vs twin {errs}, clip_loss '
+                               f'{l_kernel} vs {l_twin}')
+        del f_kernel, f_twin
+        del result, net
+        torch.cuda.empty_cache()
+        # resumed from the checkpoint: one step more
+        ckpt = os.path.join(work, f'checkpoint_step_{CORRES_STEPS}.pt')
+        again, runs['corres_sdxl_resume'], shapes['corres_sdxl_resume'], _, seconds, _ = run_main(
+            torch, fa, attn_ops, task_corres.main,
+            corres_argv(CORRES_CONFIG, root, anns, work, CORRES_STEPS + 1, '--load_weight', ckpt))
+        want = {**only_b1(2 * sum(per_image.values())), 'flash_attention_bwd': 0}
+        print(f'phase 20a --load_weight: {seconds:.1f} s for main(), from step '
+              f'{again["start_step"]}, losses {again["losses"]}, launches '
+              f'{runs["corres_sdxl_resume"]} (expected {want})', flush=True)
+        if (runs['corres_sdxl_resume'] != want or again['start_step'] != CORRES_STEPS
+                or len(again['losses']) != 1 or not np.isfinite(again['losses'][0])):
+            raise RuntimeError(f'phase 20a resume: {runs["corres_sdxl_resume"]}, '
+                               f'{again["start_step"]}, {again["losses"]}')
+        del again
+        torch.cuda.empty_cache()
+
+        # (b) config_xl_t: the three-extractor ensemble, one step
+        result, runs['corres_xl_t'], shapes['corres_xl_t'], members, seconds, peak = run_main(
+            torch, fa, attn_ops, task_corres.main,
+            corres_argv(CORRES_ENSEMBLE, root, anns, os.path.join(root, 'xl_t'), 1))
+        net = result['net']
+        per_image = {ex['model'].version: extract_b1(fa, ex['model']) for ex in net.extractors}
+        want_members = {v: 2 * n for v, n in per_image.items()}
+        want = {**only_b1(sum(want_members.values())), 'flash_attention_bwd': 0}
+        print(f'phase 20b config_xl_t task_corres.main (xl 1024^2, 1-5 512^2 with up_cross maps, '
+              f'pgv2 1024^2, bf16 frozen; {net.feature_dim} -> {net.out_dim} channels fp32 conv, '
+              f'TF32 off), 1 step: {seconds:.1f} s for main() (three builds included); loss '
+              f'{result["losses"]}; step {result["step_seconds"][0] * 1e3:.2f} ms; peak '
+              f'{peak:.2f} GiB; B1 launches per member {members} (expected {want_members}); '
+              f'launches {runs["corres_xl_t"]} (expected {want}) ({card})', flush=True)
+        if (runs['corres_xl_t'] != want or members != want_members
+                or not np.isfinite(result['losses'][0])):
+            raise RuntimeError(f'phase 20b: launches {runs["corres_xl_t"]}, members {members}, '
+                               f'loss {result["losses"]}')
+        del result, net
+        torch.cuda.empty_cache()
+
+
+def check_scarce(torch, fa, attn_ops, card, shapes, runs):
+    """Phase 21."""
+    import numpy as np
+    from PIL import Image
+    from diffusion_feature_tpu_torch import extract_feature, task_pixel
+    from diffusion_feature_tpu_torch.native import AsyncNpyReader
+    args = PATHS['xl']['args']
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_pixel_') as root, contextlib.chdir(root):
+        write_images(PIXEL_IMAGES, 512)
+        rng = np.random.RandomState(21)
+        os.makedirs('labels')
+        for i in range(PIXEL_IMAGES):
+            lab = rng.randint(0, 21, (256, 256)).astype(np.uint8)
+            lab[:8] = 255
+            Image.fromarray(lab).save(f'labels/img{i}.png')
+        _, runs['pixel_cli'], shapes['pixel_cli'], _, seconds, peak = run_main(
+            torch, fa, attn_ops, extract_feature.main,
+            ['--version', args['version'], '--img_size', str(args['img_size']), '--layer',
+             args['layer'], '--batch_size', '2', '--prompt', 'a photo of a horse',
+             '--input_dir', 'imgs/*.png', '--output_dir', 'feats', '--aggregate_output',
+             '--use_original_filename', '--device', 'cuda'])
+        # one launch per attention per batch of 2: ceil(images / 2) forwards
+        forwards = -(-PIXEL_IMAGES // 2)
+        want = {**only_b1(PATHS['xl']['launches'][0] * forwards), 'flash_attention_bwd': 0}
+        dumps = sorted(os.listdir('feats'))
+        arr = np.load(os.path.join('feats', dumps[0]), mmap_mode='r')
+        print(f'phase 21 cli --aggregate_output {args["version"]} {args["img_size"]}^2 over '
+              f'{PIXEL_IMAGES} images: {seconds:.1f} s for main() (model build included), peak '
+              f'{peak:.2f} GiB; dumps {dumps} {arr.shape} {arr.dtype}; launches '
+              f'{runs["pixel_cli"]} (expected {want})', flush=True)
+        if runs['pixel_cli'] != want or dumps != [f'img{i}.npy' for i in range(PIXEL_IMAGES)] \
+                or arr.shape != (3840, 64, 64) or arr.dtype != np.float16:
+            raise RuntimeError(f'phase 21 cli: {runs["pixel_cli"]}, {dumps}, {arr.shape}')
+        # the reader alone over the dumps (just written: a warm read)
+        reader = AsyncNpyReader(n_threads=4)
+        if not reader.is_native:
+            raise RuntimeError('phase 21: the native .npy reader (native/npyio.cpp) did not build')
+        t0 = time.perf_counter()
+        nbytes = sum(a.nbytes for a in reader.read_all([os.path.join('feats', d) for d in dumps]))
+        read_s = time.perf_counter() - t0
+        reader.close()
+        argv = ['--feature_dir', 'feats', '--label_dir', 'labels', '--exp_dir', 'exp'] + PIXEL_ARGV
+        result, runs['pixel_task'], shapes['pixel_task'], _, seconds, peak = run_main(
+            torch, fa, attn_ops, task_pixel.main, argv)
+        rows, member_s = result['rows'], result['member_seconds']
+        steps = rows // 64
+        predict_ms = [round(x * 1e3, 2) for x in result['predict_seconds']]
+        written = {d: sorted(os.listdir(os.path.join('exp', d)))
+                   for d in ('predictions', 'visualizations')}
+        print(f'phase 21 task_pixel.main horse_21 (2 train / {PIXEL_IMAGES - 2} test images, 2 '
+              f'members, 1 epoch of {steps} steps of 64 rows, {rows} rows of {arr.shape[0]} '
+              f'channels on the card): {seconds:.1f} s for main(); '
+              f'{[round(x * 1e3, 2) for x in member_s]} ms per member '
+              f'({[round(steps * 64 / x) for x in member_s]} training rows/s); predict '
+              f'{predict_ms} ms per image; mIoU {result["miou"]:.4f}, uncertainty '
+              f'{result["uncertainties"]}; written {written}; peak {peak:.2f} GiB; reader '
+              f'{nbytes / read_s / 1e9:.3f} GB/s over {nbytes} bytes (warm); launches '
+              f'{runs["pixel_task"]} ({card})', flush=True)
+        names = [f'{n}.png' for n in result['names']]
+        if (result['trained'] != [0, 1] or sorted(os.listdir('exp'))[:2] != ['model_0.pt',
+                                                                            'model_1.pt']
+                or written != {'predictions': names, 'visualizations': names}
+                or not np.isfinite(result['miou'])
+                or not all(np.isfinite(result['uncertainties']))):
+            raise RuntimeError(f'phase 21: trained {result["trained"]}, written {written}, '
+                               f'mIoU {result["miou"]}, {result["uncertainties"]}')
+        if result['matrix_on_host']:
+            raise RuntimeError('phase 21: a matrix of 2 images left on the host')
+        first = result['ensemble'][0].state_dict()
+        del result
+        # a matrix too large for the card's room stays on the host; each
+        # batch is copied over and trains the same member
+        room = task_pixel._device_room
+        task_pixel._device_room = lambda device: 0
+        try:
+            hosted, _, _, _, seconds, _ = run_main(
+                torch, fa, attn_ops, task_pixel.main,
+                ['--feature_dir', 'feats', '--label_dir', 'labels', '--exp_dir', 'exp_host',
+                 *PIXEL_ARGV, '--model_num', '1'])
+        finally:
+            task_pixel._device_room = room
+        same = all(torch.equal(v, hosted['ensemble'][0].state_dict()[k]) for k, v in first.items())
+        print(f'phase 21 task_pixel.main with no room on the card: {seconds:.1f} s, matrix on '
+              f'the host {hosted["matrix_on_host"]}, {hosted["member_seconds"][0] * 1e3:.2f} ms '
+              f'for the member, equal to the card matrix\'s member {same}', flush=True)
+        if not (hosted['matrix_on_host'] and same):
+            raise RuntimeError(f'phase 21 host matrix: on host {hosted["matrix_on_host"]}, '
+                               f'same member {same}')
+        del hosted
+        again, runs['pixel_task_loaded'], shapes['pixel_task_loaded'], _, seconds, _ = run_main(
+            torch, fa, attn_ops, task_pixel.main, argv)
+        print(f'phase 21 task_pixel.main again: {seconds:.1f} s, trained {again["trained"]} (the '
+              f'checkpoints loaded), mIoU {again["miou"]:.4f}', flush=True)
+        if again['trained'] or again['rows'] or not np.isfinite(again['miou']):
+            raise RuntimeError(f'phase 21 again: trained {again["trained"]}')
+        del again
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2637,6 +2975,10 @@ def main() -> int:
     # 19. training: the backward kernel, the segmentation trainer on
     # ade_sdxl and ade_vpd (prompt tuning), train_unet
     check_training(torch, fa, attn_ops, card, shapes, runs, numbers, gen)
+
+    # 20. correspondence on config_sdxl and config_xl_t; 21. label-scarce
+    check_correspondence(torch, fa, attn_ops, card, shapes, runs)
+    check_scarce(torch, fa, attn_ops, card, shapes, runs)
 
     # the kernels line: per kernel, the launches of every path and the sum
     # over those launches of each (shape, dtype)'s numbers from phase 2 (one

@@ -1,10 +1,13 @@
 """diffusion_feature_tpu_torch: the PyTorch/CUDA port of diffusion_feature_tpu.
 
-Same public surface as the JAX package (``FeatureExtractor``, ``TapSpec``),
-for the slices ported so far: single-step feature extraction for SDXL and
-SD-1.5 with the attention store, layer enumeration, and the extraction CLI
-(``python -m diffusion_feature_tpu_torch.extract_feature``).  Imports torch
-and never jax.
+Same public surface as the JAX package (``FeatureExtractor``, ``TapSpec``):
+feature extraction for the U-Nets, the DiTs and IF with the attention
+store, generation, ControlNets, checkpoints, layer enumeration, and the
+CLIs (``python -m diffusion_feature_tpu_torch.extract_feature``,
+``generate_with_extraction``); the downstream tasks in ``tasks/`` with
+their CLIs ``train_segmentation``, ``task_corres`` (SPair correspondence)
+and ``task_pixel`` (label-scarce pixel classification).  Imports torch and
+never jax.
 """
 
 from .taps import TapSpec  # noqa: F401

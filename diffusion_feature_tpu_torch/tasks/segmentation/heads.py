@@ -35,11 +35,12 @@ from ...store import adaptive_avg_pool2d
 
 
 class BatchNorm(nn.Module):
-    """Flax ``nn.BatchNorm`` over NCHW channels: in training the batch
-    mean and biased variance (E[x^2] - E[x]^2, clamped at 0) normalise,
-    and the running statistics move by ``momentum`` (new = momentum * old
-    + (1 - momentum) * batch); in evaluation the running statistics
-    normalise.  ``weight`` is Flax's scale, ``zero_scale`` its zero init."""
+    """Flax ``nn.BatchNorm`` over the channels of NCHW maps or (N, C) rows:
+    in training the batch mean and biased variance (E[x^2] - E[x]^2,
+    clamped at 0) normalise, and the running statistics move by
+    ``momentum`` (new = momentum * old + (1 - momentum) * batch); in
+    evaluation the running statistics normalise.  ``weight`` is Flax's
+    scale, ``zero_scale`` its zero init."""
 
     def __init__(self, channels: int, momentum: float = 0.99, eps: float = 1e-5,
                  zero_scale: bool = False):
@@ -51,18 +52,19 @@ class BatchNorm(nn.Module):
         self.register_buffer('running_var', torch.ones(channels))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        dims = (0,) + tuple(range(2, x.dim()))
         if train:
-            mean = x.mean(dim=(0, 2, 3))
-            var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+            mean = x.mean(dim=dims)
+            var = ((x * x).mean(dim=dims) - mean * mean).clamp(min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)
                 self.running_var.mul_(m).add_(var.detach(), alpha=1 - m)
         else:
             mean, var = self.running_mean, self.running_var
+        shape = (1, -1) + (1,) * (x.dim() - 2)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean[None, :, None, None]) * mul[None, :, None, None] \
-            + self.bias[None, :, None, None]
+        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
 
 def _conv(cin: int, cout: int, kernel: int, bias: bool = True, zero: bool = False) -> nn.Conv2d:

@@ -1,7 +1,8 @@
 """The Hopper attention kernels (flash B1, flash with logsumexp B2, head-mean
 B3, short attention B4) against their plain twins, on the card; the
 checkpoint loader filling modules on the card; and generation and a
-ControlNet extract at a small size with their kernels against the twins.
+ControlNet extract at a small size with their kernels against the twins;
+and a label-scarce member trained from a host-resident matrix.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU (the
 kernels have no CPU mode).  The file imports torch and the port only, so it
@@ -948,3 +949,18 @@ def test_fp32_forward_matches_twin(cuda, shape, with_lse):
         ref = fa.flash_attention_reference(q, k, v, scale)
         torch.cuda.synchronize()
     _assert_matches(out, ref, torch.float32)
+
+
+@pytest.mark.cuda
+def test_pixel_member_trains_alike_from_a_host_matrix(cuda):
+    """``train_one`` on a training matrix left in host memory (one too large
+    for the card) copies each batch over and trains the member it trains
+    from the same matrix on the card."""
+    from diffusion_feature_tpu_torch.tasks.scarce.pixel_classifier import train_one
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(1000, 48).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 21, 1000))
+    kw = dict(num_classes=21, seed=5, batch_size=64, max_epochs=2, device=cuda)
+    on_host = train_one(x, y, **kw).state_dict()
+    on_card = train_one(x.to(cuda), y.to(cuda), **kw).state_dict()
+    torch.testing.assert_close(on_host, on_card, rtol=0, atol=0)

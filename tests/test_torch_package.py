@@ -47,10 +47,13 @@ def test_port_imports_no_jax():
         '"enumerate_layers", "io.dump", "io.prefetch", "native.build", "native.dump_writer", '
         '"ops.flash_attention", "facade", "io.safetensors", "models.lora", "ddim_inversion", '
         '"utils.prompt", "generate_with_extraction", "models.controlnet", "models.depth", '
-        '"models.t5", "models.dit_pixart", "tokenizers.t5_tok")}\n'
+        '"models.t5", "models.dit_pixart", "tokenizers.t5_tok", "task_corres", "task_pixel", '
+        '"tasks.correspondence", "tasks.correspondence.aggregation", '
+        '"tasks.correspondence.utils", "tasks.scarce", "tasks.scarce.data", '
+        '"tasks.scarce.palettes", "tasks.scarce.pixel_classifier", "native.npy_reader")}\n'
         'assert want <= names, want - names\n'
-        'bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "flax", '
-        '"diffusion_feature_tpu", "safetensors", "transformers"))\n'
+        'bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "flax", "optax", '
+        '"sklearn", "diffusion_feature_tpu", "safetensors", "transformers"))\n'
         'assert not bad, bad\n')
     subprocess.run([sys.executable, '-c', code], cwd=REPO, check=True, timeout=120)
 
