@@ -7,7 +7,8 @@ Phases (each prints its numbers on lines of its own):
   1. the card's name and power limit, then the kernels' build (one nvcc per
      source, started together), and the count of HGMMA (wgmma) and UTMALDG
      (TMA load) instructions in the SASS of every bf16/fp16 library (B1/B2,
-     B3, B4, the backward), and of FFMA and SHFL in every fp32 library's
+     B3, B4, the backward; W8A16's HGMMA and LDGSTS, its cp.async), and of
+     FFMA and SHFL in every fp32 library's
      (every fp32 kernel runs simt_f32.cuh's shuffle-free products: B3 has
      no SHFL at all, the others keep them to their softmax row reductions
      and the backward's delta pre-pass);
@@ -21,7 +22,15 @@ Phases (each prints its numbers on lines of its own):
      path shape and at ragged d=64, d=40 (and, for B1, d=512) shapes; those
      bf16 numbers are the kernels line's.  Kernels and library calls are timed as CUDA graphs
      of 20 calls (graph_ms: device time, the host's launch cost out of the
-     way) and also in a loop of calls (call_loop_ms); the twins in a loop;
+     way) and also in a loop of calls (call_loop_ms); the twins in a loop.
+     W8A16 (int8 weight-only dense, compare_int8) at every (M, K, N) of
+     phase 16f's int8 Flux extract and of T5-XXL's encode at 512 and 1024
+     rows in bf16, at INT8_ONE_SHAPE in fp16 and fp32, and at the ragged
+     INT8_RAGGED in every type: relative L2 and the worst element within
+     TOL, beside the kernel the twin, the bound, F.linear on the
+     dequantized weight (matmul_ms), the dequantize and that GEMM
+     (dequant_matmul_ms) and torch._weight_int8pack_mm (library_ms, the
+     same product without the bias);
   3. SDXL at full width (random weights from a seed), 1024^2, batch 2:
      FeatureExtractor('xl-practical') -> encode_prompt -> extract(t=50);
      tap shapes, dtype and finiteness, exactly 71 B1 launches, and the taps
@@ -156,7 +165,21 @@ Phases (each prints its numbers on lines of its own):
      on 'flux' at 512^2 with the taps, 28 steps and guidance 3.5 (no CFG
      batch: the guidance embedding takes it): 28 x 57 B1, the sample timed,
      then a 4-step sample on the kernels and on the twins within
-     MULTISTEP_REL_TOL.  Counts from dit_launches.
+     MULTISTEP_REL_TOL.  Counts from dit_launches.  (d)'s loaded-back
+     checks ask for bf16 (transformer_8bit=False, t5_8bit=False); its CLI
+     runs at the JAX defaults, which load the tree in int8: 495 W8A16
+     launches per batch and 168 for the prompt, at the shapes the config
+     gives (flux_int8_calls, t5_int8_calls), and its img/s.  (f) the
+     int8 Flux (the JAX auto rule) on (d)'s tree, FeatureExtractor with no
+     int8 keyword: both spec flags on, load GB/s, the load's peak within
+     INT8_LOAD_PEAK_RATIO of the resident bytes plus the largest staged
+     bf16 weight, three layers' weight_q and scale equal bit for bit to
+     numpy's quantization of the tree's tensors; encode_prompt's 168 and
+     one extract's 495 W8A16 launches (and 58 B1) at the derived shapes;
+     the features; the step with every W8A16 and B1 call on its twin
+     within TAP_REL_TOL; each tap's cosine against (a)'s bf16 features from
+     the same draws (>= INT8_COSINE); its timing, and its peak at least
+     INT8_PEAK_SAVING_GIB below (a)'s.
  17. DeepFloyd IF (after 16), random weights from seed 0, the JAX
      benchmark's taps (up-level{1,2}-repeat0-res-out, unet-out): (a) 'if'
      at its native 64^2, batch 2, t=50 (the IF-I-L preset in pixel space,
@@ -470,6 +493,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     # the JAX package's flash backward is a custom VJP (XLA), no Pallas kernel
     'flash_attention_bwd': ('diffusion_feature_tpu_torch/csrc/flash_bwd_hopper.cuh',
                             'diffusion_feature_tpu/ops/flash_attention.py:212'),
+    # W8A16: the JAX package's Int8Dense, an XLA product with the dequantize
+    # fused into the dot, no Pallas kernel
+    'int8_linear': ('diffusion_feature_tpu_torch/csrc/w8a16.cuh',
+                    'diffusion_feature_tpu/ops/quant.py:38'),
 }
 # phase 7: the CLI on the 'xl' path over 3 images, in batches of 2 and 1
 CLI_PATH, CLI_IMAGES = 'xl', 3
@@ -524,6 +551,20 @@ HUNYUAN_GEN_ARGS = ['--version', 'hunyuan', '--img_size', '512', '--layer',
 # the benchmark's taps, 28 steps and guidance 3.5 (the pipeline's), the
 # calls kept within the 28, then a TWIN_SAMPLE_STEPS sample on the twins
 FLUX_TREE_PATH, FLUX_TRANSFORMER_SHARDS, FLUX_TEXT_SHARDS = 'flux', 4, 2
+# phase 2's W8A16 shapes beyond the int8 Flux path's (flux_int8_calls): T5-XXL
+# over one prompt of 512 tokens (Flux's encode_prompt) and over two; one
+# shape for fp16 and fp32; a ragged shape (odd N, K not a multiple of 16)
+INT8_T5_ROWS = (512, 1024)
+INT8_ONE_SHAPE = (1024, 3072, 3072)
+INT8_RAGGED = (37, 1000, 333)
+# phase 16f: the int8 load's peak over the bytes resident after it plus the
+# largest staged bf16 weight, and how far its extract's peak must sit
+# below phase 16a's bf16 one (~15.3 GiB of bf16 projections become int8)
+INT8_LOAD_PEAK_RATIO = 1.05
+INT8_PEAK_SAVING_GIB = 12.0
+# the int8 extract's taps against the bf16 ones from the same draws: the
+# JAX package's bound for int8 against full precision (tests/test_quant.py:225)
+INT8_COSINE = 0.98
 FLUX_GEN_ARGS = ['--version', 'flux', '--img_size', '512', '--layer', json.dumps(FLUX_TAPS),
                  '--steps', '28', '--guidance_scale', '3.5', '--store_steps', '1', '10', '20',
                  '28']
@@ -828,31 +869,191 @@ def compare(torch, fa, kernel, shape, dtype_name, gen, split=False):
             'bound_ms': bound_ms, 'bound_by': bound_by, **extra}
 
 
+def flux_int8_calls(spec, img_size, batch, vae_scale):
+    """{(M, K, N): launches} of W8A16 in one int8 Flux forward, from the
+    config: per dual block the two adaLN projections (M = batch rows),
+    q/k/v and the output projection of each stream, and each stream's MLP;
+    per single block its adaLN projection, the MLP's up projection, q/k/v
+    and the joint output projection; the context embedder once (the JAX
+    package's quantized projections, models/flux.py)."""
+    cfg = spec.dit
+    image = (img_size // vae_scale // 2) ** 2
+    dim, mlp, text = cfg.inner_dim, int(cfg.inner_dim * cfg.mlp_ratio), spec.prompt_max_length
+    calls = {}
+
+    def add(shape, n):
+        calls[shape] = calls.get(shape, 0) + n
+    for rows in (batch * image, batch * text):          # the dual blocks' two streams
+        add((rows, dim, dim), 4 * cfg.num_layers)
+        add((rows, dim, mlp), cfg.num_layers)
+        add((rows, mlp, dim), cfg.num_layers)
+    add((batch, dim, 6 * dim), 2 * cfg.num_layers)
+    joint = batch * (image + text)
+    add((batch, dim, 3 * dim), cfg.num_single_layers)
+    add((joint, dim, mlp), cfg.num_single_layers)
+    add((joint, dim, dim), 3 * cfg.num_single_layers)
+    add((joint, dim + mlp, dim), cfg.num_single_layers)
+    add((batch * text, cfg.joint_attention_dim, dim), 1)
+    return calls
+
+
+def t5_int8_calls(cfg, rows):
+    """{(M, K, N): launches} of W8A16 in one int8 T5 encode of ``rows``
+    tokens: q/k/v/o and wi_0/wi_1/wo of every layer."""
+    inner, calls = cfg.num_heads * cfg.d_kv, {}
+    for shape, n in (((rows, cfg.d_model, inner), 3), ((rows, inner, cfg.d_model), 1),
+                     ((rows, cfg.d_model, cfg.d_ff), 2), ((rows, cfg.d_ff, cfg.d_model), 1)):
+        calls[shape] = calls.get(shape, 0) + n * cfg.num_layers
+    return calls
+
+
+def int8_phase2_shapes():
+    """[((M, K, N), bias)]: every W8A16 shape of one int8 Flux extract at
+    1024^2, batch 2 (with the bias), then T5-XXL's at INT8_T5_ROWS."""
+    from diffusion_feature_tpu_torch.models.registry import get_model_spec
+    spec = get_model_spec('flux')
+    vae_scale = 2 ** (len(spec.vae.block_out_channels) - 1)
+    shapes = [(s, True) for s in flux_int8_calls(spec, 1024, 2, vae_scale)]
+    for rows in INT8_T5_ROWS:
+        shapes += [(s, False) for s in t5_int8_calls(spec.t5, rows)]
+    return shapes
+
+
+def shape_counts(log, name='int8_linear'):
+    """{shape: calls} of kernel ``name`` in a recorded log."""
+    out = {}
+    for n, shape, _ in log:
+        if n == name:
+            out[shape] = out.get(shape, 0) + 1
+    return out
+
+
+def int8_bound(shape, dtype_name, bias):
+    """(ms, 'bytes' or 'operations') of y = x W^T + b with an int8 W: 2 M K
+    N flops; x and y in the compute type, W one byte an element, the fp32
+    scale and the bias read once."""
+    m, k, n = shape
+    item = {'bfloat16': 2, 'float16': 2, 'float32': 4}[dtype_name]
+    nbytes = item * m * k + n * k + 4 * n + item * m * n + (item * n if bias else 0)
+    t_ops, t_bytes = 2 * m * k * n / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, 'operations' if t_ops >= t_bytes else 'bytes'
+
+
+INT8PACK = {}   # dtype name -> False once torch._weight_int8pack_mm refused it
+INT8PACK_GRAPH_MS = 5.0
+
+
+def one_call_ms(torch, fn) -> float:
+    """Device time of one call of ``fn`` after one untimed call."""
+    fn()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
+def compare_int8(torch, shape, dtype_name, gen, bias=True):
+    """W8A16 against its twin at one (M, K, N): x ~ N(0, 1), a weight of
+    N(0, 1/K) quantized on the card, a bias where the path's layer has one;
+    relative L2 and the worst element against TOL, then the kernel's time
+    (CUDA graphs of 20), the twin's (a loop), the bound and the yardsticks
+    the port never calls: F.linear on the dequantized weight in the compute
+    type (torch.matmul's cuBLAS GEMM), the dequantize and that GEMM
+    together, and torch._weight_int8pack_mm (the one PyTorch call of the
+    same product on the same int8 inputs, without the bias) where this
+    PyTorch runs it on CUDA."""
+    quant = _quant()
+    m, k, n = shape
+    dtype = getattr(torch, dtype_name)
+    x = torch.randn(m, k, generator=gen, device='cuda').to(dtype)
+    q, scale = quant.quantize_int8(torch.randn(n, k, generator=gen, device='cuda') * k ** -0.5)
+    b = torch.randn(n, generator=gen, device='cuda').to(dtype) if bias else None
+    run = lambda: quant.int8_linear(x, q, scale, b)                  # noqa: E731
+    plain = lambda: quant.int8_linear_reference(x, q, scale, b)      # noqa: E731
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    tol = TOL[dtype_name]
+    err, ratio = worst_ratio(torch, out, ref, tol, tol)
+    ratio, notes = rel_l2_ratio(torch, out, ref, tol, ratio)
+    finite = bool(torch.isfinite(out.float()).all())
+    ms = graph_ms(torch, run)
+    plain_ms = time_ms(torch, plain)
+    F = torch.nn.functional
+    w = quant.dequantize_int8(q, scale, dtype)
+    extra = {'call_loop_ms': time_ms(torch, run, runs=3),
+             'matmul_ms': graph_ms(torch, lambda: F.linear(x, w, b)),
+             'dequant_matmul_ms': graph_ms(
+                 torch, lambda: F.linear(x, quant.dequantize_int8(q, scale, dtype), b))}
+    del w
+    lib_ms = None
+    if INT8PACK.get(dtype_name, True):
+        # x (q s)^T without the bias; tried once per dtype.  A weight-only
+        # GEMV kernel: at thousands of rows one call takes up to a second,
+        # so a call slower than INT8PACK_GRAPH_MS is timed once, after one
+        try:
+            op = torch._weight_int8pack_mm
+            s_dt = scale.to(dtype)
+            lib_ms = one_call_ms(torch, lambda: op(x, q, s_dt))
+            if lib_ms < INT8PACK_GRAPH_MS:
+                lib_ms = graph_ms(torch, lambda: op(x, q, s_dt))
+        except (AttributeError, RuntimeError, NotImplementedError) as err_lib:
+            INT8PACK[dtype_name] = False
+            torch.cuda.synchronize()
+            print(f'  torch._weight_int8pack_mm on {dtype_name} CUDA tensors unavailable: '
+                  f'{str(err_lib).splitlines()[0][:160]}')
+    bound_ms, bound_by = int8_bound(shape, dtype_name, bias)
+    notes += ''.join(f' {key}={val:.4f}' for key, val in extra.items())
+    ok = finite and ratio <= 1.0
+    lib = 'none' if lib_ms is None else f'{lib_ms:.4f}'
+    print(f'compare int8_linear {dtype_name} (M, K, N)={shape}{" +bias" if bias else ""}: '
+          f'max_abs_err={err:.3e} atol={tol:g} rtol={tol:g} worst/allowed={ratio:.3f}{notes} '
+          f'kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} '
+          f'bound_ms={bound_ms:.4f} ({bound_by}) share_of_bound={bound_ms / ms:.3f} '
+          f'{"ok" if ok else "FAIL"}', flush=True)
+    if not ok:
+        raise RuntimeError(f'int8_linear disagrees with its twin at {shape} {dtype_name}')
+    return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms, 'library_ms': lib_ms,
+            'bound_ms': bound_ms, 'bound_by': bound_by, **extra}
+
+
 # the wrappers the attention ops call (B4 is called by none of them)
 WRAPPERS = ('flash_attention', 'flash_attention_with_lse', 'headmean_probs')
 
 
+def _quant():
+    from diffusion_feature_tpu_torch.ops import quant
+    return quant
+
+
 @contextlib.contextmanager
 def patched_wrappers(attn_ops, make):
-    """Replace each kernel wrapper the attention ops call by
+    """Replace each kernel wrapper the attention ops call, and the W8A16
+    wrapper that Int8Linear calls (``quant.int8_linear``), by
     ``make(name, wrapper)`` for the duration of the block."""
-    real = {n: getattr(attn_ops, n) for n in WRAPPERS}
-    for n in WRAPPERS:
-        setattr(attn_ops, n, make(n, real[n]))
+    targets = [(attn_ops, n) for n in WRAPPERS] + [(_quant(), 'int8_linear')]
+    real = {n: getattr(mod, n) for mod, n in targets}
+    for mod, n in targets:
+        setattr(mod, n, make(n, real[n]))
     try:
         yield
     finally:
-        for n, f in real.items():
-            setattr(attn_ops, n, f)
+        for mod, n in targets:
+            setattr(mod, n, real[n])
 
 
 def recording(log):
-    """Record (kernel, (b, h, sq, sk, d), dtype name) of every call, then
-    call through to the wrapper unchanged."""
+    """Record (kernel, shape, dtype name) of every call, then call through
+    to the wrapper unchanged: (b, h, sq, sk, d) for the attention kernels,
+    (M, K, N) for W8A16."""
     def make(name, wrapper):
         def call(q, k, *args, **kwargs):
-            log.append((name, (*q.shape[:3], k.shape[2], q.shape[3]),
-                        str(q.dtype).replace('torch.', '')))
+            if name == 'int8_linear':
+                shape = (q.numel() // q.shape[-1], q.shape[-1], k.shape[0])
+            else:
+                shape = (*q.shape[:3], k.shape[2], q.shape[3])
+            log.append((name, shape, str(q.dtype).replace('torch.', '')))
             return wrapper(q, k, *args, **kwargs)
         return call
     return make
@@ -863,17 +1064,28 @@ def twin_of(fa):
     twins = {'flash_attention': fa.flash_attention_reference,
              'flash_attention_with_lse': fa.flash_attention_with_lse_reference,
              'headmean_probs': fa.headmean_probs_reference}
-    return lambda name, _: lambda *args, scale: twins[name](*args, scale)
+
+    def make(name, _):
+        if name == 'int8_linear':
+            return _quant().int8_linear_reference
+        return lambda *args, scale: twins[name](*args, scale)
+    return make
 
 
 def reset_counts(fa):
     fa.launches = fa.lse_launches = fa.headmean_launches = fa.short_launches = 0
     fa.bwd_launches = 0
+    _quant().int8_launches = 0
 
 
 def read_counts(fa):
-    return {'flash_attention': fa.launches, 'flash_attention_with_lse': fa.lse_launches,
-            'headmean_probs': fa.headmean_launches, 'short_attention': fa.short_launches}
+    """The four attention kernels' launches, and W8A16's where it launched
+    (a path expecting none then fails its comparison)."""
+    counts = {'flash_attention': fa.launches, 'flash_attention_with_lse': fa.lse_launches,
+              'headmean_probs': fa.headmean_launches, 'short_attention': fa.short_launches}
+    if _quant().int8_launches:
+        counts['int8_linear'] = _quant().int8_launches
+    return counts
 
 
 def check_feats(torch, feats, expected, label):
@@ -958,16 +1170,21 @@ def extract_times(torch, fe, prompts, images, calls, **kwargs):
     return sorted(host), sorted(device)
 
 
+EXTRACT_PEAK_GIB = {}   # time_extract's label -> its peak memory in GiB
+
+
 def time_extract(torch, fe, prompts, images, label, card, calls=TIMED_CALLS, **kwargs):
-    """Median ms, img/s and peak memory over ``calls`` calls."""
+    """Median ms, img/s and peak memory over ``calls`` calls; returns (ms,
+    peak GiB), the peak also kept in EXTRACT_PEAK_GIB under ``label``."""
     torch.cuda.reset_peak_memory_stats()
     host, times = extract_times(torch, fe, prompts, images, calls, **kwargs)
     ms = times[len(times) // 2]
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak = EXTRACT_PEAK_GIB[label] = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f'{label} over {len(times)} calls: median {ms:.2f} ms (min {times[0]:.2f}, '
           f'max {times[-1]:.2f}), {1000.0 * images.shape[0] / ms:.3f} img/s, '
           f'host enqueue median {host[len(host) // 2]:.2f} ms, '
           f'peak memory {peak:.2f} GiB ({card})', flush=True)
+    return ms, peak
 
 
 def drive_path(torch, fa, attn_ops, fe, prompts, images, expected_counts, label, **kwargs):
@@ -1705,6 +1922,7 @@ def check_dit_tree(torch, fa, attn_ops, card, fe, prompts, images, first_feats, 
     import numpy as np
     from diffusion_feature_tpu_torch import FeatureExtractor
     from diffusion_feature_tpu_torch.enumerate_layers import enumerate_layers
+    from diffusion_feature_tpu_torch.models.registry import get_model_spec as get_spec
     args = PATHS[name]['args']
     tag, cli_tag = (f'{phase}d', f'{phase}{"e" if phase == 14 else "d"}')
     free = isinstance(fe, list)
@@ -1728,7 +1946,9 @@ def check_dit_tree(torch, fa, attn_ops, card, fe, prompts, images, first_feats, 
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    loaded = FeatureExtractor(**args, dtype='bfloat16', device='cuda', seed=0, weights=tree)
+    # the source was bf16: int8 off (Flux's JAX defaults would load int8)
+    loaded = FeatureExtractor(**args, dtype='bfloat16', device='cuda', seed=0, weights=tree,
+                              transformer_8bit=False, t5_8bit=False)
     loaded_prompts = loaded.encode_prompt('a photo of a cat')
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -1779,10 +1999,26 @@ def check_dit_tree(torch, fa, attn_ops, card, fe, prompts, images, first_feats, 
             runs[f'{name}_cli'] = read_counts(fa)
         batches = -(-CLI_IMAGES // 2)
         want = {k: batches * v for k, v in want.items()}
+        int8_note = ''
+        if args['version'] == 'flux':
+            # the CLI runs at the JAX defaults, so it loads Flux's tree in
+            # int8: one T5 encode and one transformer forward per batch
+            spec = get_spec('flux')
+            vae_scale = 2 ** (len(spec.vae.block_out_channels) - 1)
+            derived = t5_int8_calls(spec.t5, spec.prompt_max_length)
+            for n in [2] * (CLI_IMAGES // 2) + [1] * (CLI_IMAGES % 2):
+                for shape, c in flux_int8_calls(spec, size, n, vae_scale).items():
+                    derived[shape] = derived.get(shape, 0) + c
+            want['int8_linear'] = sum(derived.values())
+            recorded = shape_counts(shapes[f'{name}_cli'])
+            int8_note = (f'; W8A16 launches {runs[f"{name}_cli"].get("int8_linear", 0)} at the '
+                         f'derived shapes: {recorded == derived}')
+            if recorded != derived:
+                raise RuntimeError(f'phase {cli_tag}: W8A16 shapes {recorded} != {derived}')
         rate = [line for line in lines if line.endswith('img/s)')]
         print(f'phase {cli_tag} cli {args["version"]} {size}^2 on the tree: {seconds:.1f} s for '
               f'main() (model build included), {rate[0]}; kernel launches '
-              f'{runs[f"{name}_cli"]} (expected {want}) ({card})', flush=True)
+              f'{runs[f"{name}_cli"]} (expected {want}){int8_note} ({card})', flush=True)
         if runs[f'{name}_cli'] != want:
             raise RuntimeError(f'phase {cli_tag}: launches {runs[f"{name}_cli"]} != {want}')
         enumerated = enumerate_layers(args['version'], size)
@@ -1938,6 +2174,7 @@ def check_flux(torch, fa, attn_ops, card, shapes, runs):
         check_dit_tree(torch, fa, attn_ops, card, source, prompts, images, first, gib, tree,
                        shapes, runs, FLUX_TREE_PATH, FLUX_TEXT_SHARDS, 16,
                        FLUX_TRANSFORMER_SHARDS)
+        check_flux_int8(torch, fa, attn_ops, card, tree, images, first, shapes, runs)
     del first
     torch.cuda.empty_cache()
     for name, label in (('flux_store', 'phase 16b'), ('flux_512', 'phase 16c')):
@@ -1946,6 +2183,118 @@ def check_flux(torch, fa, attn_ops, card, shapes, runs):
         torch.cuda.empty_cache()
     check_dit_generation(torch, fa, attn_ops, card, shapes, runs, FLUX_GEN_ARGS, 'flux_gen',
                          '16e')
+
+
+def numpy_quantize_int8(w):
+    """The JAX package's quantize_int8 (diffusion_feature_tpu/ops/quant.py:24)
+    in numpy on the host: (in, out) float -> (int8 kernel, (out,) fp32
+    scale), symmetric per output channel."""
+    import numpy as np
+    w = np.asarray(w, np.float32)
+    absmax = np.abs(w).max(axis=0)
+    scale = np.where(absmax > 0, absmax / 127.0, 1.0).astype(np.float32)
+    return np.clip(np.round(w / scale[None, :]), -127, 127).astype(np.int8), scale
+
+
+def check_flux_int8(torch, fa, attn_ops, card, tree, images, bf16_feats, shapes, runs):
+    """Phase 16f: FeatureExtractor on phase 16d's Flux tree at the JAX
+    defaults, whose auto rule loads the transformer and T5-XXL in int8 (the
+    weights quantized on the card as they load): both spec flags on, the
+    load's GB/s and its peak against the resident bytes plus the largest
+    staged bf16 weight; three layers' weight_q and scale equal bit for bit
+    to numpy's quantization of the tree's tensors on the host;
+    encode_prompt's and one extract's W8A16 launches and shapes as the
+    config derives them (t5_int8_calls, flux_int8_calls), B1 as
+    dit_launches; the features' shapes, dtype and finiteness; the step with
+    every W8A16 and B1 call on its twin within TAP_REL_TOL; each tap's
+    cosine against phase 16a's bf16 features from the same draws; the
+    extract's timing, and its peak memory INT8_PEAK_SAVING_GIB below phase
+    16a's."""
+    import numpy as np
+    from diffusion_feature_tpu_torch import FeatureExtractor
+    from diffusion_feature_tpu_torch.models.convert import load_component_state
+    quant = _quant()
+    args = PATHS['flux']['args']
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    fe = FeatureExtractor(**args, dtype='bfloat16', device='cuda', seed=0, weights=tree)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak, resident = torch.cuda.max_memory_allocated() - base, torch.cuda.memory_allocated() - base
+    layers = [m for module in (fe.unet, *fe.text_encoders) for m in module.modules()
+              if isinstance(m, quant.Int8Linear)]
+    staged = 2 * max(m.weight_q.numel() for m in layers)
+    int8_bytes = sum(m.weight_q.numel() + 4 * m.scale.numel() for m in layers)
+    flags = (fe.spec.dit.quantize_int8, fe.spec.t5.quantize_int8)
+    rates(fe.load_stats, 'load', card, '16f')
+    allowed = INT8_LOAD_PEAK_RATIO * resident + staged
+    print(f'phase 16f int8 build from the tree (auto rule: transformer_8bit, t5_8bit = {flags}): '
+          f'{seconds:.1f} s; {len(layers)} int8 layers hold {int8_bytes / 2 ** 30:.3f} GiB; '
+          f'resident {resident / 2 ** 30:.3f} GiB, load peak {peak / 2 ** 30:.3f} GiB (allowed '
+          f'{INT8_LOAD_PEAK_RATIO} x resident + the largest staged bf16 weight, '
+          f'{staged / 2 ** 20:.1f} MiB: {allowed / 2 ** 30:.3f} GiB) ({card})', flush=True)
+    if flags != (True, True) or peak > allowed:
+        raise RuntimeError(f'phase 16f: flags {flags}, load peak {peak} over {allowed}')
+    # the bits: three layers against numpy's quantization of the tree's tensors
+    n_single, n_t5 = fe.spec.dit.num_single_layers, fe.spec.t5.num_layers
+    for comp, key, layer in (
+            ('transformer', 'transformer_blocks.0.attn.to_q',
+             fe.unet.transformer_blocks[0].attn.to_q),
+            ('transformer', f'single_transformer_blocks.{n_single - 1}.proj_out',
+             fe.unet.single_transformer_blocks[-1].proj_out),
+            ('text_encoder_2', f'encoder.block.{n_t5 - 1}.layer.1.DenseReluDense.wo',
+             fe.text_encoders[-1].encoder.block[-1].layer[1].DenseReluDense.wo)):
+        w = load_component_state(tree, comp)[f'{key}.weight']
+        q, scale = numpy_quantize_int8(w.float().numpy().T)
+        equal = (np.array_equal(layer.weight_q.cpu().numpy(), q.T)
+                 and np.array_equal(layer.scale.cpu().numpy().view(np.int32), scale.view(np.int32)))
+        print(f'  {comp}/{key}: weight_q {tuple(layer.weight_q.shape)} and scale equal bit for bit '
+              f'to numpy\'s quantization on the host: {equal}')
+        if not equal:
+            raise RuntimeError(f'phase 16f {comp}/{key}: the card\'s quantization differs')
+    # encode_prompt: T5-XXL's 168 projections
+    shapes['flux_int8_prompt'] = []
+    with patched_wrappers(attn_ops, recording(shapes['flux_int8_prompt'])):
+        reset_counts(fa)
+        prompts = fe.encode_prompt('a photo of a cat')
+        torch.cuda.synchronize()
+        runs['flux_int8_prompt'] = read_counts(fa)
+    derived = t5_int8_calls(fe.spec.t5, fe.spec.prompt_max_length)
+    want = {**only_b1(0), 'int8_linear': sum(derived.values())}
+    print(f'phase 16f encode_prompt: kernel launches {runs["flux_int8_prompt"]} (expected '
+          f'{want}), W8A16 shapes {shape_counts(shapes["flux_int8_prompt"])}', flush=True)
+    if runs['flux_int8_prompt'] != want or shape_counts(shapes['flux_int8_prompt']) != derived:
+        raise RuntimeError(f'phase 16f: encode_prompt launches {runs["flux_int8_prompt"]}')
+    # one extract: the main path of W8A16
+    derived = flux_int8_calls(fe.spec, fe.img_size, images.shape[0], fe.vae_scale)
+    want = {**dit_launches(fa, fe), 'int8_linear': sum(derived.values())}
+    feats, runs['flux_int8'], shapes['flux_int8'] = drive_path(
+        torch, fa, attn_ops, fe, prompts, images, want, 'phase 16f')
+    recorded = shape_counts(shapes['flux_int8'])
+    print(f'  phase 16f W8A16 shapes of one extract (M, K, N): calls {recorded}', flush=True)
+    if recorded != derived:
+        raise RuntimeError(f'phase 16f: W8A16 shapes {recorded} != derived {derived}')
+    check_feats(torch, feats, PATHS['flux']['feats'], 'phase 16f')
+    for key in sorted(bf16_feats):
+        rel, cos = rel_cos(feats[key], bf16_feats[key])
+        print(f'  phase 16f int8 vs bf16 (phase 16a, the same draws), {key}: rel_l2={rel:.4e} '
+              f'cosine={cos:.6f} (allowed >= {INT8_COSINE})')
+        if not cos >= INT8_COSINE:
+            raise RuntimeError(f'phase 16f {key}: cosine {cos} against bf16')
+    check_twin_step(torch, fe, attn_ops, fa, prompts, images, PATHS['flux']['feats'], 'phase 16f')
+    _, peak_gib = time_extract(torch, fe, prompts, images,
+                               'phase 16f flux int8 extract 1024^2 batch 2', card)
+    bf16_gib = EXTRACT_PEAK_GIB['phase 16a flux extract 1024^2 batch 2']
+    print(f'phase 16f peak {peak_gib:.3f} GiB against phase 16a\'s bf16 {bf16_gib:.3f} GiB: '
+          f'{bf16_gib - peak_gib:.3f} GiB less (required {INT8_PEAK_SAVING_GIB}) ({card})',
+          flush=True)
+    if not peak_gib <= bf16_gib - INT8_PEAK_SAVING_GIB:
+        raise RuntimeError(f'phase 16f: peak {peak_gib} GiB, bf16 {bf16_gib} GiB')
+    del fe, feats
+    torch.cuda.empty_cache()
 
 
 def if_step_drift(torch, fe, prompts, images, card):
@@ -2829,11 +3178,17 @@ def main() -> int:
         print(f'  ptxas: {line}')
     for path in info['paths']:
         if '_bf16_' in path or '_fp16_' in path:
-            ops = ('HGMMA', 'UTMALDG')
+            # W8A16 stages its tiles with cp.async (LDGSTS), not TMA
+            ops = ('HGMMA', 'LDGSTS') if '_w8a16_' in path else ('HGMMA', 'UTMALDG')
             counts = sass_counts(path, ops)
             print(f'phase 1 SASS of {os.path.basename(path)}: {counts}', flush=True)
             if not all(counts.values()):
                 raise RuntimeError(f'{path}: no {" or ".join(ops)} in the SASS: {counts}')
+        elif '_w8a16_' in path:
+            counts = sass_counts(path, ('FFMA', 'SHFL', 'LDGSTS'))
+            print(f'phase 1 SASS of {os.path.basename(path)}: {counts}', flush=True)
+            if not counts['FFMA']:
+                raise RuntimeError(f'{path}: no FFMA in the SASS: {counts}')
         else:
             # fp32: simt_f32.cuh's FMA products, no shuffle in a product; B1/B2,
             # B4 and the backward keep shuffles to the softmax's row reductions
@@ -2886,6 +3241,17 @@ def main() -> int:
         for shape in FP32_STORE_SHAPES:
             numbers[kernel, shape, 'float32'] = compare(torch, fa, kernel, shape, 'float32', gen,
                                                         split=True)
+    # W8A16 at every shape of phase 16f's int8 Flux extract (with its bias)
+    # and of T5-XXL's encode at INT8_T5_ROWS (none), one shape in fp16 and
+    # fp32, and the ragged shape in every type
+    for shape, bias in int8_phase2_shapes():
+        numbers['int8_linear', shape, 'bfloat16'] = compare_int8(torch, shape, 'bfloat16', gen,
+                                                                 bias)
+    for dtype_name in ('float16', 'float32'):
+        numbers['int8_linear', INT8_ONE_SHAPE, dtype_name] = compare_int8(
+            torch, INT8_ONE_SHAPE, dtype_name, gen)
+    for dtype_name in ('bfloat16', 'float16', 'float32'):
+        compare_int8(torch, INT8_RAGGED, dtype_name, gen)
     torch.cuda.empty_cache()
     print(f'phase 2 done: {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB still allocated '
           '(what phases 3 to 7 count in their peak beside their own)', flush=True)
@@ -2999,17 +3365,21 @@ def main() -> int:
             calls = [(s, 'bfloat16') for s in SHORT_SHAPES]
             entry['timed_over'] = 'one bf16 call at each phase-2 shape; no path launches B4'
             entry['b1_ms'] = entry['explicit_ms'] = 0.0
+        if name == 'int8_linear':
+            entry['matmul_ms'] = entry['dequant_matmul_ms'] = 0.0
         for shape, dt in sorted(set(calls)):
             if (name, shape, dt) not in numbers:
                 numbers[name, shape, dt] = (
                     compare_bwd(torch, fa, shape, dt, gen) if name == 'flash_attention_bwd'
+                    else compare_int8(torch, shape, dt, gen) if name == 'int8_linear'
                     else compare(torch, fa, name, shape, dt, gen, split=True))
             res = numbers[name, shape, dt]
             count = calls.count((shape, dt))
             label = str(shape) if dt == 'bfloat16' else f'{shape} {dt}'
             entry['shapes'][label] = {'calls': count, 'dtype': dt, **res}
             entry['max_abs_err'] = max(entry['max_abs_err'], res['max_abs_err'])
-            for key in ('ms', 'plain_ms', 'bound_ms', 'b1_ms', 'explicit_ms', 'call_loop_ms'):
+            for key in ('ms', 'plain_ms', 'bound_ms', 'b1_ms', 'explicit_ms', 'call_loop_ms',
+                        'matmul_ms', 'dequant_matmul_ms'):
                 if key in entry:
                     entry[key] += count * res[key]
             entry['library_ms'] = (None if entry['library_ms'] is None or res['library_ms'] is None
@@ -3025,6 +3395,11 @@ def main() -> int:
                 str(s): numbers[name, s, 'float32']
                 for s in (STORE_SHAPES + FP32_STORE_SHAPES if name == 'headmean_probs'
                           else SHORT_SHAPES)}
+        if name == 'int8_linear':
+            # phase 2's fp16 and fp32 shape, which no path launches
+            entry['other_dtype_shapes'] = {
+                f'{INT8_ONE_SHAPE} {dt}': numbers[name, INT8_ONE_SHAPE, dt]
+                for dt in ('float16', 'float32')}
         if name in ('flash_attention_with_lse', 'headmean_probs'):
             # built for HunyuanDiT's heads, which no path hands them (its store
             # is explicit, as in JAX): phase 2's bf16 numbers on head-split views

@@ -90,7 +90,8 @@ def build_parser():
                         help='sequence-parallel devices (only 1 is ported)')
     parser.add_argument('--transformer_8bit', type=_strict_bool,
                         default=None, metavar='{true,false}',
-                        help='int8 weight-only Flux transformer (not ported yet)')
+                        help='int8 weight-only flux transformer; default auto: on for flux '
+                             'with --weights unless a LoRA merges')
     # debug / observability
     parser.add_argument('--show_all_layers', action='store_true')
     parser.add_argument('--no_validate_layers', action='store_true',
@@ -123,9 +124,6 @@ def main(argv=None):
     if args.dp > 1 or args.tp > 1 or args.sp > 1:
         raise not_ported('--dp/--tp/--sp above 1 (extraction over several devices)',
                          'Multi-GPU')
-    if args.transformer_8bit:
-        raise not_ported('--transformer_8bit true (the int8 Flux transformer)',
-                         'Int8 weight-only dense', 'B')
 
     df = FeatureExtractor(
         resolve_layer_config(args.layer),
@@ -140,6 +138,7 @@ def main(argv=None):
         img_size=args.img_size,
         weights=args.weights,
         weights_variant=args.weights_variant,
+        transformer_8bit=args.transformer_8bit,
         validate_layers=not args.no_validate_layers,
     )
 

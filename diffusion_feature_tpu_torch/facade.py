@@ -40,7 +40,9 @@ of one scheduler step; ``extract_ensemble`` crosses timesteps with prompts.
 ``set_background_extraction`` keeps chosen encounters of them.
 Weights come from a local diffusers checkpoint (``weights=``,
 ``weights_variant=``) or at random from ``seed``, with offline LoRA merging,
-or are shared with another extractor (``external_model=``).
+or are shared with another extractor (``external_model=``); a loaded Flux
+holds its transformer's projections and T5-XXL's in int8 (the JAX auto
+rule, ``ops/quant.py``'s W8A16 kernel), any T5 on request (``t5_8bit``).
 """
 
 from __future__ import annotations
@@ -136,6 +138,37 @@ def _adapt_spec_to_checkpoint(spec: ModelSpec, weights: str) -> ModelSpec:
     return dataclasses.replace(spec, **updates) if updates else spec
 
 
+def _int8_spec(spec: ModelSpec, weights: Optional[str], offline_lora: Optional[str],
+               t5_8bit: Optional[bool], transformer_8bit: Optional[bool]) -> ModelSpec:
+    """``spec`` with the int8 flags of the T5 and of Flux's transformer set
+    by the JAX facade's rules (facade.py:253-294, without the bundle and the
+    mesh): None turns the T5's on for ``flux`` with ``weights``, and the
+    transformer's for ``flux`` with ``weights`` and no ``offline_lora``;
+    True without ``weights`` (int8 layers hold quantized checkpoint weights)
+    or, for the transformer, with ``offline_lora`` raises ValueError."""
+    if spec.t5 is not None:
+        use = t5_8bit if t5_8bit is not None else spec.family == 'flux' and bool(weights)
+        if use and not weights:
+            raise ValueError('t5_8bit=True requires real weights: int8 layers take quantized '
+                             'checkpoint weights, and a random init has none')
+        if use:
+            spec = dataclasses.replace(spec, t5=dataclasses.replace(spec.t5, quantize_int8=True))
+    if spec.family == 'flux':
+        use = (transformer_8bit if transformer_8bit is not None
+               else bool(weights) and not offline_lora)
+        if use and offline_lora:
+            raise ValueError('transformer_8bit=True cannot be combined with offline_lora: LoRA '
+                             'deltas merge into full-precision weights, which int8 layers do '
+                             'not carry (merge the LoRA with transformer_8bit=False)')
+        if use and not weights:
+            raise ValueError('transformer_8bit=True requires real weights: int8 layers take '
+                             'quantized checkpoint weights, and a random init has none')
+        if use:
+            spec = dataclasses.replace(spec, dit=dataclasses.replace(spec.dit,
+                                                                     quantize_int8=True))
+    return spec
+
+
 class FeatureExtractor:
     """``encode_prompt``, ``offload_prompt_encoder``, ``preprocess_image``,
     ``extract``, ``extract_ensemble``, ``sample`` and the background
@@ -183,9 +216,22 @@ class FeatureExtractor:
     ``encode_prompt``'s embeddings replaced by trainable tensors) also turns
     autograd on for the step; otherwise the step runs under
     ``torch.inference_mode``.
-    mesh, t5_8bit, transformer_8bit: the JAX facade's keywords; False or
-    None (their defaults) pass, and any other value raises
-    ``NotImplementedError`` naming the ROADMAP.md item that ports it.
+    t5_8bit, transformer_8bit: int8 weight-only projections
+    (``ops/quant.py``, the W8A16 kernel) in the T5 encoder and in Flux's
+    transformer, by the JAX facade's rules: None (the default) turns both on
+    for ``flux`` loaded from ``weights=`` (the transformer's only without
+    ``offline_lora``, whose deltas merge into full-precision weights), True
+    forces them on (ValueError without ``weights=``, for the transformer
+    also with ``offline_lora`` or on another family than Flux), False off.
+    The checkpoint's weights are quantized as they load.  An int8 denoiser
+    takes no ``train_unet`` (no gradient reaches int8 weights, as in JAX)
+    and no ``save_weights`` (a diffusers tree holds full-precision
+    weights); prompt tuning through it gets its input gradient.  With
+    ``external_model`` the source's choice holds and its int8 tensors are
+    shared.
+    mesh: the JAX facade's keyword; None or False (its default) pass, and any
+    other value raises ``NotImplementedError`` naming the ROADMAP.md item
+    that ports it.
     """
 
     def __init__(self, layer, version: str, device='cuda', dtype: str = 'bfloat16',
@@ -197,16 +243,15 @@ class FeatureExtractor:
                  seed: int = 0, attn_store_sizes: Optional[Tuple[int, int]] = None,
                  validate_layers: bool = True, train_unet: bool = False,
                  external_model=None, mesh=None, t5_8bit=None, transformer_8bit=None):
-        for name, value, item, queue in (
-                ('mesh', mesh, 'Multi-GPU', 'A'),
-                ('t5_8bit', t5_8bit, 'Int8 weight-only dense', 'B'),
-                ('transformer_8bit', transformer_8bit, 'Int8 weight-only dense', 'B')):
-            if value is not None and value is not False:
-                raise not_ported(f'FeatureExtractor({name}={value!r})', item, queue)
+        if mesh is not None and mesh is not False:
+            raise not_ported(f'FeatureExtractor(mesh={mesh!r})', 'Multi-GPU')
         if weights and os.path.isfile(os.path.join(weights, 'tpu_bundle.json')):
             raise ValueError(f'{weights} is a deployment bundle of the JAX package; the port '
                              'loads the diffusers checkpoint dir it was exported from instead')
         self.spec: ModelSpec = get_model_spec(version)
+        if transformer_8bit and self.spec.family != 'flux':
+            raise ValueError('transformer_8bit is only supported for flux (the JAX facade '
+                             "quantizes no other family's denoiser)")
         if control and self.spec.family != 'unet':
             # the JAX ControlNetPipeline builds its nets from spec.unet
             raise ValueError(f'control= needs a U-Net version: {version!r} is a '
@@ -223,6 +268,11 @@ class FeatureExtractor:
             if self.spec.family == 'unet' and isinstance(self.spec.unet, IFUNetConfig):
                 raise ValueError(f'{weights} holds a DeepFloyd IF U-Net; load it with '
                                  "version='if' (or 'test-if')")
+        if external_model is None:
+            self.spec = _int8_spec(self.spec, weights, offline_lora, t5_8bit, transformer_8bit)
+        if train_unet and self._int8_denoiser:
+            raise ValueError('train_unet=True needs a full-precision denoiser: no gradient '
+                             'reaches int8 weights (pass transformer_8bit=False)')
         self.img_size = img_size
         self.feature_resize = feature_resize
         self.train_unet = bool(train_unet)
@@ -326,6 +376,10 @@ class FeatureExtractor:
                                                  vocab_size=spec.t5.vocab_size),)
         return encoders, tokenizers
 
+    @property
+    def _int8_denoiser(self) -> bool:
+        return bool(getattr(self.spec.dit, 'quantize_int8', False))
+
     def _check_external(self, source, weights, offline_lora):
         """Refuse an ``external_model`` whose modules this extractor could
         not run as they are: another version, device or dtype, or with
@@ -388,8 +442,12 @@ class FeatureExtractor:
         files and each text encoder in ``text_shards``; the tokenizer dirs
         of the checkpoint this extractor was loaded from, where it has
         them, are copied.  Returns {component: (bytes written, seconds)},
-        as ``load_stats``."""
+        as ``load_stats``.  An extractor with int8 layers raises ValueError."""
         spec = self.spec
+        if self._int8_denoiser or getattr(spec.t5, 'quantize_int8', False):
+            raise ValueError('save_weights writes a diffusers tree of full-precision weights; '
+                             'this extractor holds int8 weight-only layers (build it with '
+                             'transformer_8bit=False, t5_8bit=False to write one)')
         comps = [('unet', self.unet, spec.unet) if spec.family in _UNET_FAMILIES
                  else ('transformer', self.unet, spec.dit)]
         if self.vae is not None:

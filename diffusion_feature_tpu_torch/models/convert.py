@@ -13,7 +13,12 @@ is chosen per component dir with the JAX package's variant rules.
 key of a port module's ``state_dict`` is normalised, looked up in the
 flattened Flax tree, and transposed back (Dense (I, O) -> Linear (O, I);
 Conv HWIO -> OIHW; a kernel==stride ConvTranspose (k, k, I, O) -> (I, O,
-k, k)).  Takes numpy-convertible leaves; needs no JAX.
+k, k); an int8 ``kernel_q`` (I, O) -> ``weight_q`` (O, I)).  Takes
+numpy-convertible leaves; needs no JAX.
+
+An int8 layer (``ops/quant.Int8Linear``) takes a checkpoint's
+full-precision ``weight``: ``load_state_into`` quantizes it on the device as
+it loads (the JAX ``convert_torch_state``'s ``kernel_q`` rule).
 """
 
 from __future__ import annotations
@@ -28,9 +33,13 @@ import torch
 from torch import nn
 
 from ..io.safetensors import load_file, save_file
+from ..ops.quant import Int8Linear, has_int8, quantize_int8
 
-# torch leaf name -> Flax leaf names to try, in order
-_LEAF_CANDIDATES = {'weight': ('kernel', 'scale', 'embedding', 'weight'), 'bias': ('bias',)}
+# torch leaf name -> Flax leaf names to try, in order.  An Int8Linear's
+# weight_q is JAX's kernel_q alone, and its scale JAX's scale: a 'weight'
+# never takes a 'scale' that sits beside a kernel_q (see params_from_jax)
+_LEAF_CANDIDATES = {'weight': ('kernel', 'scale', 'embedding', 'weight'), 'bias': ('bias',),
+                    'weight_q': ('kernel_q',)}
 
 
 def _normalize_key(key: str) -> str:
@@ -68,6 +77,9 @@ def params_from_jax(flax_params: Mapping, module: nn.Module,
     for key, ref in module.state_dict().items():
         base, _, leaf = (jax_name(key) if jax_name else key).rpartition('.')
         norm_base = _normalize_key(base)
+        if leaf == 'weight' and f'{norm_base}_kernel_q' in flat:
+            raise ValueError(f'{key}: the JAX layer {norm_base} is int8 (kernel_q, scale); '
+                             'build the module with quantize_int8 to take it')
         for cand in _LEAF_CANDIDATES.get(leaf, (leaf,)):
             norm = f'{norm_base}_{cand}' if norm_base else cand
             if norm in flat:
@@ -76,6 +88,8 @@ def params_from_jax(flax_params: Mapping, module: nn.Module,
             raise KeyError(f'{key}: no JAX parameter {norm_base}_{{'
                            f"{','.join(_LEAF_CANDIDATES.get(leaf, (leaf,)))}}}")
         arr = np.array(flat[norm], dtype=np.float32)
+        if cand == 'kernel_q':
+            arr = arr.T
         if cand == 'kernel':
             if arr.ndim == 2:
                 arr = arr.T
@@ -191,11 +205,25 @@ def load_state_into(module: nn.Module, state: Mapping[str, torch.Tensor], dtype:
     parameter took (e.g. the VAE decoder's, or CLIP's ``position_ids``).
 
     A key takes the parameter whose ``_normalize_key`` form equals its own.
-    Every parameter must be found (ValueError with the count and the first
-    five names), and shapes must agree (ValueError naming both keys)."""
+    An ``Int8Linear`` at ``p`` takes the checkpoint's ``p.weight``: that one
+    tensor is copied to ``device`` and quantized there into ``weight_q`` and
+    its fp32 ``scale`` (JAX's ``convert_torch_state`` quantizes the same
+    values), so one staged tensor is alive at a time and no full-precision
+    copy of the layer stays.  Every parameter must be found (ValueError
+    with the count and the first five names), and shapes must agree
+    (ValueError naming both keys)."""
     targets = module.state_dict(keep_vars=True)
-    by_norm = {_normalize_key(k): k for k in targets}
-    if len(by_norm) != len(targets):
+    # an int8 layer's slot is its full-precision 'weight', of weight_q's shape
+    shapes = {k: tuple(t.shape) for k, t in targets.items()}
+    quantized = set()
+    for name, m in module.named_modules():
+        if isinstance(m, Int8Linear):
+            prefix = f'{name}.' if name else ''
+            del shapes[f'{prefix}weight_q'], shapes[f'{prefix}scale']
+            shapes[f'{prefix}weight'] = tuple(m.weight_q.shape)
+            quantized.add(f'{prefix}weight')
+    by_norm = {_normalize_key(k): k for k in shapes}
+    if len(by_norm) != len(shapes):
         raise ValueError(f'{type(module).__name__}: parameter names collide when normalised')
     found, unused = {}, []
     for key, tensor in state.items():
@@ -203,19 +231,27 @@ def load_state_into(module: nn.Module, state: Mapping[str, torch.Tensor], dtype:
         if name is None:
             unused.append(key)
             continue
-        want = tuple(targets[name].shape)
-        if tuple(tensor.shape) != want:
+        if tuple(tensor.shape) != shapes[name]:
             raise ValueError(f'checkpoint {key} {tuple(tensor.shape)} does not fit '
-                             f'{name} {want}')
+                             f'{name} {shapes[name]}')
         found[name] = tensor
-    missing = [k for k in targets if k not in found]
+    missing = [k for k in shapes if k not in found]
     if missing:
         raise ValueError(f'{len(missing)} parameters of {type(module).__name__} not found in '
                          f'the checkpoint, e.g. {missing[:5]}')
+    # Int8Linear keeps its scale in fp32 through the cast
     module.to(dtype=dtype).to_empty(device=device)
+    targets = module.state_dict(keep_vars=True)
     with torch.no_grad():
-        for name, t in module.state_dict(keep_vars=True).items():
-            t.copy_(found[name])
+        for name, t in found.items():
+            if name in quantized:
+                prefix = name[:-len('weight')]
+                q, scale = quantize_int8(t.to(device))
+                targets[f'{prefix}weight_q'].copy_(q)
+                targets[f'{prefix}scale'].copy_(scale)
+                del q, scale
+            else:
+                targets[name].copy_(t)
     return unused
 
 
@@ -247,9 +283,14 @@ def save_component(root: str, component: str, state: Mapping[str, torch.Tensor],
 def random_module(make, device, dtype, generator) -> nn.Module:
     """Build ``make()`` on the meta device, then materialise it on ``device``
     with a deterministic random init drawn from ``generator``: weights of
-    rank >= 2 ~ N(0, 1/fan_in), norm scales 1, biases 0."""
+    rank >= 2 ~ N(0, 1/fan_in), norm scales 1, biases 0.  An int8 module
+    raises ValueError: its layers hold quantized checkpoint weights (the JAX
+    package refuses int8 without weights too)."""
     with torch.device('meta'):
         module = make()
+    if has_int8(module):
+        raise ValueError(f'{type(module).__name__} has int8 weight-only layers, which take '
+                         'quantized checkpoint weights: a random init has none to quantize')
     module = module.to(dtype=dtype).to_empty(device=device)
     with torch.no_grad():
         for name, p in module.named_parameters():

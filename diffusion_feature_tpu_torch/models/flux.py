@@ -29,7 +29,11 @@ Single: ``-q/-k/-v``, ``-attn-out`` (before the projection) and ``-out``,
 each sliced to the image rows.  Attention goes to the flash kernel (B1)
 where the gate admits it (4608 joint tokens of 24 heads x 128 at 1024²);
 a ``-map`` tap or the attention store (place ``'up'``) makes it explicit,
-as the JAX package does (no B2/B3 here).
+as the JAX package does (no B2/B3 here).  With ``quantize_int8`` the
+projections the JAX package quantizes (its ``_dense``: every block's q/k/v,
+output and MLP projections, the adaLN modulations and the context
+embedder) are ``ops/quant.Int8Linear`` (the W8A16 kernel on the card); the
+taps read the same tensors.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from torch import nn
 
 from ..ops.attention import (attention_fused_heads, attention_with_probs_heads, merge_heads,
                              split_heads)
+from ..ops.quant import linear_factory
 from ..ops.rope import apply_rope, rope_cos_sin
 from ..taps import EMPTY, TapSite, TapSpec, child_id
 from .hunyuan import AdaLayerNormContinuous
@@ -62,6 +67,12 @@ class FluxConfig:
     guidance_embeds: bool = True           # .1-dev is guidance-distilled
     axes_dims_rope: Tuple[int, ...] = (16, 56, 56)
     mlp_ratio: float = 4.0
+    # int8 weight-only projections (ops/quant.py), the JAX package's
+    # quantize_int8: every block projection, the adaLN modulations and the
+    # context embedder; the embedders, norm_out and proj_out stay full
+    # precision.  The facade sets it (the JAX auto rule); a checkpoint's
+    # config.json never carries it
+    quantize_int8: bool = False
 
     @property
     def inner_dim(self) -> int:
@@ -86,6 +97,7 @@ class FluxConfig:
     def to_diffusers_config(self) -> dict:
         fields = dataclasses.asdict(self)
         del fields['mlp_ratio']   # diffusers' Flux has none: always 4
+        del fields['quantize_int8']
         return {'_class_name': 'FluxTransformer2DModel', 'patch_size': 1, **fields,
                 'axes_dims_rope': list(self.axes_dims_rope)}
 
@@ -145,9 +157,9 @@ class _Modulation(nn.Module):
     (diffusers' ``AdaLayerNormZero``/``AdaLayerNormZeroSingle`` ``.linear``;
     their LayerNorm has no parameters)."""
 
-    def __init__(self, dim: int, n: int):
+    def __init__(self, dim: int, n: int, linear=nn.Linear):
         super().__init__()
-        self.linear = nn.Linear(dim, n * dim)
+        self.linear = linear(dim, n * dim)
         self.n = n
 
     def forward(self, silu_temb):
@@ -169,7 +181,8 @@ class _AttentionTaps(nn.Module):
         super().__init__()
         inner = cfg.inner_dim
         self.heads = cfg.num_attention_heads
-        self.to_q, self.to_k, self.to_v = (nn.Linear(inner, inner) for _ in range(3))
+        linear = linear_factory(cfg.quantize_int8)
+        self.to_q, self.to_k, self.to_v = (linear(inner, inner) for _ in range(3))
         self.norm_q = RMSNorm(cfg.attention_head_dim)
         self.norm_k = RMSNorm(cfg.attention_head_dim)
         self.tap_site = TapSite(taps, tap_name, feats)
@@ -216,12 +229,13 @@ class FluxJointAttention(_AttentionTaps):
         super().__init__(cfg, taps, tap_name, attn_store,
                          ('q', 'k', 'v', 'cross-map', 'self-map', 'attn-out'))
         inner = cfg.inner_dim
-        self.add_q_proj, self.add_k_proj, self.add_v_proj = (nn.Linear(inner, inner)
+        linear = linear_factory(cfg.quantize_int8)
+        self.add_q_proj, self.add_k_proj, self.add_v_proj = (linear(inner, inner)
                                                              for _ in range(3))
         self.norm_added_q = RMSNorm(cfg.attention_head_dim)
         self.norm_added_k = RMSNorm(cfg.attention_head_dim)
-        self.to_out = nn.ModuleList([nn.Linear(inner, inner)])
-        self.to_add_out = nn.Linear(inner, inner)
+        self.to_out = nn.ModuleList([linear(inner, inner)])
+        self.to_add_out = linear(inner, inner)
 
     def forward(self, img, ctx, cos, sin, feats=None):
         qh, kh, vh = self.heads_of(img, feats=feats)
@@ -264,11 +278,14 @@ class FluxTransformerBlock(nn.Module):
         super().__init__()
         dim = cfg.inner_dim
         mlp = int(dim * cfg.mlp_ratio)
-        self.norm1 = _Modulation(dim, 6)
-        self.norm1_context = _Modulation(dim, 6)
+        linear = linear_factory(cfg.quantize_int8)
+        self.norm1 = _Modulation(dim, 6, linear)
+        self.norm1_context = _Modulation(dim, 6, linear)
         self.attn = FluxJointAttention(cfg, taps, tap_name, attn_store)
-        self.ff = FeedForward(dim, taps, child_id(tap_name, 'ffn'), 'gelu-approximate', mlp)
-        self.ff_context = FeedForward(dim, activation_fn='gelu-approximate', inner=mlp)
+        self.ff = FeedForward(dim, taps, child_id(tap_name, 'ffn'), 'gelu-approximate', mlp,
+                              linear)
+        self.ff_context = FeedForward(dim, activation_fn='gelu-approximate', inner=mlp,
+                                      linear=linear)
         self.ff_context.tap_site = TapSite(EMPTY, '', ())   # the text stream's MLP has no taps
         self.tap_site = TapSite(taps, tap_name, ('norm-out', 'out'))
 
@@ -299,10 +316,11 @@ class FluxSingleTransformerBlock(nn.Module):
         super().__init__()
         dim = cfg.inner_dim
         mlp = int(dim * cfg.mlp_ratio)
-        self.norm = _Modulation(dim, 3)
-        self.proj_mlp = nn.Linear(dim, mlp)
+        linear = linear_factory(cfg.quantize_int8)
+        self.norm = _Modulation(dim, 3, linear)
+        self.proj_mlp = linear(dim, mlp)
         self.attn = FluxSingleAttention(cfg, taps, tap_name, attn_store)
-        self.proj_out = nn.Linear(dim + mlp, dim)
+        self.proj_out = linear(dim + mlp, dim)
         self.tap_site = TapSite(taps, tap_name, ('out',))
 
     def forward(self, x, text_len: int, temb, cos, sin, feats=None):
@@ -353,7 +371,7 @@ class FluxTransformer2D(nn.Module):
         if cfg.guidance_embeds:
             self.time_text_embed.guidance_embedder = TimestepEmbedding(256, dim)
         self.time_text_embed.text_embedder = _TextProjection(cfg.pooled_projection_dim, dim)
-        self.context_embedder = nn.Linear(cfg.joint_attention_dim, dim)
+        self.context_embedder = linear_factory(cfg.quantize_int8)(cfg.joint_attention_dim, dim)
         self.transformer_blocks = nn.ModuleList([
             FluxTransformerBlock(cfg, taps, f'vit-block{i}', store)
             for i in range(cfg.num_layers)])
@@ -362,14 +380,16 @@ class FluxTransformer2D(nn.Module):
             for j in range(cfg.num_single_layers)])
         self.norm_out = AdaLayerNormContinuous(dim, 1e-6)
         self.proj_out = nn.Linear(dim, cfg.in_channels)
-        self._rope = {}   # (grid, text_len, device) -> the fp32 cos, sin tables
+        # (grid, text_len, device, inference mode) -> the fp32 cos, sin tables
+        self._rope = {}
 
     def rope(self, grid_hw: Tuple[int, int], text_len: int, device):
         """The ((text_len + rows * cols), head_dim) fp32 RoPE tables of the
         joint sequence, built once per grid and device: the text tokens at
         position 0, the image tokens at (0, row, col), in float64 on the
-        host, as in JAX."""
-        key = (tuple(grid_hw), text_len, device)
+        host, as in JAX.  Tables made under inference mode are kept apart:
+        autograd (prompt tuning after an extract) cannot save them."""
+        key = (tuple(grid_hw), text_len, device, torch.is_inference_mode_enabled())
         if key not in self._rope:
             gh, gw = grid_hw
             ids = np.concatenate([np.zeros((text_len, 3), np.float32),

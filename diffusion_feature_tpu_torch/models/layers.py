@@ -226,9 +226,9 @@ class GELU(nn.Module):
     """proj -> GELU (diffusers' GELU activation block); tanh-approximate
     for activation_fn='gelu-approximate' (the DiTs')."""
 
-    def __init__(self, dim: int, inner: int, approximate: str = 'none'):
+    def __init__(self, dim: int, inner: int, approximate: str = 'none', linear=nn.Linear):
         super().__init__()
-        self.proj = nn.Linear(dim, inner)
+        self.proj = linear(dim, inner)
         self.approximate = approximate
 
     def forward(self, x):
@@ -238,17 +238,19 @@ class GELU(nn.Module):
 class FeedForward(nn.Module):
     """GEGLU (or, with activation_fn 'gelu'/'gelu-approximate', GELU) MLP
     of ``inner`` (default 4 * dim) hidden units; tap 'inner' on the
-    activation (after net[0])."""
+    activation (after net[0]).  ``linear`` builds the GELU MLP's two
+    projections (Flux passes its int8 factory)."""
 
     def __init__(self, dim: int, taps: TapSpec = EMPTY, tap_name: str = '',
-                 activation_fn: str = 'geglu', inner: Optional[int] = None):
+                 activation_fn: str = 'geglu', inner: Optional[int] = None, linear=nn.Linear):
         super().__init__()
         inner = dim * 4 if inner is None else inner
         if activation_fn == 'geglu':
             act = GEGLU(dim, inner)
         else:
-            act = GELU(dim, inner, 'tanh' if activation_fn == 'gelu-approximate' else 'none')
-        self.net = nn.ModuleList([act, nn.Identity(), nn.Linear(inner, dim)])
+            act = GELU(dim, inner, 'tanh' if activation_fn == 'gelu-approximate' else 'none',
+                       linear)
+        self.net = nn.ModuleList([act, nn.Identity(), linear(inner, dim)])
         self.tap_site = TapSite(taps, tap_name, ('inner',))
 
     def forward(self, x, feats=None):

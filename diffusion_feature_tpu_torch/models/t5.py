@@ -10,6 +10,9 @@ table sits in block 0 and serves every layer), unscaled scores, a -1e9
 additive mask on padded keys; T5's RMS norm in fp32 (no mean, no bias);
 the gated-GELU feed-forward; a final RMS norm.  Attention is plain matrix
 products, as in the JAX package (no kernel): the explicit fp32-score path.
+With ``quantize_int8`` the seven projections of every layer are int8
+weight-only (``ops/quant.Int8Linear``, the W8A16 kernel on the card), as
+the JAX package holds Flux's T5-XXL.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention_with_probs_heads, merge_heads, split_heads
-from ..roadmap import not_ported
+from ..ops.quant import linear_factory
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +41,8 @@ class T5Config:
     relative_attention_num_buckets: int = 32
     relative_attention_max_distance: int = 128
     layer_norm_epsilon: float = 1e-6
-    # int8 weight-only projections (the JAX package's Flux T5); not ported
+    # int8 weight-only projections (ops/quant.py; the reference loads Flux's
+    # T5-XXL in 8-bit): q/k/v/o and wi_0/wi_1/wo of every layer
     quantize_int8: bool = False
 
     @staticmethod
@@ -101,10 +105,11 @@ class T5Attention(nn.Module):
         super().__init__()
         inner = cfg.num_heads * cfg.d_kv
         self.heads = cfg.num_heads
-        self.q = nn.Linear(cfg.d_model, inner, bias=False)
-        self.k = nn.Linear(cfg.d_model, inner, bias=False)
-        self.v = nn.Linear(cfg.d_model, inner, bias=False)
-        self.o = nn.Linear(inner, cfg.d_model, bias=False)
+        linear = linear_factory(cfg.quantize_int8)
+        self.q = linear(cfg.d_model, inner, bias=False)
+        self.k = linear(cfg.d_model, inner, bias=False)
+        self.v = linear(cfg.d_model, inner, bias=False)
+        self.o = linear(inner, cfg.d_model, bias=False)
         if has_relative_bias:
             self.relative_attention_bias = nn.Embedding(cfg.relative_attention_num_buckets,
                                                         cfg.num_heads)
@@ -130,9 +135,10 @@ class T5LayerSelfAttention(nn.Module):
 class T5DenseGatedActDense(nn.Module):
     def __init__(self, cfg: T5Config):
         super().__init__()
-        self.wi_0 = nn.Linear(cfg.d_model, cfg.d_ff, bias=False)
-        self.wi_1 = nn.Linear(cfg.d_model, cfg.d_ff, bias=False)
-        self.wo = nn.Linear(cfg.d_ff, cfg.d_model, bias=False)
+        linear = linear_factory(cfg.quantize_int8)
+        self.wi_0 = linear(cfg.d_model, cfg.d_ff, bias=False)
+        self.wi_1 = linear(cfg.d_model, cfg.d_ff, bias=False)
+        self.wo = linear(cfg.d_ff, cfg.d_model, bias=False)
 
     def forward(self, x):
         return self.wo(F.gelu(self.wi_0(x), approximate='tanh') * self.wi_1(x))
@@ -171,9 +177,6 @@ class T5EncoderModel(nn.Module):
 
     def __init__(self, cfg: T5Config):
         super().__init__()
-        if cfg.quantize_int8:
-            raise not_ported('the int8 weight-only T5 (quantize_int8)',
-                             'Int8 weight-only dense', queue='B')
         self.cfg = cfg
         self.shared = nn.Embedding(cfg.vocab_size, cfg.d_model)
         self.encoder = T5Stack(cfg)

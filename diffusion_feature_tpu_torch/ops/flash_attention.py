@@ -107,12 +107,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 #: one library per kernel and dtype: <kernel>_<bf16|fp16|f32>
 _SOURCES = {f'{kernel}_{tag}': _CSRC / f'{kernel}_{tag}.cu'
-            for kernel in ('flash', 'headmean', 'short', 'flash_bwd')
+            for kernel in ('flash', 'headmean', 'short', 'flash_bwd', 'w8a16')
             for tag in ('bf16', 'fp16', 'f32')}
 _HEADERS = tuple(_CSRC / name for name in ('tile_ops.cuh', 'simt_f32.cuh', 'hopper_common.cuh',
                                            'wgmma.cuh', 'flash_hopper.cuh', 'headmean_hopper.cuh',
                                            'short_hopper.cuh', 'flash_bwd.cuh',
-                                           'flash_bwd_hopper.cuh'))
+                                           'flash_bwd_hopper.cuh', 'w8a16.cuh'))
 _DTYPE_TAGS = {torch.bfloat16: 'bf16', torch.float16: 'fp16', torch.float32: 'f32'}
 _BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
 _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
@@ -135,6 +135,8 @@ _ARGTYPES = {
     # dv), stream
     'dft_flash_attention_backward': [_VP] * 11 + [_INT] * 6 + [
         _F32, ctypes.POINTER(ctypes.c_longlong), _VP],
+    # x, weight_q, scale, bias, y, m, n, k, dtype, stream (ops/quant.py's W8A16)
+    'dft_w8a16_linear': [_VP] * 5 + [_INT] * 4 + [_VP],
 }
 
 #: Kernel launches since import (or since a caller reset them to 0).
@@ -330,9 +332,8 @@ def build() -> dict:
 
 
 def _lib(kernel: str, dtype: torch.dtype):
-    """The library of ``kernel`` ('flash', 'headmean', 'short' or
-    'flash_bwd') for
-    ``dtype``, built at first use."""
+    """The library of ``kernel`` ('flash', 'headmean', 'short', 'flash_bwd'
+    or ``ops/quant.py``'s 'w8a16') for ``dtype``, built at first use."""
     name = f'{kernel}_{_DTYPE_TAGS[dtype]}'
     if name not in _libs:
         build()

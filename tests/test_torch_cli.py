@@ -342,7 +342,8 @@ def test_weight_flags_match_jax_cli(monkeypatch, tmp_path, images, checkpoint, f
     (['--dp', '2'], NotImplementedError, 'ROADMAP.md, Queue A item 11:'),
     (['--tp', '2'], NotImplementedError, 'ROADMAP.md, Queue A item 11:'),
     (['--sp', '2'], NotImplementedError, 'ROADMAP.md, Queue A item 11:'),
-    (['--transformer_8bit', 'true'], NotImplementedError, 'ROADMAP.md, Queue B item 3:'),
+    # the int8 transformer is Flux's alone, as in the JAX CLI
+    (['--transformer_8bit', 'true'], ValueError, 'transformer_8bit is only supported for flux'),
 ], ids=['control', 'dp', 'tp', 'sp', 'transformer_8bit'])
 def test_unported_flags_raise(tmp_path, images, flags, error, match):
     args = ['--version', 'test-sd', '--img_size', '64', '--device', 'cpu', '--prompt', 'a',

@@ -1,5 +1,6 @@
 """The Hopper attention kernels (flash B1, flash with logsumexp B2, head-mean
-B3, short attention B4) against their plain twins, on the card; the
+B3, short attention B4) and the W8A16 int8 dense kernel against their plain
+twins, on the card; the
 checkpoint loader filling modules on the card; and generation and a
 ControlNet extract at a small size with their kernels against the twins;
 and a label-scarce member trained from a host-resident matrix.
@@ -796,6 +797,119 @@ def test_flux_step_routes_joint_attention_to_b1(cuda, taps, launches):
     assert out.shape == (2, 1024, 64) and torch.isfinite(out.float()).all()
     assert _rel_l2(out, ref) <= _TOL[torch.bfloat16]
 
+
+
+# ------------------------------------------------------------ W8A16 (int8 dense)
+def _w8a16_inputs(cuda, dtype, m, k, n, bias=True, seed=0):
+    """x (m, k) in ``dtype``, a (n, k) weight of N(0, 1/k) quantized on the
+    card, and a bias in ``dtype`` (or None)."""
+    from diffusion_feature_tpu_torch.ops import quant
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    q, scale = quant.quantize_int8(torch.randn(n, k, generator=g, device=cuda) * k ** -0.5)
+    b = torch.randn(n, generator=g, device=cuda).to(dtype) if bias else None
+    return x, q, scale, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', list(_TOL), ids=str)
+@pytest.mark.parametrize('mkn,bias', [
+    ((37, 1000, 333), True),     # ragged M, K (not a multiple of 16) and N (odd)
+    ((2, 3072, 1000), True),     # the adaLN projections' two rows
+    ((300, 256, 128), False),    # whole tiles in N and K, no bias (T5's projections)
+    ((5, 100, 50), True),        # K not a multiple of 8: x staged element by element
+], ids=['ragged', 'm2', 'nobias', 'k100'])
+def test_w8a16_matches_twin(cuda, dtype, mkn, bias):
+    """The W8A16 kernel against its twin (the dequantize rounded as the
+    kernel rounds it; only the order of the fp32 sums differs), elementwise
+    and in relative L2, with one launch counted."""
+    from diffusion_feature_tpu_torch.ops import quant
+    x, q, scale, b = _w8a16_inputs(cuda, dtype, *mkn, bias=bias)
+    quant.int8_launches = 0
+    out = quant.int8_linear(x, q, scale, b)
+    torch.cuda.synchronize()
+    assert quant.int8_launches == 1 and out.dtype == dtype and out.shape == (mkn[0], mkn[2])
+    _assert_matches(out, quant.int8_linear_reference(x, q, scale, b), dtype)
+
+
+@pytest.mark.cuda
+def test_w8a16_takes_batched_and_strided_x_and_refuses_bad_inputs(cuda):
+    """A (B, S, K) x and a strided slice of one (copied first) give the
+    twin's result in (B, S, N); a weight that is not int8, a scale that is
+    not fp32 and a bias of another dtype raise ValueError."""
+    from diffusion_feature_tpu_torch.ops import quant
+    x, q, scale, b = _w8a16_inputs(cuda, torch.bfloat16, 2 * 96, 512, 384, seed=1)
+    x3 = x.reshape(2, 96, 512)[:, 16:]
+    out = quant.int8_linear(x3, q, scale, b)
+    assert out.shape == (2, 80, 384) and out.is_contiguous()
+    _assert_matches(out, quant.int8_linear_reference(x3, q, scale, b), torch.bfloat16)
+    for args, match in (((x, q.float(), scale, b), 'int8'), ((x, q, scale.half(), b), 'float32'),
+                        ((x, q, scale, b.float()), 'bias')):
+        with pytest.raises(ValueError, match=match):
+            quant.int8_linear(*args)
+
+
+@pytest.mark.cuda
+def test_quantize_on_card_equals_host_and_int8_linear_trains_its_input(cuda):
+    """``quantize_int8`` on the card equals the host's bit for bit (as the
+    loader quantizes checkpoint tensors there); ``Int8Linear``'s input
+    gradient on the card equals the twin's product on the same cotangent."""
+    from diffusion_feature_tpu_torch.ops import quant
+    g = torch.Generator().manual_seed(2)
+    w = torch.randn(1536, 1000, generator=g) * torch.rand(1536, 1, generator=g)
+    w[7] = 0
+    q_host, s_host = quant.quantize_int8(w)
+    q_card, s_card = quant.quantize_int8(w.to(cuda).bfloat16().float())
+    q_ref, s_ref = quant.quantize_int8(w.bfloat16().float())
+    assert torch.equal(q_card.cpu(), q_ref) and torch.equal(s_card.cpu(), s_ref)
+    assert q_host.dtype == torch.int8 and torch.equal(s_host[7], torch.tensor(1.0))
+    layer = quant.Int8Linear(1000, 1536).to(cuda)
+    layer.weight_q.copy_(q_card)
+    layer.scale.copy_(s_card)
+    x = torch.randn(64, 1000, device=cuda, requires_grad=True)
+    cot = torch.randn(64, 1536, device=cuda)
+    (layer(x) * cot).sum().backward()
+    _assert_matches(x.grad, cot @ quant.dequantize_int8(q_card, s_card), torch.float32)
+
+
+@pytest.mark.cuda
+def test_int8_flux_step_routes_projections_to_w8a16(cuda):
+    """Flux.1-dev at full width cut to one dual and one single block, loaded
+    int8 from a bf16 state on the card (each weight quantized there): 21
+    W8A16 launches per forward (14 in the dual block, 6 in the single, the
+    context embedder), the scales fp32, and the prediction within the bf16
+    tolerance of the same forward on the W8A16 twin."""
+    import dataclasses
+    from diffusion_feature_tpu_torch.models.convert import random_module
+    from diffusion_feature_tpu_torch.models.flux import FLUX_DEV, FluxTransformer2D
+    from diffusion_feature_tpu_torch.ops import quant
+    cfg = dataclasses.replace(FLUX_DEV, num_layers=1, num_single_layers=1)
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    state = random_module(lambda: FluxTransformer2D(cfg), cuda, torch.bfloat16, gen).state_dict()
+    with torch.device('meta'):
+        dit = FluxTransformer2D(dataclasses.replace(cfg, quantize_int8=True))
+    load_state_into(dit, state, torch.bfloat16, cuda)
+    to_q = dit.transformer_blocks[0].attn.to_q
+    assert (to_q.weight_q.dtype, to_q.scale.dtype, to_q.bias.dtype) == (
+        torch.int8, torch.float32, torch.bfloat16)
+    q, s = quant.quantize_int8(state['transformer_blocks.0.attn.to_q.weight'])
+    assert torch.equal(q, to_q.weight_q) and torch.equal(s, to_q.scale)
+    x = torch.randn(2, 1024, 64, generator=gen, device=cuda)
+    t5 = torch.randn(2, 512, 4096, generator=gen, device=cuda).bfloat16()
+    pooled = torch.randn(2, 768, generator=gen, device=cuda).bfloat16()
+    with torch.inference_mode():
+        quant.int8_launches = 0
+        out = dit(x, 500.0, t5, pooled, 3500.0, (32, 32))
+        torch.cuda.synchronize()
+        assert quant.int8_launches == 21
+        real = quant.int8_linear
+        quant.int8_linear = quant.int8_linear_reference
+        try:
+            ref = dit(x, 500.0, t5, pooled, 3500.0, (32, 32))
+        finally:
+            quant.int8_linear = real
+    assert out.shape == (2, 1024, 64) and torch.isfinite(out.float()).all()
+    assert _rel_l2(out, ref) <= _TOL[torch.bfloat16]
 
 # ------------------------------------------------------------ the backward
 _BWD_TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 1e-4}

@@ -294,11 +294,11 @@ def test_public_extract_takes_a_string_and_refuses_what_jax_lacks(pair, image):
         FeatureExtractor({'vae-out': True}, VERSION, device='cpu', img_size=SIZE)
     with pytest.raises(ValueError, match='U-Net'):
         FeatureExtractor(LAYERS, VERSION, device='cpu', img_size=SIZE, control=['canny'])
+    # int8 is ported (tests/test_torch_quant.py); as in JAX it needs weights
     for kw in ('transformer_8bit', 't5_8bit'):
-        with pytest.raises(NotImplementedError,
-                           match="Queue B item 3: 'Int8 weight-only dense'"):
+        with pytest.raises(ValueError, match=f'{kw}=True requires real weights'):
             FeatureExtractor(LAYERS, VERSION, device='cpu', img_size=SIZE, **{kw: True})
-    with pytest.raises(NotImplementedError, match="Queue B item 3: 'Int8 weight-only dense'"):
+    with pytest.raises(ValueError, match='transformer_8bit=True requires real weights'):
         port_cli.main(['--version', VERSION, '--device', 'cpu', '--prompt', 'a',
                        '--transformer_8bit', 'true', '--input_dir', 'none', '--output_dir',
                        'none', '--layer', '{"vit-block0-q": true}'])
@@ -337,7 +337,7 @@ def test_spec_and_params_equal_jax(pair):
         ours, ref = get_model_spec(version), jax_model_spec(version)
         assert (ours.scheduler, ours.prompt_max_length, ours.default_img_size) == (
             ref.scheduler, ref.prompt_max_length, ref.default_img_size)
-        assert {k: v for k, v in vars(ref.dit).items() if k != 'quantize_int8'} == vars(ours.dit)
+        assert vars(ref.dit) == vars(ours.dit)   # quantize_int8 too (off in the registry)
         assert vars(ref.vae) == vars(ours.vae)
         assert vars(ref.scheduler_config) == vars(ours.scheduler_config)
     jfe, port = pair
@@ -376,14 +376,15 @@ def test_show_all_layers_matches_jax():
 # ------------------------------------------------------------- checkpoints
 def test_synthetic_tree_loads_in_both_facades(pair, image, tmp_path):
     """``synth_checkpoint.write_flux_checkpoint``'s tree (transformer, a
-    VAE with Flux's factors, CLIP, T5), loaded by the JAX facade (int8
-    off) and the port: equal taps."""
+    VAE with Flux's factors, CLIP, T5), loaded by the JAX facade and the
+    port with int8 off on both sides (the auto int8 load is
+    tests/test_torch_quant.py's): equal taps."""
     root = write_flux_checkpoint(str(tmp_path / 'tree'))
     layers = {'vit-block1-q': True, 'vit-block3-out': True, 'vit-block0-cross-map': True}
     jfe = JaxFeatureExtractor(layers, VERSION, img_size=SIZE, dtype='float32', weights=root,
                               train_unet=True, transformer_8bit=False, t5_8bit=False)
     port = FeatureExtractor(layers, VERSION, device='cpu', img_size=SIZE, dtype='float32',
-                            weights=root)
+                            weights=root, transformer_8bit=False, t5_8bit=False)
     assert port.spec.vae.shift_factor == 0.1159
     assert set(port.load_stats) == {'transformer', 'vae', 'text_encoder', 'text_encoder_2'}
     ours, ref = _jax_and_port(pair, image, 500, port=port, jfe=jfe)
@@ -395,8 +396,8 @@ def test_synthetic_tree_loads_in_both_facades(pair, image, tmp_path):
 def test_save_weights_round_trip(pair, tmp_path, image):
     """``save_weights`` writes transformer/ (two shards), vae/ (no quant
     convs' tensors where the config has none), text_encoder/ (CLIP) and
-    text_encoder_2/ (T5); ``weights=`` loads them back to the same
-    parameters, prompts and features."""
+    text_encoder_2/ (T5); ``weights=`` loads them back, int8 off, to the
+    same parameters, prompts and features."""
     _, port = pair
     stats = port.save_weights(str(tmp_path), unet_shards=2)
     assert set(stats) == {'transformer', 'vae', 'text_encoder', 'text_encoder_2'}
@@ -404,7 +405,8 @@ def test_save_weights_round_trip(pair, tmp_path, image):
     cfg = json.loads((tmp_path / 'transformer' / 'config.json').read_text())
     assert cfg['_class_name'] == 'FluxTransformer2DModel' and cfg['axes_dims_rope'] == [2, 2, 4]
     loaded = FeatureExtractor(LAYERS, VERSION, device='cpu', img_size=SIZE, dtype='float32',
-                              weights=str(tmp_path), **STORE)
+                              weights=str(tmp_path), transformer_8bit=False, t5_8bit=False,
+                              **STORE)
     assert loaded.spec == port.spec
     for a, b in ((port.unet, loaded.unet), (port.vae, loaded.vae),
                  *zip(port.text_encoders, loaded.text_encoders)):

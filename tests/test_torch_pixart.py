@@ -363,11 +363,21 @@ def test_save_weights_round_trip(pair, tmp_path, image):
 
 
 def test_unported_parts_name_their_items():
-    """The int8 T5 is Queue B's."""
+    """The int8 T5 is ported (ops/quant.py): with quantize_int8 the seven
+    projections of every layer are Int8Linear, the embedding and the norms
+    stay full precision, and it runs on the meta device (its values come
+    from a checkpoint; tests/test_torch_quant.py holds them against JAX)."""
     from diffusion_feature_tpu_torch.models.t5 import T5EncoderModel, tiny_t5_config
+    from diffusion_feature_tpu_torch.ops.quant import Int8Linear
     cfg = dataclasses.replace(tiny_t5_config(), quantize_int8=True)
-    with pytest.raises(NotImplementedError, match="Queue B item 3: 'Int8 weight-only dense'"):
-        T5EncoderModel(cfg)
+    with torch.device('meta'):
+        t5 = T5EncoderModel(cfg)
+        out = t5(torch.zeros((1, 8), dtype=torch.long))
+    assert out.shape == (1, 8, cfg.d_model)
+    int8 = sorted(n for n, m in t5.named_modules() if isinstance(m, Int8Linear))
+    assert len(int8) == 7 * cfg.num_layers
+    assert {n.rsplit('.', 1)[1] for n in int8} == {'q', 'k', 'v', 'o', 'wi_0', 'wi_1', 'wo'}
+    assert t5.shared.weight.dtype == torch.float32
 
 
 def test_generation_cli_on_test_pixart(tmp_path):

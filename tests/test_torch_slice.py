@@ -169,8 +169,10 @@ def test_layer_validation_suggests_near_miss():
     # (train_unet is ported: test_train_unet_returns_live_features)
     ({'external_model': object()}, ValueError, 'external_model must be a FeatureExtractor'),
     ({'mesh': object()}, NotImplementedError, 'ROADMAP.md, Queue A item 11:'),
-    ({'t5_8bit': True}, NotImplementedError, 'ROADMAP.md, Queue B item 3:'),
-    ({'transformer_8bit': True}, NotImplementedError, 'ROADMAP.md, Queue B item 3:'),
+    # int8 is ported (tests/test_torch_quant.py); the JAX facade's refusals:
+    # an int8 T5 without weights, the int8 transformer off Flux
+    ({'t5_8bit': True, 'version': 'test-pixart'}, ValueError, 't5_8bit=True requires real'),
+    ({'transformer_8bit': True}, ValueError, 'transformer_8bit is only supported for flux'),
 ], ids=['weights', 'control', 'attention', 'version', 'external_model', 'mesh',
         't5_8bit', 'transformer_8bit'])
 def test_unported_options_raise(tmp_path, kwargs, error, match):
