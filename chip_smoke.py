@@ -7,7 +7,9 @@ Phases (each prints its numbers on lines of its own):
   1. the card's name and power limit, then the kernels' build (one nvcc per
      source, started together), and the count of HGMMA (wgmma) and UTMALDG
      (TMA load) instructions in the SASS of every bf16/fp16 library (B1/B2,
-     B3, B4, the backward; W8A16's HGMMA and LDGSTS, its cp.async), and of
+     B3, B4, the backward; W8A16's also LDGSTS, the cp.async of the kernel
+     kept for unaligned rows, and HMMA, the mma.sync of the streaming
+     kernel), and of
      FFMA and SHFL in every fp32 library's
      (every fp32 kernel runs simt_f32.cuh's shuffle-free products: B3 has
      no SHFL at all, the others keep them to their softmax row reductions
@@ -27,7 +29,10 @@ Phases (each prints its numbers on lines of its own):
      phase 16f's int8 Flux extract and of T5-XXL's encode at 512 and 1024
      rows in bf16, at INT8_ONE_SHAPE in fp16 and fp32, and at the ragged
      INT8_RAGGED in every type: relative L2 and the worst element within
-     TOL, beside the kernel the twin, the bound, F.linear on the
+     TOL, which of its kernels served the shape (quant.int8_route: the TMA
+     kernel's 128- or 256-row tiles, the streaming kernel, or the cp.async
+     kernel) and whether bf16 equals the twin bit for bit, beside the
+     kernel the twin, the bound, F.linear on the
      dequantized weight (matmul_ms), the dequantize and that GEMM
      (dequant_matmul_ms) and torch._weight_int8pack_mm (library_ms, the
      same product without the bias);
@@ -954,10 +959,23 @@ def one_call_ms(torch, fn) -> float:
     return start.elapsed_time(stop)
 
 
+def int8_inputs(torch, gen, shape, dtype, bias=True):
+    """x (M, K) in ``dtype`` ~ N(0, 1), an (N, K) weight of N(0, 1/K)
+    quantized on the card, and a bias in ``dtype`` (or None)."""
+    quant = _quant()
+    m, k, n = shape
+    x = torch.randn(m, k, generator=gen, device='cuda').to(dtype)
+    q, scale = quant.quantize_int8(torch.randn(n, k, generator=gen, device='cuda') * k ** -0.5)
+    b = torch.randn(n, generator=gen, device='cuda').to(dtype) if bias else None
+    return x, q, scale, b
+
+
 def compare_int8(torch, shape, dtype_name, gen, bias=True):
     """W8A16 against its twin at one (M, K, N): x ~ N(0, 1), a weight of
     N(0, 1/K) quantized on the card, a bias where the path's layer has one;
-    relative L2 and the worst element against TOL, then the kernel's time
+    relative L2 and the worst element against TOL, which of W8A16's kernels
+    served the shape (``kernel``) and whether the result equals the twin's
+    bit for bit (``bit_equal``), then the kernel's time
     (CUDA graphs of 20), the twin's (a loop), the bound and the yardsticks
     the port never calls: F.linear on the dequantized weight in the compute
     type (torch.matmul's cuBLAS GEMM), the dequantize and that GEMM
@@ -967,13 +985,14 @@ def compare_int8(torch, shape, dtype_name, gen, bias=True):
     quant = _quant()
     m, k, n = shape
     dtype = getattr(torch, dtype_name)
-    x = torch.randn(m, k, generator=gen, device='cuda').to(dtype)
-    q, scale = quant.quantize_int8(torch.randn(n, k, generator=gen, device='cuda') * k ** -0.5)
-    b = torch.randn(n, generator=gen, device='cuda').to(dtype) if bias else None
+    x, q, scale, b = int8_inputs(torch, gen, shape, dtype, bias)
     run = lambda: quant.int8_linear(x, q, scale, b)                  # noqa: E731
     plain = lambda: quant.int8_linear_reference(x, q, scale, b)      # noqa: E731
     out, ref = run(), plain()
     torch.cuda.synchronize()
+    kernel = quant.ROUTES[quant.int8_route(m, n, k, dtype, q.data_ptr() % 16 == 0,
+                                           quant._sm_count(x.device))]
+    bit_equal = bool(torch.equal(out, ref))
     tol = TOL[dtype_name]
     err, ratio = worst_ratio(torch, out, ref, tol, tol)
     ratio, notes = rel_l2_ratio(torch, out, ref, tol, ratio)
@@ -1008,6 +1027,7 @@ def compare_int8(torch, shape, dtype_name, gen, bias=True):
     ok = finite and ratio <= 1.0
     lib = 'none' if lib_ms is None else f'{lib_ms:.4f}'
     print(f'compare int8_linear {dtype_name} (M, K, N)={shape}{" +bias" if bias else ""}: '
+          f'kernel={kernel} bit_equal={bit_equal} '
           f'max_abs_err={err:.3e} atol={tol:g} rtol={tol:g} worst/allowed={ratio:.3f}{notes} '
           f'kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} '
           f'bound_ms={bound_ms:.4f} ({bound_by}) share_of_bound={bound_ms / ms:.3f} '
@@ -1015,7 +1035,8 @@ def compare_int8(torch, shape, dtype_name, gen, bias=True):
     if not ok:
         raise RuntimeError(f'int8_linear disagrees with its twin at {shape} {dtype_name}')
     return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms, 'library_ms': lib_ms,
-            'bound_ms': bound_ms, 'bound_by': bound_by, **extra}
+            'bound_ms': bound_ms, 'bound_by': bound_by, 'kernel': kernel,
+            'bit_equal': bit_equal, **extra}
 
 
 # the wrappers the attention ops call (B4 is called by none of them)
@@ -3178,8 +3199,11 @@ def main() -> int:
         print(f'  ptxas: {line}')
     for path in info['paths']:
         if '_bf16_' in path or '_fp16_' in path:
-            # W8A16 stages its tiles with cp.async (LDGSTS), not TMA
-            ops = ('HGMMA', 'LDGSTS') if '_w8a16_' in path else ('HGMMA', 'UTMALDG')
+            # W8A16: the TMA kernel's HGMMA and UTMALDG, the cp.async kernel's
+            # LDGSTS (kept for rows TMA cannot describe), the streaming
+            # kernel's HMMA (mma.sync)
+            ops = (('HGMMA', 'UTMALDG', 'LDGSTS', 'HMMA') if '_w8a16_' in path
+                   else ('HGMMA', 'UTMALDG'))
             counts = sass_counts(path, ops)
             print(f'phase 1 SASS of {os.path.basename(path)}: {counts}', flush=True)
             if not all(counts.values()):

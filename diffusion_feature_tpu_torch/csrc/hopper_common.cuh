@@ -1,15 +1,19 @@
-// What the Hopper (sm_90a) attention kernels share: B1/B2 in
-// flash_hopper.cuh, B3 in headmean_hopper.cuh, B4 in short_hopper.cuh.
+// What the Hopper (sm_90a) kernels share: B1/B2 in flash_hopper.cuh, B3 in
+// headmean_hopper.cuh, B4 in short_hopper.cuh, the backward in
+// flash_bwd_hopper.cuh, W8A16 in w8a16.cuh.
 //
 //   device: mbarrier init / expect-tx / arrive / wait (a lost arrival traps
-//     instead of hanging the card), 4-d TMA box loads counted into an
-//     mbarrier, 3-d TMA box stores in bulk groups, wgmma fence / commit /
+//     instead of hanging the card), 4-d and 2-d TMA box loads counted into
+//     an mbarrier (4-d also multicast to a cluster), arrivals on another
+//     CTA's mbarrier, the cluster barrier, 3-d TMA box stores in bulk
+//     groups, wgmma fence / commit /
 //     wait, the 128-byte-swizzle matrix descriptor, bf16/fp16 packing, exp2
 //     on the special-function unit and named barriers;
 //   host: cuTensorMapEncodeTiled from the driver the runtime already loaded
 //     (no -lcuda), and the 4-d (d, s, h, b) tensor map over a (B, H, S, D)
 //     tensor with the caller's strides, read in 64-column boxes (one
-//     128-byte swizzle atom) and zero-filled out of bounds.
+//     128-byte swizzle atom) and zero-filled out of bounds; the 2-d map of
+//     a row-major byte matrix (W8A16's int8 weight).
 // The shared-memory limit and SM count helpers (allow_smem, sm_count) are
 // tile_ops.cuh's.
 
@@ -82,6 +86,46 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The same box into the shared memory of every CTA of the cluster in
+// `mask`, at this CTA's offset of `dst`; each destination's mbarrier at
+// the offset of `bar` counts the bytes it receives.
+__device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap* map,
+                                                   uint64_t* bar, int c0, int c1, int c2, int c3,
+                                                   uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4, %5, %6}], [%2], %7;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "h"(mask)
+      : "memory");
+}
+
+// An arrival on the mbarrier at the offset of `bar` in CTA `cta` of the
+// cluster (this one included).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(bar)), "r"(cta));
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(remote) : "memory");
+}
+
+// Every thread of every CTA of the cluster meets here.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// One box of a 2-d tensor map (coordinates column, row) into shared
+// memory; the bytes are counted into `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -242,6 +286,24 @@ inline int make_map(CUtensorMap* map, const void* ptr, int b, int h, int s, int 
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult res = enc(map, type, 4, const_cast<void*>(ptr), dims, bytes, box, unit,
                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
+}
+
+// A row-major (rows, cols) byte matrix whose rows are `row_bytes` apart (a
+// multiple of 16), as a 2-d map of unsigned bytes read in boxes of
+// `box_cols` bytes x `box_rows` rows with `swizzle` (the box's rows must
+// not be wider than the swizzle's span), zero-filled out of bounds.
+inline int make_map_u8(CUtensorMap* map, const void* ptr, int rows, int cols, long long row_bytes,
+                       int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return int(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  const cuuint64_t bytes[1] = {cuuint64_t(row_bytes)};
+  const cuuint32_t box[2] = {cuuint32_t(box_cols), cuuint32_t(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult res = enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims,
+                           bytes, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
 }

@@ -7,8 +7,8 @@
 // This library takes dtype 2 (bfloat16) only.
 extern "C" int dft_w8a16_linear(const void* x, const int8_t* q, const float* scale,
                                 const void* bias, void* y, int m, int n, int k, int dtype,
-                                void* stream) {
+                                int route, void* stream) {
   if (dtype != 2) return int(cudaErrorInvalidValue);
-  return dft::w8a16::forward<__nv_bfloat16>(x, q, scale, bias, y, m, n, k,
+  return dft::w8a16::forward<__nv_bfloat16>(x, q, scale, bias, y, m, n, k, route,
       static_cast<cudaStream_t>(stream));
 }

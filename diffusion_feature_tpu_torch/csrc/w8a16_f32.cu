@@ -7,8 +7,8 @@
 // This library takes dtype 0 (float32) only.
 extern "C" int dft_w8a16_linear(const void* x, const int8_t* q, const float* scale,
                                 const void* bias, void* y, int m, int n, int k, int dtype,
-                                void* stream) {
+                                int route, void* stream) {
   if (dtype != 0) return int(cudaErrorInvalidValue);
-  return dft::w8a16::forward<float>(x, q, scale, bias, y, m, n, k,
+  return dft::w8a16::forward<float>(x, q, scale, bias, y, m, n, k, route,
       static_cast<cudaStream_t>(stream));
 }

@@ -135,8 +135,9 @@ _ARGTYPES = {
     # dv), stream
     'dft_flash_attention_backward': [_VP] * 11 + [_INT] * 6 + [
         _F32, ctypes.POINTER(ctypes.c_longlong), _VP],
-    # x, weight_q, scale, bias, y, m, n, k, dtype, stream (ops/quant.py's W8A16)
-    'dft_w8a16_linear': [_VP] * 5 + [_INT] * 4 + [_VP],
+    # x, weight_q, scale, bias, y, m, n, k, dtype, route (ops/quant.py's
+    # int8_route), stream (ops/quant.py's W8A16)
+    'dft_w8a16_linear': [_VP] * 5 + [_INT] * 5 + [_VP],
 }
 
 #: Kernel launches since import (or since a caller reset them to 0).

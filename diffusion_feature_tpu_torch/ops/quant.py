@@ -5,11 +5,16 @@ feature/components/models.py:158-163); the JAX package quantizes Flux's
 transformer projections and the T5 projections to symmetric per-output-channel
 int8 with an fp32 scale, and XLA fuses the dequantize into the dot's operand
 pipeline so that no full-precision copy of a weight exists.  Here that fused
-product is a kernel written by hand for Hopper, the W8A16 GEMM of
+product is written by hand for Hopper, the W8A16 kernels of
 ``csrc/w8a16.cuh`` (one library per type: ``w8a16_bf16.cu``, ``w8a16_fp16.cu``,
 ``w8a16_f32.cu``, built with the attention kernels by
 ``flash_attention.build``): ``y = x @ deq(q, s)^T + b`` with each int8 tile
-dequantized in shared memory, never in device memory.
+dequantized in shared memory or in registers, never in device memory.
+``int8_route`` picks the kernel of each call: in bf16/fp16 a warp-specialised
+TMA kernel (tiles of 128 or 256 rows) for more than ``STREAM_MAX_ROWS`` rows,
+a weight-streaming kernel for the few-row calls (the adaLN projections' batch
+rows), and the cp.async kernel for rows TMA cannot describe; in fp32 an FMA
+kernel.
 
 Layout: the port keeps PyTorch's (out, in) weight orientation, so
 ``weight_q`` is the transpose of JAX's ``kernel_q`` (in, out); ``scale`` is
@@ -32,6 +37,54 @@ from . import flash_attention as _fa
 
 #: Kernel launches since import (or since a caller reset them to 0).
 int8_launches = 0
+
+#: The W8A16 kernels, by the C entry's ``route``: the cp.async kernel (any
+#: shape; fp32's FMA kernel), the TMA kernel on tiles of 128 and of 256 rows
+#: of x, and the weight-streaming kernel.
+ROUTES = ('staged', 'tma128', 'tma256', 'streaming')
+#: The streaming kernel takes up to this many rows of x (two n8 tiles); on
+#: an H100 it beat the TMA kernel at every M up to 16 (0.0120 against
+#: 0.0326 ms at (2, 3072, 9216), 0.0303 against 0.0630 at (16, 3072, 18432):
+#: ``tools/torch_extract_ab.py --int8_routes``).
+STREAM_MAX_ROWS = 16
+#: Output columns of a tile of the TMA kernel, and the tiles of a cluster
+#: (neighbouring column tiles that share their x tile).
+TILE_COLS, CLUSTER = 128, 2
+#: A tile of 256 rows of x takes about this many times one of 128 rows
+#: (1.36 to 1.52 on an H100, the same sweep), so ``int8_route`` weighs the
+#: waves of 256-row tiles by it against the waves of 128-row ones.
+WIDE_TILE_COST = 1.5
+
+_sm_counts = {}
+
+
+def int8_route(m: int, n: int, k: int, dtype: torch.dtype, aligned: bool, sms: int) -> int:
+    """The index in ``ROUTES`` of the kernel that computes an (m, k) x (n, k)
+    W8A16 product in ``dtype`` on a card of ``sms`` SMs; ``aligned``: x and
+    the weight start on 16-byte boundaries.  fp32, and rows TMA cannot
+    describe (k not a multiple of 16, or a base not aligned), go to the
+    cp.async kernel; up to ``STREAM_MAX_ROWS`` rows to the streaming kernel;
+    more to the TMA kernel, on tiles of 256 or 128 rows of x, whichever
+    takes fewer waves of the card's SMs once a wave of 256-row tiles counts
+    ``WIDE_TILE_COST`` (the sweep's pick at every shape it timed)."""
+    if dtype == torch.float32 or k % 16 or not aligned:
+        return 0
+    if m <= STREAM_MAX_ROWS:
+        return 3
+
+    def cdiv(a, b):
+        return (a + b - 1) // b
+
+    def waves(rows):   # CTAs come in clusters of neighbouring column tiles
+        return cdiv(cdiv(m, rows) * cdiv(cdiv(n, TILE_COLS), CLUSTER) * CLUSTER, sms)
+    return 2 if WIDE_TILE_COST * waves(256) <= waves(128) else 1
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_counts[index]
 
 
 def quantize_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -100,9 +153,10 @@ def _check_cuda(x, weight_q, scale, bias):
 def int8_linear(x: torch.Tensor, weight_q: torch.Tensor, scale: torch.Tensor,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """W8A16: ``x (..., K) @ deq(weight_q (N, K), scale (N,))^T + bias`` in
-    x's dtype with fp32 sums, the dequantize in shared memory.  On the card
-    x is taken as contiguous (M, K) rows (a strided x is copied first);
-    the output is a new contiguous (..., N) tensor.  On the host: the twin."""
+    x's dtype with fp32 sums, the dequantize in shared memory or registers,
+    on the kernel ``int8_route`` picks.  On the card x is taken as
+    contiguous (M, K) rows (a strided x is copied first); the output is a
+    new contiguous (..., N) tensor.  On the host: the twin."""
     global int8_launches
     if _fa._on_host(x, weight_q, scale):
         return int8_linear_reference(x, weight_q, scale, bias)
@@ -116,15 +170,21 @@ def int8_linear(x: torch.Tensor, weight_q: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out.reshape(*lead, n)
-    if m * k >= 2 ** 31 or m * n >= 2 ** 31 or n * k >= 2 ** 31 or n > 65535 * 64:
+    route = int8_route(m, n, k, x.dtype, weight_q.data_ptr() % 16 == 0, _sm_count(x.device))
+    # the cp.async kernels' grids hold N in their second dimension (at most
+    # 65535 tiles of 64 columns in fp32, 128 in bf16/fp16); the others are 1-d
+    cols = 64 if x.dtype == torch.float32 else 128
+    if (m * k >= 2 ** 31 or m * n >= 2 ** 31 or n * k >= 2 ** 31
+            or (route == 0 and (n + cols - 1) // cols > 65535)):
         raise ValueError(f'int8_linear: ({m}, {k}) x ({n}, {k}) exceeds the launch limits')
     lib = _fa._lib('w8a16', x.dtype)
     err = lib.dft_w8a16_linear(x2.data_ptr(), weight_q.data_ptr(), scale.data_ptr(),
                                None if bias is None else bias.data_ptr(), out.data_ptr(),
-                               m, n, k, _fa._DTYPE_CODES[x.dtype], _fa._stream(x))
+                               m, n, k, _fa._DTYPE_CODES[x.dtype], route, _fa._stream(x))
     if err != 0:
         raise RuntimeError(f'int8_linear kernel launch failed: cudaError {err} for x '
-                           f'{tuple(x2.shape)} weight {tuple(weight_q.shape)} {x.dtype}')
+                           f'{tuple(x2.shape)} weight {tuple(weight_q.shape)} {x.dtype} '
+                           f'on the {ROUTES[route]} kernel')
     int8_launches += 1
     return out.reshape(*lead, n)
 

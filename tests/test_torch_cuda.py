@@ -813,18 +813,35 @@ def _w8a16_inputs(cuda, dtype, m, k, n, bias=True, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', list(_TOL), ids=str)
-@pytest.mark.parametrize('mkn,bias', [
-    ((37, 1000, 333), True),     # ragged M, K (not a multiple of 16) and N (odd)
-    ((2, 3072, 1000), True),     # the adaLN projections' two rows
-    ((300, 256, 128), False),    # whole tiles in N and K, no bias (T5's projections)
-    ((5, 100, 50), True),        # K not a multiple of 8: x staged element by element
-], ids=['ragged', 'm2', 'nobias', 'k100'])
-def test_w8a16_matches_twin(cuda, dtype, mkn, bias):
-    """The W8A16 kernel against its twin (the dequantize rounded as the
-    kernel rounds it; only the order of the fp32 sums differs), elementwise
-    and in relative L2, with one launch counted."""
+@pytest.mark.parametrize('mkn,bias,route', [
+    ((37, 1000, 333), True, 'staged'),     # ragged M, K (not a multiple of 16), N (odd)
+    ((2, 3072, 1000), True, 'streaming'),  # the adaLN projections' two rows
+    ((300, 256, 128), False, 'tma128'),    # whole tiles in N and K, no bias (T5's)
+    ((5, 100, 50), True, 'staged'),        # K not a multiple of 8: x staged by element
+    ((1, 3072, 1000), True, 'streaming'),  # one row
+    ((16, 512, 1000), True, 'streaming'),  # the streaming kernel's last M (two n8 tiles)
+    ((17, 512, 1000), True, 'tma128'),     # the first M of the TMA kernel
+    ((4, 400, 256), True, 'streaming'),    # K not a multiple of 64: a ragged last chunk
+    ((1279, 256, 3072), True, 'tma256'),   # 256-row tiles up to one wave of 132 SMs ...
+    ((1280, 256, 3072), True, 'tma256'),
+    ((1281, 256, 3072), True, 'tma128'),   # ... then 128-row ones
+    ((600, 512, 1000), True, 'tma128'),    # N not a multiple of 128 (or 256)
+    ((40, 256, 333), True, 'tma128'),      # odd N: a column tile of a cluster past N
+    ((200, 15360, 384), True, 'tma128'),   # Flux's longest K
+], ids=['ragged', 'm2', 'nobias', 'k100', 'm1', 'm16', 'm17', 'k400', 'm1279', 'm1280',
+        'm1281', 'n1000', 'n333', 'k15360'])
+def test_w8a16_matches_twin(cuda, dtype, mkn, bias, route):
+    """The W8A16 kernels against their twin (the dequantize rounded as the
+    kernels round it; only the order of the fp32 sums differs), elementwise
+    and in relative L2, with one launch counted, at the edges of each
+    kernel; ``route``: the kernel ``quant.int8_route`` gives the shape in
+    bf16 and fp16 on a card of 132 SMs (fp32 takes the cp.async kernel)."""
     from diffusion_feature_tpu_torch.ops import quant
     x, q, scale, b = _w8a16_inputs(cuda, dtype, *mkn, bias=bias)
+    if torch.cuda.get_device_properties(0).multi_processor_count == 132:
+        m, k, n = mkn
+        chosen = quant.ROUTES[quant.int8_route(m, n, k, dtype, True, 132)]
+        assert chosen == ('staged' if dtype == torch.float32 else route)
     quant.int8_launches = 0
     out = quant.int8_linear(x, q, scale, b)
     torch.cuda.synchronize()

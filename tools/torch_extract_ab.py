@@ -2,7 +2,8 @@
 """Time one path of the PyTorch port for one checkout of the repository.
 
     python3 tools/torch_extract_ab.py ROOT [--path xl|sd15_store|xl_store]
-    python3 tools/torch_extract_ab.py ROOT --kernels [--width D] [--dtype NAME]
+    python3 tools/torch_extract_ab.py ROOT --kernels [--width D] [--dtype NAME] [--only NAME]
+    python3 tools/torch_extract_ab.py ROOT --int8_routes
 
 Imports ``diffusion_feature_tpu_torch`` from ROOT, builds its kernels, and
 times one of ``chip_smoke.PATHS`` (default ``xl``: SDXL ``xl-practical`` at
@@ -29,6 +30,23 @@ JSON line also carries ROOT's ``ptxas`` report (registers and spills) of
 every kernel instance at those widths, from the build, when this call
 compiled it.
 
+``--kernels`` also times W8A16 (``quant.int8_linear``) in bf16 at every
+shape of ``chip_smoke.int8_phase2_shapes()`` (loops and graphs), and the
+JSON line carries the graph times summed over the launches of one int8
+Flux extract at 1024^2, batch 2 (``int8_per_extract_ms``: 495 launches) and
+of its ``encode_prompt`` (``int8_per_prompt_ms``: 168).  ``--only NAME``
+keeps the cases of one wrapper (``int8_linear``, ``flash_attention``, ...).
+
+``--int8_routes`` (ROOT with ``quant.ROUTES``) checks and times every
+W8A16 kernel of ROOT's bf16 library on its own, the entry point called with
+each route a shape can take, at the phase-2 shapes and at ``ROUTE_SWEEP``
+(the rows where the streaming and the TMA kernels meet, and where the
+256-row tile starts to fill a wave): per shape and route the worst
+error against the twin (and whether it is bit for bit the twin's), the
+graph time, the share of the bound, and ``F.linear`` on the dequantized
+weight beside them, one JSON line each (long output: send it to a
+file).
+
 ``--kernels`` also times what the training paths run: the backward
 (``flash_attention_bwd``, on B2's output and logsumexp) at ``BWD_SHAPES``
 in each shape's dtype, and the fp32 kernels (``FP32_SHAPES``): B1 and B2
@@ -47,6 +65,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 
 CALLS = 15
+#: --int8_routes: (M, K, N) beyond the phase-2 shapes, bf16, with a bias: M
+#: around the streaming kernel's limit at the adaLN widths, and M where the
+#: TMA kernel's 256-row tiles start to fill the card at Flux's and T5's widths
+ROUTE_SWEEP = [(m, 3072, n) for n in (9216, 18432) for m in (1, 4, 8, 12, 16, 17, 24, 32, 64)]
+ROUTE_SWEEP += [(m, 3072, 3072) for m in (128, 512, 1280, 1408, 2048, 4096)]
+ROUTE_SWEEP += [(m, 4096, 4096) for m in (1024, 1536, 2048)]
 #: the fp32 kernels (wrapper, shape): B1/B2 at ade_vpd's and train_unet's
 #: SD-1.5 levels 0 and 1 at 512^2 and SD-2.1's upcast store at 512^2, B3 at
 #: phase 2's store shapes and that store shape, B4 at phase 2's short shapes
@@ -59,10 +83,84 @@ FP32_SHAPES = [('flash_attention', (2, 8, 4096, 4096, 40)),
                *(('short_attention', s) for s in chip_smoke.SHORT_SHAPES)]
 
 
-def kernel_times(torch, fa, width=None, dtype_name=None) -> tuple:
+def int8_times(torch, loop, graph) -> dict:
+    """W8A16 through ``quant.int8_linear`` at every phase-2 shape in bf16,
+    into ``loop`` and ``graph``; returns the graph times summed over one
+    int8 Flux extract's and one encode_prompt's launches."""
+    from diffusion_feature_tpu_torch.models.registry import get_model_spec
+    from diffusion_feature_tpu_torch.ops import quant
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    by_shape = {}
+    for shape, bias in chip_smoke.int8_phase2_shapes():
+        x, q, scale, b = chip_smoke.int8_inputs(torch, gen, shape, torch.bfloat16, bias)
+        call = lambda: quant.int8_linear(x, q, scale, b)                  # noqa: E731
+        key = f'int8_linear {shape}{" +bias" if bias else ""}'
+        loop[key] = chip_smoke.time_ms(torch, call, runs=3)
+        graph[key] = by_shape[shape] = chip_smoke.graph_ms(torch, call)
+        del x, q, scale, b
+    spec = get_model_spec('flux')
+    vae_scale = 2 ** (len(spec.vae.block_out_channels) - 1)
+    extract = chip_smoke.flux_int8_calls(spec, 1024, 2, vae_scale)
+    prompt = chip_smoke.t5_int8_calls(spec.t5, spec.prompt_max_length)
+    return {'int8_per_extract_ms': sum(c * by_shape[s] for s, c in extract.items()),
+            'int8_per_extract_launches': sum(extract.values()),
+            'int8_per_prompt_ms': sum(c * by_shape[s] for s, c in prompt.items()),
+            'int8_per_prompt_launches': sum(prompt.values())}
+
+
+def int8_route_times(torch, fa) -> list:
+    """Prints one JSON line per (shape, route) of ``--int8_routes``: every
+    W8A16 kernel of ROOT's bf16 library called through its entry point with
+    that route, against the twin and timed (graphs), beside F.linear on the
+    dequantized weight; a route whose launch fails is recorded with its
+    error.  Returns the records."""
+    from diffusion_feature_tpu_torch.ops import quant
+    F = torch.nn.functional
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    lib = fa._lib('w8a16', torch.bfloat16)
+    tol = chip_smoke.TOL['bfloat16']
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = chip_smoke.int8_phase2_shapes() + [(s, True) for s in ROUTE_SWEEP]
+    records = []
+    for shape, bias in cases:
+        m, k, n = shape
+        x, q, scale, b = chip_smoke.int8_inputs(torch, gen, shape, torch.bfloat16, bias)
+        ref = quant.int8_linear_reference(x, q, scale, b)
+        chosen = quant.int8_route(m, n, k, torch.bfloat16, True, sms)
+        w = quant.dequantize_int8(q, scale, torch.bfloat16)
+        matmul_ms = chip_smoke.graph_ms(torch, lambda: F.linear(x, w, b))
+        del w
+        bound_ms, bound_by = chip_smoke.int8_bound(shape, 'bfloat16', bias)
+        routes = [0, 1, 2] + ([3] if m <= quant.STREAM_MAX_ROWS else [])
+        for route in routes:
+            out = torch.empty(m, n, dtype=torch.bfloat16, device='cuda')
+            run = lambda: lib.dft_w8a16_linear(  # noqa: E731
+                x.data_ptr(), q.data_ptr(), scale.data_ptr(), None if b is None else b.data_ptr(),
+                out.data_ptr(), m, n, k, fa._DTYPE_CODES[torch.bfloat16], route, fa._stream(x))
+            rec = {'shape': shape, 'bias': bias, 'route': quant.ROUTES[route],
+                   'chosen': route == chosen}
+            err = run()
+            torch.cuda.synchronize()
+            if err:
+                rec['error'] = err
+            else:
+                worst, ratio = chip_smoke.worst_ratio(torch, out, ref, tol, tol)
+                ratio, _ = chip_smoke.rel_l2_ratio(torch, out, ref, tol, ratio)
+                ms = chip_smoke.graph_ms(torch, run)
+                rec.update(max_abs_err=worst, worst_over_allowed=ratio,
+                           bit_equal=bool(torch.equal(out, ref)), ms=ms, matmul_ms=matmul_ms,
+                           bound_ms=bound_ms, bound_by=bound_by, share=bound_ms / ms)
+            print(json.dumps(rec), flush=True)
+            records.append(rec)
+        del x, q, scale, b, ref
+    return records
+
+
+def kernel_times(torch, fa, width=None, dtype_name=None, only=None) -> tuple:
     """({'<wrapper> (B,H,Sq,Sk,D)': ms per call in a loop of calls},
     {the same: ms per call in CUDA graphs}) in bf16, at head width ``width``
-    only where given; nothing where ``dtype_name`` names another dtype."""
+    only where given, of wrapper ``only`` only where given; nothing where
+    ``dtype_name`` names another dtype."""
     gen = torch.Generator(device='cuda').manual_seed(0)
     cli = [(1,) + shape[1:] for shape in chip_smoke.B1_SHAPES[:3]]
     loop, graph = {}, {}
@@ -72,6 +170,8 @@ def kernel_times(torch, fa, width=None, dtype_name=None) -> tuple:
                          ('flash_attention_with_lse', chip_smoke.STORE_SHAPES),
                          ('headmean_probs', chip_smoke.STORE_SHAPES),
                          ('short_attention', chip_smoke.SHORT_SHAPES)):
+        if only not in (None, name):
+            continue
         wrapper = getattr(fa, name)
         for b, h, sq, sk, d in shapes:
             if width is not None and d != width:
@@ -97,16 +197,17 @@ def split_inputs(torch, gen, shape, dtype, n):
             .reshape(b, s, h, d).transpose(1, 2) for s in lens]
 
 
-def train_times(torch, fa, width=None, dtype_name=None) -> tuple:
+def train_times(torch, fa, width=None, dtype_name=None, only=None) -> tuple:
     """({'<wrapper> <dtype> (B,H,Sq,Sk,D)': ms per call in a loop of calls},
     {the same in CUDA graphs}) for the backward at ``BWD_SHAPES`` and the
-    fp32 kernels at ``FP32_SHAPES``."""
+    fp32 kernels at ``FP32_SHAPES`` (of wrapper ``only`` where given)."""
     gen = torch.Generator(device='cuda').manual_seed(0)
     loop, graph = {}, {}
     cases = [('flash_attention_bwd', s, dt) for s, dt in chip_smoke.BWD_SHAPES]
     cases += [(name, s, 'float32') for name, s in FP32_SHAPES]
     for name, shape, dt in cases:
-        if (width is not None and shape[-1] != width) or dtype_name not in (None, dt):
+        if ((width is not None and shape[-1] != width) or dtype_name not in (None, dt)
+                or only not in (None, name)):
             continue
         dtype = getattr(torch, dt)
         scale = shape[-1] ** -0.5
@@ -139,6 +240,8 @@ def main() -> int:
     ap.add_argument('--kernels', action='store_true')
     ap.add_argument('--width', type=int, default=None)
     ap.add_argument('--dtype', choices=['bfloat16', 'float16', 'float32'], default=None)
+    ap.add_argument('--only', default=None)
+    ap.add_argument('--int8_routes', action='store_true')
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -148,15 +251,26 @@ def main() -> int:
     from diffusion_feature_tpu_torch.ops import flash_attention as fa
 
     log = fa.build()['log']
+    if args.int8_routes:
+        ptxas = [line for line in chip_smoke.ptxas_summary(log) if 'w8a16' in line]
+        records = int8_route_times(torch, fa)
+        print(json.dumps({'root': args.root, 'int8_route_records': len(records),
+                          'failed': sum('error' in r for r in records), 'ptxas': ptxas,
+                          'card': chip_smoke.card_line()}))
+        return 0
     if args.kernels:
-        loop, graph = kernel_times(torch, fa, args.width, args.dtype)
-        train_loop, train_graph = train_times(torch, fa, args.width, args.dtype)
+        loop, graph = kernel_times(torch, fa, args.width, args.dtype, args.only)
+        train_loop, train_graph = train_times(torch, fa, args.width, args.dtype, args.only)
         loop.update(train_loop)
         graph.update(train_graph)
+        sums = {}
+        if args.width is None and args.dtype in (None, 'bfloat16') and args.only in (
+                None, 'int8_linear'):
+            sums = int8_times(torch, loop, graph)
         tag = None if args.width is None else f'Li{args.width}E'
         ptxas = [line for line in chip_smoke.ptxas_summary(log) if tag is None or tag in line]
-        print(json.dumps({'root': args.root, 'loop_ms': loop, 'graph_ms': graph, 'ptxas': ptxas,
-                          'card': chip_smoke.card_line()}))
+        print(json.dumps({'root': args.root, 'loop_ms': loop, 'graph_ms': graph, **sums,
+                          'ptxas': ptxas, 'card': chip_smoke.card_line()}))
         return 0
     fe, prompts, images = chip_smoke.open_path(torch, args.path)
     _, times = chip_smoke.extract_times(torch, fe, prompts, images, CALLS,
