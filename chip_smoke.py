@@ -265,6 +265,49 @@ Phases (each prints its numbers on lines of its own):
      copied over) equal to the first run's member 0; ms per member,
      training rows per second, predict ms per image, the reader's GB/s
      over the dumps (just written: a warm read).
+ 22. the mesh (parallel/mesh.py): two rank processes on cuda:0 joined over
+     gloo, which carries CUDA tensors through the host (NCCL takes one
+     rank per card); after phase 21 this process runs the single-device
+     references, frees its models and spawns them for (a), (b), (d)'s
+     PixArt and (e); (c) and (d)'s Flux run in phase 16, after 16f, while
+     its tree exists (the card's machine counts every byte written to its
+     disk against a 45 GiB limit, so the ~34 GB tree is written once and
+     lives no longer).  dp's one departure from one device is the batch
+     its kernels and GEMMs see (each rank runs its rows), so (a) and (e)
+     hold each rank to a one-device witness that runs every extract one
+     row at a time from the whole batch's noise (rows_one_at_a_time), and
+     show a planted fault beyond the same bound.  (a) the CLI --dp 2 on
+     the 'xl' path over MESH_CLI_IMAGES images at batch 2, each rank two
+     extracts at batch 1 (its 142 B1 launches the --dp 1 run's count), the
+     dump tree named as --dp 1's, each file within MESH_ROWS_REL of the
+     witness's and within TAP_REL_TOL of --dp 1's, and the tree of
+     --batch_size 1 (each row its own noise, the fault) beyond
+     MESH_ROWS_REL of the witness's; (b) SDXL 1024^2 at
+     tp=2, 'xl-practical' plus a q and an FFN inner tap and the up_self
+     store: phase 6's 35/36/36 launches per rank on 5 and 10 heads, every
+     tap and 'attn' within TAP_REL_TOL of tp=1; (c) the int8 Flux at tp=2
+     from phase 16d's tree (transformer_8bit=True: the auto rule is off
+     under tp): each rank's resident transformer the bytes the config
+     gives for its cut (tp_resident_bytes), 58 B1 and the W8A16 launches at the
+     shard shapes flux_int8_calls(tp=2) derives, with the kernel
+     int8_route picks for each, every tap's cosine against 16f's at least
+     MESH_COSINE; (d) sp=2 on PixArt-Sigma 1024^2 bf16 (B1 at (2, 16, 2048,
+     4096, 72)) and on the int8 Flux of the auto rule (B1 at 2560 and 2304
+     queries against 4608 keys, W8A16 at the token shards), each within
+     TAP_REL_TOL of phase 14a's and 16f's features; (e) train_segmentation
+     --dp 2 on seg_configs/ade_full.json (xl + pgv2), 2 steps, TF32 off,
+     against the --dp 1 witness: the first step's loss within
+     MESH_LOSS_REL, its gradients (after the dp average) within
+     MESH_GRAD_REL and what it changed in the BatchNorm running
+     statistics within MESH_STATS_REL relative L2, every loss within
+     MESH_LOSS_REL of plain --dp 1's, the parameters whose first gradient
+     is fp32 noise moved at most the steps' rates; the planted fault, rank
+     0's own first gradients (the step with the average left out), beyond
+     MESH_GRAD_REL (each run's 8.7 GB checkpoint goes to a CountingSink,
+     not to the disk); each sub-phase with its seconds and each rank's
+     peak GiB; (f) one NCCL world of size 1 through make_mesh(dp=1): its sd15_store extract
+     torch.equal to the plain one, and an all_reduce on the card.  The
+     ranks' launches and shapes join the kernels line.
 Phase 2 also holds B2 and B3 in fp32 at phase 11's store shape (the fp32
 kernels, timed against the fp32 non-tensor peak), B3 in fp32 on head-split
 views at every STORE_SHAPES entry and B4 in fp32 at every SHORT_SHAPES
@@ -283,7 +326,10 @@ HunyuanDiT's d=88 at the same shapes (a 176-byte head stride; B2 and B3
 have no caller at d=88, their numbers are the kernels line's
 'no_caller_shapes'), each in bf16, fp32 and fp16.  B1 is held in bf16 at
 Flux's four joint-attention shapes (FLUX_B1_SHAPES) on contiguous q/k/v,
-the layout the concatenation and RoPE hand it.
+the layout the concatenation and RoPE hand it, and at phase 22's head and
+token shards (TP_FLUX_B1_SHAPES, SP_FLUX_B1_SHAPES); B1, B2 and B3 at
+SDXL's head shards (TP_B1_SHAPES, TP_STORE_SHAPES) and B1 at PixArt's
+token shard (SP_B1_SHAPES), on head-split views.
 Every path runs with all four counts set to 0 and expects 0 B4 launches.
 Launches are recorded with their dtype, and the kernels line sums each
 (shape, dtype)'s numbers.
@@ -622,6 +668,49 @@ PIXEL_IMAGES = 3
 PIXEL_ARGV = ['--category', 'horse_21', '--train_num', '2', '--model_num', '2',
               '--max_epochs', '1', '--device', 'cuda']
 
+# phase 22: the mesh on two ranks of cuda:0 over gloo.  22b: phase 6's
+# request plus a q and an FFN inner tap; 22e: the two-model ensemble
+MESH_XL_LAYERS = {**dict.fromkeys(XL_PRACTICAL, True),
+                  'up-level1-repeat0-vit-block0-self-q': True,
+                  'up-level1-repeat0-vit-block1-ffn-inner': True}
+MESH_CLI_IMAGES = 4
+MESH_SEG_CONFIG, MESH_SEG_ITERS = 'seg_configs/ade_full.json', 2
+MESH_TIMEOUT = 240          # seconds a rank waits in one collective
+MESH_RANK_SECONDS = 600     # the ranks' time from the spawn to their exit
+MESH_COSINE = 0.99          # 22c: each tap of the int8 Flux at tp=2 against tp=1
+MESH_LOSS_REL = 1e-3        # 22e: each step's loss, --dp 2 against --dp 1
+# 22a: each dumped file of --dp 2 against the one-device witness (the same
+# rows at batch 1 from the same noise), relative L2; the fault (each row its
+# own noise) must exceed it
+MESH_ROWS_REL = 1e-3
+# 22e: the first step, --dp 2 against the witness, relative L2.  Its
+# gradients (after the dp average): 5.2e-2 measured on an H100, where the
+# loss agrees to 1.8e-5 (fp32 rounding in the head, which the Lovasz loss
+# may amplify: its gradient is piecewise constant in the sort order of the
+# pixels' errors); the bf16 batch-size effect (the witness against plain
+# --dp 1) reads 0.137, and a rank's own gradients (the step with the
+# average left out, the planted fault) 52.5.
+MESH_GRAD_REL = 0.2
+# what the first step changed in the BatchNorm running statistics
+# (E[x^2] - E[x]^2 from sums in another order: 1.24e-3 measured)
+MESH_STATS_REL = 1e-2
+# 22e: a parameter whose largest first-step gradient is at most this share
+# of the largest parameter's has a gradient of fp32 noise
+MESH_NOISE_GRAD = 1e-6
+MESH_SEG_LR = 1.6e-4        # train_segmentation's default --lr
+# the shapes the mesh hands B1 (and B2/B3): SDXL's heads at tp=2, PixArt
+# and Flux at sp=2 (each rank's queries against every key; Flux's dual
+# blocks keep the 512 text queries whole, its single blocks split the joint
+# 4608), and Flux's heads at tp=2
+TP_B1_SHAPES = [(2, 5, 4096, 4096, 64), (2, 10, 1024, 1024, 64)]
+TP_STORE_SHAPES = [(2, 10, 1024, 1024, 64), (2, 5, 4096, 4096, 64)]
+SP_B1_SHAPES = [(2, 16, 2048, 4096, 72)]
+SP_FLUX_B1_SHAPES = [(2, 24, 2560, 4608, 128), (2, 24, 2304, 4608, 128)]
+TP_FLUX_B1_SHAPES = [(2, 12, 4608, 4608, 128)]
+#: what phases 14a and 16f leave for phase 22: their single-device
+#: features, launches and the int8 transformer's resident bytes
+MESH_REFS = {}
+
 
 def card_line() -> str:
     out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
@@ -874,13 +963,17 @@ def compare(torch, fa, kernel, shape, dtype_name, gen, split=False):
             'bound_ms': bound_ms, 'bound_by': bound_by, **extra}
 
 
-def flux_int8_calls(spec, img_size, batch, vae_scale):
+def flux_int8_calls(spec, img_size, batch, vae_scale, tp=1, sp=1):
     """{(M, K, N): launches} of W8A16 in one int8 Flux forward, from the
     config: per dual block the two adaLN projections (M = batch rows),
     q/k/v and the output projection of each stream, and each stream's MLP;
     per single block its adaLN projection, the MLP's up projection, q/k/v
     and the joint output projection; the context embedder once (the JAX
-    package's quantized projections, models/flux.py)."""
+    package's quantized projections, models/flux.py).  On one rank of a
+    mesh (phase 22): ``tp`` cuts the column-parallel layers' N and the
+    row-parallel ones' K (the adaLN projections and the context embedder
+    stay whole), ``sp`` the image tokens of the dual blocks and the joint
+    tokens of the single blocks (parallel/mesh.py)."""
     cfg = spec.dit
     image = (img_size // vae_scale // 2) ** 2
     dim, mlp, text = cfg.inner_dim, int(cfg.inner_dim * cfg.mlp_ratio), spec.prompt_max_length
@@ -888,16 +981,17 @@ def flux_int8_calls(spec, img_size, batch, vae_scale):
 
     def add(shape, n):
         calls[shape] = calls.get(shape, 0) + n
-    for rows in (batch * image, batch * text):          # the dual blocks' two streams
-        add((rows, dim, dim), 4 * cfg.num_layers)
-        add((rows, dim, mlp), cfg.num_layers)
-        add((rows, mlp, dim), cfg.num_layers)
+    for rows in (batch * image // sp, batch * text):    # the dual blocks' two streams
+        add((rows, dim, dim // tp), 3 * cfg.num_layers)
+        add((rows, dim // tp, dim), cfg.num_layers)
+        add((rows, dim, mlp // tp), cfg.num_layers)
+        add((rows, mlp // tp, dim), cfg.num_layers)
     add((batch, dim, 6 * dim), 2 * cfg.num_layers)
-    joint = batch * (image + text)
+    joint = batch * (image + text) // sp
     add((batch, dim, 3 * dim), cfg.num_single_layers)
-    add((joint, dim, mlp), cfg.num_single_layers)
-    add((joint, dim, dim), 3 * cfg.num_single_layers)
-    add((joint, dim + mlp, dim), cfg.num_single_layers)
+    add((joint, dim, mlp // tp), cfg.num_single_layers)
+    add((joint, dim, dim // tp), 3 * cfg.num_single_layers)
+    add((joint, (dim + mlp) // tp, dim), cfg.num_single_layers)
     add((batch * text, cfg.joint_attention_dim, dim), 1)
     return calls
 
@@ -2148,6 +2242,8 @@ def check_pixart(torch, fa, attn_ops, card, shapes, runs):
     extractor is freed before the next is built (T5-XXL is ~9.5 GB)."""
     fe, prompts, images, first, gib = check_dit_path(
         torch, fa, attn_ops, card, 'pixart_sigma', shapes, runs, 'phase 14a')
+    MESH_REFS['pixart_sigma'] = cpu_feats(first)
+    MESH_REFS['pixart_counts'] = {**runs['pixart_sigma'], 'flash_attention_bwd': 0}
     with tempfile.TemporaryDirectory(prefix='chip_smoke_pixart_') as tree:
         check_dit_tree(torch, fa, attn_ops, card, fe, prompts, images, first, gib, tree,
                        shapes, runs, PIXART_TREE_PATH, PIXART_TEXT_SHARDS, 14)
@@ -2183,8 +2279,9 @@ def check_hunyuan(torch, fa, attn_ops, card, shapes, runs):
 
 def check_flux(torch, fa, attn_ops, card, shapes, runs):
     """Phase 16: Flux.1-dev 1024^2 (a), its tree written, the source freed,
-    the tree loaded and the CLI on it (d), with the store (b), at 512^2 (c),
-    the generation CLI and a kernel-vs-twin sample at 512^2 (e).  Each
+    the tree loaded and the CLI on it (d), the tree in int8 (f) and on two
+    ranks (phase 22c and 22d's Flux part), with the store (b), at 512^2
+    (c), the generation CLI and a kernel-vs-twin sample at 512^2 (e).  Each
     extractor (~34 GB: the 11.9 B-parameter transformer and T5-XXL in bf16)
     is freed before the next is built."""
     fe, prompts, images, first, gib = check_dit_path(
@@ -2196,6 +2293,7 @@ def check_flux(torch, fa, attn_ops, card, shapes, runs):
                        shapes, runs, FLUX_TREE_PATH, FLUX_TEXT_SHARDS, 16,
                        FLUX_TRANSFORMER_SHARDS)
         check_flux_int8(torch, fa, attn_ops, card, tree, images, first, shapes, runs)
+        check_mesh_flux(torch, fa, attn_ops, card, shapes, runs, tree)
     del first
     torch.cuda.empty_cache()
     for name, label in (('flux_store', 'phase 16b'), ('flux_512', 'phase 16c')):
@@ -2299,6 +2397,9 @@ def check_flux_int8(torch, fa, attn_ops, card, tree, images, bf16_feats, shapes,
     if recorded != derived:
         raise RuntimeError(f'phase 16f: W8A16 shapes {recorded} != derived {derived}')
     check_feats(torch, feats, PATHS['flux']['feats'], 'phase 16f')
+    MESH_REFS['flux_int8'] = cpu_feats(feats)
+    MESH_REFS['flux_int8_bytes'] = resident_bytes(fe.unet)
+    MESH_REFS['flux_b1'] = runs['flux_int8']['flash_attention']
     for key in sorted(bf16_feats):
         rel, cos = rel_cos(feats[key], bf16_feats[key])
         print(f'  phase 16f int8 vs bf16 (phase 16a, the same draws), {key}: rel_l2={rel:.4e} '
@@ -3178,6 +3279,621 @@ def check_scarce(torch, fa, attn_ops, card, shapes, runs):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ phase 22
+def mesh_counted(torch, fa, attn_ops, fn):
+    """``fn()`` with every count set to 0 just before and read just after,
+    each kernel call recorded; returns (result, counts, recorded calls,
+    seconds, this process's peak GiB)."""
+    log = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    with recording_all(fa, attn_ops, log):
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = all_counts(fa)
+    return result, counts, log, seconds, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def cpu_feats(feats):
+    return {k: v.detach().cpu() for k, v in feats.items()}
+
+
+def resident_bytes(module):
+    return sum(t.numel() * t.element_size() for t in module.state_dict().values())
+
+
+def mesh_cli_argv(work, out, dp, batch=2):
+    args = PATHS[CLI_PATH]['args']
+    return ['--version', args['version'], '--img_size', str(args['img_size']), '--layer',
+            args['layer'], '--batch_size', str(batch), '--prompt', 'a photo of a cat', '--input_dir',
+            os.path.join(work, 'imgs', '*.png'), '--output_dir', os.path.join(work, out),
+            '--device', 'cuda:0', '--dp', str(dp)]
+
+
+def mesh_seg_argv(work, dp):
+    dirs = {(split, kind): os.path.join(work, 'seg', split, kind)
+            for split in ('train', 'val') for kind in ('img', 'lab')}
+    return seg_argv(MESH_SEG_CONFIG, dirs, os.path.join(work, f'seg_dp{dp}'), MESH_SEG_ITERS,
+                    val=False) + ['--dp', str(dp)]
+
+
+def seg_state(seg):
+    return {k: v.float().cpu() for k, v in seg.state_dict().items()}
+
+
+@contextlib.contextmanager
+def rows_one_at_a_time(torch):
+    """Every extract of the block runs its batch one row at a time, each
+    row from the whole batch's noise: on one device, what each rank of a
+    dp mesh that holds one row of the batch computes."""
+    from diffusion_feature_tpu_torch.facade import FeatureExtractor
+    real = FeatureExtractor._extract
+
+    def by_row(self, prompts, batch_size, image, rows, **kwargs):
+        lo, hi = rows
+        if hi - lo < 2:
+            return real(self, prompts, batch_size, image, rows, **kwargs)
+        state = self._noise_gen.get_state()
+        parts = []
+        for i in range(lo, hi):
+            self._noise_gen.set_state(state)
+            parts.append(real(self, prompts, batch_size, image[i - lo:i - lo + 1], (i, i + 1),
+                              **kwargs))
+        return {k: torch.cat([part[k] for part in parts]) for k in parts[0]}
+    FeatureExtractor._extract = by_row
+    try:
+        yield
+    finally:
+        FeatureExtractor._extract = real
+
+
+@contextlib.contextmanager
+def first_step_recorded(record):
+    """train_segmentation's first step recorded into ``record``, on the
+    host: the gradients it took, after the dp average ('grad'); under dp
+    this rank's own gradients before the average ('local': what the step
+    would take with the average left out, phase 22e's planted fault); what
+    the step changed in the BatchNorm running statistics ('stats'); and,
+    once the block ends, how far the steps moved each parameter whose
+    first gradient is fp32 noise ('noise_moved')."""
+    from diffusion_feature_tpu_torch import train_segmentation
+    real_step, real_average = train_segmentation.train_step, train_segmentation.average_gradients
+
+    def host(named):
+        return {f'head.{k}': v.detach().to('cpu', copy=True).float() for k, v in named}
+
+    def step(seg, opt, *args, **kwargs):
+        first = 'grad' not in record
+        if first:
+            record['seg'] = seg
+            buffers = host(seg.head.named_buffers())
+            params = host(seg.head.named_parameters())
+        result = real_step(seg, opt, *args, **kwargs)
+        if first:
+            record['grad'] = host((k, p.grad) for k, p in seg.head.named_parameters()
+                                  if p.grad is not None)
+            record['stats'] = {k: v - buffers[k] for k, v in host(seg.head.named_buffers()).items()
+                               if '.running_' in k}
+            record['initial'] = {k: params[k] for k in noise_params(record['grad'])}
+        return result
+
+    def average(params, dp):
+        if 'local' not in record:
+            record['local'] = {id(p): p.grad.detach().to('cpu', copy=True).float()
+                               for p in params if p.grad is not None}
+        real_average(params, dp)
+    train_segmentation.train_step, train_segmentation.average_gradients = step, average
+    try:
+        yield
+    finally:
+        train_segmentation.train_step = real_step
+        train_segmentation.average_gradients = real_average
+    named = dict(record.pop('seg').head.named_parameters())
+    if 'local' in record:
+        names = {id(p): f'head.{k}' for k, p in named.items()}
+        record['local'] = {names[i]: g for i, g in record['local'].items() if i in names}
+    record['noise_moved'] = {
+        k: float((named[k[len('head.'):]].detach().float().cpu() - v).abs().max())
+        for k, v in record.pop('initial').items()}
+
+
+def noise_params(grad):
+    """The parameters whose first gradient is fp32 noise: a largest
+    magnitude above 0 and at most MESH_NOISE_GRAD of the largest
+    parameter's (a bias whose every path meets a training-mode BatchNorm:
+    mathematically 0)."""
+    top = max(float(g.abs().max()) for g in grad.values())
+    return [k for k, g in sorted(grad.items()) if 0 < float(g.abs().max()) <= MESH_NOISE_GRAD * top]
+
+
+def rel_l2_over(torch, ours, ref, keys):
+    """Relative L2 of the dict ``ours`` against ``ref`` over ``keys``
+    together, summed on the card."""
+    num = den = 0.0
+    for k in keys:
+        a, b = ours[k].to('cuda', torch.float64), ref[k].to('cuda', torch.float64)
+        num += float((a - b).pow(2).sum())
+        den += float(b.pow(2).sum())
+    return (num / den) ** 0.5
+
+
+def grad_fingerprint(torch, grad):
+    """Each gradient's sum and sum of squares in fp64: equal on every rank
+    exactly when the ranks hold the same gradients."""
+    return {k: (float(g.double().sum()), float(g.double().pow(2).sum())) for k, g in grad.items()}
+
+
+def mesh_xl(torch, mesh):
+    """Phase 22b's extractor, prompt and images (phase 6's request plus a q
+    and an FFN inner tap)."""
+    from diffusion_feature_tpu_torch import FeatureExtractor
+    fe = FeatureExtractor(MESH_XL_LAYERS, 'xl', img_size=1024, attention=['up_self'],
+                          dtype='bfloat16', device='cuda', seed=0, mesh=mesh)
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    images = torch.rand(2, 3, 1024, 1024, generator=gen, device='cuda') * 2 - 1
+    return fe, fe.encode_prompt('a photo of a cat'), images
+
+
+def mesh_flux(torch, tree, mesh, **kwargs):
+    """Phase 16f's int8 Flux on phase 16d's tree over ``mesh``, with its
+    prompt and images (open_path's)."""
+    from diffusion_feature_tpu_torch import FeatureExtractor
+    fe = FeatureExtractor(**PATHS['flux']['args'], dtype='bfloat16', device='cuda', seed=0,
+                          weights=tree, mesh=mesh, **kwargs)
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    images = torch.rand(2, 3, 1024, 1024, generator=gen, device='cuda') * 2 - 1
+    return fe, fe.encode_prompt('a photo of a cat'), images
+
+
+class CountingSink:
+    """A file that keeps only the count of the bytes written to it: where
+    phase 22e's trainer saves its 8.7 GB checkpoints (the card's machine
+    counts every byte written to its disk against a limit)."""
+
+    def __init__(self):
+        self.nbytes = 0
+
+    def write(self, data):
+        self.nbytes += len(data)
+        return len(data)
+
+    def flush(self):
+        pass
+
+
+@contextlib.contextmanager
+def checkpoints_counted(torch, sink):
+    """``torch.save`` into ``sink`` for the duration of the block."""
+    real = torch.save
+    torch.save = lambda obj, f, *args, **kwargs: real(obj, sink, *args, **kwargs)
+    try:
+        yield
+    finally:
+        torch.save = real
+
+
+def mesh_rank(rank, world, port, work, names, flux_tree):
+    """A phase-22 rank process, one of ``world`` on cuda:0 joined over gloo
+    (NCCL takes one rank per card): the sub-phases ``names`` in turn, each
+    with every count set to 0 just before and read just after, this rank's
+    numbers and features written to ``{work}/rank{rank}.pt``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from diffusion_feature_tpu_torch import FeatureExtractor, extract_feature, train_segmentation
+    from diffusion_feature_tpu_torch.ops import attention as attn_ops
+    from diffusion_feature_tpu_torch.ops import flash_attention as fa
+    from diffusion_feature_tpu_torch.parallel.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    fa.build()   # the parent's libraries, by their source hashes: no nvcc here
+    dist.init_process_group('gloo', init_method=f'tcp://localhost:{port}', world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=MESH_TIMEOUT))
+    out = {}
+
+    def run(name, fn):
+        dist.barrier()
+        result, counts, log, seconds, peak = mesh_counted(torch, fa, attn_ops, fn)
+        out[name] = {'counts': counts, 'log': log, 'seconds': seconds, 'peak': peak,
+                     **(result or {})}
+
+    def extract_on(fe, prompts, images):
+        return lambda: {'feats': cpu_feats(extract(fe, prompts, images))}
+
+    def train():
+        sink, record = CountingSink(), {}
+        with checkpoints_counted(torch, sink), first_step_recorded(record):
+            result = train_segmentation.main(mesh_seg_argv(work, 2))
+        if rank:   # the all-reduce hands every rank the same gradients: rank 0's are
+            # compared whole, the others' by fingerprint; rank 0's own are the fault's
+            del record['local']
+            record['grad'] = grad_fingerprint(torch, record['grad'])
+        return {'losses': result['losses'], 'checkpoint_bytes': sink.nbytes, **record}
+
+    try:
+        for name in names:
+            t0 = time.perf_counter()
+            if name == '22a':      # the CLI, --dp 2
+                run(name, lambda: extract_feature.main(mesh_cli_argv(work, 'dp2', 2)))
+            elif name == '22b':    # tp=2 on SDXL
+                fe, prompts, images = mesh_xl(torch, make_mesh(tp=2))
+                out['22b_bytes'] = resident_bytes(fe.unet)
+                run(name, extract_on(fe, prompts, images))
+            elif name == '22c':    # tp=2 on the int8 Flux: explicit, the auto rule is off
+                fe, prompts, images = mesh_flux(torch, flux_tree, make_mesh(tp=2),
+                                                transformer_8bit=True)
+                out['22c_bytes'] = resident_bytes(fe.unet)
+                run(name, extract_on(fe, prompts, images))
+            elif name == '22d_pixart':   # sp=2 on PixArt-Sigma, bf16
+                fe = FeatureExtractor(**PATHS['pixart_sigma']['args'], dtype='bfloat16',
+                                      device='cuda', seed=0, mesh=make_mesh(sp=2))
+                gen = torch.Generator(device='cuda').manual_seed(1)
+                images = torch.rand(2, 3, 1024, 1024, generator=gen, device='cuda') * 2 - 1
+                run(name, extract_on(fe, fe.encode_prompt('a photo of a cat'), images))
+            elif name == '22d_flux':     # sp=2 on the int8 Flux of the auto rule
+                fe, prompts, images = mesh_flux(torch, flux_tree, make_mesh(sp=2))
+                out['22d_flux_int8'] = fe._int8_denoiser
+                run(name, extract_on(fe, prompts, images))
+            else:                  # 22e: the trainer, --dp 2 on ade_full.json
+                run(name, train)
+            out[name]['wall'] = time.perf_counter() - t0
+            fe = None
+            torch.cuda.empty_cache()
+        torch.save(out, os.path.join(work, f'rank{rank}.pt'))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(torch, work, names, flux_tree=None):
+    """Two rank processes of ``mesh_rank`` running ``names``; returns each
+    rank's results once both exited 0, else raises."""
+    import multiprocessing
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context('spawn')
+    procs = [ctx.Process(target=mesh_rank, args=(r, 2, port, work, names, flux_tree))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=MESH_RANK_SECONDS)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    print(f'phase 22 two ranks on one card ({", ".join(names)}): '
+          f'{time.perf_counter() - t0:.1f} s from the spawn to the last exit, exit codes '
+          f'{codes}', flush=True)
+    if codes != [0, 0]:
+        raise RuntimeError(f'phase 22 {names}: rank exit codes {codes}')
+    return [torch.load(os.path.join(work, f'rank{r}.pt'), weights_only=False) for r in range(2)]
+
+
+def report_ranks(ranks, name, label, shapes, runs, want):
+    """Each rank's seconds, peak GiB and launches of sub-phase ``name``,
+    held to ``want``; its launches and recorded calls join the kernels
+    line."""
+    for r, res in enumerate(ranks):
+        sub = res[name]
+        runs[f'mesh_{name}_r{r}'], shapes[f'mesh_{name}_r{r}'] = sub['counts'], sub['log']
+        print(f'phase {name} rank {r} (two ranks on one card): {label}: {sub["seconds"]:.1f} s '
+              f'({sub["wall"]:.1f} s with the build), peak {sub["peak"]:.2f} GiB, launches '
+              f'{sub["counts"]} (expected {want})', flush=True)
+        if sub['counts'] != want:
+            raise RuntimeError(f'phase {name} rank {r}: launches {sub["counts"]}')
+
+
+def rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def tp_resident_bytes(torch, spec, rank, tp):
+    """The bytes of rank ``rank``'s int8 Flux transformer at ``tp``, from the
+    config: the module built on the meta device, cut by parallel/mesh.py
+    for that rank, summed."""
+    import dataclasses
+    from diffusion_feature_tpu_torch.models.flux import FluxTransformer2D
+    from diffusion_feature_tpu_torch.parallel import mesh
+    axes = {name: mesh.Axis(name, None, rank if name == 'tp' else 0, tp if name == 'tp' else 1)
+            for name in mesh.AXES}
+    fake = mesh.Mesh({name: a.size for name, a in axes.items()},
+                     {name: a.rank for name, a in axes.items()}, axes, 'none')
+    with torch.device('meta'):
+        module = FluxTransformer2D(dataclasses.replace(spec.dit, quantize_int8=True))
+    module.to(dtype=torch.bfloat16)
+    mesh.cut_parameters_(module, mesh.parallelize(module, fake))
+    return resident_bytes(module)
+
+
+def check_mesh_flux(torch, fa, attn_ops, card, shapes, runs, tree):
+    """Phase 22c and 22d's Flux part, run in phase 16 after 16f while its
+    tree exists (the card's machine counts every byte written to its disk,
+    so the ~34 GB tree is written once and lives no longer): the int8 Flux
+    at tp=2 (22c) and sp=2 (22d) on two ranks, against phase 16f's
+    features."""
+    from diffusion_feature_tpu_torch.models.registry import get_model_spec
+    quant = _quant()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_mesh_flux_') as work:
+        ranks = spawn_ranks(torch, work, ('22c', '22d_flux'), tree)
+    spec = get_model_spec('flux')
+    vae_scale = 2 ** (len(spec.vae.block_out_channels) - 1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, label, kw, b1 in (
+            ('22c', "the int8 Flux 1024^2 tp=2 from phase 16d's tree", dict(tp=2),
+             TP_FLUX_B1_SHAPES),
+            ('22d_flux', 'the int8 Flux 1024^2 sp=2 (the auto rule)', dict(sp=2),
+             SP_FLUX_B1_SHAPES)):
+        derived = flux_int8_calls(spec, 1024, 2, vae_scale, **kw)
+        report_ranks(ranks, name, label, shapes, runs,
+                     {**only_b1(MESH_REFS['flux_b1']), 'int8_linear': sum(derived.values()),
+                      'flash_attention_bwd': 0})
+        routes = {s: quant.ROUTES[quant.int8_route(s[0], s[2], s[1], torch.bfloat16, True, sms)]
+                  for s in derived}
+        print(f'  phase {name} W8A16 shard shapes (M, K, N): calls {derived}; the kernel '
+              f'int8_route picks for each: {routes}', flush=True)
+        for r, res in enumerate(ranks):
+            recorded = shape_counts(res[name]['log'])
+            attn = shape_counts(res[name]['log'], 'flash_attention')
+            rel, cos = zip(*(rel_cos(res[name]['feats'][k], v)
+                             for k, v in MESH_REFS['flux_int8'].items()))
+            print(f'  phase {name} rank {r}: B1 shapes {attn}; against phase 16f\'s single '
+                  f'device, relative L2 {[f"{x:.3e}" for x in rel]}, cosine '
+                  f'{[f"{x:.6f}" for x in cos]}', flush=True)
+            if (recorded != derived or not set(b1) <= set(attn)
+                    or min(cos) < MESH_COSINE or (name == '22d_flux' and max(rel) > TAP_REL_TOL)):
+                raise RuntimeError(f'phase {name} rank {r}: W8A16 {recorded}, B1 {attn}, '
+                                   f'relative {rel}, cosine {cos}')
+    for r, res in enumerate(ranks):
+        want = tp_resident_bytes(torch, spec, r, 2)
+        ratio = res['22c_bytes'] / MESH_REFS['flux_int8_bytes']
+        print(f'  phase 22c rank {r}: resident transformer {res["22c_bytes"] / 2 ** 30:.3f} GiB, '
+              f'{ratio:.3f} of phase 16f\'s {MESH_REFS["flux_int8_bytes"] / 2 ** 30:.3f} GiB: '
+              f'the layers the rules cut in half, the adaLN projections, embedders and norms '
+              f'whole ({want / 2 ** 30:.3f} GiB from the config); 22d int8 by the auto rule: '
+              f'{res["22d_flux_int8"]} ({card})', flush=True)
+        if res['22c_bytes'] != want or not res['22d_flux_int8']:
+            raise RuntimeError(f'phase 22c/d rank {r}: {res["22c_bytes"]} bytes, derived {want}, '
+                               f'int8 {res["22d_flux_int8"]}')
+    torch.cuda.empty_cache()
+
+
+def mesh_dp_references(torch, fa, attn_ops, work):
+    """Phase 22a's and 22e's one-device runs: the CLI --dp 1 at batch 2,
+    its witness (rows_one_at_a_time) and --batch_size 1 (the fault), each
+    into its own tree; the trainer --dp 1 and its witness, each with its
+    first step recorded and what the steps changed."""
+    from diffusion_feature_tpu_torch import extract_feature
+    refs = {}
+    for out, batch, label in (('dp1', 2, 'at batch 2'),
+                              ('rows', 2, 'at batch 2, its rows one at a time (the witness)'),
+                              ('bs1', 1, 'at batch 1, each row its own noise (the fault)')):
+        with rows_one_at_a_time(torch) if out == 'rows' else contextlib.nullcontext():
+            _, counts, _, _, seconds, _ = run_main(
+                torch, fa, attn_ops, extract_feature.main, mesh_cli_argv(work, out, 1, batch))
+        refs.setdefault('22a', counts)
+        print(f'phase 22a reference: the CLI --dp 1 over {MESH_CLI_IMAGES} images {label}: '
+              f'{seconds:.1f} s, launches {counts}', flush=True)
+    for tag, label in (('22e', 'plain'), ('22e_rows', 'its witness, rows one at a time')):
+        sink, record = CountingSink(), {}
+        with (checkpoints_counted(torch, sink), first_step_recorded(record),
+              rows_one_at_a_time(torch) if tag == '22e_rows' else contextlib.nullcontext()):
+            result, counts, _, seconds, _ = run_trainer(torch, fa, attn_ops,
+                                                        mesh_seg_argv(work, 1))
+        refs[tag] = {'losses': result['losses'], **record}
+        refs.setdefault('22e_counts', counts)
+        print(f'phase 22e reference ({label}): train_segmentation --dp 1 on {MESH_SEG_CONFIG}, '
+              f'{MESH_SEG_ITERS} steps: {seconds:.1f} s, losses {result["losses"]}, launches '
+              f'{counts}, its checkpoint {sink.nbytes / 1e9:.3f} GB counted, not written',
+              flush=True)
+        del result, record
+        torch.cuda.empty_cache()
+    return refs
+
+
+def read_tree(root):
+    import numpy as np
+    return {os.path.relpath(os.path.join(d, f), root):
+            np.load(os.path.join(d, f)).astype(np.float32)
+            for d, _, fs in os.walk(root) for f in fs}
+
+
+def tree_rel(torch, tree, ref):
+    """The worst file's relative L2 of ``tree`` against ``ref``."""
+    return max(rel_l2(torch.from_numpy(tree[n]), torch.from_numpy(v)) for n, v in ref.items())
+
+
+def check_mesh_cli(torch, ranks, work, shapes, runs, refs):
+    """Phase 22a: each rank's rows of each batch of 2, two extracts at
+    batch 1; the --dp 2 tree against the witness's and --dp 1's."""
+    report_ranks(ranks, '22a', f'the CLI --dp 2 over {MESH_CLI_IMAGES} images at batch 2',
+                 shapes, runs, refs['22a'])
+    for r, res in enumerate(ranks):
+        batches = {s[0] for n, s, _ in res['22a']['log'] if n == 'flash_attention'}
+        if batches != {1}:
+            raise RuntimeError(f'phase 22a rank {r}: B1 batches {batches}, expected 1')
+    trees = {out: read_tree(os.path.join(work, out)) for out in ('dp1', 'rows', 'bs1', 'dp2')}
+    names = sorted(trees['dp1'])
+    if any(sorted(tree) != names for tree in trees.values()):
+        raise RuntimeError(f'phase 22a: the trees name {[sorted(t) for t in trees.values()]}')
+    ours, witness, fault = (tree_rel(torch, trees[o], trees['rows']) for o in ('dp2', 'rows',
+                                                                              'bs1'))
+    plain, cause = (tree_rel(torch, trees[o], trees['dp1']) for o in ('dp2', 'rows'))
+    print(f'phase 22a tree: {len(names)} files named as --dp 1 names them; worst relative L2 '
+          f'against the witness (rows one at a time, the whole batch\'s noise) {ours:.3e} '
+          f'(allowed {MESH_ROWS_REL:g}), the fault (--batch_size 1, each row its own noise) '
+          f'{fault:.3e} (must exceed {MESH_ROWS_REL:g}); against --dp 1 at batch 2 {plain:.3e} '
+          f'(allowed {TAP_REL_TOL:g}), the witness against it {cause:.3e} (bf16 at batch 1 '
+          f'against batch 2)', flush=True)
+    if ours > MESH_ROWS_REL or fault <= MESH_ROWS_REL or plain > TAP_REL_TOL:
+        raise RuntimeError(f'phase 22a: witness {ours}, fault {fault}, --dp 1 {plain}')
+
+
+def check_mesh_trainer(torch, ranks, shapes, runs, refs):
+    """Phase 22e: --dp 2 against the --dp 1 witness.  The first step: its
+    loss within MESH_LOSS_REL, the gradients it took within
+    MESH_GRAD_REL, what it changed in the BatchNorm running statistics
+    within MESH_STATS_REL; the planted fault (rank 0's own gradients, which
+    the step would take with the average left out) beyond MESH_GRAD_REL;
+    every loss within MESH_LOSS_REL of plain --dp 1's; the parameters
+    whose first gradient is fp32 noise moved at most the steps' rates."""
+    report_ranks(ranks, '22e', f'train_segmentation --dp 2 on {MESH_SEG_CONFIG}, '
+                 f'{MESH_SEG_ITERS} steps', shapes, runs, refs['22e_counts'])
+    witness, plain = refs['22e_rows'], refs['22e']
+    rate = MESH_SEG_ITERS * MESH_SEG_LR
+
+    loss = abs(witness['losses'][0] - plain['losses'][0]) / abs(plain['losses'][0])
+    grad = rel_l2_over(torch, witness['grad'], plain['grad'], sorted(plain['grad']))
+    stat = rel_l2_over(torch, witness['stats'], plain['stats'], sorted(plain['stats']))
+    print(f'  phase 22e: {len(witness["grad"])} parameter tensors, {len(witness["stats"])} '
+          f'BatchNorm statistics, {len(witness["noise_moved"])} parameters with a first '
+          f'gradient of fp32 noise ({sorted(witness["noise_moved"])}); the witness against '
+          f'plain --dp 1 (bf16 features at batch 1 against 2): the first step\'s loss '
+          f'{loss:.3e}, gradients {grad:.3e}, statistics {stat:.3e}', flush=True)
+    failed = []
+    grad0 = ranks[0]['22e']['grad']   # the other ranks' by fingerprint
+    grad = rel_l2_over(torch, grad0, witness['grad'], sorted(witness['grad']))
+    for r, res in enumerate(ranks):
+        sub = res['22e']
+        same = r == 0 or sub['grad'] == grad_fingerprint(torch, grad0)
+        loss = abs(sub['losses'][0] - witness['losses'][0]) / abs(witness['losses'][0])
+        stat = rel_l2_over(torch, sub['stats'], witness['stats'], sorted(witness['stats']))
+        losses = max(abs(a - b) / abs(b) for a, b in zip(sub['losses'], plain['losses']))
+        worst = max(sub['noise_moved'].values(), default=0.0)
+        print(f'  phase 22e rank {r}: losses {sub["losses"]}, the witness\'s '
+              f'{witness["losses"]}, plain --dp 1\'s {plain["losses"]}; the first step against '
+              f'the witness: loss {loss:.3e} (allowed {MESH_LOSS_REL:g}), gradients {grad:.3e} '
+              f'(allowed {MESH_GRAD_REL:g}; every rank\'s equal to rank 0\'s: {same}), '
+              f'statistics {stat:.3e} (allowed {MESH_STATS_REL:g}); every loss against plain '
+              f'--dp 1 {losses:.3e} (allowed {MESH_LOSS_REL:g}); the noise-gradient parameters '
+              f'{sorted(sub["noise_moved"])} moved at most {worst:.3e} (allowed {rate:g}); TF32 '
+              f'off; checkpoint {sub["checkpoint_bytes"] / 1e9:.3f} GB counted', flush=True)
+        if (not same or loss > MESH_LOSS_REL or losses > MESH_LOSS_REL or grad > MESH_GRAD_REL
+                or stat > MESH_STATS_REL or worst > rate
+                or sorted(sub['noise_moved']) != sorted(witness['noise_moved'])):
+            failed.append(f'rank {r}: same gradients {same}, loss {loss}, losses {losses}, '
+                          f'gradients {grad}, statistics {stat}, noise parameters {worst}')
+    fault = rel_l2_over(torch, ranks[0]['22e']['local'], witness['grad'], sorted(witness['grad']))
+    print(f'  phase 22e planted fault: rank 0\'s own first gradients, which the step would take '
+          f'with the average left out, against the witness {fault:.3e} (must exceed '
+          f'{MESH_GRAD_REL:g})', flush=True)
+    if fault <= MESH_GRAD_REL:
+        failed.append(f'the planted fault reads {fault}, within the bound')
+    if failed:
+        raise RuntimeError(f'phase 22e: {failed}')
+
+
+def check_mesh(torch, fa, attn_ops, card, shapes, runs):
+    """Phase 22: the mesh over two ranks on cuda:0 (gloo), each a process of
+    its own, against the single-device runs (22c and the Flux part of 22d
+    ran in phase 16, check_mesh_flux); then one NCCL world of size 1.  The
+    single-device references run first in this process (22a's and 22e's,
+    mesh_dp_references; 22b's tp=1 extract; 22d holds phase 14a's
+    features), then this process frees its memory and spawns the ranks."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_mesh_') as work:
+        with contextlib.chdir(work):
+            write_images(MESH_CLI_IMAGES, 512)
+            write_seg_pairs(os.path.join(work, 'seg'))
+        refs = mesh_dp_references(torch, fa, attn_ops, work)
+        fe, prompts, images = mesh_xl(torch, None)
+        refs['22b'] = cpu_feats(extract(fe, prompts, images))
+        refs['22b_bytes'] = resident_bytes(fe.unet)
+        del fe
+        torch.cuda.empty_cache()
+        print(f'phase 22 references: {time.perf_counter() - t_phase:.1f} s; '
+              f'{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB still allocated here',
+              flush=True)
+        ranks = spawn_ranks(torch, work, ('22a', '22b', '22d_pixart', '22e'))
+        check_mesh_cli(torch, ranks, work, shapes, runs, refs)
+
+    # 22b: tp=2 on SDXL, phase 6's launches on each rank at head-shard shapes
+    report_ranks(ranks, '22b', "SDXL 1024^2 tp=2 'xl-practical' + q and FFN inner taps, "
+                 'up_self store', shapes, runs,
+                 {**dict(zip(WRAPPERS, PATHS['xl_store']['launches'])), 'short_attention': 0,
+                  'flash_attention_bwd': 0})
+    for r, res in enumerate(ranks):
+        heads = sorted({s[1] for n, s, _ in res['22b']['log'] if s[-1] == 64})
+        rel = {k: rel_l2(res['22b']['feats'][k], v) for k, v in refs['22b'].items()}
+        print(f'  phase 22b rank {r}: heads per call {heads} (of 10 and 20), resident U-Net '
+              f'{res["22b_bytes"] / 2 ** 30:.3f} GiB of {refs["22b_bytes"] / 2 ** 30:.3f}; '
+              f'relative L2 against tp=1 { {k: f"{x:.3e}" for k, x in rel.items()} } (allowed '
+              f'{TAP_REL_TOL:g})', flush=True)
+        if (set(res['22b']['feats']) != set(refs['22b']) or heads != [5, 10]
+                or max(rel.values()) > TAP_REL_TOL):
+            raise RuntimeError(f'phase 22b rank {r}: heads {heads}, relative {rel}')
+
+    # 22d: sp=2 on PixArt-Sigma, each rank's queries against every key
+    report_ranks(ranks, '22d_pixart', 'PixArt-Sigma 1024^2 bf16 sp=2', shapes, runs,
+                 MESH_REFS['pixart_counts'])
+    for r, res in enumerate(ranks):
+        attn = shape_counts(res['22d_pixart']['log'], 'flash_attention')
+        rel = [rel_l2(res['22d_pixart']['feats'][k], v)
+               for k, v in MESH_REFS['pixart_sigma'].items()]
+        print(f'  phase 22d_pixart rank {r}: B1 shapes {attn}; relative L2 against phase 14a '
+              f'{[f"{x:.3e}" for x in rel]} (allowed {TAP_REL_TOL:g})', flush=True)
+        if not set(SP_B1_SHAPES) <= set(attn) or max(rel) > TAP_REL_TOL:
+            raise RuntimeError(f'phase 22d_pixart rank {r}: B1 {attn}, relative {rel}')
+
+    # 22e: the trainer, --dp 2 against --dp 1's witness
+    check_mesh_trainer(torch, ranks, shapes, runs, refs)
+    del ranks
+    torch.cuda.empty_cache()
+
+    # 22f: NCCL, one rank
+    check_nccl(torch)
+    print(f'phase 22: {time.perf_counter() - t_phase:.1f} s ({card})', flush=True)
+
+
+def check_nccl(torch):
+    """Phase 22f: an NCCL world of size 1 through make_mesh(dp=1): its
+    extract torch.equal to the plain extract, and one all_reduce on the
+    card through NCCL."""
+    import socket
+    import torch.distributed as dist
+    from diffusion_feature_tpu_torch import FeatureExtractor
+    from diffusion_feature_tpu_torch.parallel.mesh import make_mesh
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group('nccl', init_method=f'tcp://localhost:{port}', world_size=1,
+                            rank=0)
+    try:
+        mesh = make_mesh(dp=1)
+        args = PATHS['sd15_store']['args']
+        feats = []
+        for m in (mesh, None):
+            fe = FeatureExtractor(**args, dtype='bfloat16', device='cuda', seed=0, mesh=m)
+            gen = torch.Generator(device='cuda').manual_seed(1)
+            images = torch.rand(2, 3, 512, 512, generator=gen, device='cuda') * 2 - 1
+            feats.append(extract(fe, fe.encode_prompt('a photo of a cat'), images))
+            del fe
+        total = torch.stack([v.float().sum() for v in feats[0].values()])
+        summed = total.clone()
+        dist.all_reduce(summed)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(feats[0][k], feats[1][k]) for k in feats[1])
+        print(f'phase 22f NCCL world of 1 ({dist.get_backend()}), {mesh}: sd15_store extract '
+              f'torch.equal to the plain extract {equal}; all_reduce over NCCL '
+              f'{torch.equal(summed, total)}', flush=True)
+        if not equal or not torch.equal(summed, total) or set(feats[0]) != set(feats[1]):
+            raise RuntimeError('phase 22f: the NCCL mesh extract differs')
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3191,6 +3907,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f'card: {card}', flush=True)
+
+    t_start = time.perf_counter()
+
+    def done(phases):
+        print(f'[{time.perf_counter() - t_start:.1f} s] {phases} done', flush=True)
 
     # 1. build
     info = fa.build()
@@ -3256,10 +3977,19 @@ def main() -> int:
             compare(torch, fa, 'short_attention', shape, dtype_name, gen, split=True)
     for kernel, shape in FP16_SHAPES:
         compare(torch, fa, kernel, shape, 'float16', gen, split=True)
-    # Flux hands B1 contiguous q/k/v (joined and rotated): its shapes so
-    for shape in FLUX_B1_SHAPES:
+    # Flux hands B1 contiguous q/k/v (joined and rotated): its shapes so,
+    # phase 22's head and token shards too
+    for shape in FLUX_B1_SHAPES + SP_FLUX_B1_SHAPES + TP_FLUX_B1_SHAPES:
         numbers['flash_attention', shape, 'bfloat16'] = compare(
             torch, fa, 'flash_attention', shape, 'bfloat16', gen)
+    # phase 22's head shards (SDXL at tp=2) and PixArt's token shards (sp=2)
+    # on the head-split views the paths hand the kernels
+    for kernel, mesh_shapes in (('flash_attention', TP_B1_SHAPES + SP_B1_SHAPES),
+                                ('flash_attention_with_lse', TP_STORE_SHAPES),
+                                ('headmean_probs', TP_STORE_SHAPES)):
+        for shape in mesh_shapes:
+            numbers[kernel, shape, 'bfloat16'] = compare(torch, fa, kernel, shape, 'bfloat16',
+                                                         gen, split=True)
     # the fp32 store kernels at the shape SD-2.1's upcast hands them (phase 11)
     for kernel in ('flash_attention_with_lse', 'headmean_probs'):
         for shape in FP32_STORE_SHAPES:
@@ -3279,6 +4009,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f'phase 2 done: {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB still allocated '
           '(what phases 3 to 7 count in their peak beside their own)', flush=True)
+    done('phases 1 and 2')
 
     # 3 and 4: SDXL single-step extraction (the port's first slice) and its
     # timing; 5: path A, SD-1.5 with the attention store; 6: path B, the
@@ -3342,6 +4073,8 @@ def main() -> int:
         del fe, feats
         torch.cuda.empty_cache()
 
+    done('phases 3 to 6 and 8 to 11, 18')
+
     # 7. the CLI, on phase 8's tree
     try:
         shapes['cli'] = []
@@ -3355,20 +4088,32 @@ def main() -> int:
     check_control(torch, fa, attn_ops, card, fe15, shapes, runs)
     del fe15
     torch.cuda.empty_cache()
+    done('phases 7, 12 and 13')
 
-    # 14. PixArt; 15. HunyuanDiT; 16. Flux; 17. DeepFloyd IF
+    # 14. PixArt; 15. HunyuanDiT; 16. Flux (and phase 22's Flux part while
+    # its tree exists); 17. DeepFloyd IF
     check_pixart(torch, fa, attn_ops, card, shapes, runs)
+    done('phase 14')
     check_hunyuan(torch, fa, attn_ops, card, shapes, runs)
+    done('phase 15')
     check_flux(torch, fa, attn_ops, card, shapes, runs)
+    done('phase 16 (22c, 22d on Flux)')
     check_if(torch, fa, attn_ops, card, shapes, runs)
+    done('phase 17')
 
     # 19. training: the backward kernel, the segmentation trainer on
     # ade_sdxl and ade_vpd (prompt tuning), train_unet
     check_training(torch, fa, attn_ops, card, shapes, runs, numbers, gen)
+    done('phase 19')
 
     # 20. correspondence on config_sdxl and config_xl_t; 21. label-scarce
     check_correspondence(torch, fa, attn_ops, card, shapes, runs)
     check_scarce(torch, fa, attn_ops, card, shapes, runs)
+    done('phases 20 and 21')
+
+    # 22. the mesh: two ranks on the card over gloo, then NCCL alone
+    check_mesh(torch, fa, attn_ops, card, shapes, runs)
+    done('phase 22')
 
     # the kernels line: per kernel, the launches of every path and the sum
     # over those launches of each (shape, dtype)'s numbers from phase 2 (one
@@ -3435,6 +4180,7 @@ def main() -> int:
               f'kernel {entry["ms"]:.3f} ms, twin {entry["plain_ms"]:.3f} ms, '
               f'library {entry["library_ms"]}, bound {entry["bound_ms"]:.3f} ms over those calls')
 
+    done('the kernels line')
     print(f'card: {card}')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

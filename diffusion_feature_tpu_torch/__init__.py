@@ -6,7 +6,8 @@ store, generation, ControlNets, checkpoints, layer enumeration, and the
 CLIs (``python -m diffusion_feature_tpu_torch.extract_feature``,
 ``generate_with_extraction``); the downstream tasks in ``tasks/`` with
 their CLIs ``train_segmentation``, ``task_corres`` (SPair correspondence)
-and ``task_pixel`` (label-scarce pixel classification).  Imports torch and
+and ``task_pixel`` (label-scarce pixel classification); on one device or
+on a dp/sp/tp mesh of ranks (``parallel/mesh.py``).  Imports torch and
 never jax.
 """
 

@@ -56,6 +56,13 @@ class _Conditioning:
             f.name: cat(getattr(self, f.name), getattr(neg, f.name))
             for f in dataclasses.fields(self)})
 
+    def rows(self, lo: int, hi: int) -> '_Conditioning':
+        """Batch rows [lo, hi) of every tensor field (a dp rank's)."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name)[lo:hi] if isinstance(getattr(self, f.name),
+                                                               torch.Tensor)
+            else getattr(self, f.name) for f in dataclasses.fields(self)})
+
     def requires_grad(self) -> bool:
         """Whether a tensor field requires grad (prompt tuning's trainable
         embeddings)."""

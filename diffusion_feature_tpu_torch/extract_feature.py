@@ -6,10 +6,21 @@
 
 The flags, defaults, input naming, prompt handling and on-disk layouts of
 the JAX package's ``extract_feature.py`` (the reference CLI's surface,
-reference extract_feature.py:15-148), plus one flag, ``--device`` (default
-``cuda``; ``cpu`` runs the kernels' plain twins).  Flags whose feature is
-not ported yet are parsed and raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+reference extract_feature.py:15-148), plus ``--device`` (default
+``cuda``; ``cpu`` runs the kernels' plain twins).
+
+Several devices: ``--dp/--tp/--sp`` above 1 take one process per rank,
+``torchrun --nproc_per_node <dp*sp*tp> -m
+diffusion_feature_tpu_torch.extract_feature --dp 2 ...`` (each process on
+``cuda:<LOCAL_RANK>`` when ``--device cuda``; NCCL there, gloo on the
+CPU), or processes that joined a group of the caller's backend before
+calling ``main`` (gloo for ranks that share one card).  The
+mesh is ``parallel.mesh.make_mesh(dp, tp, sp)`` of the launched group;
+without one of dp*sp*tp ranks ``make_mesh`` raises ValueError.
+``--batch_size`` rounds up to a multiple of dp, as in the JAX CLI.  Under
+dp each rank reads and writes only its rows of each batch (the dumps are
+never gathered, and name each image as the one-device run does); under
+tp and sp the rank of tp and sp coordinate 0 in each dp row writes.
 
 A trailing batch shorter than ``--batch_size`` runs at its own size: eager
 PyTorch compiles nothing per shape, so the JAX CLI's padding of that batch
@@ -32,7 +43,7 @@ from .facade import FeatureExtractor
 from .io.dump import save_batch
 from .io.prefetch import PrefetchLoader
 from .native import AsyncDumpWriter
-from .roadmap import not_ported
+from .parallel.mesh import init_launched, make_mesh
 
 
 def _strict_bool(s):
@@ -77,17 +88,20 @@ def build_parser():
     parser.add_argument('--use_original_filename', action='store_true')
     parser.add_argument('--split', type=str, default='train')
     parser.add_argument('--sample_name_first', action='store_true')
-    # weights; parallelism is parsed, not ported yet
+    # weights; parallelism (one process per rank: torchrun)
     parser.add_argument('--weights', type=str, default=None,
                         help='local diffusers checkpoint dir (default: random init)')
     parser.add_argument('--weights_variant', type=str, default=None,
                         help="weight-set variant of a checkpoint dir ('fp16', 'bf16', 'main')")
     parser.add_argument('--dp', type=int, default=1,
-                        help='data-parallel devices (only 1 is ported)')
+                        help='data-parallel ranks: each extracts and writes its rows of '
+                             'every batch')
     parser.add_argument('--tp', type=int, default=1,
-                        help='tensor-parallel devices (only 1 is ported)')
+                        help="tensor-parallel ranks: the denoiser's projections are cut "
+                             'over them')
     parser.add_argument('--sp', type=int, default=1,
-                        help='sequence-parallel devices (only 1 is ported)')
+                        help="sequence-parallel ranks: the DiTs' tokens are split over them "
+                             '(pixart, hunyuan, flux; composes with --dp/--tp)')
     parser.add_argument('--transformer_8bit', type=_strict_bool,
                         default=None, metavar='{true,false}',
                         help='int8 weight-only flux transformer; default auto: on for flux '
@@ -105,7 +119,9 @@ def build_parser():
     return parser
 
 
-def main(argv=None):
+def main(argv=None, group=None):
+    """Run the CLI on ``argv``; ``group``: the process group of a
+    ``--dp/--tp/--sp`` run's ranks (default: every launched rank)."""
     args = build_parser().parse_args(argv)
     os.makedirs(args.output_dir, exist_ok=True)
     print(f'Run folder: {args.output_dir}')
@@ -121,9 +137,18 @@ def main(argv=None):
             f.write(json.dumps(layer_record))
         return
 
+    mesh = None
     if args.dp > 1 or args.tp > 1 or args.sp > 1:
-        raise not_ported('--dp/--tp/--sp above 1 (extraction over several devices)',
-                         'Multi-GPU')
+        args.device = init_launched('gloo' if args.device == 'cpu' else 'nccl', args.device)
+        mesh = make_mesh(dp=args.dp, tp=args.tp, sp=args.sp, group=group)
+        if args.batch_size % args.dp:
+            new_bs = -(-args.batch_size // args.dp) * args.dp
+            print(f'note: --batch_size {args.batch_size} does not divide --dp {args.dp}; '
+                  f'rounding up to {new_bs} so batches shard over dp', file=sys.stderr)
+            args.batch_size = new_bs
+    if args.device.startswith('cuda:'):
+        import torch
+        torch.cuda.set_device(args.device)
 
     df = FeatureExtractor(
         resolve_layer_config(args.layer),
@@ -140,7 +165,9 @@ def main(argv=None):
         weights_variant=args.weights_variant,
         transformer_8bit=args.transformer_8bit,
         validate_layers=not args.no_validate_layers,
+        mesh=mesh,
     )
+    writes = mesh is None or mesh.writes
 
     # input list (reference :68-75)
     from PIL import Image
@@ -170,8 +197,12 @@ def main(argv=None):
     if writer.is_native:
         print('native async dump writer active')
 
-    # double-buffered input pipeline: decode ahead of the device
-    loader = PrefetchLoader(imgs, args.batch_size,
+    # double-buffered input pipeline: decode ahead of the device; under dp
+    # each rank decodes only its rows of each batch
+    batches = [list(range(i, min(i + args.batch_size, len(imgs))))
+               for i in range(0, len(imgs), args.batch_size)]
+    rows = [range(b[0] + lo, b[0] + hi) for b in batches for lo, hi in [df.dp_rows(len(b))]]
+    loader = PrefetchLoader([imgs[j] for r in rows for j in r], [len(r) for r in rows],
                             lambda p: Image.open(p).convert('RGB'))
 
     profiler = None
@@ -192,28 +223,29 @@ def main(argv=None):
 
     i, start, seconds = 0, None, None
     try:
-        for _, sublist in loader:
+        for batch, mine, (_, sublist) in zip(batches, rows, loader):
             if start is None:
                 start = time.perf_counter()
-            features = df.extract(
-                prompts, len(sublist), sublist,
+            features = df.extract_rows(
+                prompts, len(batch), sublist,
                 t=args.t,
                 denoising_from=args.denoising_from,
                 use_control=args.control is not None,
                 use_ddim_inversion=args.use_ddim_inversion,
             )
-            save_batch(
-                features, args.output_dir,
-                batch_start_index=i,
-                original_names=names[i:i + len(sublist)],
-                split=args.split,
-                use_original_filename=args.use_original_filename,
-                sample_name_first=args.sample_name_first,
-                aggregate_output=args.aggregate_output,
-                nested=args.nested_input_dir,
-                writer=writer,
-            )
-            i += len(sublist)
+            if writes and sublist:
+                save_batch(
+                    features, args.output_dir,
+                    batch_start_index=mine.start,
+                    original_names=names[mine.start:mine.stop],
+                    split=args.split,
+                    use_original_filename=args.use_original_filename,
+                    sample_name_first=args.sample_name_first,
+                    aggregate_output=args.aggregate_output,
+                    nested=args.nested_input_dir,
+                    writer=writer,
+                )
+            i += len(batch)
             print(f'{i}/{len(imgs)}')
     finally:
         # dumps already submitted must land on disk, and the trace must

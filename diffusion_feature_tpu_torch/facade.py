@@ -76,7 +76,7 @@ from .models.t5 import T5Config, T5EncoderModel, t5_checkpoint_state
 from .models.unet2d import UNet2DConditionModel, UNetConfig
 from .models.unet_if import IFUNet, IFUNetConfig
 from .models.vae import AutoencoderKL, VAEConfig
-from .roadmap import not_ported
+from .parallel.mesh import Mesh, cut_parameters_, has_sp, has_tp, parallelize
 from .schedulers.diffusion import (DDPMScheduler, DPMSolverMultistepScheduler,
                                    EulerDiscreteScheduler, make_scheduler, scalar_like)
 from .schedulers.flow_match import FlowMatchEulerDiscreteScheduler, calculate_shift
@@ -139,11 +139,14 @@ def _adapt_spec_to_checkpoint(spec: ModelSpec, weights: str) -> ModelSpec:
 
 
 def _int8_spec(spec: ModelSpec, weights: Optional[str], offline_lora: Optional[str],
-               t5_8bit: Optional[bool], transformer_8bit: Optional[bool]) -> ModelSpec:
+               t5_8bit: Optional[bool], transformer_8bit: Optional[bool],
+               tensor_parallel: bool = False) -> ModelSpec:
     """``spec`` with the int8 flags of the T5 and of Flux's transformer set
-    by the JAX facade's rules (facade.py:253-294, without the bundle and the
-    mesh): None turns the T5's on for ``flux`` with ``weights``, and the
-    transformer's for ``flux`` with ``weights`` and no ``offline_lora``;
+    by the JAX facade's rules (facade.py:253-300, without the bundle): None
+    turns the T5's on for ``flux`` with ``weights``, and the transformer's
+    for ``flux`` with ``weights``, no ``offline_lora`` and no
+    ``tensor_parallel`` (a tp mesh cuts the weights instead; dp and sp keep
+    each rank's whole transformer, so the rule stays on there);
     True without ``weights`` (int8 layers hold quantized checkpoint weights)
     or, for the transformer, with ``offline_lora`` raises ValueError."""
     if spec.t5 is not None:
@@ -155,7 +158,7 @@ def _int8_spec(spec: ModelSpec, weights: Optional[str], offline_lora: Optional[s
             spec = dataclasses.replace(spec, t5=dataclasses.replace(spec.t5, quantize_int8=True))
     if spec.family == 'flux':
         use = (transformer_8bit if transformer_8bit is not None
-               else bool(weights) and not offline_lora)
+               else bool(weights) and not offline_lora and not tensor_parallel)
         if use and offline_lora:
             raise ValueError('transformer_8bit=True cannot be combined with offline_lora: LoRA '
                              'deltas merge into full-precision weights, which int8 layers do '
@@ -229,9 +232,17 @@ class FeatureExtractor:
     weights); prompt tuning through it gets its input gradient.  With
     ``external_model`` the source's choice holds and its int8 tensors are
     shared.
-    mesh: the JAX facade's keyword; None or False (its default) pass, and any
-    other value raises ``NotImplementedError`` naming the ROADMAP.md item
-    that ports it.
+    mesh: a ``parallel.mesh.Mesh`` (``make_mesh(dp=, tp=, sp=)`` in every
+    rank's process), or None or False for one device.  dp: each rank runs
+    its rows of the batch (a batch that dp does not divide runs whole on
+    every rank) from the whole batch's noise, and ``extract`` and
+    ``sample`` return the whole batch on every rank; ``extract_rows``
+    returns a rank's own rows.  tp: the denoiser's projections are cut
+    (``parallel/mesh.py``); each rank holds its part, from the random init
+    or the checkpoint, and the taps come back whole.  sp: the DiTs' tokens
+    are split between blocks.  Other values raise TypeError; gradients
+    (``train_unet``, prompt tuning) take dp alone (ValueError under tp or
+    sp).
     """
 
     def __init__(self, layer, version: str, device='cuda', dtype: str = 'bfloat16',
@@ -243,8 +254,15 @@ class FeatureExtractor:
                  seed: int = 0, attn_store_sizes: Optional[Tuple[int, int]] = None,
                  validate_layers: bool = True, train_unet: bool = False,
                  external_model=None, mesh=None, t5_8bit=None, transformer_8bit=None):
-        if mesh is not None and mesh is not False:
-            raise not_ported(f'FeatureExtractor(mesh={mesh!r})', 'Multi-GPU')
+        if mesh is False:
+            mesh = None
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f'mesh must be a parallel.mesh.Mesh (make_mesh(...)), None or '
+                            f'False, got {type(mesh).__name__}')
+        self.mesh = mesh
+        if train_unet and (has_tp(mesh) or has_sp(mesh)):
+            raise ValueError('train_unet=True takes a dp mesh alone: gradients do not flow '
+                             'through the tensor- and sequence-parallel collectives')
         if weights and os.path.isfile(os.path.join(weights, 'tpu_bundle.json')):
             raise ValueError(f'{weights} is a deployment bundle of the JAX package; the port '
                              'loads the diffusers checkpoint dir it was exported from instead')
@@ -269,7 +287,8 @@ class FeatureExtractor:
                 raise ValueError(f'{weights} holds a DeepFloyd IF U-Net; load it with '
                                  "version='if' (or 'test-if')")
         if external_model is None:
-            self.spec = _int8_spec(self.spec, weights, offline_lora, t5_8bit, transformer_8bit)
+            self.spec = _int8_spec(self.spec, weights, offline_lora, t5_8bit, transformer_8bit,
+                                   has_tp(mesh))
         if train_unet and self._int8_denoiser:
             raise ValueError('train_unet=True needs a full-precision denoiser: no gradient '
                              'reaches int8 weights (pass transformer_8bit=False)')
@@ -313,20 +332,24 @@ class FeatureExtractor:
             return denoiser(spec.unet if spec.family in _UNET_FAMILIES else spec.dit, self.taps,
                             self._attn_sizes, categories)
 
-        def build(make, component, adapt=None):
+        def build(make, component, adapt=None, parallel=None):
             if weights:
-                return self._load_component(make, weights, weights_variant, component, adapt)
-            return random_module(make, self.device, self.dtype, init_gen)
+                return self._load_component(make, weights, weights_variant, component, adapt,
+                                            parallel)
+            return random_module(make, self.device, self.dtype, init_gen, parallel)
 
+        #: {key: cut} of the denoiser's tensors on this rank (tp)
+        self._cuts = {}
         if external_model is not None:
             self._share_models(external_model, make_denoiser)
         else:
             self.unet = build(make_denoiser,
-                              'unet' if spec.family in _UNET_FAMILIES else 'transformer')
+                              'unet' if spec.family in _UNET_FAMILIES else 'transformer',
+                              parallel=self._parallel if self._model_parallel else None)
             self.vae = None if spec.vae is None else build(lambda: AutoencoderKL(spec.vae), 'vae')
             self.text_encoders, self.tokenizers = self._build_text_encoders(build, weights)
         if offline_lora:
-            apply_lora_to_module(self.unet, offline_lora, offline_lora_filename)
+            apply_lora_to_module(self.unet, offline_lora, offline_lora_filename, self._cuts)
         if self.train_unet:
             # the reference hands the U-Net to the optimizer
             # (feature/diffusion_feature.py:87-89)
@@ -377,6 +400,18 @@ class FeatureExtractor:
         return encoders, tokenizers
 
     @property
+    def _model_parallel(self) -> bool:
+        """Whether the mesh cuts the denoiser (tp) or its tokens (sp)."""
+        return has_tp(self.mesh) or has_sp(self.mesh)
+
+    def _parallel(self, module):
+        """Cut the denoiser ``module`` (on the meta device) for this rank of
+        the mesh; its cuts are kept in ``_cuts`` and returned."""
+        self._cuts = parallelize(module, self.mesh)
+        cut_parameters_(module, self._cuts)
+        return self._cuts
+
+    @property
     def _int8_denoiser(self) -> bool:
         return bool(getattr(self.spec.dit, 'quantize_int8', False))
 
@@ -393,7 +428,8 @@ class FeatureExtractor:
             return device
         for name, ours, theirs in (('version', self.version, source.version),
                                    ('device', resolved(self.device), resolved(source.device)),
-                                   ('dtype', self.dtype, source.dtype)):
+                                   ('dtype', self.dtype, source.dtype),
+                                   ('mesh', self.mesh, source.mesh)):
             if ours != theirs:
                 raise ValueError(f"external_model's {name} is {theirs}, this extractor's "
                                  f'{ours}: its modules cannot be shared')
@@ -408,6 +444,8 @@ class FeatureExtractor:
         VAE, text encoders and tokenizers as they are."""
         with torch.device('meta'):
             self.unet = make_denoiser()
+        if self._model_parallel:
+            self._parallel(self.unet)
         self.unet.load_state_dict(source.unet.state_dict(), assign=True)
         self.unet.eval().requires_grad_(False)
         self.vae = source.vae
@@ -415,18 +453,22 @@ class FeatureExtractor:
         self.tokenizers = source.tokenizers
 
     def _load_component(self, make, root: str, variant: Optional[str], component: str,
-                        adapt=None):
+                        adapt=None, parallel=None):
         """Build ``make()`` on the meta device and fill it from the
         checkpoint's ``component`` dir (its tensors through ``adapt``, where
         given): parameters are allocated once, at the compute dtype, and
-        never initialised at random."""
+        never initialised at random.  ``parallel`` (meta module -> cuts)
+        cuts the module first, and each cut tensor is cut from the
+        checkpoint's view before it is copied to the device."""
         with torch.device('meta'):
             module = make()
+        cuts = parallel(module) if parallel is not None else None
         t0 = time.perf_counter()
         state = load_component_state(root, component, variant=variant)
         if adapt is not None:
             state = adapt(state)
-        unused = set(load_state_into(module, state, self.dtype, self.device))
+        unused = set(load_state_into(module, state, self.dtype, self.device, cuts,
+                                     self.mesh.axis('tp') if cuts else None))
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
         nbytes = sum(t.numel() * t.element_size() for k, t in state.items() if k not in unused)
@@ -444,6 +486,9 @@ class FeatureExtractor:
         them, are copied.  Returns {component: (bytes written, seconds)},
         as ``load_stats``.  An extractor with int8 layers raises ValueError."""
         spec = self.spec
+        if has_tp(self.mesh):
+            raise ValueError('save_weights writes whole tensors; under tp each rank holds a '
+                             'part of the denoiser (save from an extractor without a mesh)')
         if self._int8_denoiser or getattr(spec.t5, 'quantize_int8', False):
             raise ValueError('save_weights writes a diffusers tree of full-precision weights; '
                              'this extractor holds int8 weight-only layers (build it with '
@@ -637,7 +682,74 @@ class FeatureExtractor:
         flow-match sigma of ``t``).  IF noises the pixels themselves, and
         its ``denoising_from`` walk thresholds each step's x0; it has no
         'vae-out', no DDIM inversion and no attention maps (its
-        ``attention=`` yields no 'attn')."""
+        ``attention=`` yields no 'attn').  Under a mesh with dp each rank
+        runs its rows and every rank returns the whole batch."""
+        kw = dict(image_type=image_type, t=t, denoising_from=denoising_from,
+                  use_control=use_control, use_ddim_inversion=use_ddim_inversion)
+        rows = self._sharded_rows(batch_size)
+        if rows is None:
+            feats = self._extract(prompts, batch_size, image, (0, batch_size), **kw)
+        else:
+            feats = {k: self._gather_batch(v, batch_size) for k, v in self._extract(
+                prompts, batch_size, image[rows[0]:rows[1]], rows, **kw).items()}
+        self._keep_background(feats)
+        return feats
+
+    def dp_rows(self, batch_size: int) -> Tuple[int, int]:
+        """[lo, hi) of this rank's rows of a batch of ``batch_size`` under
+        the mesh's dp (``parallel.mesh.split_sizes``: uneven where dp does
+        not divide the batch); the whole batch without dp."""
+        if self.mesh is None or self.mesh.dp == 1:
+            return 0, batch_size
+        return self.mesh.axis('dp').bounds(batch_size)
+
+    def extract_rows(self, prompts, batch_size: int, image, image_type: str = 'image',
+                     t: int = 50, denoising_from: Optional[int] = None,
+                     use_control: bool = False,
+                     use_ddim_inversion: bool = False) -> Dict[str, torch.Tensor]:
+        """``extract`` of this dp rank's rows ``dp_rows(batch_size)`` of a
+        batch of ``batch_size``: ``image`` holds those rows' images alone,
+        and their features come back, not gathered (the extraction CLI's
+        ranks each write their own).  The noise is the whole batch's rows,
+        so the rows equal ``extract``'s of the whole batch; a rank with no
+        rows draws it too and returns {}."""
+        lo, hi = self.dp_rows(batch_size)
+        if len(image) != hi - lo:
+            raise ValueError(f'this rank holds rows [{lo}, {hi}) of the batch of {batch_size}, '
+                             f'got {len(image)} images')
+        return self._extract(prompts, batch_size, image, (lo, hi), image_type=image_type, t=t,
+                             denoising_from=denoising_from, use_control=use_control,
+                             use_ddim_inversion=use_ddim_inversion)
+
+    def _sharded_rows(self, batch_size: int) -> Optional[Tuple[int, int]]:
+        """This rank's rows where the mesh's dp divides ``batch_size``;
+        None where there is no dp or it does not divide (the batch then
+        runs whole on every rank, as in JAX)."""
+        if self.mesh is None or self.mesh.dp == 1 or batch_size % self.mesh.dp:
+            return None
+        return self.dp_rows(batch_size)
+
+    def _gather_batch(self, x: torch.Tensor, batch_size: int, halves: int = 1) -> torch.Tensor:
+        """Every dp rank's rows of ``x`` in batch order; a batch of
+        ``halves`` stacked parts ([negative; positive] under CFG) is
+        gathered part by part."""
+        dp = self.mesh.axis('dp')
+        sizes = dp.split(batch_size)
+        return torch.cat([dp.gather(part, 0, sizes) for part in x.chunk(halves)])
+
+    def _latent_noise(self, batch_size: int):
+        """(posterior noise, forward noise): standard-normal fp32 draws of
+        the whole batch's latent shape from the noise generator (cast inside
+        the step, JAX utils.normal_like)."""
+        shape = self.latent_shape(batch_size)
+        return (torch.randn(shape, generator=self._noise_gen, device=self.device),
+                torch.randn(shape, generator=self._noise_gen, device=self.device))
+
+    def _extract(self, prompts, batch_size: int, image, rows: Tuple[int, int],
+                 image_type: str, t: int, denoising_from: Optional[int], use_control: bool,
+                 use_ddim_inversion: bool) -> Dict[str, torch.Tensor]:
+        """The features of rows [lo, hi) of a batch of ``batch_size``;
+        ``image`` holds those rows' images."""
         spec = self.spec
         if use_ddim_inversion and (spec.family != 'unet'
                                    or spec.unet.addition_embed_type is not None
@@ -650,8 +762,13 @@ class FeatureExtractor:
             raise ValueError(f'denoising_from is unavailable for the pipeline-driven '
                              f'{spec.family} path (one denoiser forward at t), as in the JAX '
                              'package')
-
+        lo, hi = rows
         cond = self._step_conditioning(prompts, batch_size)
+        if (lo, hi) != (0, batch_size):
+            cond = cond.rows(lo, hi)
+        if hi == lo:
+            self._latent_noise(batch_size)   # the generator stays in step with the others
+            return {}
         if image_type == 'image':
             img = preprocess_pil_batch(image, self.img_size)
         else:
@@ -660,20 +777,14 @@ class FeatureExtractor:
         control = None
         if use_control and self.control_pipe is not None:
             raw = image if image_type == 'image' else self.control_pipe.tensors_to_pil(img)
-            control = self.control_pipe.prepare_control_images(raw, batch_size)
+            control = self.control_pipe.prepare_control_images(raw, hi - lo)
 
-        shape = self.latent_shape(img.shape[0])
-        # drawn in fp32 and cast inside the step (JAX utils.normal_like)
-        posterior_noise = torch.randn(shape, generator=self._noise_gen, device=self.device)
-        noise = torch.randn(shape, generator=self._noise_gen, device=self.device)
+        posterior_noise, noise = (x[lo:hi] for x in self._latent_noise(batch_size))
         if denoising_from is None and not use_ddim_inversion:
-            feats = self._step(img, cond, self._step_kit(int(t)), posterior_noise, noise,
-                               self.feature_dtype, control=control)
-        else:
-            feats = self._multistep(img, cond, int(t), denoising_from, use_ddim_inversion,
-                                    posterior_noise, noise, self.feature_dtype, control=control)
-        self._keep_background(feats)
-        return feats
+            return self._step(img, cond, self._step_kit(int(t)), posterior_noise, noise,
+                              self.feature_dtype, control=control)
+        return self._multistep(img, cond, int(t), denoising_from, use_ddim_inversion,
+                               posterior_noise, noise, self.feature_dtype, control=control)
 
     def latent_shape(self, batch_size: int) -> Tuple[int, int, int, int]:
         """(B, C, h, w) of what the denoiser walks: the VAE's latents, or in
@@ -878,6 +989,9 @@ class FeatureExtractor:
         denoiser is trained or a conditioning tensor requires grad (prompt
         tuning); else inference mode, as extraction always ran."""
         if torch.is_grad_enabled() and (self.train_unet or cond.requires_grad()):
+            if self._model_parallel:
+                raise ValueError('gradients take a dp mesh alone: they do not flow through '
+                                 'the tensor- and sequence-parallel collectives')
             return torch.enable_grad(), cond.outside_inference_mode()
         return torch.inference_mode(), cond
 
@@ -1005,8 +1119,19 @@ class FeatureExtractor:
         if isinstance(self.scheduler, DDPMScheduler):
             step_noise = [torch.randn(shape, generator=self._noise_gen, device=self.device)
                           for _ in range(int(num_inference_steps))]
+        rows = self._sharded_rows(batch_size)
+        if rows is not None:   # dp: this rank's rows of the whole batch's draws
+            lo, hi = rows
+            cond, noise = cond.rows(lo, hi), noise[lo:hi]
+            neg = None if neg is None else neg.rows(lo, hi)
+            step_noise = None if step_noise is None else [x[lo:hi] for x in step_noise]
         images, feats, _ = self._sample(cond, neg, noise, int(num_inference_steps),
                                         float(guidance_scale), step_noise)
+        if rows is not None:
+            images = self._gather_batch(images, batch_size)
+            halves = 1 if neg is None else 2
+            feats = {k: tuple(self._gather_batch(x, batch_size, halves) for x in v)
+                     for k, v in feats.items()}
         self._keep_background(feats)
         return images, (feats if return_features else None)
 

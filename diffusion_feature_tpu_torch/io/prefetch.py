@@ -11,22 +11,26 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Union
 
 
 class PrefetchLoader:
     """Iterate batches of loaded items ahead of consumption.
 
     loader(path) runs on worker threads (PIL decode releases the GIL for the
-    heavy parts); batches preserve input order.
+    heavy parts); batches preserve input order.  ``batch_size``: one size
+    for every batch (the last may be shorter), or the sizes of the batches
+    in turn (zeros allowed: a dp rank with no rows in a batch).
     """
 
-    def __init__(self, paths: Sequence[str], batch_size: int,
+    def __init__(self, paths: Sequence[str], batch_size: Union[int, Sequence[int]],
                  loader: Callable, depth: int = 2, n_threads: int = 2):
-        self._batches: List[List[str]] = [
-            list(paths[i:i + batch_size])
-            for i in range(0, len(paths), batch_size)
-        ]
+        if isinstance(batch_size, int):
+            batch_size = [min(batch_size, len(paths) - i)
+                          for i in range(0, len(paths), batch_size)]
+        starts = [sum(batch_size[:k]) for k in range(len(batch_size))]
+        self._batches: List[List[str]] = [list(paths[s:s + n])
+                                          for s, n in zip(starts, batch_size)]
         self._loader = loader
         self._q: queue.Queue = queue.Queue(maxsize=max(1, depth))
         self._n_threads = max(1, n_threads)

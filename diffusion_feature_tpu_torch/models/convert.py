@@ -198,7 +198,7 @@ def load_component_state(root: str, component: str,
 
 
 def load_state_into(module: nn.Module, state: Mapping[str, torch.Tensor], dtype: torch.dtype,
-                    device) -> List[str]:
+                    device, cuts: Optional[Mapping[str, tuple]] = None, tp=None) -> List[str]:
     """Fill ``module`` (built on the meta device; a materialised module's
     values are replaced) from a checkpoint state in place, on ``device``
     with floating tensors cast to ``dtype``; returns the checkpoint keys no
@@ -211,7 +211,16 @@ def load_state_into(module: nn.Module, state: Mapping[str, torch.Tensor], dtype:
     values), so one staged tensor is alive at a time and no full-precision
     copy of the layer stays.  Every parameter must be found (ValueError
     with the count and the first five names), and shapes must agree
-    (ValueError naming both keys)."""
+    (ValueError naming both keys).
+
+    ``cuts`` ({module key: (dim, indices)}, ``parallel/mesh.parallelize``'s
+    of a module already cut): each such checkpoint tensor is cut before it
+    is copied, so only this rank's part reaches the device.  An int8 layer
+    cut along its input columns (row-parallel) takes its channels' maxima
+    over the whole row: the part's maxima, the largest over the ``tp``
+    axis, so the int8 values are the whole weight's quantization, cut."""
+    from ..parallel.mesh import take
+    cuts = dict(cuts or {})
     targets = module.state_dict(keep_vars=True)
     # an int8 layer's slot is its full-precision 'weight', of weight_q's shape
     shapes = {k: tuple(t.shape) for k, t in targets.items()}
@@ -222,6 +231,8 @@ def load_state_into(module: nn.Module, state: Mapping[str, torch.Tensor], dtype:
             del shapes[f'{prefix}weight_q'], shapes[f'{prefix}scale']
             shapes[f'{prefix}weight'] = tuple(m.weight_q.shape)
             quantized.add(f'{prefix}weight')
+            if f'{prefix}weight_q' in cuts:
+                cuts[f'{prefix}weight'] = cuts[f'{prefix}weight_q']
     by_norm = {_normalize_key(k): k for k in shapes}
     if len(by_norm) != len(shapes):
         raise ValueError(f'{type(module).__name__}: parameter names collide when normalised')
@@ -231,9 +242,12 @@ def load_state_into(module: nn.Module, state: Mapping[str, torch.Tensor], dtype:
         if name is None:
             unused.append(key)
             continue
-        if tuple(tensor.shape) != shapes[name]:
+        shape = list(tensor.shape)
+        if name in cuts and len(shape) > cuts[name][0]:
+            shape[cuts[name][0]] = cuts[name][1].numel()
+        if tuple(shape) != shapes[name]:
             raise ValueError(f'checkpoint {key} {tuple(tensor.shape)} does not fit '
-                             f'{name} {shapes[name]}')
+                             f'{name} {shapes[name]}' + (' (cut)' if name in cuts else ''))
         found[name] = tensor
     missing = [k for k in shapes if k not in found]
     if missing:
@@ -244,9 +258,16 @@ def load_state_into(module: nn.Module, state: Mapping[str, torch.Tensor], dtype:
     targets = module.state_dict(keep_vars=True)
     with torch.no_grad():
         for name, t in found.items():
+            if name in cuts:
+                t = take(t, cuts[name])
             if name in quantized:
                 prefix = name[:-len('weight')]
-                q, scale = quantize_int8(t.to(device))
+                t = t.to(device)
+                absmax = None
+                if name in cuts and cuts[name][0] == 1:
+                    absmax = t.float().abs().amax(dim=1)
+                    tp.all_reduce(absmax, torch.distributed.ReduceOp.MAX)
+                q, scale = quantize_int8(t, absmax)
                 targets[f'{prefix}weight_q'].copy_(q)
                 targets[f'{prefix}scale'].copy_(scale)
                 del q, scale
@@ -280,24 +301,35 @@ def save_component(root: str, component: str, state: Mapping[str, torch.Tensor],
     return written
 
 
-def random_module(make, device, dtype, generator) -> nn.Module:
+def random_module(make, device, dtype, generator, parallel=None) -> nn.Module:
     """Build ``make()`` on the meta device, then materialise it on ``device``
     with a deterministic random init drawn from ``generator``: weights of
-    rank >= 2 ~ N(0, 1/fan_in), norm scales 1, biases 0.  An int8 module
+    rank >= 2 ~ N(0, 1/fan_in), norm scales 1, biases 0.  ``parallel``
+    (meta module -> {key: cut}, ``parallel/mesh.py``) cuts the module
+    first; a cut tensor is drawn whole, one at a time, and its part kept,
+    so every rank holds the unsharded init's values.  An int8 module
     raises ValueError: its layers hold quantized checkpoint weights (the JAX
     package refuses int8 without weights too)."""
+    from ..parallel.mesh import take
     with torch.device('meta'):
         module = make()
     if has_int8(module):
         raise ValueError(f'{type(module).__name__} has int8 weight-only layers, which take '
                          'quantized checkpoint weights: a random init has none to quantize')
+    whole = {k: tuple(p.shape) for k, p in module.named_parameters()}
+    cuts = parallel(module) if parallel is not None else {}
     module = module.to(dtype=dtype).to_empty(device=device)
     with torch.no_grad():
         for name, p in module.named_parameters():
-            if p.dim() >= 2:
-                p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
+            full = p if name not in cuts else torch.empty(whole[name], dtype=p.dtype,
+                                                          device=p.device)
+            if full.dim() >= 2:
+                full.normal_(0.0, full[0].numel() ** -0.5, generator=generator)
             elif name.endswith('weight'):
-                p.fill_(1.0)
+                full.fill_(1.0)
             else:
-                p.zero_()
+                full.zero_()
+            if name in cuts:
+                p.copy_(take(full, cuts[name]))
+                del full
     return module.eval().requires_grad_(False)

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import TokenShard, row_linear, span, tap_gather
 from ..taps import EMPTY, TapSite, TapSpec, child_id
 from .layers import Attention, AttnStoreCfg, FeedForward, TimestepEmbedding, timestep_embedding
 
@@ -164,6 +165,10 @@ class PixArtBlock(nn.Module):
                               activation_fn='gelu-approximate')
         self.tap_site = TapSite(taps, tap_name, ('out',))
 
+    def parallelize(self, tp, seq):
+        self.tap_site.gathers = {'out': tap_gather((seq, 1))}
+        return {}
+
     def forward(self, x, context, t6, mask=None, feats=None):
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = _modulation(
             self.scale_shift_table, t6, 6, x.dtype)
@@ -203,6 +208,22 @@ class PixArtTransformer2D(nn.Module):
         self.norm_out = nn.LayerNorm(dim, eps=1e-6, elementwise_affine=False)
         self.proj_out = nn.Linear(dim, p * p * cfg.out_channels)
         self._pos = {}   # (grid, device, dtype) -> the position embedding
+        self.seq = self.tp = self.proj_cols = None
+
+    def sequence_shards(self, sp):
+        """Sequence parallelism over ``sp``: the blocks see this rank's
+        tokens (JAX's ``token_pspec`` constraints at the block boundaries)."""
+        self.seq = TokenShard(sp)
+        return {'transformer_blocks': self.seq}
+
+    def parallelize(self, tp, seq):
+        """Under ``tp`` the final proj_out keeps this rank's input columns
+        of its replicated input."""
+        if tp is None:
+            return {}
+        self.tp = tp
+        self.proj_cols = tp.bounds(self.proj_out.in_features)
+        return {'proj_out.weight': (1, span(*self.proj_cols))}
 
     def _pos_embed(self, grid: int, x: torch.Tensor) -> torch.Tensor:
         """The (1, grid^2, dim) sin-cos positions, cast once per grid,
@@ -238,12 +259,17 @@ class PixArtTransformer2D(nn.Module):
         if encoder_attention_mask is not None:
             mask = ((1.0 - encoder_attention_mask[:, None, None, :].float()) * -10000.0).to(dtype)
 
-        # 4. blocks
+        # 4. blocks, on this rank's tokens under sequence parallelism
+        if self.seq is not None:
+            x = self.seq.begin(x.shape[1]).take(x)
         for blk in self.transformer_blocks:
             x = blk(x, context, t6, mask, feats)
 
         # 5. modulated norm, projection, unpatchify
         shift, scale = _modulation(self.scale_shift_table, emb, 2, dtype)
-        h = self.proj_out(self.norm_out(x) * (1 + scale) + shift)
+        h = row_linear(self.proj_out, self.norm_out(x) * (1 + scale) + shift, self.tp,
+                       self.proj_cols)
+        if self.seq is not None:
+            h = self.seq.gather(h)
         h = h.reshape(b, gh, gw, p, p, cfg.out_channels).permute(0, 5, 1, 3, 2, 4)
         return h.reshape(b, cfg.out_channels, gh * p, gw * p)

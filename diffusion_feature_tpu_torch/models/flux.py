@@ -50,6 +50,8 @@ from ..ops.attention import (attention_fused_heads, attention_with_probs_heads, 
                              split_heads)
 from ..ops.quant import linear_factory
 from ..ops.rope import apply_rope, rope_cos_sin
+from ..parallel.mesh import (TokenShard, cut_heads, head_mean, head_rows, linear_cuts,
+                             row_linear, span, tap_gather)
 from ..taps import EMPTY, TapSite, TapSpec, child_id
 from .hunyuan import AdaLayerNormContinuous
 from .layers import ATTN_STORE, AttnStoreCfg, FeedForward, TimestepEmbedding, timestep_embedding
@@ -189,34 +191,61 @@ class _AttentionTaps(nn.Module):
         self.store = [(None, None), (None, None)]
         if attn_store is not None:
             self.store = [attn_store.slot(True), attn_store.slot(False)]
+        self.heads_total, self.head_dim = self.heads, cfg.attention_head_dim
+        self.tp = self.seq = None
 
-    def heads_of(self, x, q_tap_rows=None, feats=None):
-        """(qh, kh, vh) of ``x`` with q and k RMS-normed; the q/k/v taps
-        take rows ``q_tap_rows`` of the projections (all where None)."""
+    def _parallelize(self, tp, seq, column, row=()):
+        """This rank's heads of ``tp`` (``column`` projections' rows,
+        ``row`` ones' columns) and its tokens of ``seq``; returns the cuts.
+        The taps' image rows of a rank have lengths of their own, which the
+        gathers exchange."""
+        cuts = {} if tp is None else cut_heads(self, tp, column, row)
+        self.seq = seq
+        tokens = None if seq is None else seq.axis
+        self.tap_site.gathers = {
+            'q': tap_gather((tokens, 1), (tp, -1)),
+            'k': tap_gather((tp, -1)), 'v': tap_gather((tp, -1)),
+            'cross-map': tap_gather((tp, 1), (tokens, 2)),
+            'self-map': tap_gather((tp, 1), (tokens, 2))}
+        return cuts
+
+    def heads_of(self, x, feats=None, q_from: int = 0, kv_from: int = 0):
+        """(qh, kh, vh) of ``x`` (this rank's tokens under sp) with q and k
+        RMS-normed, K and V of the whole sequence; the taps take q's rows
+        from ``q_from`` on and K's and V's from ``kv_from`` on."""
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
-        rows = slice(None) if q_tap_rows is None else q_tap_rows
-        for name, t in (('q', q), ('k', k), ('v', v)):
-            self.tap_site.put(feats, name, t[:, rows])
+        if self.seq is not None:
+            k, v = self.seq.gather(k), self.seq.gather(v)
+        self.tap_site.put(feats, 'q', q[:, q_from:])
+        self.tap_site.put(feats, 'k', k[:, kv_from:])
+        self.tap_site.put(feats, 'v', v[:, kv_from:])
         qh, kh, vh = (split_heads(t, self.heads) for t in (q, k, v))
         return self.norm_q(qh), self.norm_k(kh), vh
 
-    def attend(self, qh, kh, vh, text_len: int, feats=None):
-        """Attention over the joint (B, H, text + image, D) heads."""
-        img_len = qh.shape[2] - text_len
+    def attend(self, qh, kh, vh, text_len: int, feats=None, image_from: Optional[int] = None):
+        """Attention over the joint (B, H, text + image, D) heads; the
+        image queries start at row ``image_from`` of ``qh`` (``text_len``
+        where None; under sp qh holds this rank's queries, kh all keys)."""
+        image_from = text_len if image_from is None else image_from
+        img_len = kh.shape[2] - text_len
         store = [key for key, band in self.store
                  if key is not None and band[0] <= img_len <= band[1]]
         if self.tap_site.wants('cross-map') or self.tap_site.wants('self-map') or store:
             out, probs = attention_with_probs_heads(qh, kh, vh)
-            cross = probs[:, :, text_len:, :text_len]
-            self_ = probs[:, :, text_len:, text_len:]
+            cross = probs[:, :, image_from:, :text_len]
+            self_ = probs[:, :, image_from:, text_len:]
             self.tap_site.put(feats, 'cross-map', cross)
             self.tap_site.put(feats, 'self-map', self_)
             if feats is not None:
                 for key in store:
                     maps = cross if key.endswith('_cross') else self_
-                    feats.setdefault(ATTN_STORE, {}).setdefault(key, []).append(maps.mean(dim=1))
+                    mean_p = head_mean(maps.mean(dim=1), self.tp, self.heads, self.heads_total)
+                    if self.seq is not None:
+                        mean_p = self.seq.axis.gather(mean_p, 1)
+                    feats.setdefault(ATTN_STORE, {}).setdefault(key, []).append(mean_p)
             return out
-        return attention_fused_heads(qh, kh, vh)
+        return attention_fused_heads(qh, kh, vh,
+                                     q_len=None if self.seq is None else kh.shape[2])
 
 
 class FluxJointAttention(_AttentionTaps):
@@ -237,19 +266,29 @@ class FluxJointAttention(_AttentionTaps):
         self.to_out = nn.ModuleList([linear(inner, inner)])
         self.to_add_out = linear(inner, inner)
 
-    def forward(self, img, ctx, cos, sin, feats=None):
+    def parallelize(self, tp, seq):
+        """This rank's heads of both streams' projections, to_out.0's and
+        to_add_out's columns of them; the image tokens of ``seq``."""
+        cuts = self._parallelize(tp, seq, ('to_q', 'to_k', 'to_v', 'add_q_proj', 'add_k_proj',
+                                           'add_v_proj'), ('to_out.0', 'to_add_out'))
+        self.tap_site.gathers['attn-out'] = tap_gather((seq, 1))
+        return cuts
+
+    def forward(self, img, ctx, cos, sin, feats=None, q_rope=None):
+        """``q_rope``: the (cos, sin) rows of this rank's queries under sp
+        (text, then its image tokens); (cos, sin) where None."""
         qh, kh, vh = self.heads_of(img, feats=feats)
         cq, ck, cv = (split_heads(p(ctx), self.heads)
                       for p in (self.add_q_proj, self.add_k_proj, self.add_v_proj))
         cq, ck = self.norm_added_q(cq), self.norm_added_k(ck)
         text_len = ctx.shape[1]
-        qj = apply_rope(torch.cat([cq, qh], dim=2), cos, sin)
+        qj = apply_rope(torch.cat([cq, qh], dim=2), *(q_rope or (cos, sin)))
         kj = apply_rope(torch.cat([ck, kh], dim=2), cos, sin)
         vj = torch.cat([cv, vh], dim=2)
         out = merge_heads(self.attend(qj, kj, vj, text_len, feats))
-        img_out = self.to_out[0](out[:, text_len:])
+        img_out = row_linear(self.to_out[0], out[:, text_len:], self.tp)
         self.tap_site.put(feats, 'attn-out', img_out)
-        return img_out, self.to_add_out(out[:, :text_len])
+        return img_out, row_linear(self.to_add_out, out[:, :text_len], self.tp)
 
 
 class FluxSingleAttention(_AttentionTaps):
@@ -261,11 +300,23 @@ class FluxSingleAttention(_AttentionTaps):
         super().__init__(cfg, taps, tap_name, attn_store,
                          ('q', 'k', 'v', 'cross-map', 'self-map', 'attn-out'))
 
-    def forward(self, x, text_len: int, cos, sin, feats=None):
-        qh, kh, vh = self.heads_of(x, slice(text_len, None), feats)
-        qh, kh = apply_rope(qh, cos, sin), apply_rope(kh, cos, sin)
-        out = merge_heads(self.attend(qh, kh, vh, text_len, feats))
-        self.tap_site.put(feats, 'attn-out', out[:, text_len:])
+    def parallelize(self, tp, seq):
+        """This rank's heads of to_q/to_k/to_v and its joint tokens of
+        ``seq``; 'attn-out' (before the block's projection) is gathered
+        along tokens and heads."""
+        cuts = self._parallelize(tp, seq, ('to_q', 'to_k', 'to_v'))
+        tokens = None if seq is None else seq.axis
+        self.tap_site.gathers['attn-out'] = tap_gather((tokens, 1), (tp, -1))
+        return cuts
+
+    def forward(self, x, text_len: int, cos, sin, feats=None, q_rope=None):
+        """``x``: the joint sequence (this rank's rows of it under sp, from
+        ``seq.lo``, and ``q_rope`` their (cos, sin) rows)."""
+        image_from = text_len if self.seq is None else max(text_len - self.seq.lo, 0)
+        qh, kh, vh = self.heads_of(x, feats, image_from, text_len)
+        qh, kh = apply_rope(qh, *(q_rope or (cos, sin))), apply_rope(kh, cos, sin)
+        out = merge_heads(self.attend(qh, kh, vh, text_len, feats, image_from))
+        self.tap_site.put(feats, 'attn-out', out[:, image_from:])
         return out
 
 
@@ -289,13 +340,17 @@ class FluxTransformerBlock(nn.Module):
         self.ff_context.tap_site = TapSite(EMPTY, '', ())   # the text stream's MLP has no taps
         self.tap_site = TapSite(taps, tap_name, ('norm-out', 'out'))
 
-    def forward(self, img, ctx, temb, cos, sin, feats=None):
+    def parallelize(self, tp, seq):
+        self.tap_site.gathers = {'norm-out': tap_gather((seq, 1)), 'out': tap_gather((seq, 1))}
+        return {}
+
+    def forward(self, img, ctx, temb, cos, sin, feats=None, q_rope=None):
         silu_t = F.silu(temb)
         sh_msa, sc_msa, g_msa, sh_mlp, sc_mlp, g_mlp = self.norm1(silu_t)
         csh_msa, csc_msa, cg_msa, csh_mlp, csc_mlp, cg_mlp = self.norm1_context(silu_t)
         attn_out, ctx_attn_out = self.attn(_layer_norm(img) * (1 + sc_msa) + sh_msa,
                                            _layer_norm(ctx) * (1 + csc_msa) + csh_msa,
-                                           cos, sin, feats)
+                                           cos, sin, feats, q_rope)
         img = img + g_msa * attn_out
         norm_h = _layer_norm(img) * (1 + sc_mlp) + sh_mlp
         self.tap_site.put(feats, 'norm-out', norm_h)
@@ -321,15 +376,33 @@ class FluxSingleTransformerBlock(nn.Module):
         self.proj_mlp = linear(dim, mlp)
         self.attn = FluxSingleAttention(cfg, taps, tap_name, attn_store)
         self.proj_out = linear(dim + mlp, dim)
+        self.mlp_width = mlp
         self.tap_site = TapSite(taps, tap_name, ('out',))
+        self.tp = self.seq = None
 
-    def forward(self, x, text_len: int, temb, cos, sin, feats=None):
+    def parallelize(self, tp, seq):
+        """Under ``tp`` proj_mlp keeps rows [lo, hi) of the MLP width and
+        proj_out the input columns of this rank's attention heads and of
+        those MLP rows; 'out' is gathered along ``seq``'s tokens."""
+        self.seq = seq
+        self.tap_site.gathers = {'out': tap_gather((None if seq is None else seq.axis, 1))}
+        if tp is None:
+            return {}
+        self.tp = tp
+        part = span(*tp.bounds(self.mlp_width))
+        _, heads = head_rows(tp, self.attn.heads_total, self.attn.head_dim)
+        dim = self.attn.heads_total * self.attn.head_dim
+        return {**linear_cuts('proj_mlp', self.proj_mlp, 0, part),
+                **linear_cuts('proj_out', self.proj_out, 1, torch.cat([heads, dim + part]))}
+
+    def forward(self, x, text_len: int, temb, cos, sin, feats=None, q_rope=None):
         shift, scale, gate = self.norm(F.silu(temb))
         norm_x = _layer_norm(x) * (1 + scale) + shift
         mlp = F.gelu(self.proj_mlp(norm_x), approximate='tanh')
-        attn_out = self.attn(norm_x, text_len, cos, sin, feats)
-        x = x + gate * self.proj_out(torch.cat([attn_out, mlp], dim=-1))
-        self.tap_site.put(feats, 'out', x[:, text_len:])
+        attn_out = self.attn(norm_x, text_len, cos, sin, feats, q_rope)
+        x = x + gate * row_linear(self.proj_out, torch.cat([attn_out, mlp], dim=-1), self.tp)
+        image_from = text_len if self.seq is None else max(text_len - self.seq.lo, 0)
+        self.tap_site.put(feats, 'out', x[:, image_from:])
         return x
 
 
@@ -354,7 +427,7 @@ class FluxTransformer2D(nn.Module):
     in ``feats``; with ``attn_store_sizes`` (min, max tokens per side) and
     ``attn_categories`` ('up_self', 'up_cross') the store's head-mean maps
     land in ``feats[layers.ATTN_STORE]``.  Sequence parallelism (the JAX
-    ``token_pspec``) belongs to the multi-GPU item and is not ported."""
+    ``token_pspec``): ``sequence_shards`` (``parallel/mesh.py``)."""
 
     def __init__(self, cfg: FluxConfig, taps: TapSpec = EMPTY,
                  attn_store_sizes: Optional[Tuple[int, int]] = None,
@@ -382,6 +455,25 @@ class FluxTransformer2D(nn.Module):
         self.proj_out = nn.Linear(dim, cfg.in_channels)
         # (grid, text_len, device, inference mode) -> the fp32 cos, sin tables
         self._rope = {}
+        self.img_seq = self.joint_seq = self.tp = self.proj_cols = None
+
+    def sequence_shards(self, sp):
+        """Sequence parallelism over ``sp`` (JAX's ``token_pspec``
+        constraints): the dual blocks split the image tokens (the text
+        stream stays whole on every rank), the single blocks the joint
+        [text; image] sequence."""
+        self.img_seq, self.joint_seq = TokenShard(sp), TokenShard(sp)
+        return {'transformer_blocks': self.img_seq,
+                'single_transformer_blocks': self.joint_seq}
+
+    def parallelize(self, tp, seq):
+        """Under ``tp`` the final proj_out keeps this rank's input columns
+        of its replicated input."""
+        if tp is None:
+            return {}
+        self.tp = tp
+        self.proj_cols = tp.bounds(self.proj_out.in_features)
+        return {'proj_out.weight': (1, span(*self.proj_cols))}
 
     def rope(self, grid_hw: Tuple[int, int], text_len: int, device):
         """The ((text_len + rows * cols), head_dim) fp32 RoPE tables of the
@@ -420,9 +512,24 @@ class FluxTransformer2D(nn.Module):
         text_len = ctx.shape[1]
         cos, sin = self.rope(grid_hw, text_len, device)
 
+        q_rope = None
+        if self.img_seq is not None:
+            seq = self.img_seq.begin(s_img)
+            x = seq.take(x)
+            q_rope = tuple(torch.cat([t[:text_len], t[text_len + seq.lo:text_len + seq.hi]])
+                           for t in (cos, sin))
         for blk in self.transformer_blocks:
-            x, ctx = blk(x, ctx, temb, cos, sin, feats)
+            x, ctx = blk(x, ctx, temb, cos, sin, feats, q_rope)
+        if self.img_seq is not None:
+            x = self.img_seq.gather(x)
         h = torch.cat([ctx, x], dim=1)
+        if self.joint_seq is not None:
+            seq = self.joint_seq.begin(h.shape[1])
+            h = seq.take(h)
+            q_rope = (seq.take(cos, 0), seq.take(sin, 0))
         for blk in self.single_transformer_blocks:
-            h = blk(h, text_len, temb, cos, sin, feats)
-        return self.proj_out(self.norm_out(h[:, text_len:], temb))
+            h = blk(h, text_len, temb, cos, sin, feats, q_rope)
+        if self.joint_seq is not None:
+            h = self.joint_seq.gather(h)
+        return row_linear(self.proj_out, self.norm_out(h[:, text_len:], temb), self.tp,
+                          self.proj_cols)

@@ -39,6 +39,7 @@ from torch import nn
 from ..ops.attention import (attention_fused_heads, attention_with_probs_heads, merge_heads,
                              split_heads)
 from ..ops.rope import apply_rope, rope_cos_sin
+from ..parallel.mesh import TokenShard, cut_heads, head_mean, row_linear, span, tap_gather
 from ..taps import EMPTY, TapSite, TapSpec, child_id
 from .layers import ATTN_STORE, AttnStoreCfg, FeedForward, TimestepEmbedding, timestep_embedding
 
@@ -152,30 +153,49 @@ class HunyuanAttention(nn.Module):
         self.tap_site = TapSite(taps, tap_name, ('q', 'k', 'v', 'map'))
         self.store_key, self.store_band = (attn_store.slot(is_cross) if attn_store is not None
                                            else (None, None))
+        self.heads_total, self.head_dim = self.heads, cfg.head_dim
+        self.tp = self.seq = None
+
+    def parallelize(self, tp, seq):
+        """This rank's heads of ``tp`` and tokens of ``seq`` (as
+        ``layers.Attention``'s); returns the cuts."""
+        cuts = {} if tp is None else cut_heads(self, tp, ('to_q', 'to_k', 'to_v'), ('to_out.0',))
+        self.seq = seq
+        self.tap_site.gathers = {'q': tap_gather((seq, 1), (tp, -1)),
+                                 'k': tap_gather((tp, -1)), 'v': tap_gather((tp, -1)),
+                                 'map': tap_gather((tp, 1), (seq, 2))}
+        return cuts
 
     def forward(self, x, context, cos, sin, feats=None):
         ctx = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+        seq = self.seq
+        cos_q, sin_q = cos, sin
+        if seq is not None:
+            cos_q, sin_q = seq.take(cos, 0), seq.take(sin, 0)
+            if not self.is_cross:
+                k, v = seq.gather(k), seq.gather(v)
         self.tap_site.put(feats, 'q', q)
         self.tap_site.put(feats, 'k', k)
         self.tap_site.put(feats, 'v', v)
         qh = self.norm_q(split_heads(q, self.heads))
         kh = self.norm_k(split_heads(k, self.heads))
         vh = split_heads(v, self.heads)
-        qh = apply_rope(qh, cos, sin)
+        qh = apply_rope(qh, cos_q, sin_q)
         if not self.is_cross:
             kh = apply_rope(kh, cos, sin)
-        store = (self.store_key is not None
-                 and self.store_band[0] <= x.shape[1] <= self.store_band[1])
+        n_q = x.shape[1] if seq is None else seq.n
+        store = self.store_key is not None and self.store_band[0] <= n_q <= self.store_band[1]
         if self.tap_site.wants('map') or store:
             out, probs = attention_with_probs_heads(qh, kh, vh)
             self.tap_site.put(feats, 'map', probs)
             if store and feats is not None:
+                mean_p = head_mean(probs.mean(dim=1), self.tp, self.heads, self.heads_total)
                 feats.setdefault(ATTN_STORE, {}).setdefault(self.store_key, []).append(
-                    probs.mean(dim=1))
+                    mean_p if seq is None else seq.gather(mean_p))
         else:
-            out = attention_fused_heads(qh, kh, vh)
-        return self.to_out[0](merge_heads(out))
+            out = attention_fused_heads(qh, kh, vh, q_len=None if seq is None else seq.n)
+        return row_linear(self.to_out[0], merge_heads(out), self.tp)
 
 
 class AdaLayerNormShift(nn.Module):
@@ -293,7 +313,7 @@ class HunyuanDiT2D(nn.Module):
     ``feats``; with ``attn_store_sizes`` (min, max tokens per side) and
     ``attn_categories`` ('up_self', 'up_cross') the store's head-mean maps
     land in ``feats[layers.ATTN_STORE]``.  Sequence parallelism (the JAX
-    ``token_pspec``) belongs to the multi-GPU item and is not ported."""
+    ``token_pspec``): ``sequence_shards`` (``parallel/mesh.py``)."""
 
     def __init__(self, cfg: HunyuanConfig, taps: TapSpec = EMPTY,
                  attn_store_sizes: Optional[Tuple[int, int]] = None,
@@ -318,6 +338,23 @@ class HunyuanDiT2D(nn.Module):
         self.norm_out = AdaLayerNormContinuous(dim, cfg.norm_eps)
         self.proj_out = nn.Linear(dim, p * p * cfg.out_channels)
         self._rope = {}   # (grid, device) -> the fp32 cos, sin tables
+        self.seq = self.tp = self.proj_cols = None
+
+    def sequence_shards(self, sp):
+        """Sequence parallelism over ``sp``: the blocks see this rank's
+        tokens (JAX's ``token_pspec`` constraints at the block boundaries;
+        the U-ViT skips are token-wise)."""
+        self.seq = TokenShard(sp)
+        return {'blocks': self.seq}
+
+    def parallelize(self, tp, seq):
+        """Under ``tp`` the final proj_out keeps this rank's input columns
+        of its replicated input."""
+        if tp is None:
+            return {}
+        self.tp = tp
+        self.proj_cols = tp.bounds(self.proj_out.in_features)
+        return {'proj_out.weight': (1, span(*self.proj_cols))}
 
     def rope(self, grid: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
         """The (grid^2, head_dim) fp32 RoPE tables, built once per grid and
@@ -375,7 +412,10 @@ class HunyuanDiT2D(nn.Module):
         keep = torch.cat([bmask, tmask], dim=1).bool()[..., None]
         ctx = torch.where(keep, ctx, self.text_embedding_padding[None].to(ctx.dtype))
 
-        # 4. blocks: U-ViT long skips pushed in the first half, popped in the second
+        # 4. blocks: U-ViT long skips pushed in the first half, popped in the
+        #    second; on this rank's tokens under sequence parallelism
+        if self.seq is not None:
+            x = self.seq.begin(x.shape[1]).take(x)
         skips = []
         half = cfg.num_layers // 2
         for i, blk in enumerate(self.blocks):
@@ -384,6 +424,8 @@ class HunyuanDiT2D(nn.Module):
                 skips.append(x)
 
         # 5. the modulated output norm, projection, unpatchify
-        h = self.proj_out(self.norm_out(x, temb))
+        h = row_linear(self.proj_out, self.norm_out(x, temb), self.tp, self.proj_cols)
+        if self.seq is not None:
+            h = self.seq.gather(h)
         h = h.reshape(b, gh, gw, p, p, cfg.out_channels).permute(0, 5, 1, 3, 2, 4)
         return h.reshape(b, cfg.out_channels, gh * p, gw * p)

@@ -29,6 +29,7 @@ from ..ops.attention import (
     split_heads,
 )
 from ..ops.resize import interpolate_nearest_nchw
+from ..parallel.mesh import cut_heads, head_mean, linear_cuts, row_linear, span, tap_gather
 from ..taps import EMPTY, TapSite, TapSpec, child_id
 
 
@@ -159,7 +160,10 @@ class Attention(nn.Module):
     are fp32 anyway and the flash path ignores it, as in the JAX package.
     ``qkv_bias``: biased q/k/v projections (the DiTs').
     ``plain`` (set by ``UNet2DConditionModel.forward(plain=True)``) runs
-    every attention on the fused path, with no taps and no store."""
+    every attention on the fused path, with no taps and no store.
+    ``parallelize`` (``parallel/mesh.py``): under tp this rank's heads;
+    under sp (a DiT's ``seq``) its query tokens, with the self-attention's
+    K and V gathered over the sequence."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  cross_attention_dim: Optional[int] = None,
@@ -169,9 +173,11 @@ class Attention(nn.Module):
         super().__init__()
         inner = heads * dim_head
         ctx_dim = query_dim if cross_attention_dim is None else cross_attention_dim
-        self.heads = heads
+        self.heads = self.heads_total = heads
+        self.head_dim = dim_head
         self.upcast = upcast
         self.plain = False
+        self.tp = self.seq = None
         self.to_q = nn.Linear(query_dim, inner, bias=qkv_bias)
         self.to_k = nn.Linear(ctx_dim, inner, bias=qkv_bias)
         self.to_v = nn.Linear(ctx_dim, inner, bias=qkv_bias)
@@ -180,17 +186,34 @@ class Attention(nn.Module):
         self.store_key, self.store_band = (attn_store.slot(is_cross) if attn_store is not None
                                            else (None, None))
 
+    def parallelize(self, tp, seq):
+        """Keep this rank's heads of ``tp`` (q/k/v rows, to_out.0's
+        columns) and attend from the ``seq`` tokens; the taps' gathers.
+        Returns the cuts."""
+        cuts = {} if tp is None else cut_heads(self, tp, ('to_q', 'to_k', 'to_v'), ('to_out.0',))
+        self.seq = seq
+        # self-attention K/V are gathered over the sequence before the taps
+        self.tap_site.gathers = {'q': tap_gather((seq, 1), (tp, -1)),
+                                 'k': tap_gather((tp, -1)), 'v': tap_gather((tp, -1)),
+                                 'map': tap_gather((tp, 1), (seq, 2))}
+        return cuts
+
     def forward(self, x, context=None, feats=None, mask=None):
         ctx = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+        seq = self.seq
+        if seq is not None and context is None:
+            k, v = seq.gather(k), seq.gather(v)
+        q_len = None if seq is None else seq.n
         if self.plain:
-            return self.to_out[0](attention_fused(q, k, v, self.heads, mask=mask))
+            out = attention_fused(q, k, v, self.heads, mask=mask, q_len=q_len)
+            return row_linear(self.to_out[0], out, self.tp)
         self.tap_site.put(feats, 'q', q)
         self.tap_site.put(feats, 'k', k)
         self.tap_site.put(feats, 'v', v)
         # size-band filter on the query token count (components/attention.py:113-114)
-        store = (self.store_key is not None
-                 and self.store_band[0] <= x.shape[1] <= self.store_band[1])
+        n_q = x.shape[1] if seq is None else seq.n
+        store = self.store_key is not None and self.store_band[0] <= n_q <= self.store_band[1]
         if self.tap_site.wants('map'):
             out, probs = attention_with_probs(q, k, v, self.heads, mask=mask)
             self.tap_site.put(feats, 'map', probs)
@@ -200,16 +223,19 @@ class Attention(nn.Module):
             heads = [split_heads(t, self.heads) for t in (q, k, v)]
             if self.upcast:   # fp32 kernels (JAX models/layers.py:205-208)
                 heads = [t.float() for t in heads]
-            out_h, mean_p = attention_with_headmean_heads(*heads)
-            out, mean_p = merge_heads(out_h).to(q.dtype), mean_p.to(q.dtype)
+            out_h, mean_p = attention_with_headmean_heads(*heads, q_len=q_len)
+            out = merge_heads(out_h).to(q.dtype)
         elif store:
             out, probs = attention_with_probs(q, k, v, self.heads, mask=mask)
             mean_p = probs.mean(dim=1)
         else:
-            out, mean_p = attention_fused(q, k, v, self.heads, mask=mask), None
+            out, mean_p = attention_fused(q, k, v, self.heads, mask=mask, q_len=q_len), None
         if mean_p is not None and feats is not None:
+            mean_p = head_mean(mean_p, self.tp, self.heads, self.heads_total).to(q.dtype)
+            if seq is not None:
+                mean_p = seq.gather(mean_p)
             feats.setdefault(ATTN_STORE, {}).setdefault(self.store_key, []).append(mean_p)
-        return self.to_out[0](out)
+        return row_linear(self.to_out[0], out, self.tp)
 
 
 class GEGLU(nn.Module):
@@ -251,12 +277,28 @@ class FeedForward(nn.Module):
             act = GELU(dim, inner, 'tanh' if activation_fn == 'gelu-approximate' else 'none',
                        linear)
         self.net = nn.ModuleList([act, nn.Identity(), linear(inner, dim)])
+        self.inner = inner
+        self.tp = None
         self.tap_site = TapSite(taps, tap_name, ('inner',))
+
+    def parallelize(self, tp, seq):
+        """Keep this rank's part [lo, hi) of the inner width of ``tp``:
+        GEGLU's matching rows of the hidden and the gate halves, GELU's
+        rows, net.2's columns; the tap gathers over ``seq`` and ``tp``."""
+        cuts = {}
+        if tp is not None:
+            self.tp = tp
+            part = span(*tp.bounds(self.inner))
+            rows = torch.cat([part, part + self.inner]) if isinstance(self.net[0], GEGLU) else part
+            cuts.update(linear_cuts('net.0.proj', self.net[0].proj, 0, rows))
+            cuts.update(linear_cuts('net.2', self.net[2], 1, part))
+        self.tap_site.gathers = {'inner': tap_gather((seq, 1), (tp, -1))}
+        return cuts
 
     def forward(self, x, feats=None):
         h = self.net[0](x)
         self.tap_site.put(feats, 'inner', h)
-        return self.net[2](h)
+        return row_linear(self.net[2], h, self.tp)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -313,6 +355,16 @@ class Transformer2DModel(nn.Module):
                                   attn_store=attn_store, upcast_attention=upcast_attention)
             for i in range(depth)])
         self.tap_site = TapSite(taps, tap_name, ('out',))
+        self.tp = self.proj_cols = None
+
+    def parallelize(self, tp, seq):
+        """Under ``tp`` a linear proj_out keeps this rank's input columns
+        and slices its replicated input (a 1x1 conv stays whole)."""
+        if tp is None or not self.use_linear:
+            return {}
+        self.tp = tp
+        self.proj_cols = tp.bounds(self.proj_out.in_features)
+        return {'proj_out.weight': (1, span(*self.proj_cols))}
 
     def forward(self, x, context, feats=None):
         b, c, hh, ww = x.shape
@@ -325,7 +377,8 @@ class Transformer2DModel(nn.Module):
         for blk in self.transformer_blocks:
             h = blk(h, context, feats=feats)
         if self.use_linear:
-            h = self.proj_out(h).reshape(b, hh, ww, c).permute(0, 3, 1, 2)
+            h = row_linear(self.proj_out, h, self.tp, self.proj_cols)
+            h = h.reshape(b, hh, ww, c).permute(0, 3, 1, 2)
         else:
             h = self.proj_out(h.reshape(b, hh, ww, h.shape[-1]).permute(0, 3, 1, 2))
         out = h + x

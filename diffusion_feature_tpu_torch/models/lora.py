@@ -71,18 +71,24 @@ def collect_lora_pairs(state: Dict[str, torch.Tensor]
     return pairs
 
 
-def apply_lora_to_module(module: nn.Module, root: str, filename: Optional[str] = None) -> int:
+def apply_lora_to_module(module: nn.Module, root: str, filename: Optional[str] = None,
+                         cuts=None) -> int:
     """Merge a LoRA checkpoint into ``module``'s Linear and 1x1-conv weights
     in place; returns how many were merged.  Adapters whose module is
     missing or whose shape does not fit are skipped (they may target text
-    encoders); ValueError when none matched."""
-    pairs = collect_lora_pairs(_read_lora_file(root, filename))
-    by_norm = {_normalize_key(name[:-len('.weight')]): p
+    encoders); ValueError when none matched.  ``cuts`` ({key: (dim,
+    indices)}, a tensor-parallel module's): a cut weight takes the same
+    part of its delta."""
+    from ..parallel.mesh import take
+    cuts = cuts or {}
+    by_norm = {_normalize_key(name[:-len('.weight')]): (p, cuts.get(name))
                for name, p in module.named_parameters() if name.endswith('.weight')}
+    pairs = collect_lora_pairs(_read_lora_file(root, filename))
     n_merged = 0
     with torch.no_grad():
         for base, (down, up, scale) in pairs.items():
-            w = by_norm.get(_normalize_key(base.replace('_', '.') if '.' not in base else base))
+            w, cut = by_norm.get(_normalize_key(base.replace('_', '.') if '.' not in base
+                                                else base), (None, None))
             if w is None or w.dim() not in (2, 4):
                 continue
             d = down.to(w.device, torch.float32)
@@ -92,6 +98,8 @@ def apply_lora_to_module(module: nn.Module, root: str, filename: Optional[str] =
             delta = (u @ d) * scale                         # (O, I)
             if w.dim() == 4:
                 delta = delta[..., None, None]              # OIHW 1x1 conv
+            if cut is not None:
+                delta = take(delta, cut)
             if delta.shape != w.shape:
                 continue
             w.copy_((w.float() + delta).to(w.dtype))

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention_fused, merge_heads, split_heads
+from ..parallel.mesh import cut_heads, linear_cuts, row_linear, span
 from ..ops.resize import interpolate_nearest_nchw
 from ..taps import EMPTY, TapSite, TapSpec, child_id
 from .layers import TimestepEmbedding, timestep_embedding
@@ -159,13 +160,24 @@ class AddedKVAttention(nn.Module):
         self.add_k_proj = nn.Linear(cross_attention_dim, channels)
         self.add_v_proj = nn.Linear(cross_attention_dim, channels)
         self.to_out = nn.ModuleList([nn.Linear(channels, channels)])
+        self.heads_total, self.head_dim = self.heads, head_dim
+        self.tp = None
+
+    def parallelize(self, tp, seq):
+        """This rank's heads of ``tp``: rows of the q/k/v and added k/v
+        projections, to_out.0's columns; returns the cuts."""
+        if tp is None:
+            return {}
+        return cut_heads(self, tp, ('to_q', 'to_k', 'to_v', 'add_k_proj', 'add_v_proj'),
+                         ('to_out.0',))
 
     def forward(self, x, context):
         b, c, hh, ww = x.shape
         h = self.group_norm(x.reshape(b, c, hh * ww)).transpose(1, 2)
         k = torch.cat([self.add_k_proj(context), self.to_k(h)], dim=1)
         v = torch.cat([self.add_v_proj(context), self.to_v(h)], dim=1)
-        out = self.to_out[0](attention_fused(self.to_q(h), k, v, self.heads))
+        out = row_linear(self.to_out[0], attention_fused(self.to_q(h), k, v, self.heads),
+                         self.tp)
         return out.transpose(1, 2).reshape(b, c, hh, ww) + x
 
 
@@ -206,10 +218,20 @@ class IFTextTimeEmbedding(nn.Module):
         self.pool = AttentionPooling(num_heads, embed_dim)
         self.proj = nn.Linear(embed_dim, time_embed_dim)
         self.norm2 = nn.LayerNorm(time_embed_dim, eps=1e-5)
+        self.tp = None
+
+    def parallelize(self, tp, seq):
+        """``proj`` is column-parallel by JAX's name rule: under ``tp`` it
+        keeps this rank's output rows, gathered before the norm."""
+        if tp is None:
+            return {}
+        self.tp = tp
+        return linear_cuts('proj', self.proj, 0, span(*tp.bounds(self.proj.out_features)))
 
     def forward(self, text_embeds):
         x = self.norm1(text_embeds.to(self.norm1.weight.dtype))
-        return self.norm2(self.proj(self.pool(x)))
+        h = self.proj(self.pool(x))
+        return self.norm2(h if self.tp is None else self.tp.gather(h, -1))
 
 
 class IFBlock(nn.Module):

@@ -38,9 +38,13 @@ from .flash_attention import (
 )
 
 
-def _use_flash(qh, kh, min_seq: int = 1024, head_dims=SUPPORTED_HEAD_DIMS) -> bool:
-    """The gate, with the kernels' head widths where they run (the card)."""
-    return is_flash_compatible(qh.shape, kh.shape, min_seq,
+def _use_flash(qh, kh, min_seq: int = 1024, head_dims=SUPPORTED_HEAD_DIMS,
+               q_len: Optional[int] = None) -> bool:
+    """The gate, with the kernels' head widths where they run (the card).
+    ``q_len``: the global query count where sequence parallelism holds a
+    piece of it (JAX's gate sees the global shapes)."""
+    q_shape = qh.shape if q_len is None else (*qh.shape[:-2], q_len, qh.shape[-1])
+    return is_flash_compatible(q_shape, kh.shape, min_seq,
                                head_dims if qh.device.type == 'cuda' else None)
 
 
@@ -108,23 +112,27 @@ def attention_with_probs_heads(qh, kh, vh, *, scale: Optional[float] = None,
 
 
 def attention_fused_heads(qh, kh, vh, *, scale: Optional[float] = None,
-                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          mask: Optional[torch.Tensor] = None,
+                          q_len: Optional[int] = None) -> torch.Tensor:
     """Attention on pre-split heads (B,H,S,D) without score export: the flash
-    kernel where the gate admits the shape, explicit softmax otherwise."""
+    kernel where the gate admits the shape (of ``q_len`` queries where
+    given), explicit softmax otherwise."""
     scale = qh.shape[-1] ** -0.5 if scale is None else scale
-    if mask is None and _use_flash(qh, kh):
+    if mask is None and _use_flash(qh, kh, q_len=q_len):
         return _flash(qh, kh, vh, scale)
     out, _ = _softmax_attention(qh, kh, vh, scale, mask)
     return out
 
 
 def attention_fused(q, k, v, heads: int, *, scale: Optional[float] = None,
-                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Attention on (B, S, inner) projections without score export."""
+                    mask: Optional[torch.Tensor] = None,
+                    q_len: Optional[int] = None) -> torch.Tensor:
+    """Attention on (B, S, inner) projections without score export; the
+    gate sees ``q_len`` queries where given."""
     d = q.shape[-1] // heads
     scale = d ** -0.5 if scale is None else scale
     qh, kh, vh = split_heads(q, heads), split_heads(k, heads), split_heads(v, heads)
-    if mask is None and _use_flash(qh, kh):
+    if mask is None and _use_flash(qh, kh, q_len=q_len):
         return merge_heads(_flash(qh, kh, vh, scale))
     out, _ = _softmax_attention(qh, kh, vh, scale, mask)
     return merge_heads(out)
@@ -161,7 +169,8 @@ class _HeadmeanKernelPath(torch.autograd.Function):
         return (*torch.autograd.grad((out, mean_p), inputs, (grad_out, grad_mean)), None)
 
 
-def attention_with_headmean_heads(qh, kh, vh, *, scale: Optional[float] = None
+def attention_with_headmean_heads(qh, kh, vh, *, scale: Optional[float] = None,
+                                  q_len: Optional[int] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention plus HEAD-MEAN probabilities on pre-split heads (B,H,S,D):
     (out (B,H,Sq,D), mean_probs (B,Sq,Sk)), the attention store's path.
@@ -170,9 +179,10 @@ def attention_with_headmean_heads(qh, kh, vh, *, scale: Optional[float] = None
     score tiles, so the per-head (B,H,Sq,Sk) tensor never exists; otherwise
     the explicit softmax's probabilities are averaged over heads.  With
     gradients the kernel pair's backward is the explicit path's
-    (``_HeadmeanKernelPath``, JAX's custom VJP)."""
+    (``_HeadmeanKernelPath``, JAX's custom VJP).  The gate sees ``q_len``
+    queries where given."""
     scale = qh.shape[-1] ** -0.5 if scale is None else scale
-    if _use_flash(qh, kh, min_seq=512, head_dims=HEADMEAN_HEAD_DIMS):
+    if _use_flash(qh, kh, min_seq=512, head_dims=HEADMEAN_HEAD_DIMS, q_len=q_len):
         if _needs_grad(qh, kh, vh):
             return _HeadmeanKernelPath.apply(qh, kh, vh, scale)
         return _headmean_kernels(qh, kh, vh, scale)

@@ -87,15 +87,19 @@ def _sm_count(device: torch.device) -> int:
     return _sm_counts[index]
 
 
-def quantize_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_int8(w: torch.Tensor, absmax: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, in) float weight -> ((out, in) int8, (out,) fp32 scale),
     symmetric per output channel: scale = absmax / 127 (1 for an all-zero
     channel), q = round-half-even(w / scale) clipped to +-127.  In fp32 on
     ``w``'s device, bit for bit what the JAX package's numpy computes (both
     divisions are tensor by tensor, so neither becomes a multiply by a
-    reciprocal)."""
+    reciprocal).  ``absmax`` (out,) fp32: the channels' maxima where ``w``
+    holds only some input columns of the whole weight (a row-parallel
+    shard), so its part is the whole weight's quantization cut."""
     w = w.to(torch.float32, copy=True)
-    absmax = w.abs().amax(dim=1)
+    if absmax is None:
+        absmax = w.abs().amax(dim=1)
     scale = torch.where(absmax > 0, absmax / torch.full_like(absmax, 127.0),
                         torch.ones_like(absmax))
     q = w.div_(scale[:, None]).round_().clamp_(-127, 127).to(torch.int8)

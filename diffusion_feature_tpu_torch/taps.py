@@ -83,11 +83,14 @@ def child_id(prefix: str, *parts) -> str:
 
 class TapSite:
     """The tap ids one module declares (``ids``: feature name -> full id) and
-    which of them the request selected."""
+    which of them the request selected.  ``gathers`` (feature name -> a
+    function) put a sharded module's piece back together (``parallel/mesh.py``)
+    before it is stored."""
 
     def __init__(self, spec: TapSpec, prefix: str, feats: Sequence[str]):
         self.ids = {f: child_id(prefix, f) for f in feats}
         self._wanted = {f: i for f, i in self.ids.items() if spec.wants(i)}
+        self.gathers = {}
 
     def wants(self, feat: str) -> bool:
         return feat in self._wanted
@@ -95,7 +98,8 @@ class TapSite:
     def put(self, out: Optional[dict], feat: str, value) -> None:
         tap_id = self._wanted.get(feat)
         if tap_id is not None and out is not None:
-            out[tap_id] = value
+            gather = self.gathers.get(feat)
+            out[tap_id] = value if gather is None else gather(value)
 
 
 def declared_ids(module) -> set:

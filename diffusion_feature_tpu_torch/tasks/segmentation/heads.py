@@ -20,6 +20,12 @@ bilinear (``ops.resize.resize_bilinear_nchw``: antialiased where they
 shrink).  Dropout2d drops whole channels per sample, drawn from an explicit
 ``torch.Generator``; without one there is no dropout, as JAX skips it
 without a ``dropout_rng``.
+
+Data parallelism (``set_data_parallel``, the trainer's ``--dp``): each
+rank holds its rows of the batch; BatchNorm's training statistics are the
+whole batch's (its sums all-reduced, with their gradient), and dropout
+draws the whole batch's masks and keeps the rank's rows, so a step equals
+the one-device step on the whole batch.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.resize import resize_bilinear_nchw
+from ...parallel.mesh import all_reduce_with_grad
 from ...store import adaptive_avg_pool2d
 
 
@@ -50,12 +57,21 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer('running_mean', torch.zeros(channels))
         self.register_buffer('running_var', torch.ones(channels))
+        self.dp = None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         dims = (0,) + tuple(range(2, x.dim()))
-        if train:
+        if train and self.dp is not None:
+            # the whole batch's E[x] and E[x^2]: equal rows on every rank
+            sums = all_reduce_with_grad(torch.stack([x.sum(dim=dims), (x * x).sum(dim=dims)]),
+                                        self.dp)
+            count = x.numel() // x.shape[1] * self.dp.size
+            mean = sums[0] / count
+            var = (sums[1] / count - mean * mean).clamp(min=0.0)
+        elif train:
             mean = x.mean(dim=dims)
             var = ((x * x).mean(dim=dims) - mean * mean).clamp(min=0.0)
+        if train:
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)
@@ -110,13 +126,17 @@ class ConvModule(nn.Module):
 
 
 def _dropout2d(x: torch.Tensor, ratio: float, train: bool,
-               generator: Optional[torch.Generator]) -> torch.Tensor:
+               generator: Optional[torch.Generator], dp=None) -> torch.Tensor:
     """mmseg's Dropout2d: whole channels per sample, kept with 1 - ratio
-    and scaled by 1 / (1 - ratio); nothing without a generator."""
+    and scaled by 1 / (1 - ratio); nothing without a generator.  ``dp``
+    (an ``Axis`` whose ranks hold equal rows): the whole batch's draws, this
+    rank's rows of them."""
     if not train or ratio <= 0 or generator is None:
         return x
-    keep = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=generator,
-                      device=x.device) >= ratio
+    n = x.shape[0] if dp is None else x.shape[0] * dp.size
+    keep = torch.rand((n, x.shape[1], 1, 1), generator=generator, device=x.device) >= ratio
+    if dp is not None:
+        keep = dp.take(keep, 0)
     return x * keep.to(x.dtype) / (1 - ratio)
 
 
@@ -141,6 +161,7 @@ class UPerHead(nn.Module):
             self.add_module(f'fpn_{i}', ConvModule(channels, channels, 3))
         self.fpn_bottleneck = ConvModule(levels * channels, channels, 3)
         self.conv_seg = _conv(channels, num_classes, 1)
+        self.dp = None
 
     def forward(self, inputs: List[torch.Tensor], train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -164,7 +185,7 @@ class UPerHead(nn.Module):
         target = fpn_outs[0].shape[2:]
         fpn_outs = [resize_bilinear_nchw(f, target) for f in fpn_outs]
         out = self.fpn_bottleneck(torch.cat(fpn_outs, dim=1), train)
-        out = _dropout2d(out, self.dropout_ratio, train, generator)
+        out = _dropout2d(out, self.dropout_ratio, train, generator, self.dp)
         return self.conv_seg(out)
 
 
@@ -179,13 +200,24 @@ class FCNHead(nn.Module):
             self.add_module(f'conv_{i}', ConvModule(in_channels if i == 0 else channels,
                                                     channels, 3))
         self.conv_seg = _conv(channels, num_classes, 1)
+        self.dp = None
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = x.float()
         for i in range(self.num_convs):
             h = getattr(self, f'conv_{i}')(h, train)
-        return self.conv_seg(_dropout2d(h, self.dropout_ratio, train, generator))
+        return self.conv_seg(_dropout2d(h, self.dropout_ratio, train, generator, self.dp))
+
+
+def set_data_parallel(module: nn.Module, dp) -> nn.Module:
+    """Give every module under ``module`` that takes one (the BatchNorms,
+    the heads' dropout, the segmentor's loss) the dp ``Axis``
+    (``parallel/mesh.py``) whose ranks hold the batch's rows."""
+    for m in module.modules():
+        if hasattr(m, 'dp'):
+            m.dp = dp
+    return module
 
 
 def init_like_flax(module: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -19,7 +19,11 @@ Semantics kept from the JAX package:
   - prompt tuning replaces the prompt embeddings with trainable tensors,
     and the gradient flows through the extraction step (``extract`` runs
     with autograd when a conditioning tensor requires grad);
-  - sliding-window inference with logit accumulation (:421-472).
+  - sliding-window inference with logit accumulation (:421-472);
+  - ``mesh`` (dp, the JAX trainer's one program over the global batch):
+    each rank extracts and heads its rows, with the whole batch's noise,
+    BatchNorm statistics and dropout masks, and the loss is taken over the
+    gathered logits and labels, so it is the whole batch's on every rank.
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ import torch.nn as nn
 
 from ...facade import FeatureExtractor
 from ...ops.resize import resize_bilinear_nchw
-from .heads import FCNHead, ResBlockAdapter, UPerHead, init_like_flax
+from ...parallel.mesh import gather_with_grad
+from .heads import FCNHead, ResBlockAdapter, UPerHead, init_like_flax, set_data_parallel
 from .losses import segmentation_loss
 
 
@@ -85,6 +90,8 @@ class SegHead(nn.Module):
                                     dropout_ratio)
         self.auxiliary_head = FCNHead(in_channels[aux_in_index], head_channels,
                                       num_classes=num_classes, dropout_ratio=dropout_ratio)
+        #: the dp axis whose ranks hold the batch's rows (``set_data_parallel``)
+        self.dp = None
 
     def forward(self, features: Dict[str, torch.Tensor], train: bool = False,
                 generator: Optional[torch.Generator] = None):
@@ -171,12 +178,16 @@ class DiffusionSegmentor:
     float32 under prompt tuning or ``train_unet``, else bf16, unless the
     config names a dtype; its prompt is encoded once and the text encoders
     dropped (``offload_prompt_encoder(persistent=True)``).  The head lives
-    on ``device`` and initialises from ``seed`` (``init_state``)."""
+    on ``device`` and initialises from ``seed`` (``init_state``).
+    ``mesh``: a dp ``parallel.mesh.Mesh`` (the module docstring); ``loss``
+    then takes this rank's rows of a batch whose rows every rank holds
+    equally many of."""
 
     def __init__(self, diffusion_feature, feature_layers, num_classes: int = 150,
                  head_channels: int = 512, pool_scales=(1, 2),
                  aux_in_index: Optional[int] = None, prompt: str = '',
-                 prompt_tuning: bool = False, weights=None, seed: int = 0, device='cuda'):
+                 prompt_tuning: bool = False, weights=None, seed: int = 0, device='cuda',
+                 mesh=None):
         self.multi = isinstance(diffusion_feature, (list, tuple))
         if prompt_tuning and self.multi:
             raise NotImplementedError('prompt tuning with the multi-model ensemble is not '
@@ -194,7 +205,7 @@ class DiffusionSegmentor:
                 dtype=df.get('dtype', 'float32' if prompt_tuning or train_unet
                              else 'bfloat16'),
                 control=control[0] if control else None, offline_lora=df.get('offline_lora'),
-                weights=weights, device=device)
+                weights=weights, device=device, mesh=mesh)
             choices = None
             if control:
                 n = control[1] if len(control) > 1 else 0
@@ -216,6 +227,9 @@ class DiffusionSegmentor:
         self.head = SegHead(mfl, num_classes=num_classes, head_channels=head_channels,
                             pool_scales=tuple(pool_scales),
                             aux_in_index=aux_in_index).to(self.device)
+        #: the dp axis whose ranks hold the training batch's rows, or None
+        self.dp = mesh.axis('dp') if mesh is not None and mesh.dp > 1 else None
+        set_data_parallel(self.head, self.dp)
         self.meta_prompt: Optional[nn.Parameter] = None
         self.meta_pooled: Optional[nn.Parameter] = None
         self._seed = seed
@@ -294,16 +308,25 @@ class DiffusionSegmentor:
         ``train_unet``) carries gradients through them; with prompt tuning
         ``meta_prompt`` (and ``meta_pooled``) replace the encoded
         embeddings.  An ensemble extracts model by model, keys
-        ``m{i}:{layer}``."""
+        ``m{i}:{layer}``.  Under dp, in training, ``images`` are this
+        rank's rows of the batch."""
         images = images.to(self.device)
+        batch = images.shape[0]
+        if self.dp is not None and not is_test:
+            batch *= self.dp.size
+
+        def extract(fe, prompts, t, use_control=False):
+            kw = dict(image_type='tensors', t=t, use_control=use_control)
+            if self.dp is not None and not is_test:
+                return fe.extract_rows(prompts, batch, images, **kw)
+            return fe.extract(prompts, batch, images, **kw)
         if self.multi:
             out = {}
             for mi, ex in enumerate(self.extractors):
                 t = ex['t']
                 if isinstance(t, (list, tuple)):
                     t = t[0] if is_test else self._rng.choice(t)
-                feats = ex['model'].extract(ex['prompt_embeds'], images.shape[0], images,
-                                            image_type='tensors', t=t)
+                feats = extract(ex['model'], ex['prompt_embeds'], t)
                 out.update({f'm{mi}:{k}': _frozen(v) for k, v in feats.items()})
             return out
         prompts = self.prompt_embeds
@@ -313,9 +336,8 @@ class DiffusionSegmentor:
             if self.meta_pooled is not None:
                 pe[2] = self.meta_pooled
             prompts = tuple(pe)
-        feats = self.extractor.extract(prompts, images.shape[0], images, image_type='tensors',
-                                       t=self._pick_t(is_test),
-                                       use_control=self._pick_control(is_test))
+        feats = extract(self.extractor, prompts, self._pick_t(is_test),
+                        self._pick_control(is_test))
         if not (self.prompt_tuning or self.extractor.train_unet):
             feats = {k: _frozen(v) for k, v in feats.items()}
         return feats
@@ -325,12 +347,19 @@ class DiffusionSegmentor:
         """The objective over extracted features, in training mode (BN
         batch statistics, which update the running ones in place; dropout
         from ``generator``): logits resized to the labels' size, then
-        ``segmentation_loss``.  Returns (total, parts)."""
+        ``segmentation_loss``.  Returns (total, parts).  Under dp the
+        logits (with their gradient) and the labels of every rank are
+        gathered first: the loss is the whole batch's on every rank."""
         decode, aux = self.head(feats, train=True, generator=generator)
         labels = _as_labels(labels).to(decode.device)
         hw = tuple(labels.shape[-2:])
-        return segmentation_loss(resize_bilinear_nchw(decode, hw),
-                                 resize_bilinear_nchw(aux, hw), labels)
+        decode, aux = resize_bilinear_nchw(decode, hw), resize_bilinear_nchw(aux, hw)
+        dp = self.head.dp
+        if dp is not None:
+            sizes = [labels.shape[0]] * dp.size
+            decode, aux = (gather_with_grad(x, dp, 0, sizes) for x in (decode, aux))
+            labels = dp.gather(labels, 0, sizes)
+        return segmentation_loss(decode, aux, labels)
 
     def loss(self, images, labels, generator: Optional[torch.Generator] = None):
         """The training objective at label resolution (mmseg: logits

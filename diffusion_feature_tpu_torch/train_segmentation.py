@@ -27,8 +27,20 @@ the photometric distortion, padding with 255 and a random crop of
 
 Config: the JSON of ``seg_configs/`` ({"diffusion_feature": {...},
 "feature_layers": [[["layer", C], ...], ...], "num_classes": 150, ...}).
-``--device`` (default cuda) places the extractor and the head; ``--dp``
-above 1 is ROADMAP.md Queue A item 11.
+``--device`` (default cuda) places the extractor and the head.
+
+``--dp N`` (N must divide ``--batch_size``) runs one process per rank:
+``torchrun --nproc_per_node N -m diffusion_feature_tpu_torch.train_segmentation
+--dp N ...`` (each process on ``cuda:<LOCAL_RANK>`` when ``--device cuda``;
+NCCL there, gloo on the CPU), or processes that joined a group of the
+caller's backend before calling ``main``.
+Every rank draws the whole batch's pairs and augmentations from the same
+``random.Random(seed)`` and decodes only its rows; the segmentor takes
+the whole batch's BatchNorm statistics, dropout and loss
+(``tasks/segmentation/segmentor.py``), the gradients are averaged over the
+ranks, and rank 0 writes the checkpoints and the log, so a step equals
+the one-device step on the whole batch.  Evaluation runs whole on every
+rank, as in the JAX trainer.
 """
 
 from __future__ import annotations
@@ -43,7 +55,7 @@ import time
 import numpy as np
 import torch
 
-from .roadmap import not_ported
+from .parallel.mesh import init_launched, make_mesh
 from .tasks.scarce import compute_iou
 from .tasks.segmentation import DiffusionSegmentor
 
@@ -68,27 +80,38 @@ def list_pairs(img_dir, label_dir):
     return pairs
 
 
-def _photometric(img: np.ndarray, rng: random.Random) -> np.ndarray:
-    """PhotoMetricDistortion's essentials (mmseg defaults): brightness
-    +-32 and contrast 0.5-1.5, each with p=0.5, on uint8 values."""
-    img = img.astype(np.float32)
-    if rng.random() < 0.5:
-        img = img + rng.uniform(-32, 32)
-    if rng.random() < 0.5:
-        img = img * rng.uniform(0.5, 1.5)
-    return np.clip(img, 0, 255)
+def _train_draws(size, crop, rng: random.Random) -> dict:
+    """The random draws of one training pair of an image of ``size`` (w, h),
+    in the JAX trainer's order: RandomResize's scale, the flip, the
+    photometric distortion's (brightness +-32 and contrast 0.5-1.5, each
+    with p=0.5; None where skipped), the crop's corner."""
+    ch, cw = crop
+    scale = rng.uniform(0.5, 2.0)
+    nw, nh = max(cw, int(round(size[0] * scale))), max(ch, int(round(size[1] * scale)))
+    flip = rng.random() < 0.5
+    brightness = rng.uniform(-32, 32) if rng.random() < 0.5 else None
+    contrast = rng.uniform(0.5, 1.5) if rng.random() < 0.5 else None
+    return {'size': (nw, nh), 'flip': flip, 'brightness': brightness, 'contrast': contrast,
+            'y': rng.randrange(nh - ch + 1), 'x': rng.randrange(nw - cw + 1)}
 
 
 def load_pair(img_path, label_path, crop, rng: random.Random, train: bool = True,
-              reduce_zero_label: bool = False):
+              reduce_zero_label: bool = False, decode: bool = True):
     """(image (3, H, W) float32 in [-1, 1], labels (H, W) int32).  With
     ``train``: RandomResize 0.5-2.0 (ADE20K's pipeline), a flip with p=0.5,
-    the photometric distortion, padding (labels with 255) to ``crop`` and a
-    random crop; without, the full image, padded to ``crop`` at least.
+    the photometric distortion (PhotoMetricDistortion's essentials, on
+    uint8 values), padding (labels with 255) to ``crop`` and a random crop;
+    without, the full image, padded to ``crop`` at least.
     ``reduce_zero_label``: ADE20K's 0 (unlabelled) becomes 255 and classes
-    1..N become 0..N-1.  Draws from ``rng`` in the JAX trainer's order."""
+    1..N become 0..N-1.  Draws from ``rng`` in the JAX trainer's order;
+    ``decode=False`` makes the same draws from the image's size alone and
+    returns None (a dp rank's pair of another rank)."""
     from PIL import Image
-    pil = Image.open(img_path).convert('RGB')
+    pil = Image.open(img_path)
+    draws = _train_draws(pil.size, crop, rng) if train else None
+    if not decode:
+        return None
+    pil = pil.convert('RGB')
     if label_path.endswith('.npy'):
         lab = np.load(label_path)
     else:
@@ -100,27 +123,28 @@ def load_pair(img_path, label_path, crop, rng: random.Random, train: bool = True
         lab = np.where(lab == 0, 255, lab - 1)
     ch, cw = crop
     if train:
-        scale = rng.uniform(0.5, 2.0)
-        nw = max(cw, int(round(pil.width * scale)))
-        nh = max(ch, int(round(pil.height * scale)))
+        nw, nh = draws['size']
         pil = pil.resize((nw, nh), Image.BILINEAR)
         lab = np.asarray(Image.fromarray(lab.astype(np.uint16)).resize((nw, nh), Image.NEAREST),
                          dtype=np.int32)
-        if rng.random() < 0.5:
+        if draws['flip']:
             pil = pil.transpose(Image.FLIP_LEFT_RIGHT)
             lab = lab[:, ::-1]
     img = np.asarray(pil)
     if train:
-        img = _photometric(img, rng)
+        img = img.astype(np.float32)
+        if draws['brightness'] is not None:
+            img = img + draws['brightness']
+        if draws['contrast'] is not None:
+            img = img * draws['contrast']
+        img = np.clip(img, 0, 255)
     H, W = img.shape[:2]
     if H < ch or W < cw:
         pad_h, pad_w = max(0, ch - H), max(0, cw - W)
         img = np.pad(img, ((0, pad_h), (0, pad_w), (0, 0)))
         lab = np.pad(lab, ((0, pad_h), (0, pad_w)), constant_values=255)
-        H, W = img.shape[:2]
     if train:
-        y = rng.randrange(H - ch + 1)
-        x = rng.randrange(W - cw + 1)
+        y, x = draws['y'], draws['x']
         img = img[y:y + ch, x:x + cw]
         lab = lab[y:y + ch, x:x + cw]
     img = (img.astype(np.float32) - 127.5) / 127.5
@@ -146,9 +170,10 @@ def make_optimizer(params, lr: float, weight_decay: float, max_iters: int):
 
 
 def segmentor_from_config(cfg: dict, weights=None, seed: int = 0,
-                          device='cuda') -> DiffusionSegmentor:
+                          device='cuda', mesh=None) -> DiffusionSegmentor:
     """The segmentor of a ``seg_configs/`` JSON's content (one extractor,
-    or the ensemble's list with feature layers per model)."""
+    or the ensemble's list with feature layers per model); ``mesh`` a dp
+    mesh."""
     if isinstance(cfg['diffusion_feature'], list):   # the multi-model ensemble
         feature_layers = [[[(lid, int(c)) for lid, c in lvl] for lvl in mfl]
                           for mfl in cfg['feature_layers']]
@@ -159,16 +184,41 @@ def segmentor_from_config(cfg: dict, weights=None, seed: int = 0,
         num_classes=cfg.get('num_classes', 150), head_channels=cfg.get('head_channels', 512),
         pool_scales=cfg.get('pool_scales', (1, 2)), prompt=cfg.get('prompt', ''),
         prompt_tuning=cfg.get('prompt_tuning', False), weights=weights, seed=seed,
-        device=device)
+        device=device, mesh=mesh)
+
+
+#: the most gradient elements flattened into one all-reduce (256 MiB fp32)
+GRAD_BUCKET = 1 << 26
+
+
+def average_gradients(params, dp) -> None:
+    """Each parameter's gradient replaced by its mean over the ``dp``
+    ranks, through one all-reduce per bucket of at most GRAD_BUCKET
+    elements flattened together (a collective per tensor would pay its
+    latency hundreds of times a step)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    while grads:
+        take, n = 1, grads[0].numel()
+        while take < len(grads) and n + grads[take].numel() <= GRAD_BUCKET:
+            n += grads[take].numel()
+            take += 1
+        part, grads = grads[:take], grads[take:]
+        flat = dp.all_reduce(torch.cat([g.reshape(-1) for g in part])).div_(dp.size)
+        for g, piece in zip(part, flat.split([g.numel() for g in part])):
+            g.copy_(piece.view_as(g))
 
 
 def train_step(seg, opt, sched, images, labels, generator=None):
     """One optimiser step on a batch already on the device: the loss (with
-    dropout from ``generator``), its backward, AdamW, the schedule.
-    Returns (loss, parts) as tensors."""
+    dropout from ``generator``), its backward, AdamW, the schedule.  Under
+    dp (``seg.dp``) ``images`` and ``labels`` are this rank's rows and the
+    gradients are averaged over the ranks first.  Returns (loss, parts) as
+    tensors."""
     opt.zero_grad(set_to_none=True)
     loss, parts = seg.loss(images, labels, generator)
     loss.backward()
+    if seg.dp is not None:
+        average_gradients([p for group in opt.param_groups for p in group['params']], seg.dp)
     opt.step()
     sched.step()
     return loss, parts
@@ -194,7 +244,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--resume', type=str, default=None)
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--dp', type=int, default=1,
-                        help='data-parallel devices (not ported: ROADMAP.md Queue A item 11)')
+                        help='data-parallel ranks, one process each (torchrun); must divide '
+                             '--batch_size')
     parser.add_argument('--eval_only', action='store_true',
                         help='evaluate the --resume checkpoint on the val set, no training')
     parser.add_argument('--reduce_zero_label', action='store_true',
@@ -218,15 +269,21 @@ def evaluate(seg, val_pairs, crop, stride, rng, reduce_zero_label: bool, seed: i
     return compute_iou(preds, gts, seg.head.num_classes, ignore_label=255)[1]
 
 
-def main(argv=None):
+def main(argv=None, group=None):
     """Train (or with ``--eval_only`` evaluate); returns {'seg': the
     segmentor, 'losses': [float per iteration], 'step_seconds': [host
     seconds per iteration, from loading its batch to its loss on the host,
     which waits for the optimiser step], 'miou': [(iteration, mIoU),
-    ...]}."""
+    ...]}.  ``group``: the process group of a ``--dp`` run's ranks
+    (default: every launched rank)."""
     args = build_parser().parse_args(argv)
+    mesh = None
     if args.dp > 1:
-        raise not_ported(f'train_segmentation --dp {args.dp}', 'Multi-GPU')
+        if args.batch_size % args.dp:
+            raise ValueError(f'--batch_size {args.batch_size} must divide over --dp {args.dp}')
+        args.device = init_launched('gloo' if args.device == 'cpu' else 'nccl', args.device)
+        mesh = make_mesh(dp=args.dp, group=group)
+    lead = mesh is None or mesh.coords['dp'] == 0
     os.makedirs(args.work_dir, exist_ok=True)
     with open(args.config) as f:
         cfg = json.load(f)
@@ -234,7 +291,7 @@ def main(argv=None):
         args.crop_size = int(cfg.get('crop_size', [512, 512])[0])
     # a stride above the crop would leave pixels no window visits
     stride = tuple(min(int(s), args.crop_size) for s in cfg.get('stride', [512, 512]))
-    seg = segmentor_from_config(cfg, args.weights, args.seed, args.device)
+    seg = segmentor_from_config(cfg, args.weights, args.seed, args.device, mesh)
     params = seg.init_state()
     opt, sched = make_optimizer(params.values(), args.lr, args.weight_decay, args.max_iters)
     start = 0
@@ -247,7 +304,8 @@ def main(argv=None):
 
     train_pairs = list_pairs(args.train_img_dir, args.train_label_dir)
     val_pairs = list_pairs(args.val_img_dir, args.val_label_dir) if args.val_img_dir else []
-    print(f'{len(train_pairs)} train / {len(val_pairs)} val pairs')
+    log = print if lead else (lambda *a, **k: None)
+    log(f'{len(train_pairs)} train / {len(val_pairs)} val pairs')
     crop = (args.crop_size, args.crop_size)
     result = {'seg': seg, 'losses': [], 'step_seconds': [], 'miou': []}
 
@@ -259,7 +317,7 @@ def main(argv=None):
                              'weights')
         miou = evaluate(seg, val_pairs, crop, stride, random.Random(args.seed),
                         args.reduce_zero_label, args.seed)
-        print(f'eval mIoU: {miou:.4f}')
+        log(f'eval mIoU: {miou:.4f}')
         result['miou'].append((start, miou))
         return result
     if not train_pairs:
@@ -267,11 +325,14 @@ def main(argv=None):
 
     rng = random.Random(args.seed)
     dropout = torch.Generator(device=seg.device).manual_seed(args.seed)
+    lo, hi = (0, args.batch_size) if mesh is None else mesh.axis('dp').bounds(args.batch_size)
     for it in range(start, args.max_iters):
         t0 = time.perf_counter()
+        # every rank draws the whole batch, and decodes its rows
         batch = [load_pair(*train_pairs[rng.randrange(len(train_pairs))], crop, rng,
-                           reduce_zero_label=args.reduce_zero_label)
-                 for _ in range(args.batch_size)]
+                           reduce_zero_label=args.reduce_zero_label, decode=lo <= i < hi)
+                 for i in range(args.batch_size)]
+        batch = batch[lo:hi]
         images = torch.from_numpy(np.stack([b[0] for b in batch])).to(seg.device)
         labels = torch.from_numpy(np.stack([b[1] for b in batch])).to(seg.device)
         loss, parts = train_step(seg, opt, sched, images, labels, dropout)
@@ -279,16 +340,17 @@ def main(argv=None):
         result['step_seconds'].append(time.perf_counter() - t0)
         if it % 50 == 0:
             p = {k: round(float(v.detach()), 4) for k, v in parts.items()}
-            print(f'iter {it}: loss {result["losses"][-1]:.4f} {p}')
+            log(f'iter {it}: loss {result["losses"][-1]:.4f} {p}')
         if (it + 1) % args.val_every == 0 or it + 1 == args.max_iters:
             if val_pairs:
                 miou = evaluate(seg, val_pairs, crop, stride, rng, args.reduce_zero_label,
                                 args.seed)
-                print(f'iter {it + 1}: val mIoU {miou:.4f}')
+                log(f'iter {it + 1}: val mIoU {miou:.4f}')
                 result['miou'].append((it + 1, miou))
-            torch.save({'iter': it + 1, 'state': seg.state_dict(),
-                        'optimizer': opt.state_dict(), 'scheduler': sched.state_dict()},
-                       os.path.join(args.work_dir, f'iter_{it + 1}.pt'))
+            if lead:
+                torch.save({'iter': it + 1, 'state': seg.state_dict(),
+                            'optimizer': opt.state_dict(), 'scheduler': sched.state_dict()},
+                           os.path.join(args.work_dir, f'iter_{it + 1}.pt'))
     return result
 
 

@@ -339,9 +339,10 @@ def test_weight_flags_match_jax_cli(monkeypatch, tmp_path, images, checkpoint, f
 @pytest.mark.parametrize('flags,error,match', [
     # ControlNet on DeepFloyd IF (no SD U-Net encoder to copy) is refused
     (['--control', 'canny', '--version', 'test-if'], ValueError, 'control= needs a U-Net'),
-    (['--dp', '2'], NotImplementedError, 'ROADMAP.md, Queue A item 11:'),
-    (['--tp', '2'], NotImplementedError, 'ROADMAP.md, Queue A item 11:'),
-    (['--sp', '2'], NotImplementedError, 'ROADMAP.md, Queue A item 11:'),
+    # several ranks need a launched process group of dp * sp * tp ranks
+    (['--dp', '2'], ValueError, 'torchrun --nproc_per_node 2'),
+    (['--tp', '2'], ValueError, 'torchrun --nproc_per_node 2'),
+    (['--sp', '2'], ValueError, 'torchrun --nproc_per_node 2'),
     # the int8 transformer is Flux's alone, as in the JAX CLI
     (['--transformer_8bit', 'true'], ValueError, 'transformer_8bit is only supported for flux'),
 ], ids=['control', 'dp', 'tp', 'sp', 'transformer_8bit'])

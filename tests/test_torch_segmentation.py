@@ -314,7 +314,7 @@ def test_trainer_cli_trains_checkpoints_and_resumes(tmp_path):
     iterations, a val pass with slide inference, a checkpoint, then
     --resume --eval_only scoring it with the same mIoU; the data pipeline
     (list_pairs, load_pair with the same random draws) against the JAX
-    trainer's; --dp 2 is refused."""
+    trainer's; --dp 2 without a launched group of two ranks is refused."""
     _write_pairs(tmp_path, 3)
     cfg = {'diffusion_feature': {**SEG_DF, 't': [50, 100]},
            'feature_layers': [[list(x) for x in lvl] for lvl in SEG_FEATURE_LAYERS],
@@ -341,5 +341,5 @@ def test_trainer_cli_trains_checkpoints_and_resumes(tmp_path):
     assert again['miou'] == run['miou']
     for k, v in run['seg'].state_dict().items():
         assert torch.equal(again['seg'].state_dict()[k], v), k
-    with pytest.raises(NotImplementedError, match='Queue A item 11'):
+    with pytest.raises(ValueError, match='torchrun'):
         trainer.main(base + ['--dp', '2'])

@@ -168,7 +168,7 @@ def test_layer_validation_suggests_near_miss():
     # the JAX facade's keywords at other values than their defaults
     # (train_unet is ported: test_train_unet_returns_live_features)
     ({'external_model': object()}, ValueError, 'external_model must be a FeatureExtractor'),
-    ({'mesh': object()}, NotImplementedError, 'ROADMAP.md, Queue A item 11:'),
+    ({'mesh': object()}, TypeError, 'mesh must be a parallel.mesh.Mesh'),
     # int8 is ported (tests/test_torch_quant.py); the JAX facade's refusals:
     # an int8 T5 without weights, the int8 transformer off Flux
     ({'t5_8bit': True, 'version': 'test-pixart'}, ValueError, 't5_8bit=True requires real'),
