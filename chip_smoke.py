@@ -18,7 +18,10 @@ Phases (each prints its numbers on lines of its own):
      it at (batch 2), plus a ragged shape, in bf16 and fp32 (each kernel
      also in fp16 at one shape): errors against the stated tolerances, and
      for each shape the kernel's, the twin's and the one PyTorch library
-     call's times beside the least time the card needs.  B1, B2 and B3 are
+     call's times beside the least time the card needs.  Only what the
+     kernels line takes is timed: the contiguous B1/B2/B3 inputs (the paths
+     hand head-split views), the ragged shapes, B4's head-split views and
+     fp16 are held to the twins untimed.  B1, B2 and B3 are
      also checked on the head-split views the paths hand them (the
      (B, H, S, D) view of a (B, S, H*D) projection, read in place) at every
      path shape and at ragged d=64, d=40 (and, for B1, d=512) shapes; those
@@ -40,7 +43,8 @@ Phases (each prints its numbers on lines of its own):
      FeatureExtractor('xl-practical') -> encode_prompt -> extract(t=50);
      tap shapes, dtype and finiteness, exactly 71 B1 launches, and the taps
      against the same step with every kernel call on its plain twin;
-  4. that extract timed call by call with CUDA events after warm-up:
+  4. that extract timed call by call with CUDA events after two untimed
+     calls (TIMED_CALLS of them):
      median ms and img/s, and peak memory;
   5. path A, SD-1.5 at full width, 512^2, batch 2, the correspondence
      config's second extractor with 'up_self' added:
@@ -78,7 +82,7 @@ Phases (each prints its numbers on lines of its own):
      exactly 772 B1 launches (the VAE encoder's, 11 U-Net forwards of 70,
      the decoder's mid block), 'vae-out' (2, 3, 1024, 1024) in bf16 and
      finite, the same extract on the twins within MULTISTEP_REL_TOL
-     relative L2, its timing over 5 calls and its peak memory;
+     relative L2, its timing over 3 calls and its peak memory;
  10. Playground v2 ('pgv2') at 1024^2 with 'pg-amalgamation' at t=50, the
      correspondence config's third extractor: 71 B1 launches, the twin
      step, its timing;
@@ -184,7 +188,16 @@ Phases (each prints its numbers on lines of its own):
      the features; the step with every W8A16 and B1 call on its twin
      within TAP_REL_TOL; each tap's cosine against (a)'s bf16 features from
      the same draws (>= INT8_COSINE); its timing, and its peak at least
-     INT8_PEAK_SAVING_GIB below (a)'s.
+     INT8_PEAK_SAVING_GIB below (a)'s.  (g) after (f) and phase 22's Flux
+     part, the last readers of (d)'s tree: its weight files deleted, (f)'s
+     extractor written by save_converted as a deployment bundle (~17 GB:
+     the int8 transformer and T5-XXL, bf16 CLIP-L and VAE) and loaded back
+     with no int8 keyword: both flags from the manifest, every tensor
+     torch.equal to (f)'s, the load's peak within INT8_LOAD_PEAK_RATIO of
+     the resident bytes (nothing is quantized or staged in bf16), 168 and
+     495 W8A16 launches at the derived shapes and 58 B1, the prompts and
+     first features torch.equal to (f)'s, the load seconds beside (f)'s;
+     the bundle deleted after.
  17. DeepFloyd IF (after 16), random weights from seed 0, the JAX
      benchmark's taps (up-level{1,2}-repeat0-res-out, unet-out): (a) 'if'
      at its native 64^2, batch 2, t=50 (the IF-I-L preset in pixel space,
@@ -256,8 +269,9 @@ Phases (each prints its numbers on lines of its own):
      config's, the step's ms and the peak GiB.
  21. label-scarce (after phase 20): the port's extraction CLI with
      --aggregate_output on PIXEL_IMAGES synthetic images (the 'xl' path in
-     batches of 2, 71 B1 per batch), then task_pixel.main (horse_21, 2 training images,
-     2 members, 1 epoch) on those dumps and synthetic 256^2 label PNGs:
+     batches of 2, 71 B1 per batch), then task_pixel.main (horse_21,
+     PIXEL_TRAIN training images, 2 members, 1 epoch) on those dumps and
+     synthetic 256^2 label PNGs:
      the native .npy reader active, 2 member checkpoints, then a second
      main that loads them and trains none, the predictions and
      visualisations written, a finite mIoU and uncertainty; one member
@@ -342,6 +356,7 @@ and tools/torch_extract_profile.py time, so their numbers are of the same
 paths.
 """
 
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -472,7 +487,7 @@ PATHS = {
     'xl_multistep': {'args': dict(layer={**dict.fromkeys(XL_PRACTICAL, True), 'vae-out': True},
                                   version='xl', img_size=1024),
                      'extract': dict(denoising_from=60), 'launches': (1 + 11 * 70 + 1, 0, 0),
-                     'feats': {**XL_PRACTICAL, 'vae-out': (2, 3, 1024, 1024)}, 'calls': 5},
+                     'feats': {**XL_PRACTICAL, 'vae-out': (2, 3, 1024, 1024)}, 'calls': 3},
     # the correspondence config's third extractor (corres_configs/config_xl_t.json)
     'pgv2': {'args': dict(layer='pg-amalgamation', version='pgv2', img_size=1024),
              'launches': (71, 0, 0),
@@ -525,7 +540,7 @@ PATHS = {
 # phase 11's DDIM inversion extract: 5 inverted steps (timesteps 11 to 51,
 # the first >= 49) through the plain U-Net, 10 B1 each, then the last forward
 INVERSION_PATH, INVERSION_LAUNCHES = 'sd21_store', (5 * 10 + 7, 3, 3)
-TIMED_CALLS = 7
+TIMED_CALLS = 5
 # kernel vs twin through ~70 bf16 attention calls and 50+ blocks: relative
 # L2 difference per tap
 TAP_REL_TOL = 2e-2
@@ -664,8 +679,8 @@ CORRES_SIZES = [((500, 375), (375, 500)), ((500, 333), (400, 500)), ((480, 360),
 # the loss: relative difference of one pair's clip_loss
 CORRES_LOSS_TOL = 2e-2
 # phase 21: the CLI's aggregated dumps of the 'xl' path feed task_pixel
-PIXEL_IMAGES = 3
-PIXEL_ARGV = ['--category', 'horse_21', '--train_num', '2', '--model_num', '2',
+PIXEL_IMAGES, PIXEL_TRAIN = 2, 1      # one training image, one test image
+PIXEL_ARGV = ['--category', 'horse_21', '--train_num', str(PIXEL_TRAIN), '--model_num', '2',
               '--max_epochs', '1', '--device', 'cuda']
 
 # phase 22: the mesh on two ranks of cuda:0 over gloo.  22b: phase 6's
@@ -718,7 +733,7 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, min_total_ms=200.0, runs=1) -> float:
+def time_ms(torch, fn, min_total_ms=100.0, runs=1) -> float:
     """Mean device time of ``fn`` over a run of launches, after warm-up;
     with ``runs`` > 1 the median of that many such runs.  Where a loop of
     separate calls times the host, one stall of a host that shares its
@@ -877,10 +892,13 @@ def short_grad_ratio(torch, fa, q, k, v, scale, tol, gen):
 PLAIN_MS = {}   # (kernel, shape, dtype name) -> the twin's ms
 
 
-def compare(torch, fa, kernel, shape, dtype_name, gen, split=False):
+def compare(torch, fa, kernel, shape, dtype_name, gen, split=False, timed=True):
     """One kernel against its twin on one shape; returns its numbers.  With
     ``split`` q, k and v are the head-split (B, H, S, D) views of
-    (B, S, H*D) projections, as the paths hand B1, B2 and B3 their inputs."""
+    (B, S, H*D) projections, as the paths hand B1, B2 and B3 their inputs.
+    ``timed`` False holds the kernel to its twin and times nothing (a
+    layout, type or ragged shape whose times the kernels line does not
+    take); the numbers are then the error alone."""
     b, h, sq, sk, d = shape
     dtype = getattr(torch, dtype_name)
     if split:
@@ -928,6 +946,16 @@ def compare(torch, fa, kernel, shape, dtype_name, gen, split=False):
         ratio, notes = rel_l2_ratio(torch, out, ref, tol, ratio)
     torch.cuda.synchronize()
     finite = bool(torch.isfinite(out.float()).all())
+    ok = finite and ratio <= 1.0
+    if not timed:
+        print(f'compare {kernel} {dtype_name} q{(b, h, sq, d)} k{(b, h, sk, d)}'
+              f'{" head-split" if split else ""}: max_abs_err={err:.3e} atol={atol:.3g} '
+              f'rtol={tol:g} worst/allowed={ratio:.3f}{notes} untimed {"ok" if ok else "FAIL"}',
+              flush=True)
+        if not ok:
+            raise RuntimeError(f'{kernel} disagrees with its twin at {shape} {dtype_name}'
+                               f'{" head-split" if split else ""}')
+        return {'max_abs_err': err}
     ms = graph_ms(torch, run)
     # the twins repeat the kernels' arithmetic in several large kernels each
     # (fp32 score matrices through memory): a loop of calls times them, once
@@ -948,7 +976,6 @@ def compare(torch, fa, kernel, shape, dtype_name, gen, split=False):
                      explicit_ms=graph_ms(torch, lambda: attn_ops.attention_fused_heads(
                          q, k, v, scale=scale)))
     notes += ''.join(f' {key}={val:.4f}' for key, val in extra.items())
-    ok = finite and ratio <= 1.0
     lib = 'none' if lib_ms is None else f'{lib_ms:.4f}'
     print(f'compare {kernel} {dtype_name} q{(b, h, sq, d)} k{(b, h, sk, d)}'
           f'{" head-split" if split else ""}: '
@@ -1038,13 +1065,15 @@ def int8_bound(shape, dtype_name, bias):
     return max(t_ops, t_bytes) * 1e3, 'operations' if t_ops >= t_bytes else 'bytes'
 
 
-INT8PACK = {}   # dtype name -> False once torch._weight_int8pack_mm refused it
+INT8PACK = {}   # dtype name -> whether torch._weight_int8pack_mm ran on it (absent: untried)
 INT8PACK_GRAPH_MS = 5.0
 
 
-def one_call_ms(torch, fn) -> float:
-    """Device time of one call of ``fn`` after one untimed call."""
-    fn()
+def one_call_ms(torch, fn, warm=True) -> float:
+    """Device time of one call of ``fn``, after one untimed call where
+    ``warm``."""
+    if warm:
+        fn()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     fn()
@@ -1105,10 +1134,12 @@ def compare_int8(torch, shape, dtype_name, gen, bias=True):
         # x (q s)^T without the bias; tried once per dtype.  A weight-only
         # GEMV kernel: at thousands of rows one call takes up to a second,
         # so a call slower than INT8PACK_GRAPH_MS is timed once, after one
+        # untimed call at the dtype's first shape only
         try:
             op = torch._weight_int8pack_mm
             s_dt = scale.to(dtype)
-            lib_ms = one_call_ms(torch, lambda: op(x, q, s_dt))
+            lib_ms = one_call_ms(torch, lambda: op(x, q, s_dt), warm=dtype_name not in INT8PACK)
+            INT8PACK[dtype_name] = True
             if lib_ms < INT8PACK_GRAPH_MS:
                 lib_ms = graph_ms(torch, lambda: op(x, q, s_dt))
         except (AttributeError, RuntimeError, NotImplementedError) as err_lib:
@@ -1266,10 +1297,10 @@ def extract(fe, prompts, images, **kwargs):
 
 
 def extract_times(torch, fe, prompts, images, calls, **kwargs):
-    """``calls`` extracts after three untimed ones; per call the host time
+    """``calls`` extracts after two untimed ones; per call the host time
     to enqueue it and the time between CUDA events around it, in ms, each
     list sorted."""
-    for _ in range(3):
+    for _ in range(2):
         extract(fe, prompts, images, **kwargs)
     torch.cuda.synchronize()
     host, device = [], []
@@ -1425,11 +1456,12 @@ def assert_equal_feats(torch, ours, ref, label):
 
 
 def check_checkpoint(torch, fa, attn_ops, fe, prompts, images, first_feats, build_gib, tree,
-                     card, shapes):
+                     card, shapes, bundle_shapes):
     """Phase 8: write ``fe`` (the TREE_PATH path's random-init extractor)
     as a diffusers tree under ``tree``, load it back and hold it to the
-    source, then merge a LoRA; returns the launch counts of the loaded
-    extractor's first public extract."""
+    source, write the loaded extractor as a deployment bundle and load that
+    (8b), then merge a LoRA; returns the launch counts of the loaded
+    extractor's first public extract and of the bundle's."""
     from diffusion_feature_tpu_torch import FeatureExtractor
     from diffusion_feature_tpu_torch.io.safetensors import save_file
     args = PATHS[TREE_PATH]['args']
@@ -1483,7 +1515,10 @@ def check_checkpoint(torch, fa, attn_ops, fe, prompts, images, first_feats, buil
         raise RuntimeError(f'phase 8 step: launches {step_counts} != {counts}')
     unmerged = injected_step(torch, fe, prompts, images)
     assert_equal_feats(torch, ours, unmerged, f'phase 8 step on injected noise {step_counts}')
-    del loaded, feats, ours
+    del feats, ours
+    bundle_counts = check_bundle(torch, fa, attn_ops, loaded, loaded_prompts, images,
+                                 first_feats, build_gib, written, card, bundle_shapes)
+    del loaded
     torch.cuda.empty_cache()
 
     # a rank-4 peft LoRA over one level-2 block's to_q and to_v
@@ -1523,6 +1558,86 @@ def check_checkpoint(torch, fa, attn_ops, fe, prompts, images, first_feats, buil
         if not finite or rel == 0.0:
             raise RuntimeError(f'phase 8 lora {key}: finite={finite} rel_l2={rel}')
     del merged
+    torch.cuda.empty_cache()
+    return counts, bundle_counts
+
+
+def bundle_bytes(root) -> dict:
+    """{component: bytes} of a deployment bundle's weight files."""
+    params = os.path.join(root, 'params')
+    return {name.split('.')[0]: os.path.getsize(os.path.join(params, name))
+            for name in sorted(os.listdir(params))}
+
+
+def write_bundle(torch, fe, root, label, card, tree_seconds, tree_bytes):
+    """``fe.save_converted(root)``, timed; prints the bytes per component
+    and the GB/s beside those of the tree the extractor was loaded from."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fe.save_converted(root)
+    seconds = time.perf_counter() - t0
+    sizes = bundle_bytes(root)
+    nbytes = sum(sizes.values())
+    parts = ', '.join(f'{c} {n / 1e9:.3f} GB' for c, n in sizes.items())
+    print(f'{label} save_converted: {nbytes / 1e9:.3f} GB in {seconds:.3f} s, '
+          f'{nbytes / 1e9 / seconds:.3f} GB/s ({parts}); '
+          f'the tree: {tree_bytes / 1e9:.3f} GB in {tree_seconds:.3f} s, '
+          f'{tree_bytes / 1e9 / tree_seconds:.3f} GB/s ({card})', flush=True)
+    return nbytes, seconds
+
+
+def check_bundle(torch, fa, attn_ops, source, prompts, images, first_feats, build_gib,
+                 tree_stats, card, shapes):
+    """Phase 8b: ``source`` (phase 8's extractor, loaded from the tree)
+    written as a deployment bundle (save_converted) and loaded back with
+    default arguments: every parameter and encode_prompt torch.equal to the
+    source's, the first public extract torch.equal to phase 3's first with
+    the path's launches, the load's peak within LOAD_PEAK_RATIO of the
+    random-init build's; write and load seconds and GB/s beside the
+    tree's.  The bundle is deleted before the function returns; returns the
+    extract's launch counts."""
+    from diffusion_feature_tpu_torch import FeatureExtractor
+    args = PATHS[TREE_PATH]['args']
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_bundle_') as tmp:
+        root = os.path.join(tmp, 'bundle')
+        write_bundle(torch, source, root, 'phase 8b', card, sum(v[1] for v in tree_stats.values()),
+                     sum(v[0] for v in tree_stats.values()))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        fe = FeatureExtractor(**args, dtype='bfloat16', device='cuda', seed=0, weights=root)
+        fe_prompts = fe.encode_prompt('a photo of a cat')
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        rates(fe.load_stats, 'load', card, '8b')
+        tree_load = sum(v[1] for v in source.load_stats.values())
+        print(f'phase 8b build from the bundle + encode_prompt: {seconds:.1f} s (the tree\'s '
+              f'load: {tree_load:.3f} s); peak memory {peak:.3f} GiB while loading vs '
+              f'{build_gib:.3f} GiB for the random-init build (ratio {peak / build_gib:.4f}, '
+              f'allowed {LOAD_PEAK_RATIO}) ({card})', flush=True)
+        if peak > LOAD_PEAK_RATIO * build_gib:
+            raise RuntimeError(f'phase 8b: load peak {peak:.3f} GiB over {LOAD_PEAK_RATIO} x '
+                               f'{build_gib:.3f} GiB')
+        for name, a, b in module_pairs(source, fe):
+            sa, sb = a.state_dict(), b.state_dict()
+            bad = [k for k in sa if k not in sb or sa[k].dtype != sb[k].dtype
+                   or not torch.equal(sa[k], sb[k])]
+            if bad or sa.keys() != sb.keys():
+                raise RuntimeError(f'phase 8b {name}: parameters differ from the tree load\'s: '
+                                   f'{bad[:5]}')
+            print(f'  {name}: {len(sa)} parameters torch.equal to the tree load\'s')
+        for a, b in zip(prompts, fe_prompts):
+            if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+                raise RuntimeError('phase 8b: encode_prompt differs from the tree load\'s')
+        feats, counts, shapes[:] = drive_path(
+            torch, fa, attn_ops, fe, fe_prompts, images,
+            {**dict(zip(WRAPPERS, PATHS[TREE_PATH]['launches'])), 'short_attention': 0},
+            'phase 8b bundle')
+        assert_equal_feats(torch, feats, first_feats,
+                           'phase 8b first public extract vs phase 3\'s first')
+        del fe, feats
     torch.cuda.empty_cache()
     return counts
 
@@ -2025,6 +2140,9 @@ def check_dit_path(torch, fa, attn_ops, card, name, shapes, runs, label):
     return fe, prompts, images, feats, gib
 
 
+TREE_WRITES = {}   # phase tag -> save_weights' {component: (bytes, seconds)}
+
+
 def check_dit_tree(torch, fa, attn_ops, card, fe, prompts, images, first_feats, build_gib,
                    tree, shapes, runs, name, text_shards, phase, unet_shards=1):
     """Phase 14 (d) and (e), 15 (d), 16 (d): ``fe`` (path ``name`` at random)
@@ -2047,7 +2165,8 @@ def check_dit_tree(torch, fa, attn_ops, card, fe, prompts, images, first_feats, 
     source_prints = fingerprints(torch, fe)
     print(f'phase {tag} fingerprints of {len(source_prints)} source parameters: '
           f'{time.perf_counter() - t0:.1f} s', flush=True)
-    written = fe.save_weights(tree, unet_shards=unet_shards, text_shards=text_shards)
+    written = TREE_WRITES[tag] = fe.save_weights(tree, unet_shards=unet_shards,
+                                                 text_shards=text_shards)
     files = sorted(os.path.relpath(os.path.join(d, f), tree)
                    for d, _, names in os.walk(tree) for f in names)
     print(f'phase {tag} tree of {sum(n for n, _ in written.values())} bytes: {files}')
@@ -2280,7 +2399,8 @@ def check_hunyuan(torch, fa, attn_ops, card, shapes, runs):
 def check_flux(torch, fa, attn_ops, card, shapes, runs):
     """Phase 16: Flux.1-dev 1024^2 (a), its tree written, the source freed,
     the tree loaded and the CLI on it (d), the tree in int8 (f) and on two
-    ranks (phase 22c and 22d's Flux part), with the store (b), at 512^2
+    ranks (phase 22c and 22d's Flux part), (f)'s extractor as a deployment
+    bundle once the tree's weights are gone (g), with the store (b), at 512^2
     (c), the generation CLI and a kernel-vs-twin sample at 512^2 (e).  Each
     extractor (~34 GB: the 11.9 B-parameter transformer and T5-XXL in bf16)
     is freed before the next is built."""
@@ -2292,8 +2412,10 @@ def check_flux(torch, fa, attn_ops, card, shapes, runs):
         check_dit_tree(torch, fa, attn_ops, card, source, prompts, images, first, gib, tree,
                        shapes, runs, FLUX_TREE_PATH, FLUX_TEXT_SHARDS, 16,
                        FLUX_TRANSFORMER_SHARDS)
-        check_flux_int8(torch, fa, attn_ops, card, tree, images, first, shapes, runs)
+        int8 = check_flux_int8(torch, fa, attn_ops, card, tree, images, first, shapes, runs)
         check_mesh_flux(torch, fa, attn_ops, card, shapes, runs, tree)
+        check_flux_bundle(torch, fa, attn_ops, card, tree, *int8, images, shapes, runs)
+        del int8
     del first
     torch.cuda.empty_cache()
     for name, label in (('flux_store', 'phase 16b'), ('flux_512', 'phase 16c')):
@@ -2328,7 +2450,8 @@ def check_flux_int8(torch, fa, attn_ops, card, tree, images, bf16_feats, shapes,
     every W8A16 and B1 call on its twin within TAP_REL_TOL; each tap's
     cosine against phase 16a's bf16 features from the same draws; the
     extract's timing, and its peak memory INT8_PEAK_SAVING_GIB below phase
-    16a's."""
+    16a's.  Returns (the extractor, its prompts, its load's seconds) for
+    phase 16g."""
     import numpy as np
     from diffusion_feature_tpu_torch import FeatureExtractor
     from diffusion_feature_tpu_torch.models.convert import load_component_state
@@ -2415,7 +2538,95 @@ def check_flux_int8(torch, fa, attn_ops, card, tree, images, bf16_feats, shapes,
           flush=True)
     if not peak_gib <= bf16_gib - INT8_PEAK_SAVING_GIB:
         raise RuntimeError(f'phase 16f: peak {peak_gib} GiB, bf16 {bf16_gib} GiB')
-    del fe, feats
+    del feats
+    torch.cuda.empty_cache()
+    return fe, prompts, sum(v[1] for v in fe.load_stats.values())
+
+
+def check_flux_bundle(torch, fa, attn_ops, card, tree, source, prompts, int8_seconds, images,
+                      shapes, runs):
+    """Phase 16g, after every phase that reads phase 16d's tree: its weight
+    files deleted (its config.json and tokenizer dirs kept: the card's
+    machine ends a call whose disk use passes 45 GiB), phase 16f's int8
+    extractor ``source`` written as a deployment bundle (~17 GB, computed)
+    and loaded back with default arguments: both int8 flags from the
+    manifest, every tensor (each weight_q and scale) torch.equal to
+    ``source``'s, the load's peak within INT8_LOAD_PEAK_RATIO of the
+    resident bytes (no bf16 weight is staged), encode_prompt's 168 and one
+    extract's 495 W8A16 launches at the derived shapes with 58 B1, the
+    prompts and the first features torch.equal to 16f's; the load's seconds
+    beside 16f's quantize-on-load.  The bundle is deleted after."""
+    from diffusion_feature_tpu_torch import FeatureExtractor
+    removed = 0
+    for d, _, names in os.walk(tree):
+        for name in names:
+            if name.endswith('.safetensors'):
+                removed += os.path.getsize(os.path.join(d, name))
+                os.remove(os.path.join(d, name))
+    print(f'phase 16g: the tree\'s {removed / 1e9:.3f} GB of weight files deleted, its '
+          f'config.json and tokenizer dirs kept', flush=True)
+    args = PATHS['flux']['args']
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_flux_bundle_') as tmp:
+        root = os.path.join(tmp, 'bundle')
+        write_bundle(torch, source, root, 'phase 16g', card,
+                     sum(v[1] for v in TREE_WRITES['16d'].values()),
+                     sum(v[0] for v in TREE_WRITES['16d'].values()))
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        fe = FeatureExtractor(**args, dtype='bfloat16', device='cuda', seed=0, weights=root)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        resident = torch.cuda.memory_allocated() - base
+        flags = (fe.spec.dit.quantize_int8, fe.spec.t5.quantize_int8)
+        rates(fe.load_stats, 'load', card, '16g')
+        print(f'phase 16g build from the bundle (no int8 keyword: transformer_8bit, t5_8bit = '
+              f'{flags} from the manifest): {seconds:.1f} s, against {int8_seconds:.1f} s for '
+              f'phase 16f\'s load of the tree quantized on the card; resident '
+              f'{resident / 2 ** 30:.3f} GiB, load peak {peak / 2 ** 30:.3f} GiB (ratio '
+              f'{peak / resident:.4f}, allowed {INT8_LOAD_PEAK_RATIO}) ({card})', flush=True)
+        if flags != (True, True) or peak > INT8_LOAD_PEAK_RATIO * resident:
+            raise RuntimeError(f'phase 16g: flags {flags}, load peak {peak} over {resident}')
+        quant = _quant()
+        for name, a, b in module_pairs(source, fe):
+            sa, sb = a.state_dict(), b.state_dict()
+            bad = [k for k in sa if k not in sb or sa[k].dtype != sb[k].dtype
+                   or not torch.equal(sa[k], sb[k])]
+            if bad or sa.keys() != sb.keys():
+                raise RuntimeError(f'phase 16g {name}: tensors differ from 16f\'s: {bad[:5]}')
+            n_int8 = sum(isinstance(m, quant.Int8Linear) for m in b.modules())
+            print(f'  {name}: {len(sa)} tensors torch.equal to 16f\'s ({n_int8} int8 layers\' '
+                  f'weight_q and scale among them)')
+        shapes['flux_bundle_prompt'] = []
+        with patched_wrappers(attn_ops, recording(shapes['flux_bundle_prompt'])):
+            reset_counts(fa)
+            fe_prompts = fe.encode_prompt('a photo of a cat')
+            torch.cuda.synchronize()
+            runs['flux_bundle_prompt'] = read_counts(fa)
+        derived = t5_int8_calls(fe.spec.t5, fe.spec.prompt_max_length)
+        want = {**only_b1(0), 'int8_linear': sum(derived.values())}
+        print(f'phase 16g encode_prompt: kernel launches {runs["flux_bundle_prompt"]} (expected '
+              f'{want})', flush=True)
+        if (runs['flux_bundle_prompt'] != want
+                or shape_counts(shapes['flux_bundle_prompt']) != derived):
+            raise RuntimeError(f'phase 16g: encode_prompt launches {runs["flux_bundle_prompt"]}')
+        for a, b in zip(prompts, fe_prompts):
+            if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+                raise RuntimeError('phase 16g: encode_prompt differs from 16f\'s')
+        derived = flux_int8_calls(fe.spec, fe.img_size, images.shape[0], fe.vae_scale)
+        want = {**dit_launches(fa, fe), 'int8_linear': sum(derived.values())}
+        feats, runs['flux_bundle'], shapes['flux_bundle'] = drive_path(
+            torch, fa, attn_ops, fe, fe_prompts, images, want, 'phase 16g')
+        recorded = shape_counts(shapes['flux_bundle'])
+        print(f'  phase 16g W8A16 shapes of one extract (M, K, N): calls {recorded}', flush=True)
+        if recorded != derived:
+            raise RuntimeError(f'phase 16g: W8A16 shapes {recorded} != derived {derived}')
+        assert_equal_feats(torch, cpu_feats(feats), MESH_REFS['flux_int8'],
+                           'phase 16g first public extract vs 16f\'s first')
+        del fe, feats
     torch.cuda.empty_cache()
 
 
@@ -3229,9 +3440,9 @@ def check_scarce(torch, fa, attn_ops, card, shapes, runs):
         predict_ms = [round(x * 1e3, 2) for x in result['predict_seconds']]
         written = {d: sorted(os.listdir(os.path.join('exp', d)))
                    for d in ('predictions', 'visualizations')}
-        print(f'phase 21 task_pixel.main horse_21 (2 train / {PIXEL_IMAGES - 2} test images, 2 '
-              f'members, 1 epoch of {steps} steps of 64 rows, {rows} rows of {arr.shape[0]} '
-              f'channels on the card): {seconds:.1f} s for main(); '
+        print(f'phase 21 task_pixel.main horse_21 ({PIXEL_TRAIN} train / '
+              f'{PIXEL_IMAGES - PIXEL_TRAIN} test images, 2 members, 1 epoch of {steps} steps of '
+              f'64 rows, {rows} rows of {arr.shape[0]} channels on the card): {seconds:.1f} s for main(); '
               f'{[round(x * 1e3, 2) for x in member_s]} ms per member '
               f'({[round(steps * 64 / x) for x in member_s]} training rows/s); predict '
               f'{predict_ms} ms per image; mIoU {result["miou"]:.4f}, uncertainty '
@@ -3247,7 +3458,7 @@ def check_scarce(torch, fa, attn_ops, card, shapes, runs):
             raise RuntimeError(f'phase 21: trained {result["trained"]}, written {written}, '
                                f'mIoU {result["miou"]}, {result["uncertainties"]}')
         if result['matrix_on_host']:
-            raise RuntimeError('phase 21: a matrix of 2 images left on the host')
+            raise RuntimeError(f'phase 21: a matrix of {PIXEL_TRAIN} images left on the host')
         first = result['ensemble'][0].state_dict()
         del result
         # a matrix too large for the card's room stays on the host; each
@@ -3918,27 +4129,33 @@ def main() -> int:
     print(f'phase 1 build: {info["seconds"]:.1f} s -> {", ".join(info["paths"])}', flush=True)
     for line in ptxas_summary(info['log']):
         print(f'  ptxas: {line}')
-    for path in info['paths']:
+
+    def sass_ops(path):
         if '_bf16_' in path or '_fp16_' in path:
             # W8A16: the TMA kernel's HGMMA and UTMALDG, the cp.async kernel's
             # LDGSTS (kept for rows TMA cannot describe), the streaming
             # kernel's HMMA (mma.sync)
-            ops = (('HGMMA', 'UTMALDG', 'LDGSTS', 'HMMA') if '_w8a16_' in path
-                   else ('HGMMA', 'UTMALDG'))
-            counts = sass_counts(path, ops)
+            return (('HGMMA', 'UTMALDG', 'LDGSTS', 'HMMA') if '_w8a16_' in path
+                    else ('HGMMA', 'UTMALDG'))
+        # fp32: simt_f32.cuh's FMA products, no shuffle in a product; B1/B2,
+        # B4 and the backward keep shuffles to the softmax's row reductions
+        # and the delta pre-pass, B3 reduces nothing across lanes
+        return ('FFMA', 'SHFL', 'LDGSTS') if '_w8a16_' in path else ('FFMA', 'SHFL')
+    # one cuobjdump per library, all started together
+    with concurrent.futures.ThreadPoolExecutor(len(info['paths'])) as pool:
+        sass = dict(zip(info['paths'], pool.map(lambda p: sass_counts(p, sass_ops(p)),
+                                                info['paths'])))
+    for path in info['paths']:
+        counts = sass[path]
+        if '_bf16_' in path or '_fp16_' in path:
             print(f'phase 1 SASS of {os.path.basename(path)}: {counts}', flush=True)
             if not all(counts.values()):
-                raise RuntimeError(f'{path}: no {" or ".join(ops)} in the SASS: {counts}')
+                raise RuntimeError(f'{path}: no {" or ".join(counts)} in the SASS: {counts}')
         elif '_w8a16_' in path:
-            counts = sass_counts(path, ('FFMA', 'SHFL', 'LDGSTS'))
             print(f'phase 1 SASS of {os.path.basename(path)}: {counts}', flush=True)
             if not counts['FFMA']:
                 raise RuntimeError(f'{path}: no FFMA in the SASS: {counts}')
         else:
-            # fp32: simt_f32.cuh's FMA products, no shuffle in a product; B1/B2,
-            # B4 and the backward keep shuffles to the softmax's row reductions
-            # and the delta pre-pass, B3 reduces nothing across lanes
-            counts = sass_counts(path, ('FFMA', 'SHFL'))
             lib = next((n for n in EMULATION_SHFL if f'_{n}_' in path), None)
             before = '' if lib is None else f' (SHFL on the emulation: {EMULATION_SHFL[lib]})'
             print(f'phase 1 SASS of {os.path.basename(path)}: {counts}{before}', flush=True)
@@ -3950,33 +4167,39 @@ def main() -> int:
     if writer_lib is None:
         raise RuntimeError('the native dump writer (native/dumpio.cpp) did not build with g++')
     print(f'phase 1 native dump writer: {writer_lib._name}', flush=True)
+    done('phase 1')
 
     # 2. every kernel against its twin, with times, at every path shape
     gen = torch.Generator(device='cuda').manual_seed(0)
     numbers = {}   # (kernel, shape, dtype name) -> numbers
+    # every comparison holds the kernel to its twin; only the shapes and
+    # layouts whose numbers the kernels line takes are timed
     for dtype_name in ('bfloat16', 'float32'):
         for kernel, shapes in (('flash_attention', B1_SHAPES),
                                ('flash_attention_with_lse', STORE_SHAPES),
                                ('headmean_probs', STORE_SHAPES)):
+            # contiguous inputs: held, not timed (the paths hand head-split views)
             for shape in shapes + [RAGGED]:
-                compare(torch, fa, kernel, shape, dtype_name, gen)
+                compare(torch, fa, kernel, shape, dtype_name, gen, timed=False)
             # the layout the paths hand B1, B2 and B3; fp32 at the ragged
             # shapes, and B3's at every store shape too
             every = dtype_name == 'bfloat16' or kernel == 'headmean_probs'
             for shape in (shapes if every else []) + SPLIT_RAGGED[kernel]:
-                res = compare(torch, fa, kernel, shape, dtype_name, gen, split=True)
-                if dtype_name == 'bfloat16' or shape in shapes:
+                res = compare(torch, fa, kernel, shape, dtype_name, gen, split=True,
+                              timed=shape in shapes)
+                if shape in shapes:
                     numbers[kernel, shape, dtype_name] = res
         # B4 on no path: contiguous inputs (the kernels line's), then
         # head-split views
         for shape in SHORT_SHAPES + [SHORT_RAGGED]:
-            res = compare(torch, fa, 'short_attention', shape, dtype_name, gen)
+            res = compare(torch, fa, 'short_attention', shape, dtype_name, gen,
+                          timed=shape in SHORT_SHAPES)
             if shape in SHORT_SHAPES:
                 numbers['short_attention', shape, dtype_name] = res
         for shape in (SHORT_SHAPES if dtype_name == 'bfloat16' else []) + [SHORT_RAGGED]:
-            compare(torch, fa, 'short_attention', shape, dtype_name, gen, split=True)
+            compare(torch, fa, 'short_attention', shape, dtype_name, gen, split=True, timed=False)
     for kernel, shape in FP16_SHAPES:
-        compare(torch, fa, kernel, shape, 'float16', gen, split=True)
+        compare(torch, fa, kernel, shape, 'float16', gen, split=True, timed=False)
     # Flux hands B1 contiguous q/k/v (joined and rotated): its shapes so,
     # phase 22's head and token shards too
     for shape in FLUX_B1_SHAPES + SP_FLUX_B1_SHAPES + TP_FLUX_B1_SHAPES:
@@ -4009,7 +4232,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f'phase 2 done: {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB still allocated '
           '(what phases 3 to 7 count in their peak beside their own)', flush=True)
-    done('phases 1 and 2')
+    done('phase 2')
 
     # 3 and 4: SDXL single-step extraction (the port's first slice) and its
     # timing; 5: path A, SD-1.5 with the attention store; 6: path B, the
@@ -4052,10 +4275,10 @@ def main() -> int:
                      f'{"".join(f", {k}={v}" for k, v in kwargs.items())}', card,
                      path.get('calls', TIMED_CALLS), **kwargs)
         if name == TREE_PATH:
-            shapes['checkpoint'] = []
-            runs['checkpoint'] = check_checkpoint(torch, fa, attn_ops, fe, prompts, images,
-                                                  feats, build_gib, tree, card,
-                                                  shapes['checkpoint'])
+            shapes['checkpoint'], shapes['bundle'] = [], []
+            runs['checkpoint'], runs['bundle'] = check_checkpoint(
+                torch, fa, attn_ops, fe, prompts, images, feats, build_gib, tree, card,
+                shapes['checkpoint'], shapes['bundle'])
         if name == EXTERNAL_PATH:
             assert_equal_feats(torch, {k: v.cpu() for k, v in feats.items()}, external_feats,
                                f'phase 18 first extract vs phase {phase}\'s fresh {name} '

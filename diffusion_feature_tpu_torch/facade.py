@@ -39,7 +39,9 @@ of one scheduler step; ``extract_ensemble`` crosses timesteps with prompts.
 ``sample`` generates images with the taps of every step, and
 ``set_background_extraction`` keeps chosen encounters of them.
 Weights come from a local diffusers checkpoint (``weights=``,
-``weights_variant=``) or at random from ``seed``, with offline LoRA merging,
+``weights_variant=``), from a deployment bundle of either package
+(``weights=<bundle>``, ``io/bundle.py``; ``save_converted`` writes the
+port's), or at random from ``seed``, with offline LoRA merging,
 or are shared with another extractor (``external_model=``); a loaded Flux
 holds its transformer's projections and T5-XXL's in int8 (the JAX auto
 rule, ``ops/quant.py``'s W8A16 kernel), any T5 on request (``t5_8bit``).
@@ -60,11 +62,12 @@ from .conditioning import BY_FAMILY as CONDITIONING
 from .configs import resolve_layer_config
 from .ddim_inversion import ddim_invert
 from .enumerate_layers import enumerate_layers
+from .io.bundle import Bundle, dtype_name, is_bundle, save_bundle
 from .io.images import preprocess_pil_batch, resize_tensor_batch
 from .models.bert_text import BertConfig, BertTextModel, bert_checkpoint_state
 from .models.clip_text import CLIPTextConfig, CLIPTextModel
-from .models.convert import (load_component_config, load_component_state, load_state_into,
-                             random_module, save_component)
+from .models.convert import (load_bundle_into, load_component_config, load_component_state,
+                             load_state_into, random_module, save_component, text_jax_name)
 from .models.controlnet import ControlNetPipeline
 from .models.dit_pixart import PixArtConfig, PixArtTransformer2D
 from .models.flux import FluxConfig, FluxTransformer2D
@@ -140,15 +143,20 @@ def _adapt_spec_to_checkpoint(spec: ModelSpec, weights: str) -> ModelSpec:
 
 def _int8_spec(spec: ModelSpec, weights: Optional[str], offline_lora: Optional[str],
                t5_8bit: Optional[bool], transformer_8bit: Optional[bool],
-               tensor_parallel: bool = False) -> ModelSpec:
+               tensor_parallel: bool = False, bundle_meta: Optional[dict] = None) -> ModelSpec:
     """``spec`` with the int8 flags of the T5 and of Flux's transformer set
-    by the JAX facade's rules (facade.py:253-300, without the bundle): None
-    turns the T5's on for ``flux`` with ``weights``, and the transformer's
-    for ``flux`` with ``weights``, no ``offline_lora`` and no
-    ``tensor_parallel`` (a tp mesh cuts the weights instead; dp and sp keep
-    each rank's whole transformer, so the rule stays on there);
+    by the JAX facade's rules (facade.py:253-300): None turns the T5's on
+    for ``flux`` with ``weights``, and the transformer's for ``flux`` with
+    ``weights``, no ``offline_lora`` and no ``tensor_parallel`` (a tp mesh
+    cuts the weights instead; dp and sp keep each rank's whole transformer,
+    so the rule stays on there); from a deployment bundle
+    (``bundle_meta``), None takes what the bundle holds instead;
     True without ``weights`` (int8 layers hold quantized checkpoint weights)
     or, for the transformer, with ``offline_lora`` raises ValueError."""
+    if bundle_meta is not None:
+        t5_8bit = bool(bundle_meta.get('t5_8bit')) if t5_8bit is None else t5_8bit
+        transformer_8bit = (bool(bundle_meta.get('transformer_8bit'))
+                            if transformer_8bit is None else transformer_8bit)
     if spec.t5 is not None:
         use = t5_8bit if t5_8bit is not None else spec.family == 'flux' and bool(weights)
         if use and not weights:
@@ -189,11 +197,18 @@ class FeatureExtractor:
     ``tokenizer_2/spiece.model``; DeepFloyd IF: ``unet``, ``text_encoder``
     (T5) and ``tokenizer/spiece.model``, no VAE).  weights_variant: the weight set to load
     ('fp16', 'bf16', ..., 'main'), falling back per component to the
-    un-suffixed set.  Without weights, models initialise at random from
-    ``seed``.  offline_lora (with offline_lora_filename): a LoRA merged
-    into the U-Net after its weights.  The noise of ``extract`` has its own
-    generator, seeded from ``seed``, so it does not depend on where the
-    weights came from; ``sample`` draws its initial latents from it too.
+    un-suffixed set.  ``weights`` may also be a deployment bundle
+    (``io/bundle.py``): the JAX package's (``save_converted``,
+    ``tools/make_bundle.py``) or the port's (``save_converted``,
+    ``make_bundle``), whose converted weights load as stored (int8 layers
+    included) into an extractor of the configuration the bundle records:
+    its int8 flags resolve from the manifest where left None, explicit
+    flags that differ fail with the differing entries named, another
+    ``dtype`` or an ``offline_lora`` raises ValueError.  Without weights,
+    models initialise at random from ``seed``.  offline_lora (with
+    offline_lora_filename): a LoRA merged into the U-Net after its
+    weights.  The noise of ``extract`` has its own generator, seeded from
+    ``seed``, so it does not depend on where the weights came from; ``sample`` draws its initial latents from it too.
     control: ControlNet kinds ('canny', 'depth') or (kind, preprocessor)
     pairs, a depth pair naming a transformers DPT dir; weights from
     ``{weights}/controlnet_{kind}`` and ``{weights}/depth_estimator`` where
@@ -263,9 +278,6 @@ class FeatureExtractor:
         if train_unet and (has_tp(mesh) or has_sp(mesh)):
             raise ValueError('train_unet=True takes a dp mesh alone: gradients do not flow '
                              'through the tensor- and sequence-parallel collectives')
-        if weights and os.path.isfile(os.path.join(weights, 'tpu_bundle.json')):
-            raise ValueError(f'{weights} is a deployment bundle of the JAX package; the port '
-                             'loads the diffusers checkpoint dir it was exported from instead')
         self.spec: ModelSpec = get_model_spec(version)
         if transformer_8bit and self.spec.family != 'flux':
             raise ValueError('transformer_8bit is only supported for flux (the JAX facade '
@@ -278,17 +290,29 @@ class FeatureExtractor:
         self.version = version
         self.device = torch.device(device)
         self.dtype = _DTYPES[dtype]
+        self._offline_lora = offline_lora
+        #: the deployment bundle ``weights`` names (io/bundle.py), or None
+        self._bundle: Optional[Bundle] = None
         if external_model is not None:
             self._check_external(external_model, weights, offline_lora)
             self.spec = external_model.spec
         elif weights:
+            if is_bundle(weights):
+                if offline_lora:
+                    raise ValueError('offline_lora cannot be applied on top of a deployment '
+                                     'bundle: bundles carry already-merged weights (merge the '
+                                     'LoRA when exporting: build from the checkpoint with '
+                                     'offline_lora, then save_converted)')
+                self._bundle = Bundle(weights)
             self.spec = _adapt_spec_to_checkpoint(self.spec, weights)
             if self.spec.family == 'unet' and isinstance(self.spec.unet, IFUNetConfig):
                 raise ValueError(f'{weights} holds a DeepFloyd IF U-Net; load it with '
                                  "version='if' (or 'test-if')")
         if external_model is None:
             self.spec = _int8_spec(self.spec, weights, offline_lora, t5_8bit, transformer_8bit,
-                                   has_tp(mesh))
+                                   has_tp(mesh), self._bundle.meta if self._bundle else None)
+        if self._bundle is not None:
+            self._bundle.check_dtype(self._bundle_expect())
         if train_unet and self._int8_denoiser:
             raise ValueError('train_unet=True needs a full-precision denoiser: no gradient '
                              'reaches int8 weights (pass transformer_8bit=False)')
@@ -463,6 +487,8 @@ class FeatureExtractor:
         with torch.device('meta'):
             module = make()
         cuts = parallel(module) if parallel is not None else None
+        if self._bundle is not None:
+            return self._load_bundle_component(module, component, cuts)
         t0 = time.perf_counter()
         state = load_component_state(root, component, variant=variant)
         if adapt is not None:
@@ -474,6 +500,81 @@ class FeatureExtractor:
         nbytes = sum(t.numel() * t.element_size() for k, t in state.items() if k not in unused)
         self.load_stats[component] = (nbytes, time.perf_counter() - t0)
         return module.eval().requires_grad_(False)
+
+    def _load_bundle_component(self, module, component: str, cuts):
+        """Fill the meta-built ``module`` from the bundle's ``component``
+        (``convert.load_bundle_into``); a mismatch names the meta entries
+        where the bundle and this extractor differ."""
+        bundle = self._bundle
+        t0 = time.perf_counter()
+        leaves = bundle.leaves(component)
+        try:
+            unused = set(load_bundle_into(
+                module, leaves, self.dtype, self.device, cuts, bundle.jax_layout,
+                text_jax_name(module) if bundle.jax_layout else None))
+        except ValueError as e:
+            raise ValueError(f'{e}{bundle.mismatch_hint(self._bundle_expect())}') from e
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        nbytes = sum(t.numel() * t.element_size() for k, t in leaves.items() if k not in unused)
+        self.load_stats[component] = (nbytes, time.perf_counter() - t0)
+        return module.eval().requires_grad_(False)
+
+    def _bundle_meta(self) -> dict:
+        """The configuration a deployment bundle records (the JAX facade's
+        ``_bundle_meta``); a bundle loads into an extractor of the same."""
+        return {'version': self.version, 'family': self.spec.family,
+                'dtype': dtype_name(self.dtype), 'transformer_8bit': self._int8_denoiser,
+                't5_8bit': bool(getattr(self.spec.t5, 'quantize_int8', False)),
+                'offline_lora': self._offline_lora}
+
+    def _bundle_expect(self) -> dict:
+        """``_bundle_meta`` without ``offline_lora``, which a bundle keeps
+        as provenance only (a bundle never loads with a LoRA)."""
+        return {k: v for k, v in self._bundle_meta().items() if k != 'offline_lora'}
+
+    def save_converted(self, out_dir: str) -> str:
+        """Write a deployment bundle (``io/bundle.py``) to ``out_dir`` and
+        return it: the denoiser, the VAE and the text encoders as they are
+        held (at the serving dtype, int8 ``weight_q`` with its fp32
+        ``scale``, a merged LoRA's weights), each a safetensors file in the
+        port's layout, beside the manifest and copies of the source
+        checkpoint's config.json, tokenizer, depth and ControlNet dirs.
+        ``FeatureExtractor(weights=out_dir)`` with the same configuration
+        loads it with no key matching and no quantization.  ValueError for
+        an extractor without ``weights=`` (a random init is not a
+        deployable artifact), with its text encoders dropped, or under tp
+        (each rank holds a part); under dp or sp the mesh's first rank
+        writes and the others wait for it."""
+        if not self._weights_root:
+            raise ValueError('save_converted requires the extractor to have been built from '
+                             'real weights (weights=<checkpoint dir>): a random-init extractor '
+                             'is not a deployable artifact')
+        if not self.text_encoders:
+            raise ValueError('the text encoders were offloaded persistently; rebuild the '
+                             'extractor before exporting a bundle')
+        if has_tp(self.mesh):
+            raise ValueError('save_converted writes whole tensors; under tp each rank holds a '
+                             'part of the denoiser (save from an extractor without a mesh)')
+        states = {'unet' if self.spec.family in _UNET_FAMILIES else 'transformer':
+                  self.unet.state_dict()}
+        if self.vae is not None:
+            states['vae'] = self.vae.state_dict()
+        states.update((d, te.state_dict()) for d, te in zip(TEXT_DIRS, self.text_encoders))
+        if self.mesh is None:
+            return save_bundle(out_dir, states, meta=self._bundle_meta(),
+                               src_checkpoint=self._weights_root)[0]
+        error = None
+        if all(c == 0 for c in self.mesh.coords.values()):
+            try:
+                save_bundle(out_dir, states, meta=self._bundle_meta(),
+                            src_checkpoint=self._weights_root)
+            except (OSError, ValueError) as e:
+                error = f'{type(e).__name__}: {e}'
+        error = self.mesh.first_rank_object(error)
+        if error is not None:
+            raise RuntimeError(f'the first rank of the mesh failed to write {out_dir}: {error}')
+        return str(out_dir)
 
     def save_weights(self, root: str, variant: Optional[str] = None, unet_shards: int = 1,
                      text_shards: int = 1) -> Dict[str, Tuple[int, float]]:

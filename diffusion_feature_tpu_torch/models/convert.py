@@ -19,6 +19,11 @@ numpy-convertible leaves; needs no JAX.
 An int8 layer (``ops/quant.Int8Linear``) takes a checkpoint's
 full-precision ``weight``: ``load_state_into`` quantizes it on the device as
 it loads (the JAX ``convert_torch_state``'s ``kernel_q`` rule).
+
+``load_bundle_into`` fills a module from a deployment bundle
+(``io/bundle.py``): the port's, in its own layout, or the JAX package's,
+whose leaves take ``params_from_jax``'s names and transposes (run on the
+device); int8 leaves are taken as stored.
 """
 
 from __future__ import annotations
@@ -63,6 +68,50 @@ def _flatten(tree, prefix=()) -> Dict[str, object]:
     return flat
 
 
+def _jax_leaf(key: str, module: nn.Module, flat: Mapping,
+              jax_name: Optional[Callable[[str], str]] = None
+              ) -> Optional[Tuple[str, Optional[Tuple[int, ...]]]]:
+    """(the flat JAX name that ``module``'s state_dict ``key`` takes in
+    ``flat``, the permutation of the JAX array's dims into the port's
+    layout, or None where none is needed), or None where ``flat`` lacks
+    it.  Dense (I, O) -> Linear (O, I); Conv HWIO -> OIHW; a
+    kernel==stride ConvTranspose (k, k, I, O) -> (I, O, k, k); an int8
+    ``kernel_q`` (I, O) -> ``weight_q`` (O, I).  A full-precision weight
+    whose JAX layer is int8 raises ValueError."""
+    base, _, leaf = (jax_name(key) if jax_name else key).rpartition('.')
+    norm_base = _normalize_key(base)
+    if leaf == 'weight' and f'{norm_base}_kernel_q' in flat:
+        raise ValueError(f'{key}: the JAX layer {norm_base} is int8 (kernel_q, scale); '
+                         'build the module with quantize_int8 to take it')
+    for cand in _LEAF_CANDIDATES.get(leaf, (leaf,)):
+        norm = f'{norm_base}_{cand}' if norm_base else cand
+        if norm in flat:
+            break
+    else:
+        return None
+    perm = None
+    if cand == 'kernel_q' or (cand == 'kernel' and len(flat[norm].shape) == 2):
+        perm = (1, 0)
+    elif cand == 'kernel':
+        perm = ((2, 3, 0, 1) if isinstance(module.get_submodule(key.rpartition('.')[0]),
+                                           nn.ConvTranspose2d)
+                else (3, 2, 0, 1))
+    return norm, perm
+
+
+def text_jax_name(module: nn.Module) -> Optional[Callable[[str], str]]:
+    """The JAX-name map of a port text encoder for ``params_from_jax`` and
+    ``load_bundle_into`` (T5's and BERT's differ from their transformers
+    keys; CLIP's names normalise as they are), or None."""
+    from .bert_text import BertTextModel, jax_param_name as bert_name
+    from .t5 import T5EncoderModel, jax_param_name as t5_name
+    if isinstance(module, T5EncoderModel):
+        return t5_name
+    if isinstance(module, BertTextModel):
+        return bert_name
+    return None
+
+
 def params_from_jax(flax_params: Mapping, module: nn.Module,
                     jax_name: Optional[Callable[[str], str]] = None) -> Dict[str, torch.Tensor]:
     """Build a state_dict for ``module`` from a JAX parameter tree.
@@ -75,28 +124,15 @@ def params_from_jax(flax_params: Mapping, module: nn.Module,
     flat = _flatten(flax_params)
     out = {}
     for key, ref in module.state_dict().items():
-        base, _, leaf = (jax_name(key) if jax_name else key).rpartition('.')
-        norm_base = _normalize_key(base)
-        if leaf == 'weight' and f'{norm_base}_kernel_q' in flat:
-            raise ValueError(f'{key}: the JAX layer {norm_base} is int8 (kernel_q, scale); '
-                             'build the module with quantize_int8 to take it')
-        for cand in _LEAF_CANDIDATES.get(leaf, (leaf,)):
-            norm = f'{norm_base}_{cand}' if norm_base else cand
-            if norm in flat:
-                break
-        else:
-            raise KeyError(f'{key}: no JAX parameter {norm_base}_{{'
+        found = _jax_leaf(key, module, flat, jax_name)
+        if found is None:
+            base, _, leaf = (jax_name(key) if jax_name else key).rpartition('.')
+            raise KeyError(f'{key}: no JAX parameter {_normalize_key(base)}_{{'
                            f"{','.join(_LEAF_CANDIDATES.get(leaf, (leaf,)))}}}")
+        norm, perm = found
         arr = np.array(flat[norm], dtype=np.float32)
-        if cand == 'kernel_q':
-            arr = arr.T
-        if cand == 'kernel':
-            if arr.ndim == 2:
-                arr = arr.T
-            elif isinstance(module.get_submodule(key.rpartition('.')[0]), nn.ConvTranspose2d):
-                arr = arr.transpose(2, 3, 0, 1)     # (k, k, in, out) -> (in, out, k, k)
-            else:
-                arr = arr.transpose(3, 2, 0, 1)     # HWIO -> OIHW
+        if perm is not None:
+            arr = arr.transpose(perm)
         if arr.shape != tuple(ref.shape):
             raise ValueError(f'{key} <- {norm}: shape {arr.shape}, want {tuple(ref.shape)}')
         out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(ref.dtype)
@@ -274,6 +310,79 @@ def load_state_into(module: nn.Module, state: Mapping[str, torch.Tensor], dtype:
             else:
                 targets[name].copy_(t)
     return unused
+
+
+def _stage(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` on ``device``, where a bundle leaf is transposed: the one
+    staged tensor of ``load_bundle_into`` (``t`` itself on the CPU)."""
+    return t.to(device)
+
+
+def load_bundle_into(module: nn.Module, leaves: Mapping[str, torch.Tensor], dtype: torch.dtype,
+                     device, cuts: Optional[Mapping[str, tuple]] = None, jax_layout: bool = False,
+                     jax_name: Optional[Callable[[str], str]] = None) -> List[str]:
+    """Fill ``module`` (built on the meta device) from one component of a
+    deployment bundle (``io/bundle.Bundle.leaves``: host views of its
+    files), as ``load_state_into`` fills it from a checkpoint: the module
+    is materialised once at ``dtype`` on ``device`` and each parameter
+    copied from its leaf; returns the leaves no parameter took.
+
+    The port's bundle is keyed by the module's own state_dict keys, in its
+    layout.  A JAX bundle (``jax_layout``) is keyed by flat JAX names,
+    which a key resolves to as ``params_from_jax`` does (``jax_name``:
+    ``text_jax_name``'s map); such a leaf is copied to ``device`` as stored
+    and transposed there, one staged tensor alive at a time.  Leaves load
+    as stored: float leaves are at the serving dtype the bundle's meta
+    records, and an int8 ``weight_q`` with its fp32 ``scale`` is taken as
+    it is, never quantized again.  Every parameter must be found
+    (ValueError with the count and the first five names), and shapes and
+    kinds (int8 or float) must agree (ValueError naming both sides).
+
+    ``cuts`` ({module key: (dim, indices)}, as in ``load_state_into``) cut
+    each leaf in the port's layout, from the transposed view of its file
+    and before its copy; an int8 layer cut along its input columns keeps
+    the whole row's scale, which its stored bits were quantized with."""
+    from ..parallel.mesh import take
+    cuts = cuts or {}
+    plan, missing = {}, []
+    for key, ref in module.state_dict(keep_vars=True).items():
+        found = (_jax_leaf(key, module, leaves, jax_name) if jax_layout
+                 else (key, None) if key in leaves else None)
+        if found is None:
+            missing.append(key)
+            continue
+        name, perm = found
+        leaf = leaves[name]
+        shape = [leaf.shape[d] for d in perm] if perm else list(leaf.shape)
+        if key in cuts:
+            shape[cuts[key][0]] = cuts[key][1].numel()
+        if tuple(shape) != tuple(ref.shape):
+            raise ValueError(f'bundle leaf {name} {tuple(leaf.shape)} does not fit {key} '
+                             f'{tuple(ref.shape)}' + (' (cut)' if key in cuts else '')
+                             + (f' (as {tuple(shape)} in the port\'s layout)' if perm else ''))
+        if leaf.dtype.is_floating_point != ref.dtype.is_floating_point:
+            raise ValueError(f'bundle leaf {name} is {leaf.dtype}, {key} is {ref.dtype}')
+        plan[key] = (name, perm)
+    if missing:
+        raise ValueError(f'{len(missing)} parameters of {type(module).__name__} not found in '
+                         f'the bundle, e.g. {missing[:5]}')
+    # Int8Linear keeps its scale in fp32 through the cast
+    module.to(dtype=dtype).to_empty(device=device)
+    targets = module.state_dict(keep_vars=True)
+    with torch.no_grad():
+        for key, (name, perm) in plan.items():
+            t = leaves[name]
+            if key in cuts:
+                dim, idx = cuts[key]
+                t = take(t, (perm[dim] if perm else dim, idx))
+            if perm is None:
+                targets[key].copy_(t)
+            else:
+                staged = _stage(t, device)
+                targets[key].copy_(staged.permute(perm))
+                del staged
+    used = {name for name, _ in plan.values()}
+    return [n for n in leaves if n not in used]
 
 
 def save_component(root: str, component: str, state: Mapping[str, torch.Tensor], config: dict,

@@ -221,12 +221,14 @@ def all_reduce_with_grad(x: torch.Tensor, axis: Axis) -> torch.Tensor:
 
 
 class Mesh:
-    """The (dp, sp, tp) grid of ranks: ``shape``, this rank's coordinates
-    and an ``Axis`` per name (``mesh.axis('tp')``)."""
+    """The (dp, sp, tp) grid of ranks: ``shape``, this rank's coordinates,
+    an ``Axis`` per name (``mesh.axis('tp')``) and the process ``group`` of
+    all its ranks (None: the default group)."""
 
     def __init__(self, shape: Mapping[str, int], coords: Mapping[str, int],
-                 axes: Mapping[str, Axis], backend: str):
+                 axes: Mapping[str, Axis], backend: str, group=None):
         self.shape, self.coords, self.axes, self.backend = dict(shape), dict(coords), dict(axes), backend
+        self.group = group
 
     def __repr__(self):
         return (f'Mesh(dp={self.shape["dp"]}, sp={self.shape["sp"]}, tp={self.shape["tp"]}, '
@@ -246,6 +248,14 @@ class Mesh:
     @property
     def tp(self) -> int:
         return self.shape['tp']
+
+    def first_rank_object(self, obj):
+        """``obj`` of the mesh's first rank (every coordinate 0) on every
+        rank: the others wait for it."""
+        box = [obj]
+        src = 0 if self.group is None else dist.get_global_rank(self.group, 0)
+        dist.broadcast_object_list(box, src=src, group=self.group)
+        return box[0]
 
     @property
     def writes(self) -> bool:
@@ -306,7 +316,7 @@ def make_mesh(dp: Optional[int] = None, tp: int = 1, sp: int = 1, group=None) ->
         else:
             pg = dist.new_group(members, use_local_synchronization=True)
         axes[name] = Axis(name, pg, coords[name], size)
-    return Mesh(shape, coords, axes, dist.get_backend(group))
+    return Mesh(shape, coords, axes, dist.get_backend(group), group)
 
 
 def has_sp(mesh: Optional[Mesh]) -> bool:

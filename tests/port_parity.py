@@ -42,9 +42,7 @@ from diffusion_feature_tpu.models.vae import AutoencoderKL
 from diffusion_feature_tpu.tokenizers.clip_bpe import load_clip_tokenizer
 from diffusion_feature_tpu.tokenizers.t5_tok import load_t5_tokenizer
 from diffusion_feature_tpu.tokenizers.wordpiece import load_bert_tokenizer
-from diffusion_feature_tpu_torch.models import bert_text as port_bert
-from diffusion_feature_tpu_torch.models import t5 as port_t5
-from diffusion_feature_tpu_torch.models.convert import params_from_jax
+from diffusion_feature_tpu_torch.models.convert import params_from_jax, text_jax_name
 
 torch.set_num_threads(1)
 
@@ -194,16 +192,6 @@ def load_jax_params(jfe, port):
         port.vae.load_state_dict(params_from_jax(jfe.params['vae'], port.vae))
     for te, tree in zip(port.text_encoders, jfe.params['text']):
         te.load_state_dict(params_from_jax(tree, te, text_jax_name(te)))
-
-
-def text_jax_name(te):
-    """The JAX-name map of a port text encoder for ``params_from_jax``
-    (T5's and BERT's differ from their transformers keys), or None."""
-    if isinstance(te, port_t5.T5EncoderModel):
-        return port_t5.jax_param_name
-    if isinstance(te, port_bert.BertTextModel):
-        return port_bert.jax_param_name
-    return None
 
 
 def jax_noise(seed: int, lat_shape, call: int = 0):

@@ -1,7 +1,8 @@
 """The Hopper attention kernels (flash B1, flash with logsumexp B2, head-mean
 B3, short attention B4) and the W8A16 int8 dense kernel against their plain
 twins, on the card; the
-checkpoint loader filling modules on the card; and generation and a
+checkpoint loader and both kinds of deployment bundle filling modules on
+the card; and generation and a
 ControlNet extract at a small size with their kernels against the twins;
 and a label-scarce member trained from a host-resident matrix.
 
@@ -496,6 +497,65 @@ def test_checkpoint_loads_on_card_as_on_cpu(cuda, tmp_path):
         for key in sa:
             assert sb[key].is_cuda and sb[key].dtype == torch.bfloat16
             assert torch.equal(sa[key], sb[key].cpu()), key
+
+
+@pytest.mark.cuda
+def test_bundles_load_on_card_as_on_cpu(cuda, tmp_path):
+    """A tiny test-flux tree (the port's random init written by
+    ``save_weights``, its VAE's last level 64 wide, so that the encoder's
+    mid-block attention over 32^2 latents takes B1) loaded at bf16 with
+    the int8 auto rule on the CPU, then written as the port's deployment
+    bundle and, with numpy, in the JAX package's layout
+    (tests/jax_layout.py: the transposes inverted, bf16 stored as uint16):
+    each bundle loads on the card torch.equal to its load on the CPU and to
+    the tree's, and an extract from it launches B1 once and W8A16 once per
+    int8 projection the transformer calls."""
+    import dataclasses
+    from PIL import Image
+    from jax_layout import write_jax_bundle
+    from diffusion_feature_tpu_torch.models.convert import random_module, save_component
+    from diffusion_feature_tpu_torch.models.vae import AutoencoderKL
+    from diffusion_feature_tpu_torch.ops import quant
+    layer = {'vit-block0-out': True, 'vit-block3-out': True}
+    tree = str(tmp_path / 'tree')
+    FeatureExtractor(layer, 'test-flux', device='cpu', dtype='float32', img_size=64,
+                     seed=4).save_weights(tree)
+    vae_cfg = dataclasses.replace(FeatureExtractor(layer, 'test-flux', device='cpu', img_size=64,
+                                                   weights=tree).spec.vae,
+                                  block_out_channels=(32, 64))
+    vae = random_module(lambda: AutoencoderKL(vae_cfg), 'cpu', torch.float32,
+                        torch.Generator().manual_seed(5))
+    save_component(tree, 'vae', vae.state_dict(), vae_cfg.to_diffusers_config())
+    source = FeatureExtractor(layer, 'test-flux', device='cpu', img_size=64, weights=tree)
+    assert source._int8_denoiser and source.spec.t5.quantize_int8 and source.vae_scale == 2
+    bundles = {'port': source.save_converted(str(tmp_path / 'port')),
+               'jax': write_jax_bundle(source, str(tmp_path / 'jax'), tree)}
+    rs = np.random.RandomState(6)
+    images = [Image.fromarray((rs.rand(64, 64, 3) * 255).astype(np.uint8)) for _ in range(2)]
+
+    def modules(fe):
+        return (fe.unet, fe.vae, *fe.text_encoders)
+    for kind, root in bundles.items():
+        on_cpu = FeatureExtractor(layer, 'test-flux', device='cpu', img_size=64, weights=root)
+        on_card = FeatureExtractor(layer, 'test-flux', device=cuda, img_size=64, weights=root)
+        for a, b, c in zip(modules(source), modules(on_cpu), modules(on_card), strict=True):
+            sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
+            assert sa.keys() == sb.keys() == sc.keys()
+            for key in sa:
+                assert sc[key].is_cuda and sc[key].dtype == sa[key].dtype, (kind, key)
+                assert torch.equal(sa[key], sb[key]) and torch.equal(sb[key], sc[key].cpu()), key
+        prompts = on_card.encode_prompt('a photo of a cat')
+        calls = []
+        hooks = [m.register_forward_hook(lambda *_: calls.append(1))
+                 for m in on_card.unet.modules() if isinstance(m, quant.Int8Linear)]
+        fa.launches = quant.int8_launches = 0
+        feats = on_card.extract(prompts, 2, images, t=500)
+        torch.cuda.synchronize()
+        for hook in hooks:
+            hook.remove()
+        assert fa.launches == 1 and quant.int8_launches == len(calls) > 0, kind
+        assert sorted(feats) == sorted(layer)
+        assert all(torch.isfinite(v.float()).all() for v in feats.values())
 
 
 @pytest.mark.cuda

@@ -341,6 +341,18 @@ def test_int8_rules_and_explicit_int8_under_tp(world):
         np.testing.assert_array_equal(r[f'mesh_scale/{name}'], res[0][f'plain_scale/{name}'])
 
 
+def test_tp_bundle_load_equals_the_tree_load(world):
+    """A dp=4 int8 Flux's bundle (io/bundle.py: the first rank writes, every
+    rank returns once it exists) loaded under dp2 x tp2 with default
+    arguments: int8 flags from the manifest, every rank's tensors
+    torch.equal to the same mesh's load of the tree; a tp extractor
+    refuses to write a bundle."""
+    for r in world.results('int8_tp'):
+        assert bool(r['bundle_written'])
+        assert r['bundle_equal'].all() and len(r['bundle_equal']) == 4
+        assert r['bundle_int8'].all() and bool(r['tp_save_refused'])
+
+
 def test_dp4_sample_matches_unsharded(world):
     res = world.results('sample_dp4_xl')
     plain = res[0]

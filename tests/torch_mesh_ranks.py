@@ -233,14 +233,16 @@ def case_sp2_tp2_flux(rank, root):
 
 
 def case_int8_tp(rank, root):
-    """The auto int8 rule on each mesh shape, and an explicit int8 Flux
-    under dp2 x tp2 against the unsharded int8 Flux."""
+    """The auto int8 rule on each mesh shape, an explicit int8 Flux under
+    dp2 x tp2 against the unsharded int8 Flux, and a deployment bundle
+    written under dp=4 and loaded under dp2 x tp2 against the tree."""
     from diffusion_feature_tpu_torch.parallel.mesh import make_mesh
     tree = str(Path(root) / 'flux_tree')
     wait_for(Path(root) / 'flux_tree' / 'ready', 300)
     layers = {'vit-block0-out': True, 'vit-block2-out': True, 'vit-block0-q': True}
-    rule = [_fe('test-flux', layers, make_mesh(**kw), weights=tree)._int8_denoiser
+    auto = [_fe('test-flux', layers, make_mesh(**kw), weights=tree)
             for kw in (dict(dp=2, tp=2), dict(dp=4), dict(dp=2, sp=2))]
+    rule = [x._int8_denoiser for x in auto]
     imgs = [make_image(i, SIZE) for i in range(4)]
     fe = _fe('test-flux', layers, make_mesh(dp=2, tp=2), weights=tree, transformer_8bit=True)
     out = {'rule': np.array(rule), 'tp_rank': np.array(fe.mesh.coords['tp'])}
@@ -258,6 +260,24 @@ def case_int8_tp(rank, root):
             layer = plain.unet.get_submodule(name)
             out[f'plain_q/{name}'] = layer.weight_q.numpy()
             out[f'plain_scale/{name}'] = layer.scale.numpy()
+    # the dp=4 extractor's bundle (the first rank writes it, the others wait)
+    # at the dp2 x tp2 mesh: its int8 flags from the manifest, each rank's
+    # part equal to its part of the tree's load (a row-parallel layer's
+    # stored scale is the whole row's); the tp extractor refuses to write one
+    bundle = auto[1].save_converted(str(Path(root) / 'flux_bundle'))
+    out['bundle_written'] = np.array(os.path.isfile(Path(bundle) / 'tpu_bundle.json'))
+    from_bundle = _fe('test-flux', layers, make_mesh(dp=2, tp=2), weights=bundle)
+    pairs = [(a.state_dict(), b.state_dict()) for a, b in zip(
+        (fe.unet, fe.vae, *fe.text_encoders),
+        (from_bundle.unet, from_bundle.vae, *from_bundle.text_encoders))]
+    out['bundle_equal'] = np.array([a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a) for a, b in pairs])
+    out['bundle_int8'] = np.array([from_bundle._int8_denoiser, from_bundle.spec.t5.quantize_int8])
+    try:
+        fe.save_converted(str(Path(root) / f'tp_bundle_{rank}'))
+        out['tp_save_refused'] = np.array(False)
+    except ValueError as e:
+        out['tp_save_refused'] = np.array('under tp' in str(e))
     return out
 
 
