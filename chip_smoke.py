@@ -13,7 +13,11 @@ Phases (each prints its numbers on lines of its own):
      FFMA and SHFL in every fp32 library's
      (every fp32 kernel runs simt_f32.cuh's shuffle-free products: B3 has
      no SHFL at all, the others keep them to their softmax row reductions
-     and the backward's delta pre-pass);
+     and the backward's delta pre-pass); then each B1/B2/B3 instantiation
+     of the bf16 and fp16 libraries with its registers, stack and local
+     bytes (cuobjdump --dump-resource-usage) and ptxas's spill bytes, and a
+     failure if one of NO_SPILL_KERNELS (the DiT widths' B1/B2 ping-pong
+     and B3 cluster kernels) spills;
   2. every kernel against its plain twin at every shape the paths launch
      it at (batch 2), plus a ragged shape, in bf16 and fp32 (each kernel
      also in fp16 at one shape): errors against the stated tolerances, and
@@ -402,14 +406,18 @@ RAGGED = (1, 2, 1000, 333, 64)
 # B1/B2/B3 on head-split views: ragged lengths at d=40 (TMA zero-fills the
 # columns up to the mma depth), at d=72 (144-byte head stride; zero fill up
 # to depth 80, the epilogue stops at column 72), at d=88 (176-byte head
-# stride; depth 96, P V at N=88) and at d=512 (B1 only: one score pass over
-# two consumer warpgroups)
+# stride; depth 96, P V at N=88), at d=128 (the ping-pong kernel's 192-key
+# tiles over 4600 keys) and at d=512 (B1 only: one score pass over two
+# consumer warpgroups); B3 also at a d=72 map its 2 x 2 cluster kernel takes
+# (odd tile counts, Sk % 8 != 0)
 SPLIT_RAGGED = {'flash_attention': [RAGGED, (1, 2, 1000, 333, 40), (1, 16, 1000, 333, 72),
-                                    (1, 16, 1000, 333, 88), (1, 1, 1000, 777, 512)],
+                                    (1, 16, 1000, 333, 88), (1, 24, 1000, 4600, 128),
+                                    (1, 1, 1000, 777, 512)],
                 'flash_attention_with_lse': [RAGGED, (1, 2, 1000, 333, 40),
-                                             (1, 16, 1000, 333, 72), (1, 16, 1000, 333, 88)],
+                                             (1, 16, 1000, 333, 72), (1, 16, 1000, 333, 88),
+                                             (1, 24, 1000, 4600, 128)],
                 'headmean_probs': [RAGGED, (1, 2, 1000, 333, 40), (1, 16, 1000, 333, 72),
-                                   (1, 16, 1000, 333, 88)]}
+                                   (1, 16, 1000, 333, 88), (2, 4, 2000, 2050, 72)]}
 SHORT_SHAPES = [                # B4: the short-sequence bands (no path launches it)
     (2, 8, 256, 256, 160),      # SD-1.5 @512^2 level-2 self-attention
     (2, 8, 256, 77, 160),       # and its cross-attention
@@ -797,6 +805,58 @@ def sass_counts(path, ops=('HGMMA', 'UTMALDG')) -> dict:
     sass = subprocess.run([tool, '-sass', path], capture_output=True, text=True, check=True,
                           timeout=300).stdout
     return {op: sass.count(op) for op in ops}
+
+
+def resource_usage(path) -> dict:
+    """{kernel's mangled name: {'REG': n, 'STACK': n, 'SHARED': n, 'LOCAL':
+    n}} of a library, by ``cuobjdump --dump-resource-usage`` (the registers
+    the launch reserves a thread, its stack frame and local memory in
+    bytes)."""
+    import re
+    tool = os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'), 'bin', 'cuobjdump')
+    out = subprocess.run([tool, '--dump-resource-usage', path], capture_output=True, text=True,
+                         check=True, timeout=300).stdout
+    found = {}
+    for m in re.finditer(r'Function (\S+):\s*\n\s*((?:[A-Z]+(?:\[\d+\])?:\d+\s*)+)', out):
+        found[m.group(1)] = {k: int(v) for k, v in re.findall(r'([A-Z]+):(\d+)', m.group(2))}
+    return found
+
+
+#: the kernels this repository designed for the DiTs' head widths (B1/B2's
+#: ping-pong kernel, B3's cluster kernel): phase 1 fails if ptxas spills
+#: in any of their instantiations
+NO_SPILL_KERNELS = ('flash_fwd_pingpong', 'headmean_cluster')
+
+
+def spill_check(log, paths) -> None:
+    """Phase 1: each B1/B2/B3 instantiation of the bf16 and fp16 libraries
+    with its registers, stack and local bytes (cuobjdump) and ptxas's spill
+    bytes (from ``log``, the build's ``-Xptxas -v`` output; a cached build
+    has none); raises if one of NO_SPILL_KERNELS spills."""
+    import re
+    spills = {}
+    for line in ptxas_summary(log):
+        m = re.match(r'(\S+): \d+ registers, spill stores (\d+) B, loads (\d+) B', line)
+        if m:
+            spills[m.group(1)] = (int(m.group(2)), int(m.group(3)))
+    bad = []
+    for path in paths:
+        name = os.path.basename(path)
+        if not any(f'_{lib}_{tag}_' in name for lib in ('flash', 'headmean')
+                   for tag in ('bf16', 'fp16')):
+            continue
+        for fn, use in sorted(resource_usage(path).items()):
+            if 'flash_fwd' not in fn and 'headmean' not in fn:
+                continue
+            spill = spills.get(fn)
+            note = 'spills not reported (cached build)' if spill is None else (
+                f'spill stores {spill[0]} B, loads {spill[1]} B')
+            print(f'  resources {name}: {fn}: {use.get("REG")} registers, stack '
+                  f'{use.get("STACK")} B, local {use.get("LOCAL")} B, {note}', flush=True)
+            if any(k in fn for k in NO_SPILL_KERNELS) and spill is not None and any(spill):
+                bad.append(f'{fn} ({note})')
+    if bad:
+        raise RuntimeError('phase 1: redesigned kernels spill: ' + '; '.join(bad))
 
 
 def ptxas_summary(log) -> list:
@@ -4162,6 +4222,7 @@ def main() -> int:
             if lib == 'headmean_f32' and counts['SHFL']:
                 raise RuntimeError(f'{path}: {counts["SHFL"]} SHFL in the SASS; fp32 B3 '
                                    'needs no cross-lane exchange')
+    spill_check(info['log'], info['paths'])
     from diffusion_feature_tpu_torch.native import load_library
     writer_lib = load_library('dumpio')
     if writer_lib is None:

@@ -228,11 +228,12 @@ int dispatch_d(const float* q, const float* k, const float* v, float* o, float* 
 }  // namespace
 
 // The entry point; its contract is at dft::hopper::forward in
-// flash_hopper.cuh.  This library takes dtype 0 (float32) only.
+// flash_hopper.cuh.  This library takes dtype 0 (float32) only; it launches
+// one block per tile and ignores `grid`.
 extern "C" int dft_flash_attention_forward(const void* q, const void* k, const void* v, void* o,
                                            float* lse, int b, int h, int sq, int sk, int d,
                                            int dtype, float scale, const long long* strides,
-                                           void* stream) {
+                                           int /*grid*/, void* stream) {
   if (dtype != 0) return int(cudaErrorInvalidValue);
   Strides st;
   for (int i = 0; i < 12; ++i) st.v[i] = strides[i];

@@ -9,8 +9,16 @@
 extern "C" int dft_flash_attention_forward(const void* q, const void* k, const void* v, void* o,
                                            float* lse, int b, int h, int sq, int sk, int d,
                                            int dtype, float scale, const long long* strides,
-                                           void* stream) {
+                                           int grid, void* stream) {
   if (dtype != 1) return int(cudaErrorInvalidValue);
   return dft::hopper::forward<__half>(q, k, v, o, lse, b, h, sq, sk, d, scale, strides,
-                                  static_cast<cudaStream_t>(stream));
+                                      grid, static_cast<cudaStream_t>(stream));
+}
+
+// How many clusters of the ping-pong kernel at head width d the current
+// device holds at once (0 where d has none, a negative cudaError_t on
+// failure): the bound of ops/flash_attention.py's persistent grid.
+extern "C" int dft_flash_cluster_slots(int d, int dtype) {
+  if (dtype != 1) return -int(cudaErrorInvalidValue);
+  return dft::hopper::cluster_slots<__half>(d);
 }

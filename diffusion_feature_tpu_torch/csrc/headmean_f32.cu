@@ -167,8 +167,8 @@ int launch(const void* q, const void* k, const float* lse, void* out, int b, int
 // headmean_hopper.cuh.  This library takes dtype 0 (float32) only.
 extern "C" int dft_headmean_probs(const void* q, const void* k, const float* lse, void* out,
                                   int b, int h, int sq, int sk, int d, int dtype, float scale,
-                                  const long long* strides, void* stream) {
-  if (dtype != 0) return int(cudaErrorInvalidValue);
+                                  const long long* strides, int clusters, void* stream) {
+  if (dtype != 0 || clusters != 0) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 40: return launch<40>(q, k, lse, out, b, h, sq, sk, scale, strides, s);

@@ -49,10 +49,16 @@ __device__ __forceinline__ void mbar_fence_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
+// The barrier helpers and TMA loads take a pointer into shared memory or
+// its 32-bit shared-state-space address (one register instead of a 64-bit
+// generic pointer: a producer thread on setmaxnreg's 24 registers keeps
+// its ring's addresses so).
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  mbar_expect_tx(smem_u32(bar), bytes);
 }
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
@@ -62,8 +68,7 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 // Wait until the phase of parity `parity` has completed.  A wait of more
 // than ~2^34 cycles (seconds; a tile arrives in microseconds) means a lost
 // arrival: trap, so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
+__device__ __forceinline__ void mbar_wait(uint32_t addr, uint32_t parity) {
   const long long start = clock64();
   uint32_t done;
   do {
@@ -77,30 +82,42 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (!done && clock64() - start > (1ll << 34)) __trap();
   } while (!done);
 }
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  mbar_wait(smem_u32(bar), parity);
+}
 
 // One box of a 4-d tensor map (coordinates d, s, h, b) into shared memory;
 // the bytes are counted into `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1, int c2, int c3) {
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2, int c3) {
+  tma_load(smem_u32(dst), map, smem_u32(bar), c0, c1, c2, c3);
 }
 
 // The same box into the shared memory of every CTA of the cluster in
 // `mask`, at this CTA's offset of `dst`; each destination's mbarrier at
 // the offset of `bar` counts the bytes it receives.
-__device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap* map,
-                                                   uint64_t* bar, int c0, int c1, int c2, int c3,
+__device__ __forceinline__ void tma_load_multicast(uint32_t dst, const CUtensorMap* map,
+                                                   uint32_t bar, int c0, int c1, int c2, int c3,
                                                    uint16_t mask) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%3, %4, %5, %6}], [%2], %7;\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "h"(mask)
+      ".multicast::cluster [%0], [%1, {%3, %4, %5, %6}], [%2], %7;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "h"(mask)
       : "memory");
+}
+__device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap* map,
+                                                   uint64_t* bar, int c0, int c1, int c2, int c3,
+                                                   uint16_t mask) {
+  tma_load_multicast(smem_u32(dst), map, smem_u32(bar), c0, c1, c2, c3, mask);
 }
 
 // An arrival on the mbarrier at the offset of `bar` in CTA `cta` of the
@@ -222,6 +239,17 @@ __device__ __forceinline__ float fast_exp2(float x) {
 
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// An arrival on named barrier `id` that does not wait for it to complete.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// This CTA's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
 }
 
 // Output rows written straight from the accumulators (B1, B2, B4): a lane's

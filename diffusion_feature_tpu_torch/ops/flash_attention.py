@@ -35,8 +35,11 @@ products, and a launch's own cost, exceed its bound.  In bf16 and fp16
 every kernel is written for Hopper: a producer warp issues TMA loads into
 mbarrier rings and consumer warpgroups run ``wgmma`` with the scores in
 registers (B1/B2 ``flash_hopper.cuh``: online softmax, d=512 computes each
-score once; B3 ``headmean_hopper.cuh``: a ring over heads, the mean kept
-in registers, a persistent grid; B4 ``short_hopper.cuh``: two passes, the
+score once, the DiTs' d=72/88/128 a persistent ping-pong kernel in clusters
+of two CTAs sharing K/V, its grid from ``flash_grid``; B3
+``headmean_hopper.cuh``: a ring over heads, the mean kept in registers, a
+persistent grid, at d=72/88 2 x 2 clusters sharing Q and K where
+``headmean_clusters`` picks them; B4 ``short_hopper.cuh``: two passes, the
 row maxima first).  ``hopper_common.cuh`` holds what they share.  float32
 runs on training paths (ade_vpd's prompt tuning and train_unet
 differentiate SD-1.5 in fp32, whose self-attentions are B2 forwards under
@@ -120,13 +123,17 @@ _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 _VP, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     # q, k, v, o, lse, b, h, sq, sk, d, dtype, scale, strides (sb, sh, ss of
-    # q, k, v, o), stream
+    # q, k, v, o), grid (flash_grid's), stream
     'dft_flash_attention_forward': [_VP] * 5 + [_INT] * 6 + [
-        _F32, ctypes.POINTER(ctypes.c_longlong), _VP],
+        _F32, ctypes.POINTER(ctypes.c_longlong), _INT, _VP],
     # q, k, lse, out, b, h, sq, sk, d, dtype, scale, strides (sb, sh, ss of
-    # q, k), stream
+    # q, k), clusters (headmean_clusters'), stream
     'dft_headmean_probs': [_VP] * 4 + [_INT] * 6 + [
-        _F32, ctypes.POINTER(ctypes.c_longlong), _VP],
+        _F32, ctypes.POINTER(ctypes.c_longlong), _INT, _VP],
+    # d, dtype: the clusters of B1's ping-pong or B3's cluster kernel at
+    # width d that the current device holds at once
+    'dft_flash_cluster_slots': [_INT, _INT],
+    'dft_headmean_cluster_slots': [_INT, _INT],
     # q, k, v, o, b, h, sq, sk, d, dtype, scale, strides (as B1's), stream
     'dft_short_attention_forward': [_VP] * 4 + [_INT] * 6 + [
         _F32, ctypes.POINTER(ctypes.c_longlong), _VP],
@@ -404,6 +411,86 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+#: Query rows of a B1/B2 block's tile below d=512, and B3's output tile
+#: (rows and keys).
+FLASH_BLOCK_ROWS = 128
+HEADMEAN_TILE = 128
+#: Widths whose B1/B2 run the persistent ping-pong kernel in clusters of
+#: FLASH_CLUSTER CTAs (csrc/flash_hopper.cuh, Cfg::kPingPong); the others
+#: launch a block per query tile.
+FLASH_CLUSTER_WIDTHS = (72, 88, 128)
+FLASH_CLUSTER = 2
+#: Widths with B3's 2 x 2 cluster kernel (csrc/headmean_hopper.cuh).
+HEADMEAN_CLUSTER_WIDTHS = (72, 88)
+
+
+def persistent_grid(items: int, slots: int) -> int:
+    """Units of a persistent grid over ``items`` equal work items where the
+    card holds ``slots`` units at once: the rounds that ``slots`` units need
+    (ceil(items / slots)), spread over as few units as still finish in that
+    many rounds, so no unit waits on a last round that others skip and the
+    units share L2 with no more neighbours than that needs (288 items on
+    132 SMs: 3 rounds over 96 blocks, not 24 blocks' third round)."""
+    if items < 1 or slots < 1:
+        raise ValueError(f'persistent_grid: {items} items on {slots} slots')
+    rounds = -(-items // slots)
+    return -(-items // rounds)
+
+
+def flash_grid(b: int, h: int, sq: int, slots: int) -> int:
+    """The block count of B1/B2's ping-pong kernel (``FLASH_CLUSTER_WIDTHS``)
+    for ``b`` x ``h`` heads over ``sq`` queries where the card holds
+    ``slots`` of its clusters at once: a cluster takes a pair of neighbouring
+    query tiles of ``FLASH_BLOCK_ROWS`` of one head, sharing its K and V
+    tiles, and ``persistent_grid`` spreads the pairs over the clusters."""
+    pairs = -(-(-(-sq // FLASH_BLOCK_ROWS)) // FLASH_CLUSTER)
+    return FLASH_CLUSTER * persistent_grid(b * h * pairs, slots)
+
+
+def headmean_clusters(b: int, sq: int, sk: int, d: int, sms: int, slots: int) -> int:
+    """The cluster count of B3's 2 x 2 cluster kernel for a (b, sq, sk) map
+    at width ``d``, or 0 for the lone kernel (a block per SM walking the
+    output tiles).  The cluster kernel halves the L2 reads of Q and K, which
+    bound the lone kernel at d=72 and 88 once every SM walks several tiles;
+    where the lone kernel's tiles fit one round of ``sms`` (PixArt's 1024
+    tokens at batch 2: 128 tiles), the four CTAs' lockstep costs more than
+    the reads save, and the lone kernel runs."""
+    if d not in HEADMEAN_CLUSTER_WIDTHS:
+        return 0
+    n_q, n_k = -(-sq // HEADMEAN_TILE), -(-sk // HEADMEAN_TILE)
+    if b * n_q * n_k <= sms:
+        return 0
+    return persistent_grid(b * -(-n_q // 2) * -(-n_k // 2), slots)
+
+
+_sms, _slots = {}, {}
+
+
+def _sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device, read once."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sms[index]
+
+
+def _cluster_slots(kernel: str, dtype: torch.dtype, d: int, device: torch.device) -> int:
+    """How many clusters of ``kernel``'s ('flash' or 'headmean') cluster
+    kernel at width ``d`` the device holds at once, read once from the
+    library (the CUDA occupancy calculator)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (kernel, dtype, d, index)
+    if key not in _slots:
+        lib = _lib(kernel, dtype)
+        fn = lib.dft_flash_cluster_slots if kernel == 'flash' else lib.dft_headmean_cluster_slots
+        n = fn(d, _DTYPE_CODES[dtype])
+        if n < 1:
+            raise RuntimeError(f'{kernel} at d={d}: no cluster fits the device '
+                               f'(occupancy query returned {n})')
+        _slots[key] = n
+    return _slots[key]
+
+
 def flash_output(q: torch.Tensor) -> torch.Tensor:
     """B1/B2/B4's output for (B, H, Sq, D) q: (B, Sq, H, D) memory returned as
     the (B, H, Sq, D) view, so ``merge_heads`` of it is a view."""
@@ -436,9 +523,12 @@ def _qkv_launch(op, kernel, q, k, v, lse, scale, head_dims):
     strides = _tma_stride_array(op, (('q', q), ('k', k), ('v', v), ('output', out)))
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     if kernel == 'flash':
+        grid = 0
+        if d in FLASH_CLUSTER_WIDTHS and q.dtype != torch.float32:
+            grid = flash_grid(b, h, sq, _cluster_slots('flash', q.dtype, d, q.device))
         err = _lib(kernel, q.dtype).dft_flash_attention_forward(
             *args, None if lse is None else lse.data_ptr(), b, h, sq, k.shape[2], d,
-            _DTYPE_CODES[q.dtype], float(scale), strides, _stream(q))
+            _DTYPE_CODES[q.dtype], float(scale), strides, grid, _stream(q))
     else:
         err = _lib(kernel, q.dtype).dft_short_attention_forward(
             *args, b, h, sq, k.shape[2], d, _DTYPE_CODES[q.dtype], float(scale), strides,
@@ -501,9 +591,13 @@ def headmean_probs(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor, *,
         raise ValueError(f'{op}: a ({b}, {sq}, {sk}) map exceeds the launch limits')
     strides = _tma_stride_array(op, (('q', q), ('k', k)))
     out = torch.empty((b, sq, sk), dtype=q.dtype, device=q.device)
+    clusters = 0
+    if d in HEADMEAN_CLUSTER_WIDTHS and q.dtype != torch.float32:
+        clusters = headmean_clusters(b, sq, sk, d, _sm_count(q.device),
+                                     _cluster_slots('headmean', q.dtype, d, q.device))
     err = _lib('headmean', q.dtype).dft_headmean_probs(
         q.data_ptr(), k.data_ptr(), lse.data_ptr(), out.data_ptr(), b, h, sq, sk, d,
-        _DTYPE_CODES[q.dtype], float(scale), strides, _stream(q))
+        _DTYPE_CODES[q.dtype], float(scale), strides, clusters, _stream(q))
     if err != 0:
         raise RuntimeError(f'{op} kernel launch failed: cudaError {err} '
                            f'for q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}')

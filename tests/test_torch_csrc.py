@@ -108,3 +108,81 @@ def test_int8_route_edges():
         'streaming', 'streaming', 'tma128']
     assert [_route(m, 3072, 3072) for m in (1280, 1408, 2048)] == ['tma256', 'tma128', 'tma256']
     assert [_route(1024, 3072, 3072, sms=sms) for sms in (132, 200)] == ['tma256', 'tma128']
+
+
+# B1/B2's ping-pong kernel and B3's cluster kernel: the host's choices
+# (ops/flash_attention.py) against the widths the sources build them for.
+def _source(name):
+    return (fa._CSRC / name).read_text()
+
+
+def test_cluster_widths_match_the_sources():
+    """``FLASH_CLUSTER_WIDTHS``/``FLASH_CLUSTER`` are flash_hopper.cuh's
+    ping-pong widths and cluster size, ``HEADMEAN_CLUSTER_WIDTHS``
+    headmean_hopper.cuh's cluster kernel's widths: a width the host routes
+    to a kernel the library lacks would fail its launch."""
+    flash = _source('flash_hopper.cuh')
+    m = re.search(r'kPingPong = ((?:D == \d+(?: \|\| )?)+);', flash)
+    assert m and tuple(int(w) for w in re.findall(r'\d+', m.group(1))) == fa.FLASH_CLUSTER_WIDTHS
+    assert f'kCluster = kPingPong ? {fa.FLASH_CLUSTER} : 1;' in flash
+    head = _source('headmean_hopper.cuh')
+    m = re.search(r'kClustered = ((?:D == \d+(?: \|\| )?)+);', head)
+    assert m and tuple(int(w) for w in re.findall(r'\d+', m.group(1))) == \
+        fa.HEADMEAN_CLUSTER_WIDTHS
+    for w in fa.HEADMEAN_CLUSTER_WIDTHS:
+        assert f'case {w}: return headmean_slots<T, {w}>();' in head
+    for w in fa.FLASH_CLUSTER_WIDTHS:
+        assert f'case {w}: return pingpong_slots<T, {w}>();' in flash
+
+
+@pytest.mark.parametrize('items,slots,grid', [
+    (288, 132, 96), (264, 132, 132), (265, 132, 89), (131, 132, 131), (1, 132, 1),
+    (1728, 132, 124), (576, 66, 64), (512, 30, 29), (2048, 30, 30)])
+def test_persistent_grid_spreads_the_rounds(items, slots, grid):
+    """``persistent_grid``: as few units as finish in the rounds ``slots``
+    units need: never more rounds than ceil(items / slots), never more
+    units than slots or items."""
+    got = fa.persistent_grid(items, slots)
+    assert got == grid
+    rounds = -(-items // slots)
+    assert got <= min(items, slots) and -(-items // got) == rounds
+
+
+def test_persistent_grid_refuses_empty_work():
+    for items, slots in ((0, 132), (10, 0)):
+        with pytest.raises(ValueError):
+            fa.persistent_grid(items, slots)
+
+
+# (b, h, sq) of every B1/B2 call at a ping-pong width in chip_smoke.py's
+# phase 2, with the block count flash_grid gives on an H100 (66 clusters
+# of two CTAs at once)
+_FLASH_GRIDS = {(2, 24, 4608): 124, (1, 24, 4608): 124, (2, 24, 1536): 116, (1, 24, 1536): 96,
+                (2, 12, 4608): 124, (2, 24, 2560): 120, (2, 24, 2304): 124, (2, 16, 4096): 128,
+                (2, 16, 1024): 128, (2, 16, 2048): 128, (1, 16, 1000): 128, (1, 1, 1): 2}
+
+
+@pytest.mark.parametrize('b,h,sq', list(_FLASH_GRIDS), ids=[str(k) for k in _FLASH_GRIDS])
+def test_flash_grid_at_the_path_shapes(b, h, sq):
+    """``flash_grid``: an even block count (clusters of two), one cluster
+    per pair of 128-query tiles of a head at most, as many rounds as 66
+    clusters need."""
+    grid = fa.flash_grid(b, h, sq, 66)
+    assert grid == _FLASH_GRIDS[b, h, sq]
+    pairs = b * h * -(-(-(-sq // fa.FLASH_BLOCK_ROWS)) // fa.FLASH_CLUSTER)
+    assert grid % fa.FLASH_CLUSTER == 0 and grid // 2 <= pairs
+    assert -(-pairs // (grid // 2)) == -(-pairs // 66)
+
+
+@pytest.mark.parametrize('shape,clusters', [
+    ((2, 4096, 4096, 72), 29), ((2, 4096, 4096, 88), 29), ((2, 1024, 1024, 72), 0),
+    ((2, 1024, 1024, 88), 0), ((1, 1000, 333, 72), 0), ((2, 2048, 2048, 72), 26),
+    ((2, 2000, 2050, 72), 29), ((2, 4096, 4096, 64), 0), ((2, 4096, 4096, 128), 0),
+    ((1, 4096, 4096, 72), 29), ((2, 1536, 1536, 72), 24)])
+def test_headmean_clusters_at_the_path_shapes(shape, clusters):
+    """``headmean_clusters`` on an H100 (132 SMs, 30 clusters of four at
+    once): the cluster kernel at d=72/88 once the lone kernel's tiles take
+    more than one round (PixArt's 4096 tokens), the lone kernel where they
+    fit one (1024 tokens) and at every other width."""
+    b, sq, sk, d = shape
+    assert fa.headmean_clusters(b, sq, sk, d, 132, 30) == clusters

@@ -1155,3 +1155,117 @@ def test_pixel_member_trains_alike_from_a_host_matrix(cuda):
     on_host = train_one(x, y, **kw).state_dict()
     on_card = train_one(x.to(cuda), y.to(cuda), **kw).state_dict()
     torch.testing.assert_close(on_host, on_card, rtol=0, atol=0)
+
+
+# The DiT widths' kernels: B1/B2's persistent ping-pong kernel in clusters of
+# two query tiles sharing K and V (d=72, 88, 128; 192 keys a tile at d=128)
+# and B3's 2 x 2 cluster kernel (d=72, 88).  Ragged key counts (not a
+# multiple of 64, 128 or 192; one key), ragged query counts (a cluster's
+# second tile past Sq), a single tile, and query-tile counts just below and
+# above one and two rounds of a 132-SM card.
+_PINGPONG_CASES = [(2, 3, 257, 4600, 128), (1, 4, 300, 130, 128), (1, 2, 200, 1, 128),
+                   (1, 1, 100, 100, 128), (1, 131, 128, 300, 128), (1, 133, 128, 300, 128),
+                   (1, 2, 128 * 131, 256, 88), (1, 2, 128 * 133, 256, 72),
+                   (2, 3, 1000, 4097, 72), (1, 5, 129, 700, 88)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize('lse', [False, True], ids=['b1', 'b2'])
+@pytest.mark.parametrize('shape', _PINGPONG_CASES,
+                         ids=[f'{s[1]}x{s[2]}x{s[3]}-d{s[4]}' for s in _PINGPONG_CASES])
+def test_pingpong_kernel_ragged_and_tile_counts(cuda, dtype, lse, shape):
+    """B1 and B2 at the ping-pong widths against their twins, with the
+    grid ``flash_grid`` picks for the card, at ragged lengths and at tile
+    counts around the card's rounds."""
+    b, h, sq, sk, d = shape
+    assert d in fa.FLASH_CLUSTER_WIDTHS
+    q, k, v = _qkv(cuda, dtype, *shape, seed=11)
+    fa.launches = fa.lse_launches = 0
+    if lse:
+        out, got_lse = fa.flash_attention_with_lse(q, k, v, scale=d ** -0.5)
+        ref, ref_lse = fa.flash_attention_with_lse_reference(q, k, v, d ** -0.5)
+    else:
+        out = fa.flash_attention(q, k, v, scale=d ** -0.5)
+        ref = fa.flash_attention_reference(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.lse_launches) == ((0, 1) if lse else (1, 0))
+    _assert_matches(out, ref, dtype)
+    if lse:
+        torch.testing.assert_close(got_lse, ref_lse, atol=1e-3, rtol=0)
+
+
+_FLUX_SHAPES = [(2, 24, 4608, 4608, 128), (1, 24, 1536, 1536, 128), (2, 12, 4608, 4608, 128),
+                (2, 24, 2560, 4608, 128), (2, 24, 2304, 4608, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', _FLUX_SHAPES, ids=[f'{s[1]}x{s[2]}x{s[3]}' for s in _FLUX_SHAPES])
+def test_pingpong_kernel_at_flux_shapes(cuda, shape):
+    """B1 at Flux's joint attention (4608 and 1536 tokens) and at phase 22's
+    head (tp=2) and token (sp=2) shards, contiguous as Flux hands them."""
+    b, h, sq, sk, d = shape
+    q, k, v = _qkv(cuda, torch.bfloat16, *shape, seed=12)
+    out = fa.flash_attention(q, k, v, scale=d ** -0.5)
+    _assert_matches(out, fa.flash_attention_reference(q, k, v, d ** -0.5), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize('lse', [False, True], ids=['b1', 'b2'])
+@pytest.mark.parametrize('shape', [(2, 16, 4096, 4096, 72), (2, 16, 4096, 4096, 88),
+                                   (2, 16, 2048, 4096, 72), (1, 16, 4000, 4097, 88)],
+                         ids=['d72', 'd88', 'd72-sp', 'ragged-d88'])
+def test_pingpong_kernel_reads_head_split_views(cuda, dtype, lse, shape):
+    """B1 and B2 on PixArt's (144-byte heads) and HunyuanDiT's (176-byte
+    heads) head-split views at 4096 tokens, PixArt's sp=2 token shard and a
+    ragged shape: the multicast halves of each K and V tile read in place."""
+    b, h, sq, sk, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v = (_split(cuda, dtype, b, h, s, d, gen) for s in (sq, sk, sk))
+    if lse:
+        out, got_lse = fa.flash_attention_with_lse(q, k, v, scale=d ** -0.5)
+        ref, ref_lse = fa.flash_attention_with_lse_reference(q, k, v, d ** -0.5)
+        torch.testing.assert_close(got_lse, ref_lse, atol=1e-3, rtol=0)
+    else:
+        out = fa.flash_attention(q, k, v, scale=d ** -0.5)
+        ref = fa.flash_attention_reference(q, k, v, d ** -0.5)
+    _assert_matches(out, ref, dtype)
+
+
+_CLUSTER_CASES = [(2, 4, 2000, 2050, 72), (1, 16, 2600, 1000, 88), (2, 16, 4096, 4096, 72),
+                  (1, 3, 2000, 2048, 88), (2, 1, 1900, 4000, 72)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize('layout', ['contiguous', 'head-split'])
+@pytest.mark.parametrize('shape', _CLUSTER_CASES,
+                         ids=[f'{s[1]}x{s[2]}x{s[3]}-d{s[4]}' for s in _CLUSTER_CASES])
+def test_headmean_cluster_kernel_matches_twin(cuda, dtype, layout, shape):
+    """B3's 2 x 2 cluster kernel (the choice of ``headmean_clusters`` at
+    these shapes) against its twin and against the lone kernel called
+    through the same entry point, at ragged lengths (odd tile counts: a
+    cluster's tiles past Sq or Sk; Sk not a multiple of 8: element
+    stores)."""
+    b, h, sq, sk, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    q, k = (_layout(cuda, dtype, layout, b, h, s, d, gen) for s in (sq, sk))
+    _, lse = fa.flash_attention_with_lse(q, k, k, scale=d ** -0.5)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    clusters = fa.headmean_clusters(b, sq, sk, d, sms,
+                                    fa._cluster_slots('headmean', dtype, d, q.device))
+    assert clusters > 0
+    fa.headmean_launches = 0
+    mean_p = fa.headmean_probs(q, k, lse, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.headmean_launches == 1
+    _assert_map_matches(mean_p, fa.headmean_probs_reference(q, k, lse, d ** -0.5), dtype, sk)
+    lone = torch.empty_like(mean_p)
+    err = fa._lib('headmean', dtype).dft_headmean_probs(
+        q.data_ptr(), k.data_ptr(), lse.data_ptr(), lone.data_ptr(), b, h, sq, sk, d,
+        fa._DTYPE_CODES[dtype], d ** -0.5, fa._tma_stride_array('t', (('q', q), ('k', k))), 0,
+        fa._stream(q))
+    torch.cuda.synchronize()
+    assert err == 0
+    _assert_map_matches(mean_p, lone, dtype, sk)

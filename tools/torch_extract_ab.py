@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Time one path of the PyTorch port for one checkout of the repository.
 
-    python3 tools/torch_extract_ab.py ROOT [--path xl|sd15_store|xl_store]
-    python3 tools/torch_extract_ab.py ROOT --kernels [--width D] [--dtype NAME] [--only NAME]
+    python3 tools/torch_extract_ab.py ROOT [--path NAME]
+    python3 tools/torch_extract_ab.py ROOT --kernels [--width D,..] [--dtype NAME] [--only NAME,..]
     python3 tools/torch_extract_ab.py ROOT --int8_routes
 
 Imports ``diffusion_feature_tpu_torch`` from ROOT, builds its kernels, and
 times one of ``chip_smoke.PATHS`` (default ``xl``: SDXL ``xl-practical`` at
 1024^2, batch 2, t=50, random weights) with ``chip_smoke.extract_times``:
-15 calls between CUDA events after three warm-up calls.  The path's
-settings come from this repository's ``chip_smoke.py``, whatever ROOT is.
+15 calls between CUDA events after two warm-up calls, or with a name of
+``SAMPLE_PATHS`` a generation sample (``chip_smoke.timed_sample``:
+``fe._sample`` between CUDA events, three timed after one untimed; e.g.
+``flux_gen``, phase 16e's Flux.1-dev sample at 512^2, 28 steps, guidance
+3.5, batch 1).  The path's settings come from this repository's
+``chip_smoke.py``, whatever ROOT is.
 Prints one JSON line with the median, quartiles, min and max in ms and the
 card.  To compare two checkouts on one card, run it for both in turns in
 one command (A B B A), e.g. with the parent unpacked by ``git archive``
@@ -19,12 +23,13 @@ With ``--kernels`` it times, instead of a path, ROOT's B1 to B4 wrappers
 (``flash_attention``, ``flash_attention_with_lse``, ``headmean_probs`` on
 B2's logsumexp, ``short_attention``) on contiguous bf16 inputs (which every
 checkout's wrappers take) at the shapes phase 2 of ``chip_smoke.py`` gives
-them (``B1_SHAPES``, the CLI's trailing batch of 1, ``STORE_SHAPES``,
-``SHORT_SHAPES``): in a loop of separate calls (``loop_ms``:
+them (``B1_SHAPES``, the CLIs' trailing batch of 1, Flux's joint
+attention ``FLUX_B1_SHAPES`` and the mesh's head and token shards of
+phase 22, ``STORE_SHAPES``, ``SHORT_SHAPES``): in a loop of separate calls (``loop_ms``:
 ``chip_smoke.time_ms``, the median of three loops), which at the small
 shapes times the host's cost per call as well as the kernel, and as CUDA
 graphs of 20 calls (``graph_ms``: ``chip_smoke.graph_ms``, device time).
-``--width D`` keeps the shapes of head width D only, ``--dtype NAME``
+``--width D[,D...]`` keeps the shapes of those head widths only, ``--dtype NAME``
 (``bfloat16``, ``float16`` or ``float32``) the cases of that dtype.  The
 JSON line also carries ROOT's ``ptxas`` report (registers and spills) of
 every kernel instance at those widths, from the build, when this call
@@ -34,8 +39,9 @@ compiled it.
 shape of ``chip_smoke.int8_phase2_shapes()`` (loops and graphs), and the
 JSON line carries the graph times summed over the launches of one int8
 Flux extract at 1024^2, batch 2 (``int8_per_extract_ms``: 495 launches) and
-of its ``encode_prompt`` (``int8_per_prompt_ms``: 168).  ``--only NAME``
-keeps the cases of one wrapper (``int8_linear``, ``flash_attention``, ...).
+of its ``encode_prompt`` (``int8_per_prompt_ms``: 168).  ``--only NAME[,NAME...]``
+keeps the cases of those wrappers (``int8_linear``, ``flash_attention``,
+...).
 
 ``--int8_routes`` (ROOT with ``quant.ROUTES``) checks and times every
 W8A16 kernel of ROOT's bf16 library on its own, the entry point called with
@@ -65,6 +71,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 
 CALLS = 15
+SAMPLES = 3
+#: generation samples --path times (phase 16e's: the generation CLI's
+#: version, size, taps, steps and guidance, batch 1, noise from seed 7)
+SAMPLE_PATHS = {'flux_gen': dict(layer=chip_smoke.FLUX_TAPS, version='flux', img_size=512,
+                                 steps=28, guidance=3.5)}
 #: --int8_routes: (M, K, N) beyond the phase-2 shapes, bf16, with a bias: M
 #: around the streaming kernel's limit at the adaLN widths, and M where the
 #: TMA kernel's 256-row tiles start to fill the card at Flux's and T5's widths
@@ -158,23 +169,27 @@ def int8_route_times(torch, fa) -> list:
 
 def kernel_times(torch, fa, width=None, dtype_name=None, only=None) -> tuple:
     """({'<wrapper> (B,H,Sq,Sk,D)': ms per call in a loop of calls},
-    {the same: ms per call in CUDA graphs}) in bf16, at head width ``width``
-    only where given, of wrapper ``only`` only where given; nothing where
+    {the same: ms per call in CUDA graphs}) in bf16, at the head widths in
+    ``width`` only where given, of the wrappers in ``only`` only where given; nothing where
     ``dtype_name`` names another dtype."""
     gen = torch.Generator(device='cuda').manual_seed(0)
-    cli = [(1,) + shape[1:] for shape in chip_smoke.B1_SHAPES[:3]]
+    # the CLIs' trailing batch of 1: SDXL's, PixArt-Sigma's and HunyuanDiT's
+    cli = [(1,) + shape[1:] for shape in chip_smoke.B1_SHAPES[:3] + [
+        s for s in chip_smoke.B1_SHAPES if s[-1] in (72, 88) and s[2] == 4096]]
     loop, graph = {}, {}
     if dtype_name not in (None, 'bfloat16'):
         return loop, graph
-    for name, shapes in (('flash_attention', chip_smoke.B1_SHAPES + cli),
+    flux = (chip_smoke.FLUX_B1_SHAPES + chip_smoke.TP_FLUX_B1_SHAPES
+            + chip_smoke.SP_FLUX_B1_SHAPES + chip_smoke.TP_B1_SHAPES + chip_smoke.SP_B1_SHAPES)
+    for name, shapes in (('flash_attention', chip_smoke.B1_SHAPES + cli + flux),
                          ('flash_attention_with_lse', chip_smoke.STORE_SHAPES),
                          ('headmean_probs', chip_smoke.STORE_SHAPES),
                          ('short_attention', chip_smoke.SHORT_SHAPES)):
-        if only not in (None, name):
+        if only is not None and name not in only:
             continue
         wrapper = getattr(fa, name)
         for b, h, sq, sk, d in shapes:
-            if width is not None and d != width:
+            if width is not None and d not in width:
                 continue
             q, k, v = (torch.randn(b, h, s, d, generator=gen, device='cuda').to(torch.bfloat16)
                        for s in (sq, sk, sk))
@@ -200,14 +215,14 @@ def split_inputs(torch, gen, shape, dtype, n):
 def train_times(torch, fa, width=None, dtype_name=None, only=None) -> tuple:
     """({'<wrapper> <dtype> (B,H,Sq,Sk,D)': ms per call in a loop of calls},
     {the same in CUDA graphs}) for the backward at ``BWD_SHAPES`` and the
-    fp32 kernels at ``FP32_SHAPES`` (of wrapper ``only`` where given)."""
+    fp32 kernels at ``FP32_SHAPES`` (of the wrappers in ``only`` where given)."""
     gen = torch.Generator(device='cuda').manual_seed(0)
     loop, graph = {}, {}
     cases = [('flash_attention_bwd', s, dt) for s, dt in chip_smoke.BWD_SHAPES]
     cases += [(name, s, 'float32') for name, s in FP32_SHAPES]
     for name, shape, dt in cases:
-        if ((width is not None and shape[-1] != width) or dtype_name not in (None, dt)
-                or only not in (None, name)):
+        if ((width is not None and shape[-1] not in width) or dtype_name not in (None, dt)
+                or (only is not None and name not in only)):
             continue
         dtype = getattr(torch, dt)
         scale = shape[-1] ** -0.5
@@ -233,14 +248,34 @@ def train_times(torch, fa, width=None, dtype_name=None, only=None) -> tuple:
     return loop, graph
 
 
+def sample_times(torch, name) -> list:
+    """SAMPLES generation samples of SAMPLE_PATHS[name] after one untimed
+    one, ms each, sorted."""
+    from diffusion_feature_tpu_torch import FeatureExtractor
+    cfg = dict(SAMPLE_PATHS[name])
+    steps, guidance = cfg.pop('steps'), cfg.pop('guidance')
+    fe = FeatureExtractor(**cfg, dtype='bfloat16', device='cuda', seed=0)
+    prompts, step_noise = chip_smoke.sample_inputs(torch, fe, 'a photo of a cat', steps)
+    latent = fe.img_size // fe.vae_scale
+    noise = torch.randn((1, fe.spec.vae.latent_channels, latent, latent),
+                        generator=torch.Generator(device='cuda').manual_seed(7), device='cuda')
+    times = []
+    for i in range(SAMPLES + 1):
+        ms = chip_smoke.timed_sample(torch, fe, prompts, noise, steps, guidance, step_noise)[3]
+        if i:
+            times.append(ms)
+    return sorted(times)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument('root')
-    ap.add_argument('--path', choices=list(chip_smoke.PATHS), default='xl')
+    ap.add_argument('--path', choices=list(chip_smoke.PATHS) + list(SAMPLE_PATHS), default='xl')
     ap.add_argument('--kernels', action='store_true')
-    ap.add_argument('--width', type=int, default=None)
+    ap.add_argument('--width', type=lambda text: [int(w) for w in text.split(',')],
+                    default=None)
     ap.add_argument('--dtype', choices=['bfloat16', 'float16', 'float32'], default=None)
-    ap.add_argument('--only', default=None)
+    ap.add_argument('--only', type=lambda text: text.split(','), default=None)
     ap.add_argument('--int8_routes', action='store_true')
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
@@ -264,17 +299,21 @@ def main() -> int:
         loop.update(train_loop)
         graph.update(train_graph)
         sums = {}
-        if args.width is None and args.dtype in (None, 'bfloat16') and args.only in (
-                None, 'int8_linear'):
+        if args.width is None and args.dtype in (None, 'bfloat16') and (
+                args.only is None or 'int8_linear' in args.only):
             sums = int8_times(torch, loop, graph)
-        tag = None if args.width is None else f'Li{args.width}E'
-        ptxas = [line for line in chip_smoke.ptxas_summary(log) if tag is None or tag in line]
+        tags = None if args.width is None else [f'Li{w}E' for w in args.width]
+        ptxas = [line for line in chip_smoke.ptxas_summary(log)
+                 if tags is None or any(tag in line for tag in tags)]
         print(json.dumps({'root': args.root, 'loop_ms': loop, 'graph_ms': graph, **sums,
                           'ptxas': ptxas, 'card': chip_smoke.card_line()}))
         return 0
-    fe, prompts, images = chip_smoke.open_path(torch, args.path)
-    _, times = chip_smoke.extract_times(torch, fe, prompts, images, CALLS,
-                                        **chip_smoke.PATHS[args.path].get('extract', {}))
+    if args.path in SAMPLE_PATHS:
+        times = sample_times(torch, args.path)
+    else:
+        fe, prompts, images = chip_smoke.open_path(torch, args.path)
+        _, times = chip_smoke.extract_times(torch, fe, prompts, images, CALLS,
+                                            **chip_smoke.PATHS[args.path].get('extract', {}))
     n = len(times)
     print(json.dumps({'root': args.root, 'path': args.path, 'calls': n,
                       'median_ms': times[n // 2], 'q1_ms': times[n // 4],
